@@ -1,0 +1,95 @@
+"""Stage 5 -- mixed-bit serving speed benchmark (PyTorch/CUDA port).
+
+Builds the per-bit HQQ proxies, stacks them for an architecture (or the
+cycled 2/3/4 default), merges equal-width containers and measures the TPS
+/ GEMV / GEMM / TTFT modes and peak device memory on the card.
+
+    python -m amq_tpu_torch.cli.speed_benchmark --model_name Llama-2-7b-hf \
+        --synthetic --modes TPS
+"""
+
+from __future__ import annotations
+
+import json
+import time
+
+import torch
+
+from .common import base_parser, dump_json, load_model
+
+
+def main(argv=None):
+    p = base_parser(__doc__)
+    p.add_argument("--arch_json", type=str, default="",
+                   help="architecture dict JSON (else cycle 2/3/4)")
+    p.add_argument("--method", type=str, default="hqq", choices=["hqq", "owq"])
+    p.add_argument("--proxy_path", type=str, default="")
+    p.add_argument("--prompt_len", type=int, default=64)
+    p.add_argument("--gen_len", type=int, default=128)
+    p.add_argument("--modes", type=str, nargs="+",
+                   default=["TPS", "GEMV", "GEMM", "TTFT"])
+    p.add_argument("--no_kernels", action="store_true",
+                   help="dequantize-then-matmul instead of the CUDA kernels")
+    p.add_argument("--native_pack", action="store_true",
+                   help="native 3-bit packing instead of 4-bit containers")
+    p.add_argument("--head_bits", type=int, default=8,
+                   help="lm_head serving width; 0 keeps the dense head")
+    p.add_argument("--save_path", type=str, default="speed_out")
+    p.set_defaults(batch_size=1)
+    args = p.parse_args(argv)
+
+    if args.method == "owq":
+        raise NotImplementedError("--method owq is not yet ported")
+    if args.proxy_path:
+        raise NotImplementedError("--proxy_path (checkpoint loading) is not "
+                                  "yet ported")
+    if "CONTINUOUS" in args.modes:
+        raise NotImplementedError("the CONTINUOUS mode (continuous batching) "
+                                  "is not yet ported")
+
+    from ..models.config import cycled_arch
+    from ..models.stacked import SERVE_CONTAINERS, merge_containers, stack_proxies
+    from ..models.transform import quantize_model
+    from ..serving.benchmark import PeakMemTracker, benchmark_speed
+    from ..serving.engine import Engine
+
+    t0 = time.perf_counter()
+    cfg, params = load_model(args)
+    bits_range = [2, 3, 4]
+    proxies = [(lambda b=b: quantize_model(params, cfg, b,
+                                           group_size=args.group_size))
+               for b in bits_range]
+    if args.arch_json:
+        with open(args.arch_json) as f:
+            arch = json.load(f)
+    else:
+        arch = cycled_arch(cfg.num_layers, bits_range)
+    model = stack_proxies(
+        proxies, bits_range, arch,
+        container_bits=None if args.native_pack else SERVE_CONTAINERS,
+        head_bits=args.head_bits or None)
+    if model.uniform_select:
+        model = merge_containers(model)
+    del params, proxies
+    eng = Engine(model, cfg, batch_size=args.batch_size,
+                 max_len=args.prompt_len + args.gen_len + 8,
+                 compute_dtype=torch.bfloat16,
+                 use_kernels=not args.no_kernels)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    results = {"setup_s": time.perf_counter() - t0}
+    print(f"setup: {results['setup_s']:.1f} s")
+
+    mem = PeakMemTracker(eng.device)
+    for mode in args.modes:
+        results[mode] = benchmark_speed(eng, mode, prompt_len=args.prompt_len,
+                                        gen_len=args.gen_len)
+        print(f"{mode}: {results[mode]}")
+    results["peak_mem_gib"], results["peak_mem_kind"] = mem.result()
+    results["device"] = torch.cuda.get_device_name(eng.device)
+    dump_json(results, f"{args.save_path}/{cfg.name}_speed.json")
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,368 @@
+// Fused unpack -> dequantize -> matmul for pair-planar packed weights.
+//
+// Replaces the Pallas kernels of the JAX package's ops/quant_matmul.py:
+// quant_matmul_indexed (_qmm_kernel_stacked), quant_matmul_swiglu_indexed
+// (_qmm_kernel_swiglu) and quant_matmul (_quant_matmul_packed /
+// _qmm_kernel).  One entry point serves all three: the caller passes the
+// selected layer's slab of a stacked buffer (a view, never a copy), and a
+// non-null `u` turns on the SwiGLU prologue x = silu(gate) * up.
+//
+// Storage (read as the JAX package writes it): codes packed per superblock
+// of `sb` K-rows into R = sb*b/32 rows of 32-bit words [R, Np]; the code at
+// block row k = p*2R + 2r + h sits in word row r at bit 16h + b*p.  3-bit
+// is a 2-bit plane (c >> 1) followed by a 1-bit plane (c & 1).  Scale and
+// zero are [Kp/g, Np] in f32 or bf16; w = (c - z) * s.
+//
+// Bound on the H100: bytes.  At decode (M <= 8) every packed word and meta
+// value is read once per call and the arithmetic is a few operations per
+// weight, far below the card's operations-per-byte balance.  The GEMV
+// design therefore keeps loads coalesced and many in flight: neighbouring
+// threads own neighbouring N columns (one 128-byte row segment per warp),
+// each block splits a superblock's rows over 8 row slices, and small-N
+// sites split K across blocks (partials reduced by a second pass).
+// Activations and the superblock's meta live in shared memory; within a
+// chunk of rows each extraction round p maps to one quantization group, so
+// its scale and zero sit in registers.  The prefill path (8 < M < 256)
+// dequantizes a 64 x 64 weight tile into shared memory and runs a plain
+// register-tiled f32 product over it, with K split across blocks when the
+// site has few column tiles.  Accumulation is f32 throughout.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBN = 64;        // GEMV: columns per block
+constexpr int kKS = 8;         // GEMV: row slices per block
+constexpr int kGemmBN = 64;    // GEMM: columns per block
+constexpr int kGemmBM = 64;    // GEMM: rows per block
+constexpr int kGemmKC = 64;    // GEMM: K step
+
+struct QmmArgs {
+  const void* x;               // [M, K] f32 or bf16, row stride ldx
+  const void* u;               // like x, or null (SwiGLU prologue when set)
+  int x_bf16;
+  const uint32_t* packed;      // [Kp*nbits/32, Np] of one layer
+  const void* scale;           // [Kp/g, Np]
+  const void* zero;
+  int meta_bf16;
+  void* out;                   // [M, N]
+  int out_bf16;
+  float* partial;              // [splits, M, N] when K is split
+  int M, K, ldx, Kp, N, Np, group_size, superblock, sb_per_split;
+};
+
+__device__ __forceinline__ float load_f(const void* p, size_t i, int bf16) {
+  return bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i])
+              : reinterpret_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ void store_f(void* p, size_t i, float v, int bf16) {
+  if (bf16) {
+    reinterpret_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
+  } else {
+    reinterpret_cast<float*>(p)[i] = v;
+  }
+}
+
+// Activation x[m, k]; zero past M and past K (the K pad is never read).
+// With the SwiGLU prologue, silu(g) * u in f32, rounded to the input type
+// as the plain version does.
+__device__ __forceinline__ float act_at(const QmmArgs& a, int m, int k) {
+  if (m >= a.M || k >= a.K) return 0.f;
+  const size_t i = static_cast<size_t>(m) * a.ldx + k;
+  float v = load_f(a.x, i, a.x_bf16);
+  if (a.u != nullptr) {
+    v = v / (1.f + expf(-v)) * load_f(a.u, i, a.x_bf16);
+    if (a.x_bf16) v = __bfloat162float(__float2bfloat16(v));
+  }
+  return v;
+}
+
+// One pair-planar plane of BITS-wide fields for one column.  `w` points at
+// the plane's first word of this column; `ss`/`bs` at this column's scale
+// and -zero*scale of the superblock's groups (stride kBN).  Within a chunk
+// of rc rows, round p reads only group (p*2R + 2*r0) / gs.
+template <int BITS, bool ZERO, int MT>
+__device__ __forceinline__ void gemv_plane(const uint32_t* __restrict__ w,
+                                           int Np, int R, float cmul,
+                                           const float* xs, int sb,
+                                           const float* ss, const float* bs,
+                                           int gs, int ty, float (&acc)[MT]) {
+  constexpr int P = 16 / BITS;
+  constexpr uint32_t mask = (1u << BITS) - 1u;
+  const int rc = R < gs / 2 ? R : gs / 2;
+  for (int r0 = 0; r0 < R; r0 += rc) {
+    float s[P], b[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int g = (p * 2 * R + 2 * r0) / gs;
+      s[p] = ss[g * kBN] * cmul;
+      b[p] = ZERO ? bs[g * kBN] : 0.f;
+    }
+#pragma unroll 2
+    for (int r = r0 + ty; r < r0 + rc; r += kKS) {
+      const uint32_t word = __ldg(w + static_cast<size_t>(r) * Np);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const float w0 = fmaf(static_cast<float>((word >> (BITS * p)) & mask),
+                              s[p], b[p]);
+        const float w1 = fmaf(
+            static_cast<float>((word >> (16 + BITS * p)) & mask), s[p], b[p]);
+        const int k = p * 2 * R + 2 * r;
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const float2 xv = *reinterpret_cast<const float2*>(xs + m * sb + k);
+          acc[m] = fmaf(xv.x, w0, fmaf(xv.y, w1, acc[m]));
+        }
+      }
+    }
+  }
+}
+
+// Decode GEMV, M <= MT <= 8.  Block (kBN, kKS); grid (ceil(N/kBN), splits).
+template <int NB, int MT>
+__global__ void __launch_bounds__(kBN * kKS) qmm_gemv_kernel(QmmArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int sb = a.superblock, gs = a.group_size, T = sb / gs;
+  float* xs = smem;                  // [MT][sb]
+  float* ss = xs + MT * sb;          // [T][kBN] scale
+  float* bs = ss + T * kBN;          // [T][kBN] -zero*scale
+  float* red = bs + T * kBN;         // [kKS][MT][kBN]
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * kBN + tx;
+  const int n = blockIdx.x * kBN + tx;
+  const int n_sb = a.Kp / sb;
+  const int sb_lo = blockIdx.y * a.sb_per_split;
+  const int sb_hi = min(n_sb, sb_lo + a.sb_per_split);
+  const int rows_sb = sb * NB / 32;
+
+  float acc[MT];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) acc[m] = 0.f;
+
+  for (int sbi = sb_lo; sbi < sb_hi; ++sbi) {
+    __syncthreads();
+    for (int i = tid; i < MT * sb; i += kBN * kKS) {
+      const int m = i / sb;
+      xs[i] = act_at(a, m, sbi * sb + (i - m * sb));
+    }
+    for (int i = tid; i < T * kBN; i += kBN * kKS) {
+      const int t = i / kBN;
+      const int c = blockIdx.x * kBN + (i - t * kBN);
+      float s = 0.f, z = 0.f;
+      if (c < a.Np) {
+        const size_t j = static_cast<size_t>(sbi * T + t) * a.Np + c;
+        s = load_f(a.scale, j, a.meta_bf16);
+        z = load_f(a.zero, j, a.meta_bf16);
+      }
+      ss[i] = s;
+      bs[i] = -z * s;
+    }
+    __syncthreads();
+    if (n < a.N) {
+      const uint32_t* w = a.packed + static_cast<size_t>(sbi) * rows_sb * a.Np + n;
+      if constexpr (NB == 3) {
+        // (2*hi + lo - z) * s: the hi plane carries 2*s, the lo plane the zero
+        gemv_plane<2, false, MT>(w, a.Np, sb / 16, 2.f, xs, sb, ss + tx,
+                                 bs + tx, gs, ty, acc);
+        gemv_plane<1, true, MT>(w + static_cast<size_t>(sb / 16) * a.Np, a.Np,
+                                sb / 32, 1.f, xs, sb, ss + tx, bs + tx, gs, ty,
+                                acc);
+      } else {
+        gemv_plane<NB, true, MT>(w, a.Np, rows_sb, 1.f, xs, sb, ss + tx,
+                                 bs + tx, gs, ty, acc);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int m = 0; m < MT; ++m) red[(ty * MT + m) * kBN + tx] = acc[m];
+  __syncthreads();
+  if (ty == 0 && n < a.N) {
+    for (int m = 0; m < MT && m < a.M; ++m) {
+      float v = 0.f;
+#pragma unroll
+      for (int s = 0; s < kKS; ++s) v += red[(s * MT + m) * kBN + tx];
+      if (gridDim.y == 1) {
+        store_f(a.out, static_cast<size_t>(m) * a.N + n, v, a.out_bf16);
+      } else {
+        a.partial[(static_cast<size_t>(blockIdx.y) * a.M + m) * a.N + n] = v;
+      }
+    }
+  }
+}
+
+__global__ void qmm_reduce_kernel(const float* partial, void* out, int MN,
+                                  int splits, int out_bf16) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= MN) return;
+  float v = 0.f;
+  for (int s = 0; s < splits; ++s) v += partial[static_cast<size_t>(s) * MN + i];
+  store_f(out, i, v, out_bf16);
+}
+
+template <int BITS>
+__device__ __forceinline__ uint32_t pow2_code(const uint32_t* __restrict__ w,
+                                              int Np, int R, int k) {
+  const int p = k / (2 * R);
+  const int rem = k - p * 2 * R;
+  const uint32_t word = __ldg(w + static_cast<size_t>(rem >> 1) * Np);
+  return (word >> (16 * (rem & 1) + BITS * p)) & ((1u << BITS) - 1u);
+}
+
+// Code at superblock-local row k of the column `w` points into.
+template <int NB>
+__device__ __forceinline__ uint32_t code_at(const uint32_t* w, int Np, int sb,
+                                            int k) {
+  if constexpr (NB == 3) {
+    return (pow2_code<2>(w, Np, sb / 16, k) << 1) |
+           pow2_code<1>(w + static_cast<size_t>(sb / 16) * Np, Np, sb / 32, k);
+  } else {
+    return pow2_code<NB>(w, Np, sb * NB / 32, k);
+  }
+}
+
+// Prefill GEMM, 8 < M.  256 threads; grid (ceil(N/64), ceil(M/64), splits).
+template <int NB>
+__global__ void __launch_bounds__(256) qmm_gemm_kernel(QmmArgs a) {
+  __shared__ float ws[kGemmKC][kGemmBN];
+  __shared__ float xs[kGemmBM][kGemmKC + 1];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int n0 = blockIdx.x * kGemmBN, m0 = blockIdx.y * kGemmBM;
+  const int sb = a.superblock, gs = a.group_size, T = sb / gs;
+  const int rows_sb = sb * NB / 32;
+  const int k_lo = blockIdx.z * a.sb_per_split * sb;
+  const int k_hi = min(a.Kp, k_lo + a.sb_per_split * sb);
+  float acc[4][4] = {};
+
+  for (int k0 = k_lo; k0 < k_hi; k0 += kGemmKC) {
+    const int sbi = k0 / sb, kin = k0 - sbi * sb;
+    const uint32_t* w = a.packed + static_cast<size_t>(sbi) * rows_sb * a.Np;
+    __syncthreads();
+    for (int i = tid; i < kGemmKC * kGemmBN; i += 256) {
+      const int kk = i / kGemmBN, nn = i - kk * kGemmBN, n = n0 + nn;
+      const int k = kin + kk;
+      float v = 0.f;
+      if (n < a.N) {
+        const size_t j = static_cast<size_t>(sbi * T + k / gs) * a.Np + n;
+        const float s = load_f(a.scale, j, a.meta_bf16);
+        const float z = load_f(a.zero, j, a.meta_bf16);
+        v = (static_cast<float>(code_at<NB>(w + n, a.Np, sb, k)) - z) * s;
+      }
+      ws[kk][nn] = v;
+    }
+    for (int i = tid; i < kGemmBM * kGemmKC; i += 256) {
+      const int mm = i / kGemmKC, kk = i - mm * kGemmKC;
+      xs[mm][kk] = act_at(a, m0 + mm, k0 + kk);
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < kGemmKC; ++kk) {
+      float xa[4], wb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) xa[i] = xs[ty + 16 * i][kk];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wb[j] = ws[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xa[i], wb[j], acc[i][j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (m >= a.M || n >= a.N) continue;
+      if (gridDim.z == 1) {
+        store_f(a.out, static_cast<size_t>(m) * a.N + n, acc[i][j], a.out_bf16);
+      } else {
+        a.partial[(static_cast<size_t>(blockIdx.z) * a.M + m) * a.N + n] =
+            acc[i][j];
+      }
+    }
+  }
+}
+
+template <int NB, int MT>
+cudaError_t launch_gemv(const QmmArgs& a, int splits, cudaStream_t stream) {
+  const int T = a.superblock / a.group_size;
+  const size_t smem =
+      sizeof(float) * (MT * a.superblock + 2 * T * kBN + kKS * MT * kBN);
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        qmm_gemv_kernel<NB, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        96 * 1024);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  dim3 grid((a.N + kBN - 1) / kBN, splits);
+  qmm_gemv_kernel<NB, MT><<<grid, dim3(kBN, kKS), smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int NB>
+cudaError_t dispatch_gemv(const QmmArgs& a, int splits, cudaStream_t stream) {
+  if (a.M <= 1) return launch_gemv<NB, 1>(a, splits, stream);
+  if (a.M <= 2) return launch_gemv<NB, 2>(a, splits, stream);
+  if (a.M <= 4) return launch_gemv<NB, 4>(a, splits, stream);
+  return launch_gemv<NB, 8>(a, splits, stream);
+}
+
+template <int NB>
+cudaError_t launch_gemm(const QmmArgs& a, int splits, cudaStream_t stream) {
+  dim3 grid((a.N + kGemmBN - 1) / kGemmBN, (a.M + kGemmBM - 1) / kGemmBM,
+            splits);
+  qmm_gemm_kernel<NB><<<grid, 256, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Returns 0 or a cudaError_t of the launch; -1 for arguments the kernels
+// do not take (the Python wrapper checks them first).
+extern "C" int amq_qmm(const void* x, const void* u, int x_bf16,
+                       const int32_t* packed, const void* scale,
+                       const void* zero, int meta_bf16, void* out, int out_bf16,
+                       float* partial, int M, int K, int ldx, int Kp, int N,
+                       int Np,
+                       int nbits, int group_size, int superblock, int splits,
+                       int sb_per_split, void* stream) {
+  if (M < 1 || superblock % 64 || superblock % group_size || Kp % superblock ||
+      superblock > 1024 || splits < 1)
+    return -1;
+  QmmArgs a{x, u, x_bf16, reinterpret_cast<const uint32_t*>(packed), scale,
+            zero, meta_bf16, out, out_bf16, partial, M, K, ldx, Kp, N, Np,
+            group_size, superblock, sb_per_split};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (M <= 8) {
+    switch (nbits) {
+      case 1: e = dispatch_gemv<1>(a, splits, s); break;
+      case 2: e = dispatch_gemv<2>(a, splits, s); break;
+      case 3: e = dispatch_gemv<3>(a, splits, s); break;
+      case 4: e = dispatch_gemv<4>(a, splits, s); break;
+      case 8: e = dispatch_gemv<8>(a, splits, s); break;
+      default: return -1;
+    }
+  } else {
+    switch (nbits) {
+      case 1: e = launch_gemm<1>(a, splits, s); break;
+      case 2: e = launch_gemm<2>(a, splits, s); break;
+      case 3: e = launch_gemm<3>(a, splits, s); break;
+      case 4: e = launch_gemm<4>(a, splits, s); break;
+      case 8: e = launch_gemm<8>(a, splits, s); break;
+      default: return -1;
+    }
+  }
+  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
+  const int MN = M * N;
+  qmm_reduce_kernel<<<(MN + 255) / 256, 256, 0, s>>>(partial, out, MN, splits,
+                                                     out_bf16);
+  return static_cast<int>(cudaGetLastError());
+}

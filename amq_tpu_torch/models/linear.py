@@ -1,0 +1,81 @@
+"""Linear-layer application over interchangeable weight representations.
+
+* :class:`DenseLinear` ``[out, in]`` -- plain matmul,
+* :class:`QuantLinear` -- dequantize-then-matmul, or the fused CUDA
+  dequant-matmul (``ops.quant_matmul``) while :class:`kernel_linears` has
+  installed a kernel implementation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Union
+
+import torch
+
+from ..core.quantize import QuantizedTensor, dequantize_kn
+
+
+@dataclasses.dataclass
+class DenseLinear:
+    weight: torch.Tensor                  # [out, in]
+    bias: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass
+class QuantLinear:
+    qt: QuantizedTensor
+    bias: Optional[torch.Tensor] = None
+
+
+LinearParams = Union[DenseLinear, QuantLinear]
+
+# Optional fused-kernel implementation for QuantLinear application,
+# installed by the serving engine for the duration of a forward.  None ->
+# dequantize-then-matmul.
+_KERNEL_IMPL = None
+
+
+class kernel_linears:
+    """Context manager routing QuantLinear matmuls through ``impl``."""
+
+    def __init__(self, impl):
+        self.impl = impl
+
+    def __enter__(self):
+        global _KERNEL_IMPL
+        self._old = _KERNEL_IMPL
+        _KERNEL_IMPL = self.impl
+        return self
+
+    def __exit__(self, *exc):
+        global _KERNEL_IMPL
+        _KERNEL_IMPL = self._old
+        return False
+
+
+def kernels_active() -> bool:
+    return _KERNEL_IMPL is not None
+
+
+def matmul_f32(x: torch.Tensor, wt: torch.Tensor, bias,
+               compute_dtype) -> torch.Tensor:
+    """``x @ wt (+ b)`` with inputs rounded to ``compute_dtype`` and the
+    product accumulated in float32 (the JAX ``preferred_element_type``)."""
+    y = torch.matmul(x.to(compute_dtype).float(), wt.to(compute_dtype).float())
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(compute_dtype)
+
+
+def apply_linear(p: LinearParams, x: torch.Tensor,
+                 compute_dtype=torch.float32) -> torch.Tensor:
+    """``x @ W.T (+ b)`` for any weight representation. x: [..., in]."""
+    if isinstance(p, DenseLinear):
+        return matmul_f32(x, p.weight.T, p.bias, compute_dtype)
+    if isinstance(p, QuantLinear):
+        if _KERNEL_IMPL is not None:
+            return _KERNEL_IMPL(p, x, compute_dtype)
+        wt = dequantize_kn(p.qt, dtype=compute_dtype)   # [in, out]
+        return matmul_f32(x, wt, p.bias, compute_dtype)
+    raise TypeError(f"unsupported linear params: {type(p)}")

@@ -1,0 +1,21 @@
+"""Hand-written CUDA kernels of the serving path and their plain versions.
+
+``KERNELS`` lists each kernel's wrapper; every wrapper carries a
+``launches`` counter that counts its kernel launches (never a plain-version
+call).
+"""
+
+from . import decode_attention as _attn
+from . import quant_matmul as _qmm
+
+KERNELS = (_qmm.quant_matmul_indexed, _qmm.quant_matmul_swiglu_indexed,
+           _attn.decode_attention_indexed, _qmm.quant_matmul)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNELS}

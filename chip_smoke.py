@@ -1,0 +1,562 @@
+"""Chip smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failed check exits non-zero before the last line):
+
+1. environment: the card's name and power limit, torch / CUDA / Triton
+   versions; TF32 off for float32 products.
+2. build: compile the port's CUDA sources (amq_tpu_torch/csrc) with nvcc.
+3. kernels vs their plain PyTorch versions at the Llama-2-7B shapes:
+   the dequant-matmuls (qkv / o / gateup / down sites, head) at M = 1 and
+   64, widths 2, 3 (native planes) and 4, 8 on the head, bf16 and f32
+   scale/zero; decode attention at the Llama-2-7B, GQA, hd-64 and
+   sliding-window shapes.  One line per case: error vs tolerance,
+   kernel / plain / library times, and the least time the card could
+   take (bytes over 3.35 TB/s or operations over 989 TFLOP/s).
+4. full-width Llama-2-7B decode (32 layers, random packed weights drawn
+   on the card from a seeded generator, 2/3/4 bits per layer with 3-bit in
+   4-bit containers, bf16 meta, 8-bit head) through Engine.generate and
+   serving.benchmark.benchmark_speed (TPS / GEMV / GEMM / TTFT), with the
+   kernels' launch counts checked over one generate, and kernel-path vs
+   plain-path prefill logits.
+5. the speed CLI (HQQ proxies -> stack_proxies -> Engine) at full width.
+6. the kernels line, the card line, and the last line
+   {"ok": true, "device": {...}}.
+"""
+
+import importlib.metadata
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
+BF16_FLOPS = 989e12           # H100 SXM dense bf16, NVIDIA data sheet
+OUT_DIR = "chiprun_out"
+
+
+def fail(msg):
+    print(f"FAILED: {msg}", flush=True)
+    sys.exit(1)
+
+
+def smi_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the bf16 peak."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def time_ms(calls, iters=20):
+    """Mean device ms per call: ``iters`` calls (cycling ``calls``, argument
+    sets spread over more than the 50 MB L2 so weights come from device
+    memory as on the decode path) captured in one CUDA graph, replayed
+    between two events.  The graph keeps the host's dispatch cost out of
+    the kernel's time."""
+    calls[0]()                                   # first-call set-up
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(2):
+            calls[i % len(calls)]()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            calls[i % len(calls)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def host_us(call, n=200):
+    """Host microseconds per eager call (dispatch cost, no sync inside)."""
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels vs plain versions
+
+def rand_words(shape, gen):
+    from amq_tpu_torch.core.bitpack import wrap_int32
+    return wrap_int32(torch.randint(0, 2**32, shape, dtype=torch.int64,
+                                    device="cuda", generator=gen))
+
+
+def rand_site(N, K, nbits, L, meta_dtype, gen):
+    """Random packed stack [L, Kp*b/32, Np] with scale/zero, in the serving
+    layout (K padded to whole superblocks, N to the lane tile)."""
+    from amq_tpu_torch.core.bitpack import pick_superblock_padded
+    from amq_tpu_torch.models.stacked import _pick_lane_pad
+    sb, k_pad = pick_superblock_padded(K)
+    Kp, Np = K + k_pad, N + _pick_lane_pad(N)
+    packed = rand_words((L, Kp * nbits // 32, Np), gen)
+    scale = (torch.rand((L, Kp // 128, Np), generator=gen, device="cuda")
+             * 0.02).to(meta_dtype)
+    zero = (torch.rand((L, Kp // 128, Np), generator=gen, device="cuda")
+            * (2**nbits - 1)).to(meta_dtype)
+    return packed, scale, zero, sb
+
+
+SITES_7B = {  # name -> (N, K, kernel)
+    "qkv": (12288, 4096, "quant_matmul_indexed"),
+    "o": (4096, 4096, "quant_matmul_indexed"),
+    "gateup": (22016, 4096, "quant_matmul_indexed"),
+    "down": (4096, 11008, "quant_matmul_swiglu_indexed"),
+    "head": (32000, 4096, "quant_matmul"),
+}
+#: max |kernel - plain| / max |plain|, by output dtype: a bf16 output
+#: carries one rounding (2^-8 relative) on either side, an f32 output
+#: differs only in summation order over K
+MM_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+
+
+def check_matmul(site, nbits, M, meta_dtype, gen):
+    """One dequant-matmul case; returns its record."""
+    from amq_tpu_torch.core.quantize import QuantizedTensor, dequantize_kn
+    from amq_tpu_torch.ops import quant_matmul as qm
+    N, K, kernel = SITES_7B[site]
+    out_dtype = torch.float32 if site == "head" else torch.bfloat16
+    # enough layers that cycling through them overflows the L2
+    L = max(2, min(24, math.ceil(200e6 / (N * K * nbits / 8))))
+    packed, scale, zero, sb = rand_site(N, K, nbits, L, meta_dtype, gen)
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    u = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    kw = dict(nbits=nbits, group_size=128, shape=(N, K), superblock=sb,
+              out_dtype=out_dtype)
+
+    def kernel_call(i):
+        if kernel == "quant_matmul_indexed":
+            return qm.quant_matmul_indexed(x, packed, scale, zero, i, **kw)
+        if kernel == "quant_matmul_swiglu_indexed":
+            return qm.quant_matmul_swiglu_indexed(x, u, packed, scale, zero, i,
+                                                  **kw)
+        qt = QuantizedTensor(packed[i], scale[i], zero[i], nbits, 128, (N, K),
+                             sb)
+        return qm.quant_matmul(x, qt, out_dtype=out_dtype)
+
+    def plain_call(i):
+        return qm.qmm_plain(x, packed[i], scale[i], zero[i],
+                            up=u if "swiglu" in kernel else None, **kw)
+
+    got = kernel_call(1)
+    want = plain_call(1)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    rel = err / max(want.float().abs().max().item(), 1e-30)
+    tol = MM_TOL[out_dtype]
+    ms = time_ms([lambda i=i: kernel_call(i) for i in range(L)])
+    plain_ms = time_ms([lambda: plain_call(1)], iters=3)
+    wrapper_us = host_us(lambda: kernel_call(1))
+    # yardstick, a different function: a bf16 matmul against the
+    # dequantized (dense bf16) weight
+    wt = dequantize_kn(QuantizedTensor(packed[1], scale[1], zero[1], nbits,
+                                       128, (N, K), sb),
+                       torch.float32).to(torch.bfloat16).contiguous()
+    xa = (qm.swiglu_plain(x, u) if "swiglu" in kernel else x)
+    library_ms = time_ms([lambda: torch.matmul(xa, wt)])
+    del wt
+    nbytes = (packed[0].numel() * 4 + 2 * scale[0].numel() * scale.element_size()
+              + (2 if "swiglu" in kernel else 1) * x.numel() * 2
+              + M * N * (4 if out_dtype == torch.float32 else 2))
+    b_ms, b_by = bound(nbytes, 2 * M * N * K)
+    rec = dict(kernel=kernel, site=site, nbits=nbits, M=M,
+               meta=str(meta_dtype).split(".")[-1], max_abs_err=err,
+               rel_err=rel, tol=tol, ms=ms, plain_ms=plain_ms,
+               host_us=wrapper_us,
+               library_ms=library_ms, library="torch.matmul bf16 x dense "
+               "dequantized weight (different function)", bound_ms=b_ms,
+               bound_by=b_by, ok=rel <= tol)
+    print("CASE " + json.dumps(rec), flush=True)
+    return rec
+
+
+def attn_inputs(B, Hkv, G, hd, T, offsets, gen, L=2):
+    dtype = torch.bfloat16
+    q = torch.randn((B, Hkv, G, hd), generator=gen, device="cuda").to(dtype)
+    kc = torch.randn((L, B, Hkv, T, hd), generator=gen, device="cuda").to(dtype)
+    vc = torch.randn((L, B, Hkv, T, hd), generator=gen, device="cuda").to(dtype)
+    kn = torch.randn((B, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    vn = torch.randn((B, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    offs = torch.tensor(offsets, dtype=torch.int32, device="cuda")
+    return q, kc, vc, kn, vn, offs
+
+
+ATTN_TOL = 2e-4   # float32 outputs; sums in another order than torch's
+
+
+def check_attention(label, B, Hkv, G, hd, T, offsets, gen, window=None):
+    from amq_tpu_torch.ops import decode_attention as da
+    q, kc, vc, kn, vn, offs = attn_inputs(B, Hkv, G, hd, T, offsets, gen)
+    got = da.decode_attention_indexed(q, kc, vc, kn, vn, offs, 1,
+                                      window=window, out_dtype=torch.float32)
+    want = da.decode_attention_plain(q, kc[1], vc[1], kn, vn, offs, window,
+                                     torch.float32)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    ms = time_ms([lambda: da.decode_attention_indexed(
+        q, kc, vc, kn, vn, offs, 1, window=window, out_dtype=torch.bfloat16)],
+        iters=50)
+    wrapper_us = host_us(lambda: da.decode_attention_indexed(
+        q, kc, vc, kn, vn, offs, 1, window=window, out_dtype=torch.bfloat16))
+    plain_ms = time_ms([lambda: da.decode_attention_plain(
+        q, kc[1], vc[1], kn, vn, offs, window, torch.bfloat16)], iters=10)
+    # yardstick: SDPA over the cache plus the new column, live keys masked
+    # (GQA keys repeated to the query heads)
+    k_all = torch.cat([kc[1], kn[:, :, None]], dim=2)
+    v_all = torch.cat([vc[1], vn[:, :, None]], dim=2)
+    if G > 1:
+        k_all = k_all.repeat_interleave(G, dim=1)
+        v_all = v_all.repeat_interleave(G, dim=1)
+    t = torch.arange(T + 1, device="cuda")
+    off = offs.long()[:, None]
+    ok = (t[None] < off) | (t[None] == T)
+    if window:
+        ok &= (t[None] > off - window) | (t[None] == T)
+    mask = ok[:, None, None, :]
+    qs = q.reshape(B, Hkv * G, 1, hd)
+    library_ms = time_ms([lambda: F.scaled_dot_product_attention(
+        qs, k_all, v_all, attn_mask=mask)], iters=50)
+    t_lo = [max(0, o - window + 1) if window else 0 for o in offsets]
+    live = sum(min(o, T) - lo for o, lo in zip(offsets, t_lo))
+    nbytes = 2 * live * Hkv * hd * 2 + (2 * B * Hkv * G + 2 * B * Hkv) * hd * 2
+    b_ms, b_by = bound(nbytes, 4 * live * Hkv * G * hd)
+    rec = dict(kernel="decode_attention_indexed", case=label, B=B, Hkv=Hkv,
+               G=G, hd=hd, T=T, offsets=list(offsets), window=window,
+               max_abs_err=err, tol=ATTN_TOL, ms=ms, plain_ms=plain_ms,
+               host_us=wrapper_us,
+               library_ms=library_ms,
+               library="scaled_dot_product_attention over the live keys",
+               bound_ms=b_ms, bound_by=b_by, ok=err <= ATTN_TOL)
+    print("CASE " + json.dumps(rec), flush=True)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 4: full-width decode
+
+BITS = (2, 3, 4)
+CONTAINER = {2: 2, 3: 4, 4: 4}
+PROMPT, GEN = 64, 128
+
+
+def random_llama7b(cfg, gen):
+    """Llama-2-7B serving model with random packed weights, built on the
+    card: fused qkv / gateup sites, every site of layer i at BITS[i % 3],
+    compact per-container stacks (the merge_containers layout), bf16
+    scale/zero, 8-bit packed head."""
+    from amq_tpu_torch.core.bitpack import pick_superblock_padded
+    from amq_tpu_torch.core.quantize import QuantizedTensor
+    from amq_tpu_torch.models.stacked import StackedModel, StackedQuant
+    L, H = cfg.num_layers, cfg.hidden_size
+    sites = {"self_attn.qkv_proj": (cfg.q_dim + 2 * cfg.kv_dim, H),
+             "self_attn.o_proj": (H, cfg.q_dim),
+             "mlp.gateup_proj": (2 * cfg.intermediate_size, H),
+             "mlp.down_proj": (H, cfg.intermediate_size)}
+    containers = sorted(set(CONTAINER.values()))
+    layer_cont = [containers.index(CONTAINER[BITS[i % 3]]) for i in range(L)]
+    slots, members = [], [[] for _ in containers]
+    for i, c in enumerate(layer_cont):
+        slots.append(len(members[c]))
+        members[c].append(i)
+    stacks = {}
+    for name, (N, K) in sites.items():
+        stacks[name] = []
+        for ci, w in enumerate(containers):
+            packed, scale, zero, sb = rand_site(N, K, w, len(members[ci]),
+                                                torch.bfloat16, gen)
+            stacks[name].append(StackedQuant(packed, scale, zero, w, 128,
+                                             (N, K), sb))
+        stacks[name] = tuple(stacks[name])
+    Vp = cfg.vocab_size + (-cfg.vocab_size % 2048)
+    hsb, _ = pick_superblock_padded(H)
+    head = QuantizedTensor(
+        packed=rand_words((H * 8 // 32, Vp), gen),
+        scale=(torch.rand((H // 128, Vp), generator=gen, device="cuda")
+               * 0.02).to(torch.bfloat16),
+        zero=(torch.rand((H // 128, Vp), generator=gen, device="cuda")
+              * 255).to(torch.bfloat16),
+        nbits=8, group_size=128, shape=(cfg.vocab_size, H), superblock=hsb)
+    ones = torch.ones((L, H), dtype=torch.bfloat16, device="cuda")
+    embed = (torch.randn((cfg.vocab_size, H), generator=gen, device="cuda")
+             * 0.02).to(torch.bfloat16)
+    return StackedModel(
+        embed=embed, final_norm=ones[0].clone(), lm_head=None,
+        input_norm=ones, post_norm=ones.clone(), sites=stacks,
+        biases={n: None for n in sites},
+        select={n: list(layer_cont) for n in sites},
+        bits_range=tuple(containers), num_layers=L, uniform_select=True,
+        slots=slots, lm_head_qt=head)
+
+
+def weight_bytes_per_token(model):
+    """Packed weights + scale/zero the decode step must read once per
+    token (the layers' selected stacks, the head), plus one embed row."""
+    total = 0
+    for name, stacks in model.sites.items():
+        for i in range(model.num_layers):
+            s = stacks[model.select[name][i]]
+            total += (s.packed[0].numel() * 4
+                      + 2 * s.scale[0].numel() * s.scale.element_size())
+    qt = model.lm_head_qt
+    total += qt.packed.numel() * 4 + 2 * qt.scale.numel() * qt.scale.element_size()
+    return total + model.embed.shape[1] * 2
+
+
+#: kernel path vs plain path, last-position prefill logits normalized by
+#: the largest plain logit, in float32 compute: the two paths differ only
+#: in summation order, and 32 layers compound it
+LOGIT_TOL = 1e-3
+
+
+def logits_check(model, cfg, prompt, compute_dtype):
+    """Kernel path vs plain path (dequantize, library matmul, split
+    attention) on the same model and prompt.  Gated in float32; in
+    bfloat16 the plain path dequantizes in bf16 and the kernels in f32, so
+    the gap there is reported, not gated."""
+    from amq_tpu_torch.serving.engine import Engine
+    outs = []
+    for use_kernels in (True, False):
+        eng = Engine(model, cfg, batch_size=1, max_len=PROMPT + GEN + 8,
+                     compute_dtype=compute_dtype, cache_dtype=compute_dtype,
+                     use_kernels=use_kernels)
+        last, _ = eng._prefill(model, eng.tokens_to_device(prompt),
+                               eng.new_cache())
+        outs.append(last.float())
+    torch.cuda.synchronize()
+    k, p = outs
+    if not (torch.isfinite(k).all() and torch.isfinite(p).all()):
+        fail(f"non-finite logits ({compute_dtype})")
+    rel = ((k - p).abs().max() / p.abs().max()).item()
+    gated = compute_dtype == torch.float32
+    rec = dict(compute=str(compute_dtype).split(".")[-1], rel_err=rel,
+               tol=LOGIT_TOL if gated else None,
+               top1_agree=bool((k.argmax(-1) == p.argmax(-1)).all()),
+               ok=rel <= LOGIT_TOL if gated else True)
+    print("LOGITS " + json.dumps(rec), flush=True)
+    return rec
+
+
+def profile_decode(eng, prompt, steps=8):
+    """Device time by kernel over ``steps`` decode steps (torch.profiler),
+    the wall time of the same window, and the card's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    model = eng.params
+    cache = eng.new_cache()
+    first, cache = eng._prefill_token(model, eng.tokens_to_device(prompt), cache)
+    eng._decode_n(model, first, cache, n_steps=2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng._decode_n(model, first, cache, n_steps=steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    # device kernels only (aten:: rows repeat their kernels' time), names
+    # cut to 60 characters and summed under the cut name
+    by_name = {}
+    for ev in prof.key_averages():
+        if ev.self_device_time_total > 0 and not ev.key.startswith("aten::"):
+            key = ev.key[:60]
+            by_name[key] = (by_name.get(key, 0.0)
+                            + ev.self_device_time_total / steps / 1e3)
+    device_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    rec = dict(steps=steps, wall_ms_per_token=wall_ms,
+               device_ms_per_token=device_ms,
+               device_busy_share=device_ms / wall_ms,
+               top_kernels_ms_per_token=dict(top))
+    print("PROFILE " + json.dumps(rec), flush=True)
+    return rec
+
+
+def main():
+    # -- phase 1: environment ------------------------------------------------
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke run needs a card")
+    card = smi_line()
+    print(f"card: {card}", flush=True)
+    try:
+        triton_v = importlib.metadata.version("triton")
+    except importlib.metadata.PackageNotFoundError:
+        triton_v = "not installed"
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} triton "
+          f"{triton_v} python {sys.version.split()[0]} "
+          f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}",
+          flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.makedirs(OUT_DIR, exist_ok=True)
+
+    from amq_tpu_torch import ops
+    from amq_tpu_torch.models.config import get_config
+    from amq_tpu_torch.ops import _cuda
+    from amq_tpu_torch.serving.benchmark import PeakMemTracker, benchmark_speed
+    from amq_tpu_torch.serving.engine import Engine
+
+    # -- phase 2: build -------------------------------------------------------
+    build_s = _cuda.build(verbose=True)
+    print(f"build: {build_s:.1f} s ({', '.join(_cuda.SOURCES)})", flush=True)
+
+    # -- phase 3: kernels vs plain versions ----------------------------------
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = []
+    for meta in (torch.bfloat16, torch.float32):
+        for M in (1, PROMPT):
+            for site in ("qkv", "o", "gateup", "down"):
+                for nbits in (2, 3, 4):
+                    cases.append(check_matmul(site, nbits, M, meta, gen))
+            cases.append(check_matmul("head", 8, M, meta, gen))
+    cases.append(check_attention("llama2-7b", 4, 32, 1, 128, 200,
+                                 (1, 63, 64, 199), gen))
+    cases.append(check_attention("llama2-7b-decode", 1, 32, 1, 128, 200,
+                                 (128,), gen))
+    cases.append(check_attention("gqa-llama3-8b", 4, 8, 4, 128, 200,
+                                 (1, 63, 64, 199), gen))
+    cases.append(check_attention("hd64", 4, 16, 2, 64, 200,
+                                 (1, 63, 64, 199), gen))
+    cases.append(check_attention("window16", 4, 32, 1, 128, 200,
+                                 (1, 63, 64, 199), gen, window=16))
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        fail(f"{len(bad)} kernel cases outside tolerance: {bad[:3]}")
+    print(f"kernels vs plain: {len(cases)} cases within tolerance", flush=True)
+    torch.cuda.empty_cache()
+
+    # -- phase 4: full-width decode ------------------------------------------
+    cfg = get_config("Llama-2-7b-hf")
+    t0 = time.perf_counter()
+    model = random_llama7b(cfg, gen)
+    torch.cuda.synchronize()
+    wbytes = weight_bytes_per_token(model)
+    b_ms = wbytes / HBM_BYTES_PER_S * 1e3
+    print(f"model: Llama-2-7b-hf 32 layers built in "
+          f"{time.perf_counter() - t0:.1f} s; {wbytes / 1e9:.3f} GB of packed "
+          f"weights + meta per decode token -> byte bound {b_ms:.3f} ms/token "
+          f"({1e3 / b_ms:.0f} tok/s) at 3.35 TB/s", flush=True)
+    eng = Engine(model, cfg, batch_size=1, max_len=PROMPT + GEN + 8)
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, PROMPT)).astype(np.int32)
+
+    ops.reset_launch_counts()
+    toks = eng.generate(prompt, max_new_tokens=GEN)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    L = cfg.num_layers
+    want = {"quant_matmul_indexed": 3 * L * GEN,
+            "quant_matmul_swiglu_indexed": L * GEN,
+            "decode_attention_indexed": L * (GEN - 1),
+            "quant_matmul": GEN}
+    print(f"launches over one generate: {counts} (want {want})", flush=True)
+    if counts != want:
+        fail(f"launch counts {counts} != {want}")
+    if toks.shape != (1, GEN) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail(f"generated tokens out of range: {toks.shape}")
+
+    mem = PeakMemTracker("cuda")
+    speed = {mode: benchmark_speed(eng, mode, prompt_len=PROMPT, gen_len=GEN)
+             for mode in ("TPS", "GEMV", "GEMM", "TTFT")}
+    peak, _ = mem.result()
+    speed["peak_mem_gib"] = peak
+    speed["byte_bound_ms_per_token"] = b_ms
+    print("SPEED " + json.dumps(speed), flush=True)
+    for mode in ("TPS", "GEMV"):
+        if not speed[mode]["tokens_per_s"] > 0:
+            fail(f"{mode} gave no rate")
+
+    prof = profile_decode(eng, prompt)
+    logit_recs = [logits_check(model, cfg, prompt, dt)
+                  for dt in (torch.float32, torch.bfloat16)]
+    if not all(r["ok"] for r in logit_recs):
+        fail(f"kernel-path logits differ from the plain path: {logit_recs}")
+    del eng, model
+    torch.cuda.empty_cache()
+
+    # -- phase 5: the speed CLI ----------------------------------------------
+    from amq_tpu_torch.cli import speed_benchmark
+    ops.reset_launch_counts()
+    cli = speed_benchmark.main([
+        "--model_name", "Llama-2-7b-hf", "--synthetic", "--modes", "TPS",
+        "--save_path", OUT_DIR])
+    print(f"CLI: setup {cli['setup_s']:.1f} s, TPS "
+          f"{cli['TPS']['tokens_per_s']:.2f} tok/s, launches "
+          f"{ops.launch_counts()}", flush=True)
+    if not cli["TPS"]["tokens_per_s"] > 0:
+        fail("CLI TPS gave no rate")
+
+    # -- phase 6: kernels line and last line ---------------------------------
+    def pick(kernel, **match):
+        return next(c for c in cases if c["kernel"] == kernel
+                    and all(c.get(k) == v for k, v in match.items()))
+
+    headline = {
+        "quant_matmul_indexed": (pick("quant_matmul_indexed", site="gateup",
+                                      nbits=4, M=1, meta="bfloat16"),
+                                 "amq_tpu_torch/csrc/quant_matmul.cu",
+                                 "amq_tpu/ops/quant_matmul.py:730"),
+        "quant_matmul_swiglu_indexed": (
+            pick("quant_matmul_swiglu_indexed", site="down", nbits=4, M=1,
+                 meta="bfloat16"),
+            "amq_tpu_torch/csrc/quant_matmul.cu",
+            "amq_tpu/ops/quant_matmul.py:927"),
+        "decode_attention_indexed": (
+            pick("decode_attention_indexed", case="llama2-7b-decode"),
+            "amq_tpu_torch/csrc/decode_attention.cu",
+            "amq_tpu/ops/decode_attention.py:201"),
+        "quant_matmul": (pick("quant_matmul", site="head", M=1,
+                              meta="bfloat16"),
+                         "amq_tpu_torch/csrc/quant_matmul.cu",
+                         "amq_tpu/ops/quant_matmul.py:458"),
+    }
+    kernels = []
+    for name, (c, src, rep) in headline.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": counts[name], "max_abs_err": c["max_abs_err"],
+            "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": c["library_ms"],
+            "case": {k: c[k] for k in ("site", "nbits", "M", "meta", "case")
+                     if k in c},
+            "cases_checked": sum(1 for x in cases if x["kernel"] == name)})
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump({"card": card, "cases": cases, "speed": speed,
+                   "logits": logit_recs, "launches": counts, "profile": prof,
+                   "cli": cli, "build_s": build_s}, f, indent=1)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"card: {smi_line()}", flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

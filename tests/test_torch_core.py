@@ -1,0 +1,115 @@
+"""Port core (bitpack, HQQ quantize) held to the JAX package on the CPU.
+
+Inputs are made with numpy from a seed and handed to both frameworks.
+"""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from amq_tpu.core import bitpack as jbp
+from amq_tpu.core import quantize as jq
+from amq_tpu_torch.core import bitpack as tbp
+from amq_tpu_torch.core import quantize as tq
+from amq_tpu_torch.models.convert import to_tensor
+
+
+def _words_np(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("nbits", [1, 2, 3, 4, 5, 6, 8])
+@pytest.mark.parametrize("K,block", [(512, 256), (1024, 1024)])
+def test_pack_both_directions_bit_exact(nbits, K, block):
+    rng = np.random.default_rng(nbits * 7 + K)
+    codes = rng.integers(0, 2**nbits, (K, 96)).astype(np.uint32)
+    j_words = np.asarray(jbp.pack(jnp.asarray(codes), nbits, block))
+    t_words = tbp.pack(torch.from_numpy(codes.astype(np.int64)), nbits, block)
+    np.testing.assert_array_equal(_words_np(t_words), j_words)
+    # a port pack unpacks under JAX, and a JAX pack under the port
+    back_j = np.asarray(jbp.unpack(jnp.asarray(_words_np(t_words)), nbits, block))
+    back_t = tbp.unpack(to_tensor(j_words), nbits, block).numpy()
+    np.testing.assert_array_equal(back_j, codes)
+    np.testing.assert_array_equal(back_t, codes.astype(np.int32))
+
+
+@pytest.mark.parametrize("K", [256, 1024, 11008, 13824])
+def test_superblock_choice_matches(K):
+    assert tbp.pick_superblock_padded(K) == jbp.pick_superblock_padded(K)
+    if K % 128 == 0:
+        assert tbp.pick_superblock(K) == jbp.pick_superblock(K)
+
+
+def _jax_qt_to_port(qt) -> tq.QuantizedTensor:
+    return tq.QuantizedTensor(
+        packed=to_tensor(np.asarray(qt.packed)),
+        scale=to_tensor(np.asarray(qt.scale)),
+        zero=to_tensor(np.asarray(qt.zero)),
+        nbits=qt.nbits, group_size=qt.group_size, shape=tuple(qt.shape),
+        superblock=qt.superblock)
+
+
+@pytest.mark.parametrize("nbits", [2, 3, 4, 8])
+@pytest.mark.parametrize("meta", ["float32", "bfloat16"])
+def test_dequantize_and_container_bit_exact(nbits, meta):
+    """Same packed/scale/zero arrays -> identical dequantized weights, in
+    the kernel orientation and the original one; to_container repacks to
+    the same words the JAX package writes.  K = 1152 pads to a 1024
+    superblock (K-padded storage)."""
+    rng = np.random.default_rng(nbits)
+    W = rng.normal(size=(160, 1152)).astype(np.float32)
+    jqt = jq.quantize(jnp.asarray(W), nbits=nbits,
+                      meta_dtype=getattr(jnp, meta))
+    tqt = _jax_qt_to_port(jqt)
+    for dt_j, dt_t in ((jnp.float32, torch.float32),
+                       (jnp.bfloat16, torch.bfloat16)):
+        want = np.asarray(jq.dequantize_kn(jqt, dt_j).astype(jnp.float32))
+        got = tq.dequantize_kn(tqt, dt_t).float().numpy()
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(tq.dequantize(tqt).numpy(),
+                                  np.asarray(jq.dequantize(jqt)))
+    for cont in (4, 8):
+        if cont < nbits:
+            continue
+        want = np.asarray(jq.to_container(jqt, cont).packed)
+        got = _words_np(tq.to_container(tqt, cont).packed)
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("nbits", [2, 3, 4, 8])
+def test_hqq_quantize_matches_jax(nbits):
+    """scale/zero agree to float32 rounding (rtol 1e-5 / atol 1e-4 on the
+    zero point, in units of quantization steps); codes may differ where
+    W * scale + zero lands within float32 rounding of a .5 boundary, so at
+    most 0.1% of the codes, each by one step."""
+    rng = np.random.default_rng(10 + nbits)
+    W = (rng.normal(size=(256, 768)) * 0.05).astype(np.float32)
+    jqt = jq.quantize(jnp.asarray(W), nbits=nbits)
+    tqt = tq.quantize(torch.from_numpy(W), nbits=nbits)
+    assert tqt.packed.shape == jqt.packed.shape
+    assert tqt.superblock == jqt.superblock
+    np.testing.assert_allclose(tqt.scale.numpy(), np.asarray(jqt.scale),
+                               rtol=1e-5)
+    np.testing.assert_allclose(tqt.zero.numpy(), np.asarray(jqt.zero),
+                               rtol=1e-5, atol=1e-4)
+    cj = np.asarray(jbp.unpack(jqt.packed, nbits, jqt.superblock)).astype(np.int64)
+    ct = tbp.unpack(tqt.packed, nbits, tqt.superblock).numpy().astype(np.int64)
+    diff = np.abs(cj - ct)
+    assert diff.max() <= 1
+    assert (diff > 0).mean() <= 1e-3
+
+
+def test_quantize_bf16_meta_and_explicit_superblock():
+    rng = np.random.default_rng(3)
+    W = rng.normal(size=(128, 512)).astype(np.float32)
+    jqt = jq.quantize(jnp.asarray(W), nbits=4, meta_dtype=jnp.bfloat16,
+                      superblock=256)
+    tqt = tq.quantize(torch.from_numpy(W), nbits=4, meta_dtype=torch.bfloat16,
+                      superblock=256)
+    assert tqt.scale.dtype == torch.bfloat16 and tqt.superblock == 256
+    np.testing.assert_allclose(tqt.scale.float().numpy(),
+                               np.asarray(jqt.scale.astype(jnp.float32)),
+                               rtol=1e-2)
+    np.testing.assert_allclose(tq.dequantize(tqt).numpy(),
+                               np.asarray(jq.dequantize(jqt)), atol=0.05)

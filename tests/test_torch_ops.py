@@ -1,0 +1,189 @@
+"""Port ops held to the JAX Pallas kernels (run in interpret mode on the
+CPU, as tests/test_quant_matmul.py and tests/test_decode_attention.py run
+them).  The CUDA kernels are held to the port's plain versions on a card
+by tests/test_torch_cuda.py and chip_smoke.py.
+
+Tolerances are the JAX suite's: f32 rtol = atol = 2e-4; bf16 decode GEMV
+atol 2e-2 on outputs normalized by their largest magnitude.
+"""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+import torch
+
+from amq_tpu.core import quantize as jq
+from amq_tpu.ops import quant_matmul as jqm
+from amq_tpu.ops.decode_attention import decode_attention_indexed as j_attn
+from amq_tpu_torch.core import quantize as tq
+from amq_tpu_torch.models.convert import to_tensor
+from amq_tpu_torch.ops import decode_attention as tda
+from amq_tpu_torch.ops import quant_matmul as tqm
+
+
+def _port_qt(qt):
+    return tq.QuantizedTensor(
+        packed=to_tensor(np.asarray(qt.packed)),
+        scale=to_tensor(np.asarray(qt.scale)),
+        zero=to_tensor(np.asarray(qt.zero)),
+        nbits=qt.nbits, group_size=qt.group_size, shape=tuple(qt.shape),
+        superblock=qt.superblock)
+
+
+def _stack(qts):
+    return tuple(jnp.stack([getattr(t, f) for t in qts])
+                 for f in ("packed", "scale", "zero"))
+
+
+def _norm_close(got, want, atol=2e-2):
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got / scale, want / scale, atol=atol)
+
+
+@pytest.mark.parametrize("nbits", [2, 3, 4, 8])
+@pytest.mark.parametrize("M", [1, 4, 32])
+def test_quant_matmul_f32(nbits, M):
+    rng = np.random.default_rng(nbits + 10 * M)
+    N, K = 256, 512
+    qt = jq.quantize(jnp.asarray(rng.normal(size=(N, K)).astype(np.float32)),
+                     nbits=nbits)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jqm.quant_matmul(jnp.asarray(x), qt))
+    got = tqm.quant_matmul(torch.from_numpy(x), _port_qt(qt)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("nbits", [2, 3, 4, 8])
+@pytest.mark.parametrize("M", [1, 4])
+def test_quant_matmul_bf16_decode(nbits, M):
+    rng = np.random.default_rng(20 + nbits + M)
+    N, K = 256, 512
+    qt = jq.quantize(jnp.asarray(rng.normal(size=(N, K)).astype(np.float32)
+                                 * 0.02), nbits=nbits)
+    x = jnp.asarray(rng.normal(size=(M, K)).astype(np.float32)).astype(jnp.bfloat16)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jqm.quant_matmul(x, qt, out_dtype=jnp.float32))
+    xt = to_tensor(np.asarray(x))
+    got = tqm.quant_matmul(xt, _port_qt(qt), out_dtype=torch.float32).numpy()
+    _norm_close(got, want)
+
+
+@pytest.mark.parametrize("nbits", [2, 3, 4, 8])
+@pytest.mark.parametrize("M", [1, 4, 32])
+def test_quant_matmul_indexed_f32(nbits, M):
+    rng = np.random.default_rng(30 + nbits + M)
+    L, N, K = 3, 256, 1152          # K pads to one 1024 superblock + 896
+    qts = [jq.quantize(jnp.asarray(rng.normal(size=(N, K)).astype(np.float32)),
+                       nbits=nbits) for _ in range(L)]
+    packed, scale, zero = _stack(qts)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    layer = 1
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jqm.quant_matmul_indexed(
+            jnp.asarray(x), packed, scale, zero, jnp.int32(layer),
+            nbits=nbits, group_size=128, shape=(N, K),
+            superblock=qts[0].superblock))
+    got = tqm.quant_matmul_indexed(
+        torch.from_numpy(x), to_tensor(np.asarray(packed)),
+        to_tensor(np.asarray(scale)), to_tensor(np.asarray(zero)), layer,
+        nbits=nbits, group_size=128, shape=(N, K),
+        superblock=qts[0].superblock).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("nbits", [2, 3, 4, 8])
+@pytest.mark.parametrize("M", [1, 4, 32])
+def test_quant_matmul_swiglu_indexed_f32(nbits, M):
+    rng = np.random.default_rng(40 + nbits + M)
+    L, N, K = 2, 128, 768
+    qts = [jq.quantize(jnp.asarray(rng.normal(size=(N, K)).astype(np.float32)),
+                       nbits=nbits) for _ in range(L)]
+    packed, scale, zero = _stack(qts)
+    g = rng.normal(size=(M, K)).astype(np.float32)
+    u = rng.normal(size=(M, K)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jqm.quant_matmul_swiglu_indexed(
+            jnp.asarray(g), jnp.asarray(u), packed, scale, zero, jnp.int32(1),
+            nbits=nbits, group_size=128, shape=(N, K),
+            superblock=qts[0].superblock))
+    got = tqm.quant_matmul_swiglu_indexed(
+        torch.from_numpy(g), torch.from_numpy(u), to_tensor(np.asarray(packed)),
+        to_tensor(np.asarray(scale)), to_tensor(np.asarray(zero)), 1,
+        nbits=nbits, group_size=128, shape=(N, K),
+        superblock=qts[0].superblock).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("swiglu", [False, True])
+@pytest.mark.parametrize("nbits", [2, 4])
+def test_indexed_bf16_decode(nbits, swiglu):
+    rng = np.random.default_rng(50 + nbits)
+    N, K = 256, 2048
+    qt = jq.quantize(jnp.asarray(rng.normal(size=(N, K)).astype(np.float32)
+                                 * 0.02), nbits=nbits, meta_dtype=jnp.bfloat16)
+    packed, scale, zero = _stack([qt])
+    x = jnp.asarray(rng.normal(size=(1, K)).astype(np.float32)).astype(jnp.bfloat16)
+    u = jnp.asarray(rng.normal(size=(1, K)).astype(np.float32)).astype(jnp.bfloat16)
+    kw = dict(nbits=nbits, group_size=128, shape=(N, K),
+              superblock=qt.superblock)
+    t_arrays = [to_tensor(np.asarray(a)) for a in (packed, scale, zero)]
+    with pltpu.force_tpu_interpret_mode():
+        if swiglu:
+            want = jqm.quant_matmul_swiglu_indexed(
+                x, u, packed, scale, zero, jnp.int32(0),
+                acc_dtype=jnp.bfloat16, out_dtype=jnp.float32, **kw)
+        else:
+            want = jqm.quant_matmul_indexed(
+                x, packed, scale, zero, jnp.int32(0), acc_dtype=jnp.bfloat16,
+                out_dtype=jnp.float32, **kw)
+    xt, ut = to_tensor(np.asarray(x)), to_tensor(np.asarray(u))
+    if swiglu:
+        got = tqm.quant_matmul_swiglu_indexed(xt, ut, *t_arrays, 0,
+                                              out_dtype=torch.float32, **kw)
+    else:
+        got = tqm.quant_matmul_indexed(xt, *t_arrays, 0,
+                                       out_dtype=torch.float32, **kw)
+    _norm_close(got.numpy(), np.asarray(want))
+
+
+def _attn_case(B, Hkv, G, hd, T, offsets, window=None, seed=0, L=3):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, Hkv, G, hd)).astype(np.float32)
+    kc = rng.normal(size=(L, B, Hkv, T, hd)).astype(np.float32)
+    vc = rng.normal(size=(L, B, Hkv, T, hd)).astype(np.float32)
+    kn = rng.normal(size=(B, Hkv, hd)).astype(np.float32)
+    vn = rng.normal(size=(B, Hkv, hd)).astype(np.float32)
+    offs = np.asarray(offsets, np.int32)
+    layer = L - 1
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(j_attn(
+            jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(kn),
+            jnp.asarray(vn), jnp.asarray(offs), jnp.int32(layer),
+            window=window, out_dtype=jnp.float32))
+    got = tda.decode_attention_indexed(
+        *(torch.from_numpy(a) for a in (q, kc, vc, kn, vn, offs)), layer,
+        window=window, out_dtype=torch.float32).numpy()
+    return want, got
+
+
+@pytest.mark.parametrize("case", [
+    dict(B=2, Hkv=4, G=2, hd=128, T=64, offsets=(5, 63)),
+    # T=96 tiles by 32: offsets on tile edges and zero
+    dict(B=3, Hkv=8, G=1, hd=128, T=96, offsets=(0, 32, 95), seed=1),
+    dict(B=2, Hkv=4, G=2, hd=64, T=64, offsets=(10, 60), window=16, seed=2),
+    dict(B=2, Hkv=2, G=4, hd=64, T=128, offsets=(1, 127), seed=3),
+])
+def test_decode_attention_matches_jax_kernel(case):
+    want, got = _attn_case(**case)
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_cpu_wrappers_do_not_count_launches():
+    from amq_tpu_torch import ops
+    ops.reset_launch_counts()
+    test_quant_matmul_f32(4, 1)
+    test_decode_attention_matches_jax_kernel(
+        dict(B=1, Hkv=2, G=1, hd=64, T=32, offsets=(3,)))
+    assert set(ops.launch_counts().values()) == {0}
