@@ -1,5 +1,5 @@
-"""Shared CLI plumbing for the port's entry points (the subset the speed
-CLI needs: ``base_parser``, ``load_model --synthetic``, ``dump_json``)."""
+"""Shared CLI plumbing for the port's entry points: the common flags,
+``load_model`` (``--synthetic``), ``load_tokens`` and ``dump_json``."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ import json
 import os
 from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
 from ..core.device import resolve_device
@@ -22,11 +23,33 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--model_path", type=str, default="",
                    help="local HF checkpoint dir (not yet ported)")
     p.add_argument("--synthetic", action="store_true",
-                   help="random weights drawn from --seed")
+                   help="random weights drawn from --seed, synthetic tokens")
+    p.add_argument("--dataset", type=str, default="wikitext2",
+                   help="wikitext2 | c4 | synthetic | local:<text file>")
+    p.add_argument("--seqlen", type=int, default=2048)
+    p.add_argument("--n_sample", type=int, default=128)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--group_size", type=int, default=128)
     p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--compute_dtype", type=str, default="bfloat16",
+                   choices=("bfloat16", "float32"),
+                   help="evaluation forward dtype")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default; raises without a card) or cpu for "
+                        "the plain PyTorch path")
     return p
+
+
+def setup_torch() -> None:
+    """Float32 products in full float32 and bf16 products reduced in
+    float32 (the JAX ``preferred_element_type`` numerics)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def compute_dtype(args) -> torch.dtype:
+    return getattr(torch, args.compute_dtype)
 
 
 def load_model(args) -> Tuple[Any, Dict[str, Any]]:
@@ -44,10 +67,31 @@ def load_model(args) -> Tuple[Any, Dict[str, Any]]:
     cfg = get_config(args.model_name)
     if not args.synthetic:
         raise SystemExit("pass --synthetic to run with random weights")
-    device = resolve_device()
+    device = resolve_device(args.device)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     return cfg, init_params(cfg, gen, dtype=torch.bfloat16, device=device)
+
+
+def load_tokens(args, cfg, train: bool = True) -> np.ndarray:
+    """``[n_sample, seqlen]`` int32 tokens of ``--dataset`` (synthetic under
+    ``--synthetic`` unless a local file is named)."""
+    from ..evaluation import data as data_mod
+    if args.dataset == "synthetic" or (
+            args.synthetic and not args.dataset.startswith("local:")):
+        return data_mod.synthetic_tokens(cfg.vocab_size,
+                                         n_sample=args.n_sample,
+                                         seqlen=args.seqlen, seed=args.seed)
+    try:
+        from transformers import AutoTokenizer
+    except ImportError as e:
+        raise SystemExit("the `transformers` package is needed for a "
+                         "tokenizer and is not installed; use --synthetic") from e
+    tok = AutoTokenizer.from_pretrained(args.model_path or args.model_name,
+                                        local_files_only=True)
+    return data_mod.get_loader(args.dataset, tokenizer=tok,
+                               n_sample=args.n_sample, train=train,
+                               seed=args.seed, seqlen=args.seqlen)
 
 
 def dump_json(obj, path: str):

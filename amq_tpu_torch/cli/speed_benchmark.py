@@ -74,7 +74,7 @@ def main(argv=None):
     eng = Engine(model, cfg, batch_size=args.batch_size,
                  max_len=args.prompt_len + args.gen_len + 8,
                  compute_dtype=torch.bfloat16,
-                 use_kernels=not args.no_kernels)
+                 use_kernels=not args.no_kernels, device=args.device)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     results = {"setup_s": time.perf_counter() - t0}

@@ -15,3 +15,10 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the CPU")
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the card's queued work (a no-op on the CPU), so a host
+    clock read next covers it."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

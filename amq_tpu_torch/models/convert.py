@@ -13,6 +13,10 @@ Dense ``init_params`` layout (:func:`params_from_flat`)::
     layers/<i>/<site>/qt/{packed,scale,zero} for a quantized linear, with
     static["layers/<i>/<site>/qt"] = {nbits, group_size, shape, superblock}
 
+MLP surrogate (:func:`mlp_from_flax`): the flax ``params`` of the JAX
+``predictor.mlp._Net`` as numpy, ``{"Dense_<i>": {"kernel": [in, out],
+"bias": [out]}}``, the last Dense being the regressor.
+
 Stacked serving model (:func:`stacked_from_flat`)::
 
     embed, final_norm, lm_head (optional), input_norm, post_norm
@@ -129,3 +133,20 @@ def stacked_from_flat(flat: Mapping[str, np.ndarray],
         uniform_select=bool(static["uniform_select"]),
         slots=None if slots is None else [int(s) for s in slots],
         lm_head_qt=head_qt)
+
+
+def mlp_from_flax(params: Mapping[str, Mapping[str, np.ndarray]]):
+    """A fitted :class:`~amq_tpu_torch.predictor.mlp.MLP` whose network
+    carries the flax Dense layers (kernels transposed to ``[out, in]``)."""
+    from ..predictor.mlp import MLP, _Net
+
+    dense = [params[f"Dense_{i}"] for i in range(len(params))]
+    n_in, n_hidden = dense[0]["kernel"].shape
+    net = _Net(n_in, n_hidden, n_layers=len(dense) - 2)
+    with torch.no_grad():
+        for lin, p in zip([*net.hidden, net.out], dense):
+            lin.weight.copy_(to_tensor(p["kernel"]).T)
+            lin.bias.copy_(to_tensor(p["bias"]))
+    mlp = MLP(n_hidden=n_hidden)
+    mlp.net = net
+    return mlp

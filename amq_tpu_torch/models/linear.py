@@ -60,9 +60,18 @@ def kernels_active() -> bool:
 
 def matmul_f32(x: torch.Tensor, wt: torch.Tensor, bias,
                compute_dtype) -> torch.Tensor:
-    """``x @ wt (+ b)`` with inputs rounded to ``compute_dtype`` and the
-    product accumulated in float32 (the JAX ``preferred_element_type``)."""
-    y = torch.matmul(x.to(compute_dtype).float(), wt.to(compute_dtype).float())
+    """``x @ wt (+ b)`` with inputs rounded to ``compute_dtype``, the
+    product accumulated in float32 (the JAX ``preferred_element_type``)
+    and rounded back to ``compute_dtype``.  Below float32 the library
+    matmul takes the rounded inputs as they are (it accumulates in float32
+    and rounds once; on the card that is the tensor-core path), and a bias
+    joins after that rounding."""
+    if compute_dtype != torch.float32:
+        y = torch.matmul(x.to(compute_dtype), wt.to(compute_dtype))
+        if bias is None:
+            return y
+        return (y.float() + bias.float()).to(compute_dtype)
+    y = torch.matmul(x.float(), wt.float())
     if bias is not None:
         y = y + bias.float()
     return y.to(compute_dtype)

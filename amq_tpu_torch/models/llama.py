@@ -7,10 +7,13 @@ implementation covers the family through ``ModelConfig`` flags (GQA,
 qkv_bias, sliding window, Llama-3.1 rope scaling).
 
 Attention layouts are the JAX ones (q ``[B, S, Hq, hd]``, cache
-``[B, Hkv, T, hd]``) so that tests compare like with like.  The blockwise
-flash kernel (S >= 128) is not ported yet: where the JAX package would
-call it on its accelerator, :func:`attention_append` and
-:func:`attention` raise ``NotImplementedError`` on a CUDA tensor.
+``[B, Hkv, T, hd]``) so that tests compare like with like.  Where the JAX
+package takes its blockwise flash kernel (S >= 128, S % 64 == 0, no
+sliding window in range, on its accelerator), :func:`attention` and
+:func:`attention_append` launch the CUDA flash kernel
+(``ops.flash_attention``) on a CUDA tensor; the CPU takes the einsum path,
+as the JAX package does on its CPU backend.  :class:`attention_kernels`
+turns the kernel off for a kernel-vs-plain comparison on the card.
 """
 
 from __future__ import annotations
@@ -157,28 +160,62 @@ def _attention_split(q, k_c, v_c, k_new, v_new, offset,
     return out.reshape(B, S, Hq, hd).to(compute_dtype)
 
 
+#: False inside ``attention_kernels(False)``
+_FLASH_KERNEL = True
+
+
+class attention_kernels:
+    """Context manager: ``attention_kernels(False)`` sends attention that
+    would take the flash kernel through the einsum path instead (the plain
+    side of a kernel-vs-plain comparison on the card)."""
+
+    def __init__(self, enabled: bool):
+        self.enabled = enabled
+
+    def __enter__(self):
+        global _FLASH_KERNEL
+        self._old = _FLASH_KERNEL
+        _FLASH_KERNEL = self.enabled
+        return self
+
+    def __exit__(self, *exc):
+        global _FLASH_KERNEL
+        _FLASH_KERNEL = self._old
+        return False
+
+
 def _flash_ok(S: int, T: int, cfg: ModelConfig, device) -> bool:
-    """Would the JAX package take its blockwise flash kernel here?  Long
-    enough S on an accelerator, pure causal(+offset) masking."""
+    """Take the flash kernel?  The JAX package's rule (long enough S, pure
+    causal(+offset) masking) on a CUDA tensor, unless turned off."""
     if S < 128 or S % 64:
         return False
     if cfg.sliding_window is not None and T > cfg.sliding_window:
         return False
-    return torch.device(device).type == "cuda"
+    return torch.device(device).type == "cuda" and _FLASH_KERNEL
 
 
-def _flash_not_ported():
-    raise NotImplementedError(
-        "prefill attention at S >= 128 needs the flash_attention kernel "
-        "(ops/flash_attention.py::flash_attention in the JAX package), "
-        "which is not ported yet")
+def _flash(q, k, v, offset, compute_dtype):
+    """q [B,S,Hq,hd], k/v [B,Hkv,T,hd] (compute dtype) -> [B,S,Hq,hd]."""
+    from ..ops.flash_attention import flash_attention
+    out = flash_attention(q.transpose(1, 2).contiguous(), k.contiguous(),
+                          v.contiguous(), offset)
+    return out.transpose(1, 2).to(compute_dtype)
 
 
 def attention_append(q, k_c, v_c, k_new, v_new, offset, S: int, T: int,
                      cfg: ModelConfig, compute_dtype):
-    """Cache attention against (cache, appended keys) -- the split path."""
+    """Cache attention against (cache, appended keys).
+
+    In the flash regime the new keys go into a local copy of the buffer
+    (its cost amortizes over S tokens; the cache itself stays read-only)
+    and the kernel attends over it from ``offset``; elsewhere the split
+    path avoids the copy."""
     if _flash_ok(S, T, cfg, q.device):
-        _flash_not_ported()
+        pos = offset + torch.arange(S, device=q.device)
+        k_buf = k_c.index_copy(2, pos, k_new.to(k_c.dtype))
+        v_buf = v_c.index_copy(2, pos, v_new.to(v_c.dtype))
+        return _flash(q, k_buf.to(compute_dtype), v_buf.to(compute_dtype),
+                      offset, compute_dtype)
     return _attention_split(q, k_c, v_c, k_new, v_new, offset,
                             cfg.sliding_window, compute_dtype)
 
@@ -187,7 +224,7 @@ def attention(q, k, v, mask, offset, S: int, T: int, cfg: ModelConfig,
               compute_dtype):
     """q: [B,S,Hq,hd]; k/v: [B,Hkv,T,hd]; returns [B,S,Hq,hd]."""
     if _flash_ok(S, T, cfg, q.device):
-        _flash_not_ported()
+        return _flash(q, k, v, offset, compute_dtype)
     return _attention(q, k, v, mask, compute_dtype)
 
 

@@ -153,16 +153,21 @@ def apply_head(model: StackedModel, x: torch.Tensor, compute_dtype):
 
 def stack_proxies(proxies: Sequence[Any], bits_range: Sequence[int],
                   arch: Optional[Dict] = None,
+                  fuse: str = "auto",
                   container_bits: Optional[Dict[int, int]] = None,
-                  head_bits: Optional[int] = None) -> StackedModel:
+                  head_bits: Optional[int] = None,
+                  lane_pad: bool = True) -> StackedModel:
     """Fold per-bit quantized parameter dicts (``quantize_model`` outputs,
     or zero-argument callables returning them, built and freed one at a
     time) into a :class:`StackedModel`.
 
-    q/k/v and gate/up are fused into one site each when the arch gives
-    their members equal bits in every layer; each site's N is zero-padded
-    by :func:`_pick_lane_pad`.  ``container_bits`` maps a logical width to
-    its packed container (``SERVE_CONTAINERS``); ``head_bits`` packs the
+    ``fuse``: 'auto' fuses q/k/v and gate/up into one site each when the
+    arch gives their members equal bits in every layer, 'never' keeps the
+    seven sites (an evaluation switch model that any arch can be set on).
+    With ``lane_pad`` each site's N is zero-padded by
+    :func:`_pick_lane_pad` (the decode kernels' tiles; the evaluation path
+    dequantizes and needs no pad).  ``container_bits`` maps a logical width
+    to its packed container (``SERVE_CONTAINERS``); ``head_bits`` packs the
     lm_head (or the tied embedding's logits role) at that width with bf16
     scale/zero.  Stacks stay on the device the proxies' tensors live on.
     """
@@ -182,7 +187,7 @@ def stack_proxies(proxies: Sequence[Any], bits_range: Sequence[int],
             site_names = (
                 {**FUSED_GROUPS, "self_attn.o_proj": ("self_attn.o_proj",),
                  "mlp.down_proj": ("mlp.down_proj",)}
-                if _arch_fusable(arch, L)
+                if fuse == "auto" and _arch_fusable(arch, L)
                 else {n: (n,) for n in LINEAR_NAMES})
             per_bit = {n: [] for n in site_names}
         for name, members in site_names.items():
@@ -191,7 +196,7 @@ def stack_proxies(proxies: Sequence[Any], bits_range: Sequence[int],
                           for m in members] for i in range(L)]
             q0 = per_layer[0][0]
             n_total = sum(q.shape[0] for q in per_layer[0])
-            n_pad = _pick_lane_pad(n_total)
+            n_pad = _pick_lane_pad(n_total) if lane_pad else 0
 
             def stacked(field):
                 return F.pad(torch.stack([
@@ -291,6 +296,26 @@ def merge_containers(model: StackedModel) -> StackedModel:
         uniform_select=True)
 
 
+def set_arch(model: StackedModel, arch: Dict) -> StackedModel:
+    """The same stacks with the selectors of ``arch`` (a new model object;
+    no tensor is copied)."""
+    if model.slots is not None:
+        raise ValueError("a container-merged model is arch-specific; rebuild "
+                         "it with stack_proxies + merge_containers")
+    if "self_attn.qkv_proj" in model.sites and not _arch_fusable(
+            arch, model.num_layers):
+        raise ValueError("the arch mixes bits inside a fused q/k/v or gate/up "
+                         "group; rebuild with stack_proxies(..., fuse='never')")
+    rep = {**FUSED_GROUPS, **{n: (n,) for n in LINEAR_NAMES}}
+    select = {name: [model.bits_range.index(int(b))
+                     for b in arch["linear"][rep[name][0]]]
+              for name in model.sites}
+    if model.uniform_select and not _selectors_uniform(select):
+        raise ValueError("the arch mixes bits across the sites of a layer of "
+                         "a layer-uniform model; rebuild it per site")
+    return dataclasses.replace(model, select=select)
+
+
 def _stack_index(model: StackedModel, i: int) -> int:
     """Index of layer ``i`` inside the per-bit stacks: the layer number, or
     its compact-container slot for merged models."""
@@ -360,13 +385,22 @@ def _apply_site(model: StackedModel, name: str, i: int, x, compute_dtype,
 
 def scan_layers(model: StackedModel, cfg: ModelConfig, x: torch.Tensor,
                 cache_kv=None, offset: Optional[torch.Tensor] = None,
-                compute_dtype=torch.bfloat16):
+                compute_dtype=torch.bfloat16, start_layer: int = 0,
+                stop_layer: Optional[int] = None):
     """The decoder-layer loop (no embed / final norm / head).
 
     Returns ``(x, (k_app, v_app) or None)``: this step's keys and values
     ``[L, B, kv, S, hd]`` in the cache dtype.  The cache is read-only in
     here; the caller appends them once after all layers.
+
+    Only layers ``[start_layer, stop_layer)`` run (no-cache path only): the
+    sensitivity stage resumes a probe from the baseline's cached input of
+    its first differing block.
     """
+    stop_layer = model.num_layers if stop_layer is None else stop_layer
+    if cache_kv is not None and (start_layer,
+                                 stop_layer) != (0, model.num_layers):
+        raise ValueError("layer bounds apply to the no-cache path only")
     B, S, _ = x.shape
     hd = cfg.head_dim_
     if offset is None:
@@ -388,7 +422,7 @@ def scan_layers(model: StackedModel, cfg: ModelConfig, x: torch.Tensor,
     Hkv = cfg.num_kv_heads
     k_app, v_app = [], []
 
-    for i in range(model.num_layers):
+    for i in range(start_layer, stop_layer):
         bit_idx = model.select[first_site][i] if model.uniform_select else None
         h = llama.rms_norm(x, model.input_norm[i], cfg.rms_norm_eps)
         if fused:
@@ -449,6 +483,20 @@ def scan_layers(model: StackedModel, cfg: ModelConfig, x: torch.Tensor,
     if has_cache:
         return x, (torch.stack(k_app), torch.stack(v_app))
     return x, None
+
+
+def forward_stacked_suffix(model: StackedModel, cfg: ModelConfig,
+                           x: torch.Tensor, start_layer: int,
+                           compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Logits [B, S, vocab] float32 from ``x`` [B, S, H], the residual
+    stream entering block ``start_layer``: blocks below it are skipped.
+    With ``x`` from a baseline model, the same numbers as
+    :func:`forward_stacked` of an arch that differs from the baseline only
+    at blocks >= ``start_layer``."""
+    x, _ = scan_layers(model, cfg, x, compute_dtype=compute_dtype,
+                       start_layer=start_layer)
+    x = llama.rms_norm(x, model.final_norm, cfg.rms_norm_eps)
+    return apply_head(model, x, compute_dtype).float()
 
 
 def forward_stacked(model: StackedModel, cfg: ModelConfig,

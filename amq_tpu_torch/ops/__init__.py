@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels of the serving path and their plain versions.
+"""Hand-written CUDA kernels of the port and their plain versions.
 
 ``KERNELS`` lists each kernel's wrapper; every wrapper carries a
 ``launches`` counter that counts its kernel launches (never a plain-version
@@ -6,10 +6,12 @@ call).
 """
 
 from . import decode_attention as _attn
+from . import flash_attention as _flash
 from . import quant_matmul as _qmm
 
 KERNELS = (_qmm.quant_matmul_indexed, _qmm.quant_matmul_swiglu_indexed,
-           _attn.decode_attention_indexed, _qmm.quant_matmul)
+           _attn.decode_attention_indexed, _qmm.quant_matmul,
+           _flash.flash_attention)
 
 
 def reset_launch_counts() -> None:

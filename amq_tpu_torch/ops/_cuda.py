@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 
 import torch
 
-SOURCES = ("quant_matmul", "decode_attention")
+SOURCES = ("quant_matmul", "decode_attention", "flash_attention")
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -39,7 +39,8 @@ class Engine:
 
     ``device`` defaults to CUDA and raises without a card; pass
     ``device="cpu"`` to run the plain PyTorch path.  ``use_kernels=False``
-    takes the dequantize-then-matmul path everywhere.
+    takes the dequantize-then-matmul path and the einsum attention
+    everywhere.
     """
 
     params: Any
@@ -60,7 +61,8 @@ class Engine:
                                     dtype=self.cache_dtype, device=self.device)
 
     def _forward(self, params, tokens, cache):
-        with kernel_linears(self._impl):
+        with kernel_linears(self._impl), \
+                llama.attention_kernels(self.use_kernels):
             if isinstance(params, StackedModel):
                 return forward_stacked(params, self.cfg, tokens, cache=cache,
                                        compute_dtype=self.compute_dtype)

@@ -5,23 +5,35 @@
 Phases (any failed check exits non-zero before the last line):
 
 1. environment: the card's name and power limit, torch / CUDA / Triton
-   versions; TF32 off for float32 products.
-2. build: compile the port's CUDA sources (amq_tpu_torch/csrc) with nvcc.
+   versions; TF32 off for float32 products, bf16 products reduced in f32.
+2. build: compile the port's CUDA sources (amq_tpu_torch/csrc) with nvcc,
+   one process per source, all started together.
 3. kernels vs their plain PyTorch versions at the Llama-2-7B shapes:
    the dequant-matmuls (qkv / o / gateup / down sites, head) at M = 1 and
    64, widths 2, 3 (native planes) and 4, 8 on the head, bf16 and f32
    scale/zero; decode attention at the Llama-2-7B, GQA, hd-64 and
-   sliding-window shapes.  One line per case: error vs tolerance,
+   sliding-window shapes; flash attention at the Llama-2-7B evaluation
+   shape (bf16 and f32), prefill with a cache (unaligned T), the GQA
+   Llama-3-8B shape and d 64.  One line per case: error vs tolerance,
    kernel / plain / library times, and the least time the card could
-   take (bytes over 3.35 TB/s or operations over 989 TFLOP/s).
+   take (bytes over 3.35 TB/s or operations over the peak for the
+   inputs' type).
 4. full-width Llama-2-7B decode (32 layers, random packed weights drawn
    on the card from a seeded generator, 2/3/4 bits per layer with 3-bit in
    4-bit containers, bf16 meta, 8-bit head) through Engine.generate and
    serving.benchmark.benchmark_speed (TPS / GEMV / GEMM / TTFT), with the
-   kernels' launch counts checked over one generate, and kernel-path vs
-   plain-path prefill logits.
+   kernels' launch counts checked over one generate, kernel-path vs
+   plain-path prefill logits, and one generate from a 512-token prompt
+   whose prefill runs the flash kernel once per layer.
 5. the speed CLI (HQQ proxies -> stack_proxies -> Engine) at full width.
-6. the kernels line, the card line, and the last line
+6. the sensitivity CLI at full Llama-2-7B width and depth (2 samples of
+   2048 synthetic tokens, bf16): a 224-entry table, flash launches equal
+   to the count reckoned from the code; then one evaluator in f32 holding
+   the kernel path's eval loss to the plain path's (einsum attention), and
+   a profile of one bf16 search evaluation.
+7. the search CLI on that table with a small budget: the archive, finite
+   losses and hypervolume.
+8. the kernels line, the card line, and the last line
    {"ok": true, "device": {...}}.
 """
 
@@ -39,6 +51,7 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12           # H100 SXM dense bf16, NVIDIA data sheet
+F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 OUT_DIR = "chiprun_out"
 
 
@@ -54,10 +67,10 @@ def smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak=BF16_FLOPS):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the bf16 peak."""
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    operations over the peak for the inputs' type (bf16 by default)."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -261,6 +274,71 @@ def check_attention(label, B, Hkv, G, hd, T, offsets, gen, window=None):
     return rec
 
 
+#: flash attention cases: (label, B, Hq, Hkv, S, T, d, offset, dtype)
+FLASH_CASES = (
+    ("llama2-7b-eval-bf16", 2, 32, 32, 2048, 2048, 128, 0, torch.bfloat16),
+    ("llama2-7b-eval-f32", 2, 32, 32, 2048, 2048, 128, 0, torch.float32),
+    ("prefill-cache", 1, 32, 32, 512, 2056, 128, 1536, torch.bfloat16),
+    ("gqa-llama3-8b", 2, 32, 8, 2048, 2048, 128, 0, torch.bfloat16),
+    ("hd64", 2, 16, 2, 256, 256, 64, 0, torch.bfloat16),
+)
+#: f32: the JAX suite's absolute tolerance (sums in other orders); bf16:
+#: max |kernel - plain| / max |plain| (one bf16 rounding of p and of the
+#: output each, 2^-8 relative, p against a running vs the final max)
+FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
+
+
+def check_flash(label, B, Hq, Hkv, S, T, d, offset, dtype, gen):
+    from amq_tpu_torch.ops import flash_attention as fa
+    q = torch.randn((B, Hq, S, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Hkv, T, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Hkv, T, d), generator=gen, device="cuda").to(dtype)
+    off = torch.tensor(offset, dtype=torch.int32, device="cuda")
+    got = fa.flash_attention(q, k, v, off)
+    want = fa.flash_attention_plain(q, k, v, off)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    score = err if dtype == torch.float32 else err / want.float().abs().max().item()
+    del want
+    ms = time_ms([lambda: fa.flash_attention(q, k, v, off)], iters=5)
+    plain_ms = time_ms([lambda: fa.flash_attention_plain(q, k, v, off)],
+                       iters=2)
+    wrapper_us = host_us(lambda: fa.flash_attention(q, k, v, off), n=20)
+    # yardstick: SDPA on the same tensors (causal from the top-left corner
+    # when there is no offset, else the same mask given explicitly)
+    if offset == 0 and S == T:
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+    else:
+        mask = (torch.arange(T, device="cuda")[None, :]
+                <= offset + torch.arange(S, device="cuda")[:, None])
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+    library_ms = time_ms([sdpa], iters=5)
+    # work this run's inputs need: each query row attends min(offset+i+1, T)
+    # keys (4 d flops each: q.k and p.v); q and o once, the K/V rows any
+    # query sees once per KV head
+    keys = sum(min(offset + i + 1, T) for i in range(S))
+    flops = 4 * d * keys * B * Hq
+    live = min(offset + S, T)
+    esize = q.element_size()
+    nbytes = (2 * B * Hq * S * d + 2 * B * Hkv * live * d) * esize
+    b_ms, b_by = bound(nbytes, flops,
+                       BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+    rec = dict(kernel="flash_attention", case=label, B=B, Hq=Hq, Hkv=Hkv,
+               S=S, T=T, d=d, offset=offset, dtype=str(dtype).split(".")[-1],
+               max_abs_err=err, err_vs_tol=score, tol=FLASH_TOL[dtype], ms=ms,
+               plain_ms=plain_ms, host_us=wrapper_us, library_ms=library_ms,
+               library="scaled_dot_product_attention(enable_gqa=True)",
+               tflops=flops / ms / 1e9, bound_ms=b_ms, bound_by=b_by,
+               ok=score <= FLASH_TOL[dtype])
+    print("CASE " + json.dumps(rec), flush=True)
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # phase 4: full-width decode
 
@@ -398,6 +476,224 @@ def profile_decode(eng, prompt, steps=8):
     return rec
 
 
+LONG_PROMPT, LONG_GEN = 512, 16
+
+
+def long_prompt_generate(model, cfg):
+    """One generate from a 512-token prompt: the prefill's attention runs
+    the flash kernel once per layer (the decode steps take decode
+    attention)."""
+    from amq_tpu_torch import ops
+    from amq_tpu_torch.serving.engine import Engine
+    eng = Engine(model, cfg, batch_size=1, max_len=LONG_PROMPT + LONG_GEN + 8)
+    prompt = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, LONG_PROMPT)).astype(np.int32)
+    eng.generate(prompt, max_new_tokens=2)                    # warm-up
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = eng.generate(prompt, max_new_tokens=LONG_GEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    rec = dict(prompt=LONG_PROMPT, gen=LONG_GEN, wall_s=wall, launches=counts)
+    print("LONG_PROMPT " + json.dumps(rec), flush=True)
+    if counts["flash_attention"] != cfg.num_layers:
+        fail(f"512-token prefill: {counts['flash_attention']} flash launches, "
+             f"want {cfg.num_layers}")
+    if toks.shape != (1, LONG_GEN) or not ((toks >= 0)
+                                          & (toks < cfg.vocab_size)).all():
+        fail(f"long-prompt tokens out of range: {toks.shape}")
+    return rec
+
+
+EVAL_MODEL, SENS_N, SENS_SEQ, SENS_BATCH = "Llama-2-7b-hf", 2, 2048, 2
+EVAL_ARGS = ["--model_name", EVAL_MODEL, "--synthetic",
+             "--n_sample", str(SENS_N), "--seqlen", str(SENS_SEQ),
+             "--batch_size", str(SENS_BATCH), "--compute_dtype", "bfloat16"]
+
+
+def reckon_sensitivity_flash(cfg, n, seqlen, batch):
+    """Flash launches of one sensitivity run, reckoned from the code: the
+    dense pass (one per layer per dense batch of <= 4), then per loss batch
+    the baseline's advances through blocks 0..L-2 and every probe's
+    suffix (7 probes at block b run blocks b..L-1).  The loss batch follows
+    the evaluator's rule (capped when one f32 [B, S, V] exceeds 1 GiB)."""
+    L, P = cfg.num_layers, 7
+    row_gib = seqlen * cfg.vocab_size * 4 / 2**30
+    loss_batch = (min(batch, max(1, int(1.0 // row_gib)))
+                  if batch * row_gib > 1.0 else batch)
+    dense = L * math.ceil(n / min(batch, 4))
+    per_batch = (L - 1) + sum(P * (L - b) for b in range(L))
+    return dense + per_batch * math.ceil(n / loss_batch)
+
+
+def sensitivity_phase():
+    from amq_tpu_torch import ops
+    from amq_tpu_torch.cli import sensitivity
+    from amq_tpu_torch.models.config import get_config
+    cfg = get_config(EVAL_MODEL)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sensitivity.main(EVAL_ARGS + ["--save_path",
+                                        os.path.join(OUT_DIR, "sensitivity")])
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    losses = list(out["table"]["loss"].values())
+    want = reckon_sensitivity_flash(cfg, SENS_N, SENS_SEQ, SENS_BATCH)
+    rec = dict(path=out["path"], wall_s=wall, proxies_s=out["proxies"],
+               dense_logits_s=out["dense_logits"], probes_s=out["probes_s"],
+               s_per_probe=out["probes_s"] / max(len(losses), 1),
+               n_entries=len(losses), loss_min=min(losses),
+               loss_median=float(np.median(losses)), loss_max=max(losses),
+               launches=counts, flash_reckoned=want,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print("SENSITIVITY " + json.dumps(rec), flush=True)
+    if len(losses) != cfg.num_layers * 7 or not all(
+            math.isfinite(v) and v >= 0 for v in losses):
+        fail(f"sensitivity table: {len(losses)} entries, want "
+             f"{cfg.num_layers * 7} finite non-negative")
+    if counts["flash_attention"] != want:
+        fail(f"sensitivity flash launches {counts['flash_attention']} != "
+             f"reckoned {want}")
+    torch.cuda.empty_cache()
+    return {**rec, "table": out["table"]}
+
+
+#: kernel path vs plain path (einsum attention), f32 compute, relative to
+#: the plain loss: the two differ only in summation order over 32 layers
+EVAL_TOL = 1e-3
+
+
+def eval_parity_phase():
+    """One f32 evaluator at full width; for the all-4 and the cycled arch,
+    the eval loss with the flash kernel against the einsum attention."""
+    from amq_tpu_torch.cli.common import base_parser, load_model, load_tokens
+    from amq_tpu_torch.evaluation import Evaluator
+    from amq_tpu_torch.models.config import cycled_arch
+    from amq_tpu_torch.models.transform import uniform_arch
+    args = base_parser("eval parity").parse_args(EVAL_ARGS)
+    cfg, params = load_model(args)
+    tokens = load_tokens(args, cfg)
+    ev = Evaluator(cfg, dense_params=params, datasets={"synthetic": tokens},
+                   batch_size=SENS_BATCH, compute_dtype=torch.float32)
+    del params
+    recs = []
+    for label, arch in (("all4", uniform_arch(cfg, 4)),
+                        ("cycled", cycled_arch(cfg.num_layers, (2, 3, 4)))):
+        got = {}
+        for use_kernels in (True, False):
+            ev.use_kernels = use_kernels
+            t0 = time.perf_counter()
+            got[use_kernels] = ev.eval(arch)[0]["synthetic"]
+            got[f"s_{use_kernels}"] = time.perf_counter() - t0
+        rel = abs(got[True] - got[False]) / abs(got[False])
+        rec = dict(arch=label, kernel_loss=got[True], plain_loss=got[False],
+                   kernel_s=got["s_True"], plain_s=got["s_False"], rel_err=rel,
+                   tol=EVAL_TOL, ok=rel <= EVAL_TOL and math.isfinite(got[True]))
+        print("EVAL_PARITY " + json.dumps(rec), flush=True)
+        recs.append(rec)
+    del ev
+    torch.cuda.empty_cache()
+    if not all(r["ok"] for r in recs):
+        fail(f"kernel-path eval loss differs from the plain path: {recs}")
+    return recs
+
+
+def profile_eval_phase():
+    """Where one search evaluation's time goes: a bf16 evaluator at full
+    width (the CLIs' settings), one warm eval of the cycled arch under
+    torch.profiler; device time by kernel, grouped, and the busy share.
+    A sensitivity probe runs the same per-block program over L - b
+    blocks, so its time splits the same way."""
+    from torch.profiler import ProfilerActivity, profile
+    from amq_tpu_torch.cli.common import base_parser, load_model, load_tokens
+    from amq_tpu_torch.evaluation import Evaluator
+    from amq_tpu_torch.models.config import cycled_arch
+    args = base_parser("eval profile").parse_args(EVAL_ARGS)
+    cfg, params = load_model(args)
+    ev = Evaluator(cfg, dense_params=params,
+                   datasets={"synthetic": load_tokens(args, cfg)},
+                   batch_size=SENS_BATCH, compute_dtype=torch.bfloat16)
+    del params
+    arch = cycled_arch(cfg.num_layers, (2, 3, 4))
+    ev.eval(arch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev.eval(arch)
+    unprofiled_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ev.eval(arch)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    other = "elementwise and copies (dequantize, norms, rope, JSD)"
+    groups = {"flash_attention": 0.0, "matmul (cuBLAS)": 0.0, other: 0.0}
+    by_name = {}
+    for e in prof.key_averages():
+        # device kernels only: aten:: rows repeat their kernels' time, and
+        # "Command Buffer Full" is a runtime stall, not a kernel
+        if (e.self_device_time_total <= 0 or e.key.startswith("aten::")
+                or e.key.startswith("Command Buffer")):
+            continue
+        ms = e.self_device_time_total / 1e3
+        by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) + ms
+        if "flash_kernel" in e.key:
+            groups["flash_attention"] += ms
+        elif any(t in e.key.lower() for t in ("gemm", "xmma", "nvjet",
+                                                "cutlass", "cublas")):
+            groups["matmul (cuBLAS)"] += ms
+        else:
+            groups[other] += ms
+    device_ms = sum(by_name.values())
+    rec = dict(arch="cycled", compute="bfloat16", samples=SENS_N,
+               seqlen=SENS_SEQ, unprofiled_s=unprofiled_s,
+               profiled_wall_s=wall_s, device_ms=device_ms,
+               device_busy_share=device_ms / (wall_s * 1e3),
+               groups_ms=groups,
+               top_kernels_ms=dict(sorted(by_name.items(),
+                                          key=lambda kv: -kv[1])[:10]))
+    print("EVAL_PROFILE " + json.dumps(rec), flush=True)
+    del ev
+    torch.cuda.empty_cache()
+    return rec
+
+
+def search_phase(sens_path):
+    from amq_tpu_torch import ops
+    from amq_tpu_torch.cli import search
+    save = os.path.join(OUT_DIR, "search_out")
+    n_doe, n_iter, iters = 16, 8, 2
+    ops.reset_launch_counts()
+    out = search.main(EVAL_ARGS + [
+        "--sensitivity_json", sens_path, "--iterations", str(iters),
+        "--n_doe", str(n_doe), "--n_iter", str(n_iter), "--ga_pop_size", "40",
+        "--subset_pop_size", "20", "--save_iter", "1", "--save_path", save])
+    with open(os.path.join(save, f"iter_{iters}.stats")) as f:
+        blob = json.load(f)
+    archive = out["archive"]
+    losses = [m for _, m, _ in archive]
+    rec = dict(n_archive=len(archive), n_evaluated=out["n_evaluated"],
+               setup_s=out["setup_s"], search_s=out["search_s"],
+               eval_s=out["eval_s"],
+               s_per_arch=out["eval_s"] / max(out["n_evaluated"], 1),
+               hv=blob["hv"], loss_min=min(losses), loss_max=max(losses),
+               bits_min=min(b for _, _, b in archive),
+               bits_max=max(b for _, _, b in archive),
+               launches=ops.launch_counts())
+    print("SEARCH " + json.dumps(rec), flush=True)
+    if not (n_doe < len(archive) <= n_doe + iters * n_iter
+            and len(archive) == out["n_evaluated"]
+            and len(blob["archive"]) + len(blob["candidates"]) == len(archive)):
+        fail(f"search archive size {len(archive)} (evaluated "
+             f"{out['n_evaluated']})")
+    if not (all(math.isfinite(m) for m in losses)
+            and math.isfinite(blob["hv"]) and 0 < blob["hv"] <= 1):
+        fail(f"search losses or hypervolume not finite: hv {blob['hv']}")
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main():
     # -- phase 1: environment ------------------------------------------------
     if not torch.cuda.is_available():
@@ -414,6 +710,7 @@ def main():
           flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     os.makedirs(OUT_DIR, exist_ok=True)
 
     from amq_tpu_torch import ops
@@ -445,6 +742,9 @@ def main():
                                  (1, 63, 64, 199), gen))
     cases.append(check_attention("window16", 4, 32, 1, 128, 200,
                                  (1, 63, 64, 199), gen, window=16))
+    for fc in FLASH_CASES:
+        cases.append(check_flash(*fc, gen))
+        torch.cuda.empty_cache()
     bad = [c for c in cases if not c["ok"]]
     if bad:
         fail(f"{len(bad)} kernel cases outside tolerance: {bad[:3]}")
@@ -474,7 +774,7 @@ def main():
     want = {"quant_matmul_indexed": 3 * L * GEN,
             "quant_matmul_swiglu_indexed": L * GEN,
             "decode_attention_indexed": L * (GEN - 1),
-            "quant_matmul": GEN}
+            "quant_matmul": GEN, "flash_attention": 0}
     print(f"launches over one generate: {counts} (want {want})", flush=True)
     if counts != want:
         fail(f"launch counts {counts} != {want}")
@@ -497,6 +797,7 @@ def main():
                   for dt in (torch.float32, torch.bfloat16)]
     if not all(r["ok"] for r in logit_recs):
         fail(f"kernel-path logits differ from the plain path: {logit_recs}")
+    long_rec = long_prompt_generate(model, cfg)
     del eng, model
     torch.cuda.empty_cache()
 
@@ -512,7 +813,17 @@ def main():
     if not cli["TPS"]["tokens_per_s"] > 0:
         fail("CLI TPS gave no rate")
 
-    # -- phase 6: kernels line and last line ---------------------------------
+    torch.cuda.empty_cache()
+
+    # -- phase 6: the sensitivity CLI at full width and depth ----------------
+    sens = sensitivity_phase()
+    eval_recs = eval_parity_phase()
+    eval_prof = profile_eval_phase()
+
+    # -- phase 7: the search CLI ---------------------------------------------
+    search_rec = search_phase(sens["path"])
+
+    # -- phase 8: kernels line and last line ---------------------------------
     def pick(kernel, **match):
         return next(c for c in cases if c["kernel"] == kernel
                     and all(c.get(k) == v for k, v in match.items()))
@@ -535,12 +846,20 @@ def main():
                               meta="bfloat16"),
                          "amq_tpu_torch/csrc/quant_matmul.cu",
                          "amq_tpu/ops/quant_matmul.py:458"),
+        "flash_attention": (pick("flash_attention",
+                                 case="llama2-7b-eval-bf16"),
+                            "amq_tpu_torch/csrc/flash_attention.cu",
+                            "amq_tpu/ops/flash_attention.py:157"),
     }
+    # launches on each kernel's main path: the decode generate for the
+    # serving kernels, the sensitivity CLI for flash attention
+    main_counts = {**counts,
+                   "flash_attention": sens["launches"]["flash_attention"]}
     kernels = []
     for name, (c, src, rep) in headline.items():
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": counts[name], "max_abs_err": c["max_abs_err"],
+            "launches": main_counts[name], "max_abs_err": c["max_abs_err"],
             "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"],
@@ -550,7 +869,12 @@ def main():
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "cases": cases, "speed": speed,
                    "logits": logit_recs, "launches": counts, "profile": prof,
-                   "cli": cli, "build_s": build_s}, f, indent=1)
+                   "long_prompt": long_rec, "cli": cli, "build_s": build_s,
+                   "sensitivity": {k: v for k, v in sens.items()
+                                   if k != "table"},
+                   "eval_parity": eval_recs, "eval_profile": eval_prof,
+                   "search": search_rec},
+                  f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {smi_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

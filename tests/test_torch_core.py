@@ -12,6 +12,8 @@ from amq_tpu.core import bitpack as jbp
 from amq_tpu.core import quantize as jq
 from amq_tpu_torch.core import bitpack as tbp
 from amq_tpu_torch.core import quantize as tq
+
+from test_torch_slice import torch_one_thread  # noqa: F401
 from amq_tpu_torch.models.convert import to_tensor
 
 

@@ -60,3 +60,72 @@ def test_cuda_decode_attention_matches_plain():
         want = tda.decode_attention_plain(q, kc[1], vc[1], kn, vn, offs,
                                           window, torch.float32)
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+#: (B, Hq, Hkv, S, T, d, offset, dtype, causal): the JAX suite's five cases
+#: (tests/test_flash_attention.py), bf16, d 64, non-causal
+FLASH_CASES = [
+    (1, 4, 2, 128, 128, 128, 0, torch.float32, True),
+    (1, 4, 2, 128, 136, 128, 0, torch.float32, True),
+    (1, 4, 2, 128, 320, 128, 0, torch.float32, True),
+    (1, 4, 2, 128, 200, 128, 64, torch.float32, True),
+    (2, 8, 2, 256, 264, 128, 8, torch.float32, True),
+    (2, 8, 8, 512, 512, 128, 0, torch.bfloat16, True),
+    (2, 16, 2, 256, 256, 64, 0, torch.float32, True),
+    (1, 4, 4, 128, 192, 128, 0, torch.float32, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=[f"case{i}" for i in range(len(FLASH_CASES))])
+def test_cuda_flash_attention_matches_plain(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from amq_tpu_torch.ops import flash_attention as tfa
+    B, Hq, Hkv, S, T, d, offset, dtype, causal = case
+    g = torch.Generator(device="cuda").manual_seed(S + T + d)
+    q = torch.randn(B, Hq, S, d, generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn(B, Hkv, T, d, generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    off = torch.tensor(offset, dtype=torch.int32, device="cuda")
+    got = tfa.flash_attention(q, k, v, off, causal=causal)
+    want = tfa.flash_attention_plain(q, k, v, off, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        # bf16 output and p each carry one bf16 rounding (2^-8 relative)
+        _norm_close(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                    atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_cache", [False, True])
+def test_cuda_model_forward_flash_matches_einsum(with_cache):
+    """tiny-llama in f32 on the card at S = 128: the forward through the
+    flash kernel against the same forward with the einsum attention."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from amq_tpu_torch.models import llama
+    from amq_tpu_torch.models.config import get_config
+    from amq_tpu_torch.ops import flash_attention as tfa
+    cfg = get_config("tiny-llama")
+    params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                               device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 128), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    outs = []
+    for kernels in (True, False):
+        cache = (llama.KVCache.create(cfg, 2, 200, dtype=torch.float32,
+                                      device="cuda") if with_cache else None)
+        before = tfa.flash_attention.launches
+        with llama.attention_kernels(kernels):
+            if cache is not None:       # a short first chunk, then S = 128
+                _, cache = llama.forward(params, cfg, toks[:, :8], cache=cache)
+            logits, _ = llama.forward(params, cfg, toks, cache=cache)
+        assert tfa.flash_attention.launches - before == (
+            cfg.num_layers if kernels else 0)
+        outs.append(logits)
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)

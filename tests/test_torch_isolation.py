@@ -13,7 +13,10 @@ PORT = Path(__file__).resolve().parent.parent / "amq_tpu_torch"
 
 _MODULES = ("amq_tpu_torch.serving.engine", "amq_tpu_torch.serving.benchmark",
             "amq_tpu_torch.cli.speed_benchmark", "amq_tpu_torch.models.convert",
-            "amq_tpu_torch.ops")
+            "amq_tpu_torch.ops", "amq_tpu_torch.cli.sensitivity",
+            "amq_tpu_torch.cli.search", "amq_tpu_torch.evaluation",
+            "amq_tpu_torch.evaluation.sensitivity", "amq_tpu_torch.search",
+            "amq_tpu_torch.search.decision", "amq_tpu_torch.predictor")
 
 
 def test_import_pulls_in_no_jax():
@@ -42,7 +45,7 @@ def test_source_names_no_jax_module():
         assert not jax_pkg.search(text), f
 
 
-def test_entry_points_refuse_hidden_cpu():
+def test_entry_points_refuse_hidden_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present; the CUDA default is valid here")
     from amq_tpu_torch.cli import common, speed_benchmark
@@ -61,6 +64,17 @@ def test_entry_points_refuse_hidden_cpu():
         speed_benchmark.main(["--synthetic", "--modes", "TPS"])
     assert resolve_device("cpu").type == "cpu"
 
+    from amq_tpu_torch.cli import search, sensitivity
+    from amq_tpu_torch.evaluation import Evaluator
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Evaluator(get_config("tiny-llama"), dense_params={})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sensitivity.main(["--synthetic"])
+    sens = tmp_path / "sens.json"
+    sens.write_text('{"loss": {"0.self_attn.q_proj": 0.5}}')
+    with pytest.raises(RuntimeError, match="CUDA"):
+        search.main(["--synthetic", "--sensitivity_json", str(sens)])
+
 
 def test_benchmark_refuses_cpu_engine():
     from amq_tpu_torch.models.config import get_config
@@ -77,6 +91,7 @@ def test_cuda_tensor_never_takes_plain_version(monkeypatch):
     the plain versions replaced by a tripwire, a meta-device call raises
     and the tripwire stays untouched."""
     from amq_tpu_torch.ops import decode_attention as da
+    from amq_tpu_torch.ops import flash_attention as fa
     from amq_tpu_torch.ops import quant_matmul as qm
 
     def tripwire(*a, **k):
@@ -84,6 +99,7 @@ def test_cuda_tensor_never_takes_plain_version(monkeypatch):
 
     monkeypatch.setattr(qm, "qmm_plain", tripwire)
     monkeypatch.setattr(da, "decode_attention_plain", tripwire)
+    monkeypatch.setattr(fa, "flash_attention_plain", tripwire)
     x = torch.empty((1, 128), device="meta")
     packed = torch.empty((1, 16, 128), dtype=torch.int32, device="meta")
     meta = torch.empty((1, 1, 128), device="meta")
@@ -97,3 +113,37 @@ def test_cuda_tensor_never_takes_plain_version(monkeypatch):
     offs = torch.empty((1,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         da.decode_attention_indexed(q, cache, cache, kn, kn, offs, 0)
+    qf = torch.empty((1, 2, 128, 64), device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fa.flash_attention(qf, qf, qf, 0)
+
+
+def test_model_attention_never_reaches_plain_flash_off_cpu(monkeypatch):
+    """In the flash regime a non-CPU tensor goes to the kernel wrapper (the
+    meta device has no kernel, so it raises there), never to the plain
+    flash version, SDPA or the einsum path."""
+    from amq_tpu_torch.models import llama
+    from amq_tpu_torch.models.config import get_config
+    from amq_tpu_torch.ops import flash_attention as fa
+
+    def tripwire(*a, **k):
+        raise AssertionError("plain path reached")
+
+    monkeypatch.setattr(fa, "flash_attention_plain", tripwire)
+    monkeypatch.setattr(llama, "_attention", tripwire)
+    monkeypatch.setattr(llama, "_attention_split", tripwire)
+    monkeypatch.setattr(torch.nn.functional, "scaled_dot_product_attention",
+                        tripwire)
+    monkeypatch.setattr(llama, "_flash_ok", lambda S, T, cfg, device: (
+        S >= 128 and S % 64 == 0 and torch.device(device).type != "cpu"
+        and llama._FLASH_KERNEL))
+    cfg = get_config("tiny-llama")
+    B, S, hd = 1, 128, cfg.head_dim_
+    q = torch.empty((B, S, cfg.num_heads, hd), device="meta")
+    kv = torch.empty((B, cfg.num_kv_heads, S, hd), device="meta")
+    off = torch.zeros((), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        llama.attention(q, kv, kv, None, off, S, S, cfg, torch.float32)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        llama.attention_append(q, kv, kv, kv, kv, off, S, S, cfg,
+                               torch.float32)

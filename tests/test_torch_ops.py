@@ -21,6 +21,8 @@ from amq_tpu_torch.models.convert import to_tensor
 from amq_tpu_torch.ops import decode_attention as tda
 from amq_tpu_torch.ops import quant_matmul as tqm
 
+from test_torch_slice import torch_one_thread  # noqa: F401
+
 
 def _port_qt(qt):
     return tq.QuantizedTensor(

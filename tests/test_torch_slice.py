@@ -31,6 +31,17 @@ from amq_tpu_torch.serving.engine import Engine as TEngine
 BITS = (2, 3, 4)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def torch_one_thread():
+    """One intra-op thread for the module: these CPU tests run thousands of
+    small ops, and several test processes each spinning a full thread pool
+    slow one another down many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(a):
     return np.asarray(a)
 
