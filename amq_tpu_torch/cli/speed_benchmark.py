@@ -2,10 +2,13 @@
 
 Builds the per-bit HQQ proxies, stacks them for an architecture (or the
 cycled 2/3/4 default), merges equal-width containers and measures the TPS
-/ GEMV / GEMM / TTFT modes and peak device memory on the card.
+/ GEMV / GEMM / TTFT modes, the CONTINUOUS mode (``--n_requests`` streamed
+through ``--n_slots`` slot-batched decoding) and peak device memory on the
+card.  With ``--device cpu`` only CONTINUOUS runs: once, untimed, its
+counts and no rate.
 
     python -m amq_tpu_torch.cli.speed_benchmark --model_name Llama-2-7b-hf \
-        --synthetic --modes TPS
+        --synthetic --modes TPS CONTINUOUS --n_slots 4 --n_requests 16
 """
 
 from __future__ import annotations
@@ -27,7 +30,10 @@ def main(argv=None):
     p.add_argument("--prompt_len", type=int, default=64)
     p.add_argument("--gen_len", type=int, default=128)
     p.add_argument("--modes", type=str, nargs="+",
-                   default=["TPS", "GEMV", "GEMM", "TTFT"])
+                   default=["TPS", "GEMV", "GEMM", "TTFT"],
+                   help="also: CONTINUOUS (slot-batched throughput)")
+    p.add_argument("--n_slots", type=int, default=4)
+    p.add_argument("--n_requests", type=int, default=16)
     p.add_argument("--no_kernels", action="store_true",
                    help="dequantize-then-matmul instead of the CUDA kernels")
     p.add_argument("--native_pack", action="store_true",
@@ -43,14 +49,13 @@ def main(argv=None):
     if args.proxy_path:
         raise NotImplementedError("--proxy_path (checkpoint loading) is not "
                                   "yet ported")
-    if "CONTINUOUS" in args.modes:
-        raise NotImplementedError("the CONTINUOUS mode (continuous batching) "
-                                  "is not yet ported")
 
     from ..models.config import cycled_arch
     from ..models.stacked import SERVE_CONTAINERS, merge_containers, stack_proxies
     from ..models.transform import quantize_model
-    from ..serving.benchmark import PeakMemTracker, benchmark_speed
+    from ..core.device import synchronize
+    from ..serving.benchmark import (PeakMemTracker, benchmark_continuous,
+                                     benchmark_speed, serve_continuous)
     from ..serving.engine import Engine
 
     t0 = time.perf_counter()
@@ -75,18 +80,32 @@ def main(argv=None):
                  max_len=args.prompt_len + args.gen_len + 8,
                  compute_dtype=torch.bfloat16,
                  use_kernels=not args.no_kernels, device=args.device)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    on_card = eng.device.type == "cuda"
+    synchronize(eng.device)
+    if on_card:
+        torch.cuda.empty_cache()
     results = {"setup_s": time.perf_counter() - t0}
     print(f"setup: {results['setup_s']:.1f} s")
 
-    mem = PeakMemTracker(eng.device)
+    mem = PeakMemTracker(eng.device) if on_card else None
     for mode in args.modes:
-        results[mode] = benchmark_speed(eng, mode, prompt_len=args.prompt_len,
-                                        gen_len=args.gen_len)
+        if mode == "CONTINUOUS":
+            run = benchmark_continuous if on_card else serve_continuous
+            results[mode] = run(
+                model, cfg, n_slots=args.n_slots, n_requests=args.n_requests,
+                prompt_len=args.prompt_len, gen_len=args.gen_len,
+                max_len=args.prompt_len + args.gen_len + 8,
+                use_kernels=not args.no_kernels, device=eng.device)
+        else:
+            results[mode] = benchmark_speed(eng, mode,
+                                            prompt_len=args.prompt_len,
+                                            gen_len=args.gen_len)
         print(f"{mode}: {results[mode]}")
-    results["peak_mem_gib"], results["peak_mem_kind"] = mem.result()
-    results["device"] = torch.cuda.get_device_name(eng.device)
+    if on_card:
+        results["peak_mem_gib"], results["peak_mem_kind"] = mem.result()
+        results["device"] = torch.cuda.get_device_name(eng.device)
+    else:
+        results["device"] = str(eng.device)
     dump_json(results, f"{args.save_path}/{cfg.name}_speed.json")
     return results
 

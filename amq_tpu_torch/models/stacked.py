@@ -18,7 +18,9 @@ package leaves them to XLA.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -383,11 +385,84 @@ def _apply_site(model: StackedModel, name: str, i: int, x, compute_dtype,
     return _add_bias(model, name, i, y)
 
 
+def _apply_mlp_merged(model: StackedModel, i: int, h: torch.Tensor,
+                      compute_dtype, bit_idx: Optional[int]):
+    """The layer's whole MLP, ``down(swiglu(gateup(h)))``, in one launch
+    (``ops.quant_matmul.quant_matmul_mlp_indexed``) when it applies;
+    ``None`` otherwise (the caller takes the separate kernels).
+
+    The JAX package's opt-in switch, read per call: ``AMQ_MLP_KERNEL=1``.
+    It applies at decode shapes (M <= 8 rows) in bf16 with the kernels
+    active on a CUDA tensor (``None`` on the CPU, as the JAX package on
+    its CPU backend), a hoisted ``bit_idx`` (layer-uniform model), fused
+    gateup and down sites of equal width, group and superblock, and no MLP
+    biases.  The JAX package's TPU layout limits (intermediate width a
+    multiple of 128, its scratch covering down's padded K, at least 8
+    groups per superblock) do not bind the CUDA kernel; its own limit, a
+    padded N that is a multiple of 8 in both stacks, takes their place.
+    """
+    if bit_idx is None or compute_dtype != torch.bfloat16:
+        return None
+    if not linear_mod.kernels_active() or h.device.type == "cpu":
+        return None
+    if os.environ.get("AMQ_MLP_KERNEL", "0") != "1":
+        return None
+    if "mlp.gateup_proj" not in model.sites or "mlp.down_proj" not in model.sites:
+        return None
+    if (model.biases["mlp.gateup_proj"] is not None
+            or model.biases["mlp.down_proj"] is not None):
+        return None
+    gu = model.sites["mlp.gateup_proj"][bit_idx]
+    dn = model.sites["mlp.down_proj"][bit_idx]
+    if not (gu.superblock and dn.superblock):
+        return None
+    if (gu.nbits, gu.group_size, gu.superblock) != (dn.nbits, dn.group_size,
+                                                     dn.superblock):
+        return None
+    if gu.packed.shape[-1] % 8 or dn.packed.shape[-1] % 8:
+        return None
+    lead = h.shape[:-1]
+    M = h.numel() // h.shape[-1]
+    if M > 8:
+        return None
+    from ..ops.quant_matmul import quant_matmul_mlp_indexed
+    out = quant_matmul_mlp_indexed(
+        h.reshape(M, h.shape[-1]).contiguous(), gu.packed, gu.scale, gu.zero,
+        dn.packed, dn.scale, dn.zero, _stack_index(model, i), nbits=gu.nbits,
+        group_size=gu.group_size, gu_shape=gu.shape, d_shape=dn.shape,
+        superblock=gu.superblock, out_dtype=compute_dtype)
+    return out.reshape(*lead, dn.shape[0])
+
+
+@contextlib.contextmanager
+def decode_switches(pipe: bool, mlp: bool):
+    """The JAX package's two opt-in decode switches, set in-process.
+    ``pipe`` is ``AMQ_PIPE`` (read at import into
+    ``ops.quant_matmul._PIPE_DEFAULT``: the pipelined decode GEMVs), ``mlp``
+    is ``AMQ_MLP_KERNEL`` (read per call by :func:`_apply_mlp_merged`: the
+    one-launch decode MLP).  Both are restored on exit."""
+    from ..ops import quant_matmul as qm
+    old_pipe, old_mlp = qm._PIPE_DEFAULT, os.environ.get("AMQ_MLP_KERNEL")
+    qm._PIPE_DEFAULT = int(pipe)
+    os.environ["AMQ_MLP_KERNEL"] = "1" if mlp else "0"
+    try:
+        yield
+    finally:
+        qm._PIPE_DEFAULT = old_pipe
+        if old_mlp is None:
+            os.environ.pop("AMQ_MLP_KERNEL", None)
+        else:
+            os.environ["AMQ_MLP_KERNEL"] = old_mlp
+
+
 def scan_layers(model: StackedModel, cfg: ModelConfig, x: torch.Tensor,
                 cache_kv=None, offset: Optional[torch.Tensor] = None,
                 compute_dtype=torch.bfloat16, start_layer: int = 0,
                 stop_layer: Optional[int] = None):
     """The decoder-layer loop (no embed / final norm / head).
+
+    ``offset`` is the cache length: a 0-d tensor, or one per row ``[B]``
+    (slot-batched decode, S = 1: rope positions and attention per row).
 
     Returns ``(x, (k_app, v_app) or None)``: this step's keys and values
     ``[L, B, kv, S, hd]`` in the cache dtype.  The cache is read-only in
@@ -407,8 +482,8 @@ def scan_layers(model: StackedModel, cfg: ModelConfig, x: torch.Tensor,
         offset = torch.zeros((), dtype=torch.int32, device=x.device)
     has_cache = cache_kv is not None
     T = cache_kv[0].shape[3] if has_cache else S
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device)[None, :] + offset
+    positions = (torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
+                 + offset.reshape(-1, 1))
     cos, sin = llama.rope_cos_sin(cfg, positions, dtype=compute_dtype)
     mask = None if has_cache else llama._causal_mask(S, T, offset,
                                                      cfg.sliding_window)
@@ -465,17 +540,22 @@ def scan_layers(model: StackedModel, cfg: ModelConfig, x: torch.Tensor,
                             bit_idx)
 
         h = llama.rms_norm(x, model.post_norm[i], cfg.rms_norm_eps)
-        if fused:
-            gu = _apply_site(model, "mlp.gateup_proj", i, h, compute_dtype,
-                             bit_idx)
-            gate = gu[..., :cfg.intermediate_size]
-            up = gu[..., cfg.intermediate_size:]
-        else:
-            gate = _apply_site(model, "mlp.gate_proj", i, h, compute_dtype,
-                               bit_idx)
-            up = _apply_site(model, "mlp.up_proj", i, h, compute_dtype,
-                             bit_idx)
-        x = x + _apply_down_swiglu(model, i, gate, up, compute_dtype, bit_idx)
+        down = (_apply_mlp_merged(model, i, h, compute_dtype, bit_idx)
+                if fused else None)
+        if down is None:
+            if fused:
+                gu = _apply_site(model, "mlp.gateup_proj", i, h,
+                                 compute_dtype, bit_idx)
+                gate = gu[..., :cfg.intermediate_size]
+                up = gu[..., cfg.intermediate_size:]
+            else:
+                gate = _apply_site(model, "mlp.gate_proj", i, h,
+                                   compute_dtype, bit_idx)
+                up = _apply_site(model, "mlp.up_proj", i, h, compute_dtype,
+                                 bit_idx)
+            down = _apply_down_swiglu(model, i, gate, up, compute_dtype,
+                                      bit_idx)
+        x = x + down
         if has_cache:
             cd = cache_kv[0].dtype
             k_app.append(k.to(cd))

@@ -11,7 +11,9 @@ from . import quant_matmul as _qmm
 
 KERNELS = (_qmm.quant_matmul_indexed, _qmm.quant_matmul_swiglu_indexed,
            _attn.decode_attention_indexed, _qmm.quant_matmul,
-           _flash.flash_attention)
+           _flash.flash_attention, _qmm.quant_matmul_indexed_pipe,
+           _qmm.quant_matmul_swiglu_indexed_pipe,
+           _qmm.quant_matmul_mlp_indexed)
 
 
 def reset_launch_counts() -> None:

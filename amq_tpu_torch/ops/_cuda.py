@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a
 -std=c++17 -O3 -shared -Xcompiler -fPIC``), at first use, into
 ``amq_tpu_torch/_build/`` (listed in ``.gitignore``).  The library name
-carries a hash of its source, so an edited source is rebuilt.  Pointers
-and the stream cross as ``c_void_p``; every C entry point returns the
-launch's ``cudaGetLastError()`` (or -1 for arguments it does not take).
+carries a hash of its source and the shared headers (``csrc/*.cuh``), so
+an edited source or header is rebuilt.  Pointers and the stream cross as
+``c_void_p``; every C entry point returns the launch's
+``cudaGetLastError()`` (or -1 for arguments it does not take).
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from typing import Dict, Iterable
 
 import torch
 
-SOURCES = ("quant_matmul", "decode_attention", "flash_attention")
+SOURCES = ("quant_matmul", "decode_attention", "flash_attention",
+           "quant_matmul_pipe", "quant_matmul_mlp")
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -41,8 +43,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return _BUILD / f"lib{name}_{digest[:12]}.so"
+    """The library's path, named by a hash of its source and of the
+    shared headers it may include."""
+    h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return _BUILD / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> float:

@@ -11,6 +11,15 @@ Each public function here replaces one Pallas kernel of the JAX package's
 * a launch counter (``<function>.launches``), raised where the kernel is
   launched and nowhere else.
 
+Under the JAX package's ``AMQ_PIPE`` switch (read once, at import, into
+``_PIPE_DEFAULT``; default off) the decode GEMVs of
+``quant_matmul_indexed`` and ``quant_matmul_swiglu_indexed`` take the
+software-pipelined kernel (``csrc/quant_matmul_pipe.cu``) under the JAX
+package's conditions, and count under their own names
+(``quant_matmul_indexed_pipe``, ``quant_matmul_swiglu_indexed_pipe``).
+``quant_matmul_mlp_indexed`` is the one-launch decode MLP
+(``csrc/quant_matmul_mlp.cu``).
+
 A CUDA tensor never reaches the plain version: the wrapper launches the
 kernel or raises.  The kernels read the JAX storage layout as is (see
 ``core/bitpack.py``), take the layer of a stacked buffer as a view (no copy
@@ -23,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 
 import torch
 import torch.nn.functional as F
@@ -34,11 +44,29 @@ _c_int = ctypes.c_int
 _c_ptr = ctypes.c_void_p
 
 
+#: the JAX package's AMQ_PIPE switch: qualifying decode GEMVs take the
+#: software-pipelined kernel (see :func:`_pipe_applies`)
+_PIPE_DEFAULT = int(os.environ.get("AMQ_PIPE", "0"))
+
+
 @functools.lru_cache(maxsize=None)
-def _lib():
-    fn = _cuda.library("quant_matmul").amq_qmm
+def _lib(pipe: bool = False):
+    """``amq_qmm`` of ``csrc/quant_matmul.cu``, or with ``pipe`` the
+    pipelined ``amq_qmm_pipe`` (the same arguments)."""
+    fn = (_cuda.library("quant_matmul_pipe").amq_qmm_pipe if pipe
+          else _cuda.library("quant_matmul").amq_qmm)
     fn.argtypes = [_c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_int,
                    _c_ptr, _c_int, _c_ptr] + [_c_int] * 11 + [_c_ptr]
+    fn.restype = _c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _mlp_lib():
+    fn = _cuda.library("quant_matmul_mlp").amq_qmm_mlp
+    fn.argtypes = ([_c_ptr, _c_int, _c_int, _c_int, _c_int]
+                   + [_c_ptr] * 6 + [_c_int] * 15 + [_c_ptr] * 4
+                   + [_c_int, _c_ptr])
     fn.restype = _c_int
     return fn
 
@@ -56,6 +84,18 @@ def _splits(M: int, N: int, n_sb: int, device) -> tuple:
     want = max(1, min(n_sb, -(-2 * _sm_count(device.index or 0) // blocks)))
     per = -(-n_sb // want)
     return -(-n_sb // per), per
+
+
+def _pipe_applies(x: torch.Tensor, packed: torch.Tensor, nbits: int,
+                  group_size: int, superblock: int) -> bool:
+    """The JAX package's conditions for its pipelined decode GEMV: the
+    switch is on, M <= 8, bf16 activations, T = superblock / group >= 8
+    and a width other than 8; and the CUDA kernel's own, a padded N that
+    is a multiple of 8 (16-byte copies)."""
+    return (bool(_PIPE_DEFAULT) and x.shape[0] <= 8
+            and x.dtype == torch.bfloat16
+            and superblock // group_size >= 8 and nbits != 8
+            and packed.shape[-1] % 8 == 0)
 
 
 # ---------------------------------------------------------------------------
@@ -78,18 +118,39 @@ def qmm_plain(x, packed, scale, zero, *, nbits, group_size, shape,
     return torch.matmul(x.float(), dequantize_kn(qt, torch.float32)).to(out_dtype)
 
 
+def qmm_mlp_plain(x, gu_packed, gu_scale, gu_zero, d_packed, d_scale, d_zero,
+                  *, nbits, group_size, gu_shape, d_shape, superblock,
+                  out_dtype) -> torch.Tensor:
+    """``down(swiglu(gateup(x)))`` for one layer: the gateup product rounded
+    to bf16, ``silu(gate) * up`` rounded to bf16 (zero at or past the real
+    intermediate width: the down product reads only the first ``inter``
+    activations), then the down product."""
+    inter = gu_shape[0] // 2
+    kw = dict(nbits=nbits, group_size=group_size, superblock=superblock)
+    gu = qmm_plain(x, gu_packed, gu_scale, gu_zero, shape=gu_shape,
+                   out_dtype=torch.bfloat16, **kw)
+    act = swiglu_plain(gu[:, :inter], gu[:, inter:2 * inter])
+    return qmm_plain(act[:, :d_shape[1]], d_packed, d_scale, d_zero,
+                     shape=d_shape, out_dtype=out_dtype, **kw)
+
+
 # ---------------------------------------------------------------------------
 # kernel launch
 
 def _qmm_cuda(x, up, packed, scale, zero, *, nbits, group_size, shape,
-              superblock, out_dtype) -> torch.Tensor:
+              superblock, out_dtype, pipe=False) -> torch.Tensor:
     N, K = shape
     M = x.shape[0]
     rows, Np = packed.shape
     Kp = rows * 32 // nbits
-    what = f"quant_matmul ({nbits}-bit, M={M}, N={N}, K={K})"
-    if nbits not in (1, 2, 3, 4, 8):
+    what = (f"quant_matmul{'_pipe' if pipe else ''} ({nbits}-bit, M={M}, "
+            f"N={N}, K={K})")
+    if nbits not in ((1, 2, 3, 4) if pipe else (1, 2, 3, 4, 8)):
         raise ValueError(f"{what}: no kernel for {nbits}-bit")
+    if pipe and (M > 8 or Np % 8 or any(t.data_ptr() % 16
+                                        for t in (packed, scale, zero))):
+        raise ValueError(f"{what}: the pipelined kernel takes M <= 8, Np a "
+                         f"multiple of 8 and 16-byte aligned weights")
     tensors = [x, packed, scale, zero] + ([up] if up is not None else [])
     if any(t.device != x.device for t in tensors):
         raise ValueError(f"{what}: tensors on different devices")
@@ -116,7 +177,7 @@ def _qmm_cuda(x, up, packed, scale, zero, *, nbits, group_size, shape,
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     partial = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
                if splits > 1 else None)
-    rc = _lib()(_cuda.ptr(x), _cuda.ptr(up), _cuda.dtype_flag(x, what),
+    rc = _lib(pipe)(_cuda.ptr(x), _cuda.ptr(up), _cuda.dtype_flag(x, what),
                 _cuda.ptr(packed), _cuda.ptr(scale), _cuda.ptr(zero),
                 _cuda.dtype_flag(scale, what), _cuda.ptr(out),
                 _cuda.dtype_flag(out, what), _cuda.ptr(partial),
@@ -126,13 +187,15 @@ def _qmm_cuda(x, up, packed, scale, zero, *, nbits, group_size, shape,
     return out
 
 
-def _qmm(x, up, packed, scale, zero, *, out_dtype, counter, **static):
+def _qmm(x, up, packed, scale, zero, *, out_dtype, counter, pipe=False,
+         **static):
     if x.device.type == "cpu":
         return qmm_plain(x, packed, scale, zero, out_dtype=out_dtype, up=up,
                          **static)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    out = _qmm_cuda(x, up, packed, scale, zero, out_dtype=out_dtype, **static)
+    out = _qmm_cuda(x, up, packed, scale, zero, out_dtype=out_dtype,
+                    pipe=pipe, **static)
     counter.launches += 1
     return out
 
@@ -149,7 +212,14 @@ def quant_matmul_indexed(x: torch.Tensor, packed_stack: torch.Tensor,
     Replaces ``quant_matmul_indexed`` (kernel ``_qmm_kernel_stacked``) of
     the JAX package's ``ops/quant_matmul.py``.  ``layer`` is a host int
     (the layer loop runs in Python); ``packed_stack[layer]`` is a view.
+    Where the JAX package takes its pipelined branch, this goes to
+    :func:`quant_matmul_indexed_pipe`.
     """
+    if _pipe_applies(x, packed_stack, nbits, group_size, superblock):
+        return quant_matmul_indexed_pipe(
+            x, packed_stack, scale_stack, zero_stack, layer, nbits=nbits,
+            group_size=group_size, shape=shape, superblock=superblock,
+            out_dtype=out_dtype)
     return _qmm(x, None, packed_stack[layer], scale_stack[layer],
                 zero_stack[layer], nbits=nbits, group_size=group_size,
                 shape=tuple(shape), superblock=superblock,
@@ -157,6 +227,28 @@ def quant_matmul_indexed(x: torch.Tensor, packed_stack: torch.Tensor,
 
 
 quant_matmul_indexed.launches = 0
+
+
+def quant_matmul_indexed_pipe(x: torch.Tensor, packed_stack: torch.Tensor,
+                              scale_stack: torch.Tensor,
+                              zero_stack: torch.Tensor, layer: int, *,
+                              nbits: int, group_size: int, shape,
+                              superblock: int, out_dtype=None) -> torch.Tensor:
+    """:func:`quant_matmul_indexed` through the software-pipelined decode
+    GEMV, whatever the switch says (M <= 8, widths 1-4).
+
+    Replaces the pipelined branch of ``quant_matmul_indexed`` (kernel
+    ``_qmm_kernel_stacked_pipe``) of the JAX package's
+    ``ops/quant_matmul.py``.  The plain version is :func:`qmm_plain`.
+    """
+    return _qmm(x, None, packed_stack[layer], scale_stack[layer],
+                zero_stack[layer], nbits=nbits, group_size=group_size,
+                shape=tuple(shape), superblock=superblock,
+                out_dtype=out_dtype or x.dtype, pipe=True,
+                counter=quant_matmul_indexed_pipe)
+
+
+quant_matmul_indexed_pipe.launches = 0
 
 
 def quant_matmul_swiglu_indexed(gate: torch.Tensor, up: torch.Tensor,
@@ -169,8 +261,15 @@ def quant_matmul_swiglu_indexed(gate: torch.Tensor, up: torch.Tensor,
     computed in the kernel's prologue (f32, rounded to the input type).
 
     Replaces ``quant_matmul_swiglu_indexed`` (kernel ``_qmm_kernel_swiglu``)
-    of the JAX package's ``ops/quant_matmul.py``.
+    of the JAX package's ``ops/quant_matmul.py``; where the JAX package
+    takes its pipelined branch, this goes to
+    :func:`quant_matmul_swiglu_indexed_pipe`.
     """
+    if _pipe_applies(gate, packed_stack, nbits, group_size, superblock):
+        return quant_matmul_swiglu_indexed_pipe(
+            gate, up, packed_stack, scale_stack, zero_stack, layer,
+            nbits=nbits, group_size=group_size, shape=shape,
+            superblock=superblock, out_dtype=out_dtype)
     return _qmm(gate, up, packed_stack[layer], scale_stack[layer],
                 zero_stack[layer], nbits=nbits, group_size=group_size,
                 shape=tuple(shape), superblock=superblock,
@@ -179,6 +278,120 @@ def quant_matmul_swiglu_indexed(gate: torch.Tensor, up: torch.Tensor,
 
 
 quant_matmul_swiglu_indexed.launches = 0
+
+
+def quant_matmul_swiglu_indexed_pipe(gate: torch.Tensor, up: torch.Tensor,
+                                     packed_stack: torch.Tensor,
+                                     scale_stack: torch.Tensor,
+                                     zero_stack: torch.Tensor, layer: int, *,
+                                     nbits: int, group_size: int, shape,
+                                     superblock: int,
+                                     out_dtype=None) -> torch.Tensor:
+    """:func:`quant_matmul_swiglu_indexed` through the software-pipelined
+    decode GEMV, whatever the switch says.
+
+    Replaces the pipelined branch of ``quant_matmul_swiglu_indexed``
+    (kernel ``_qmm_kernel_swiglu_pipe``) of the JAX package's
+    ``ops/quant_matmul.py``.  The plain version is :func:`qmm_plain`.
+    """
+    return _qmm(gate, up, packed_stack[layer], scale_stack[layer],
+                zero_stack[layer], nbits=nbits, group_size=group_size,
+                shape=tuple(shape), superblock=superblock,
+                out_dtype=out_dtype or gate.dtype, pipe=True,
+                counter=quant_matmul_swiglu_indexed_pipe)
+
+
+quant_matmul_swiglu_indexed_pipe.launches = 0
+
+
+def quant_matmul_mlp_indexed(x: torch.Tensor, gu_packed: torch.Tensor,
+                             gu_scale: torch.Tensor, gu_zero: torch.Tensor,
+                             d_packed: torch.Tensor, d_scale: torch.Tensor,
+                             d_zero: torch.Tensor, layer: int, *, nbits: int,
+                             group_size: int, gu_shape, d_shape,
+                             superblock: int,
+                             out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``down(swiglu(gateup(x)))`` for layer ``layer`` of the stacked
+    gateup and down weights, in one launch.  x: [M <= 8, K_gu] -> [M, N_d].
+
+    Replaces ``quant_matmul_mlp_indexed`` (kernel ``_qmm_kernel_mlp``) of
+    the JAX package's ``ops/quant_matmul.py``.  ``gu_shape`` is the logical
+    ``([gate; up], hidden)``, ``d_shape`` ``(hidden, inter)``.  The plain
+    version is :func:`qmm_mlp_plain`.  A refused cooperative launch raises;
+    nothing falls back to the separate kernels.
+    """
+    static = dict(nbits=nbits, group_size=group_size, gu_shape=tuple(gu_shape),
+                  d_shape=tuple(d_shape), superblock=superblock,
+                  out_dtype=out_dtype)
+    gu = (gu_packed[layer], gu_scale[layer], gu_zero[layer])
+    dn = (d_packed[layer], d_scale[layer], d_zero[layer])
+    if x.device.type == "cpu":
+        return qmm_mlp_plain(x, *gu, *dn, **static)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    out = _mlp_cuda(x, gu, dn, **static)
+    quant_matmul_mlp_indexed.launches += 1
+    return out
+
+
+quant_matmul_mlp_indexed.launches = 0
+
+
+def _mlp_cuda(x, gu, dn, *, nbits, group_size, gu_shape, d_shape, superblock,
+              out_dtype) -> torch.Tensor:
+    (N_gu, K_gu), (N_d, K_d) = gu_shape, d_shape
+    M = x.shape[0]
+    inter = N_gu // 2
+    what = (f"quant_matmul_mlp ({nbits}-bit, M={M}, gateup {N_gu}x{K_gu}, "
+            f"down {N_d}x{K_d})")
+    if nbits not in (1, 2, 3, 4, 8):
+        raise ValueError(f"{what}: no kernel for {nbits}-bit")
+    tensors = [x, *gu, *dn]
+    if any(t.device != x.device for t in tensors):
+        raise ValueError(f"{what}: tensors on different devices")
+    if any(t.dtype != torch.int32 for t in (gu[0], dn[0])):
+        raise TypeError(f"{what}: packed words must be int32")
+    if len({t.dtype for t in (*gu[1:], *dn[1:])}) != 1:
+        raise TypeError(f"{what}: scale/zero dtypes of both stacks must agree")
+    if not 1 <= M <= 8 or x.dim() != 2 or x.shape[1] != K_gu or x.stride(1) != 1:
+        raise ValueError(f"{what}: x must be [M <= 8, K] with unit column "
+                         f"stride, got {tuple(x.shape)}")
+    if N_gu % 2 or K_d != inter:
+        raise ValueError(f"{what}: gateup must be [gate; up] of the down "
+                         f"projection's input width")
+    if not all(t.is_contiguous() for t in tensors[1:]):
+        raise ValueError(f"{what}: packed/scale/zero must be contiguous")
+    Kp_gu = gu[0].shape[0] * 32 // nbits
+    Kp_d = dn[0].shape[0] * 32 // nbits
+    Np_gu, Np_d = gu[0].shape[1], dn[0].shape[1]
+    for (packed, scale, zero), Kp, Np, K, N in ((gu, Kp_gu, Np_gu, K_gu, N_gu),
+                                                (dn, Kp_d, Np_d, K_d, N_d)):
+        if (Kp % superblock or superblock % 64 or superblock % group_size
+                or superblock > 1024 or K > Kp or N > Np or Np % 8
+                or scale.shape != (Kp // group_size, Np)
+                or zero.shape != scale.shape
+                or any(t.data_ptr() % 16 for t in (packed, scale, zero))):
+            raise ValueError(f"{what}: packed {tuple(packed.shape)}, scale "
+                             f"{tuple(scale.shape)}, superblock {superblock}, "
+                             f"group {group_size} do not fit")
+    # the separate kernels' K splits, so the sums run in their order
+    s_gu, per_gu = _splits(M, N_gu, Kp_gu // superblock, x.device)
+    s_d, per_d = _splits(M, N_d, Kp_d // superblock, x.device)
+    dev = x.device
+    gu_part = torch.empty((s_gu, M, N_gu), dtype=torch.float32, device=dev)
+    act = torch.empty((M, Kp_d), dtype=torch.float32, device=dev)
+    d_part = torch.empty((s_d, M, N_d), dtype=torch.float32, device=dev)
+    out = torch.empty((M, N_d), dtype=out_dtype, device=dev)
+    ptr = _cuda.ptr
+    rc = _mlp_lib()(ptr(x), _cuda.dtype_flag(x, what), M, K_gu, x.stride(0),
+                    ptr(gu[0]), ptr(gu[1]), ptr(gu[2]), ptr(dn[0]),
+                    ptr(dn[1]), ptr(dn[2]), _cuda.dtype_flag(gu[1], what),
+                    Np_gu, Np_d, N_gu, inter, Kp_gu, Kp_d, N_d, nbits,
+                    group_size, superblock, s_gu, per_gu, s_d, per_d,
+                    ptr(gu_part), ptr(act), ptr(d_part), ptr(out),
+                    _cuda.dtype_flag(out, what), _cuda.stream())
+    _cuda.check(rc, what)
+    return out
 
 
 def quant_matmul(x: torch.Tensor, qt: QuantizedTensor,

@@ -7,12 +7,17 @@ ends: the argmax stays on the card, and the cache length (and the per-row
 offsets derived from it) are device tensors.  The KV cache is read-only
 inside the layer loop; each step's keys and values are appended once,
 after all layers, in place into the cache's buffers (``forward_stacked``).
+
+Continuous batching: :class:`Request` and :class:`ContinuousBatcher`, the
+host-side slot scheduler (native C++ core or pure Python) that
+``serving.batched.SlotEngine`` drives.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+import os
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -111,3 +116,192 @@ class Engine:
                                  n_steps=max_new_tokens - 1)
         out = torch.cat([first[:, None], rest], dim=1)
         return out.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# continuous batching
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray          # [S]
+    max_new_tokens: int
+    generated: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    priority: int = 0           # higher = served first (0 = default class)
+    _seq: int = -1              # submission order (set by the batcher)
+
+
+class ContinuousBatcher:
+    """Slot-based continuous batching scheduler (host code: numpy and Python).
+
+    The port of ``ContinuousBatcher`` from the JAX package's
+    ``serving/engine.py``.  Sequences occupy fixed KV-cache slots; every
+    engine step decodes one token for all active slots, finished slots are
+    refilled from the queue.  Scheduling policy:
+
+    * priority classes -- the queue is served (priority desc, FCFS within
+      a class),
+    * chunked-prefill admission -- each ``fill_slots`` call admits
+      requests only while their summed prompt tokens stay within
+      ``prefill_budget`` (0 = uncapped; one admission always allowed),
+    * preemption -- ``preempt()`` evicts lower-priority active slots for a
+      strictly-higher-priority pending request that no free slot can take
+      (the JAX package evicts even while a free slot could admit it); the
+      victims re-enter the queue with their generated tokens and are
+      re-prefilled (prompt + generated) on re-admission.
+
+    Slot lifecycle runs on the native C++ scheduler (``native.py``) unless
+    ``use_native=False`` or ``AMQ_NATIVE_SCHED=0`` asks for the
+    pure-Python path; a native library that fails to build or load raises.
+    """
+
+    def __init__(self, n_slots: int, max_len: int,
+                 use_native: Optional[bool] = None,
+                 prefill_budget: int = 0):
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.prefill_budget = prefill_budget
+        self.queue: List[Request] = []
+        self.slots: List[Optional[Request]] = [None] * n_slots
+        self._by_uid: Dict[int, Request] = {}
+        self._next_seq = 0
+        if use_native is None:
+            use_native = os.environ.get("AMQ_NATIVE_SCHED", "1") == "1"
+        self._native = None
+        if use_native:
+            from ..native import NativeScheduler
+            self._native = NativeScheduler(n_slots)
+
+    def _enqueue_ordered(self, req: Request) -> None:
+        # insert before the first request served after req
+        i = 0
+        while i < len(self.queue) and (
+                self.queue[i].priority > req.priority
+                or (self.queue[i].priority == req.priority
+                    and self.queue[i]._seq < req._seq)):
+            i += 1
+        self.queue.insert(i, req)
+
+    def submit(self, req: Request) -> None:
+        if req.uid < 0:
+            # the native core uses uid < 0 as its free-slot sentinel; the
+            # pure-Python path keeps the same contract
+            raise ValueError(f"request uid must be >= 0, got {req.uid}")
+        req._seq = self._next_seq
+        self._next_seq += 1
+        if self._native is not None:
+            self._native.submit(req.uid, req.max_new_tokens,
+                                priority=req.priority,
+                                prompt_len=len(req.prompt))
+            self._by_uid[req.uid] = req
+        else:
+            self._enqueue_ordered(req)
+
+    @property
+    def active(self) -> int:
+        return sum(s is not None for s in self.slots)
+
+    def has_work(self) -> bool:
+        if self._native is not None:
+            return self._native.pending > 0 or self._native.active > 0
+        return bool(self.queue) or self.active > 0
+
+    def fill_slots(self) -> List[Tuple[int, Request]]:
+        filled = []
+        if self._native is not None:
+            for i, uid in self._native.fill(self.prefill_budget):
+                req = self._by_uid.pop(uid)
+                self.slots[i] = req
+                filled.append((i, req))
+            return filled
+        spent = 0
+        for i, slot in enumerate(self.slots):
+            if slot is None and self.queue:
+                head = self.queue[0]
+                if (self.prefill_budget > 0 and filled
+                        and spent + len(head.prompt) > self.prefill_budget):
+                    break
+                spent += len(head.prompt)
+                req = self.queue.pop(0)
+                self.slots[i] = req
+                filled.append((i, req))
+        return filled
+
+    def preempt(self) -> List[Tuple[int, Request]]:
+        """Evict active slots outprioritized by pending requests that the
+        free slots cannot absorb; the victims rejoin the queue (tokens
+        kept).  Returns ``[(slot, victim)]``."""
+        evicted: List[Tuple[int, Request]] = []
+        if self._native is not None:
+            for slot, uid, _gen in self._native.preempt():
+                req = self.slots[slot]
+                self.slots[slot] = None
+                self._by_uid[uid] = req
+                evicted.append((slot, req))
+            return evicted
+        # the first `free` pending requests take the free slots at the
+        # next fill: only those beyond them need a victim
+        qi = self.n_slots - self.active
+        while qi < len(self.queue):
+            want = self.queue[qi].priority
+            victim = -1
+            for i, r in enumerate(self.slots):
+                if r is None or r.priority >= want:
+                    continue
+                if (victim < 0
+                        or r.priority < self.slots[victim].priority
+                        or (r.priority == self.slots[victim].priority
+                            and r._seq > self.slots[victim]._seq)):
+                    victim = i
+            if victim < 0:
+                break
+            req = self.slots[victim]
+            self.slots[victim] = None
+            self._enqueue_ordered(req)
+            evicted.append((victim, req))
+            qi += 1
+        return evicted
+
+    def prefill_bookkeeping(self, slot: int, token) -> Optional[Request]:
+        """Record the prefill's first generated token; the request retires
+        here iff max_new_tokens == 1.  Returns the retired request."""
+        req = self.slots[slot]
+        req.generated.append(int(token))
+        if self._native is not None:
+            done = self._native.prefill(slot)
+        else:
+            done = len(req.generated) >= req.max_new_tokens
+        if done:
+            req.done = True
+            self.slots[slot] = None
+            return req
+        return None
+
+    def step_bookkeeping(self, tokens: np.ndarray) -> List[Request]:
+        """Record one decoded token per slot; retire finished requests.
+
+        ``tokens[i] < 0`` marks a slot that did not decode this step
+        (idle, or occupied but mid-chunked-prefill) -- skipped entirely.
+        """
+        finished = []
+        decoded = np.asarray(tokens) >= 0
+        if self._native is not None:
+            for i, req in enumerate(self.slots):
+                if req is not None and decoded[i]:
+                    req.generated.append(int(tokens[i]))
+            for i in self._native.step(mask=decoded):
+                req = self.slots[i]
+                req.done = True
+                self.slots[i] = None
+                finished.append(req)
+            return finished
+        for i, req in enumerate(self.slots):
+            if req is None or not decoded[i]:
+                continue
+            req.generated.append(int(tokens[i]))
+            if len(req.generated) >= req.max_new_tokens:
+                req.done = True
+                self.slots[i] = None
+                finished.append(req)
+        return finished

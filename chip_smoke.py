@@ -18,6 +18,12 @@ Phases (any failed check exits non-zero before the last line):
    kernel / plain / library times, and the least time the card could
    take (bytes over 3.35 TB/s or operations over the peak for the
    inputs' type).
+   The decode kernels of the JAX package's opt-in switches at the same
+   shapes: the pipelined decode GEMV (qkv / o / gateup, down with the
+   SwiGLU prologue; M 1, 4, 8; widths 2, 3, 4) against the plain version
+   and the non-pipelined GEMV, and the one-launch decode MLP (M 1, 4, 8;
+   widths 2, 3, 4) against its plain version and the separate kernel
+   chain, two calls bit-identical.
 4. full-width Llama-2-7B decode (32 layers, random packed weights drawn
    on the card from a seeded generator, 2/3/4 bits per layer with 3-bit in
    4-bit containers, bf16 meta, 8-bit head) through Engine.generate and
@@ -25,7 +31,16 @@ Phases (any failed check exits non-zero before the last line):
    kernels' launch counts checked over one generate, kernel-path vs
    plain-path prefill logits, and one generate from a 512-token prompt
    whose prefill runs the flash kernel once per layer.
-5. the speed CLI (HQQ proxies -> stack_proxies -> Engine) at full width.
+4b. serving breadth on the same model at full width and depth: generate
+   with AMQ_PIPE, then with AMQ_PIPE and AMQ_MLP_KERNEL (exact launch
+   counts; token agreement and logit gap to the default kernels
+   reported); continuous batching (benchmark_continuous, 4 slots, 16
+   requests; default kernels, then both switches; exact launch counts);
+   a float32 SlotEngine run token-exact against each request's generate;
+   speculative decoding with the target as its own draft (bf16 rate and
+   acceptance; float32 tokens equal to generate's).
+5. the speed CLI (HQQ proxies -> stack_proxies -> Engine) at full width:
+   TPS and CONTINUOUS (4 slots, 16 requests).
 6. the sensitivity CLI at full Llama-2-7B width and depth (2 samples of
    2048 synthetic tokens, bf16): a 224-entry table, flash launches equal
    to the count reckoned from the code; then one evaluator in f32 holding
@@ -211,6 +226,165 @@ def check_matmul(site, nbits, M, meta_dtype, gen):
                bound_by=b_by, ok=rel <= tol)
     print("CASE " + json.dumps(rec), flush=True)
     return rec
+
+
+def dense_weight(packed, scale, zero, nbits, shape, sb):
+    """The dequantized weight [K, N] in bf16 (a library yardstick's input)."""
+    from amq_tpu_torch.core.quantize import QuantizedTensor, dequantize_kn
+    return dequantize_kn(QuantizedTensor(packed, scale, zero, nbits, 128,
+                                         shape, sb),
+                         torch.float32).to(torch.bfloat16).contiguous()
+
+
+def rel_err(got, want):
+    """max |got - want| / max |want|, and max |got - want|."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err / max(want.float().abs().max().item(), 1e-30), err
+
+
+#: pipelined GEMV, bf16 outputs: against the plain version the JAX suite's
+#: normalized 2e-2 (tests/test_quant_matmul.py), against the non-pipelined
+#: GEMV (the same arithmetic) 1e-2
+PIPE_TOL, PIPE_VS_GEMV_TOL = 2e-2, 1e-2
+
+
+def check_pipe(site, nbits, Ms, gen):
+    """The pipelined decode GEMV at one 7B site and width, for each M:
+    against the plain version and the non-pipelined GEMV; its time beside
+    the non-pipelined GEMV's in the same call."""
+    from amq_tpu_torch.models.stacked import decode_switches
+    from amq_tpu_torch.ops import quant_matmul as qm
+    N, K, _ = SITES_7B[site]
+    swiglu = site == "down"
+    kernel = ("quant_matmul_swiglu_indexed_pipe" if swiglu
+              else "quant_matmul_indexed_pipe")
+    pipe_fn = getattr(qm, kernel)
+    gemv_fn = (qm.quant_matmul_swiglu_indexed if swiglu
+               else qm.quant_matmul_indexed)
+    L = max(2, min(24, math.ceil(200e6 / (N * K * nbits / 8))))
+    packed, scale, zero, sb = rand_site(N, K, nbits, L, torch.bfloat16, gen)
+    wt = dense_weight(packed[1], scale[1], zero[1], nbits, (N, K), sb)
+    recs = []
+    for M in Ms:
+        x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+        u = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+        act = (x, u) if swiglu else (x,)
+        kw = dict(nbits=nbits, group_size=128, shape=(N, K), superblock=sb,
+                  out_dtype=torch.bfloat16)
+        with decode_switches(pipe=False, mlp=False):
+            got = pipe_fn(*act, packed, scale, zero, 1, **kw)
+            ref = gemv_fn(*act, packed, scale, zero, 1, **kw)
+            want = qm.qmm_plain(x, packed[1], scale[1], zero[1],
+                                up=u if swiglu else None, **kw)
+            torch.cuda.synchronize()
+            rel, err = rel_err(got, want)
+            rel_gemv, _ = rel_err(got, ref)
+            ms = time_ms([lambda i=i: pipe_fn(*act, packed, scale, zero, i,
+                                              **kw) for i in range(L)])
+            gemv_ms = time_ms([lambda i=i: gemv_fn(*act, packed, scale, zero,
+                                                   i, **kw) for i in range(L)])
+            plain_ms = time_ms([lambda: qm.qmm_plain(
+                x, packed[1], scale[1], zero[1], up=u if swiglu else None,
+                **kw)], iters=3)
+            wrapper_us = host_us(lambda: pipe_fn(*act, packed, scale, zero, 1,
+                                                 **kw))
+        xa = qm.swiglu_plain(x, u) if swiglu else x
+        library_ms = time_ms([lambda: torch.matmul(xa, wt)])
+        nbytes = (packed[0].numel() * 4 + 2 * scale[0].numel() * 2
+                  + len(act) * x.numel() * 2 + M * N * 2)
+        b_ms, b_by = bound(nbytes, 2 * M * N * K)
+        rec = dict(kernel=kernel, site=site, nbits=nbits, M=M, meta="bfloat16",
+                   max_abs_err=err, rel_err=rel, tol=PIPE_TOL,
+                   rel_err_vs_gemv=rel_gemv, tol_vs_gemv=PIPE_VS_GEMV_TOL,
+                   ms=ms, gemv_ms=gemv_ms, plain_ms=plain_ms,
+                   host_us=wrapper_us, library_ms=library_ms,
+                   library="torch.matmul bf16 x dense dequantized weight "
+                   "(different function)", bound_ms=b_ms, bound_by=b_by,
+                   ok=rel <= PIPE_TOL and rel_gemv <= PIPE_VS_GEMV_TOL)
+        print("CASE " + json.dumps(rec), flush=True)
+        recs.append(rec)
+    del wt, packed, scale, zero
+    return recs
+
+
+#: one-launch MLP, float32 outputs: against the plain version the JAX
+#: suite's normalized 2e-2; against the separate kernel chain
+#: (tests/test_mlp_megakernel.py) 2e-3
+MLP_TOL, MLP_VS_CHAIN_TOL = 2e-2, 2e-3
+MLP_7B = ((22016, 4096), (4096, 11008))      # gateup, down (N, K)
+
+
+def check_mlp(nbits, Ms, gen):
+    """The one-launch decode MLP at the 7B shapes for each M: against its
+    plain version and the separate gateup -> SwiGLU-down kernel chain, two
+    calls bit-identical; its time beside the chain's."""
+    from amq_tpu_torch.models.stacked import decode_switches
+    from amq_tpu_torch.ops import quant_matmul as qm
+    (Ngu, H), (Nd, I) = MLP_7B
+    L = 3                               # > 50 MB of weights per call already
+    gu = rand_site(Ngu, H, nbits, L, torch.bfloat16, gen)
+    dn = rand_site(Nd, I, nbits, L, torch.bfloat16, gen)
+    sb = gu[3]
+    assert dn[3] == sb
+    gu, dn = gu[:3], dn[:3]
+    w_gu = dense_weight(*(t[1] for t in gu), nbits, (Ngu, H), sb)
+    w_d = dense_weight(*(t[1] for t in dn), nbits, (Nd, I), sb)
+    kw = dict(nbits=nbits, group_size=128, gu_shape=(Ngu, H), d_shape=(Nd, I),
+              superblock=sb)
+    recs = []
+    for M in Ms:
+        x = torch.randn((M, H), generator=gen, device="cuda").to(torch.bfloat16)
+
+        def mlp(i, out_dtype=torch.bfloat16):
+            return qm.quant_matmul_mlp_indexed(x, *gu, *dn, i,
+                                               out_dtype=out_dtype, **kw)
+
+        def chain(i, out_dtype=torch.bfloat16):
+            g = qm.quant_matmul_indexed(x, *gu, i, nbits=nbits, group_size=128,
+                                        shape=(Ngu, H), superblock=sb)
+            return qm.quant_matmul_swiglu_indexed(
+                g[:, :I], g[:, I:], *dn, i, nbits=nbits, group_size=128,
+                shape=(Nd, I), superblock=sb, out_dtype=out_dtype)
+
+        def library():
+            g = torch.matmul(x, w_gu)
+            return torch.matmul(qm.swiglu_plain(g[:, :I], g[:, I:]), w_d)
+
+        with decode_switches(pipe=False, mlp=False):
+            got = mlp(1, torch.float32)
+            again = mlp(1, torch.float32)
+            sep = chain(1, torch.float32)
+            want = qm.qmm_mlp_plain(x, *(t[1] for t in gu), *(t[1] for t in dn),
+                                    out_dtype=torch.float32, **kw)
+            torch.cuda.synchronize()
+            rel, err = rel_err(got, want)
+            rel_chain, _ = rel_err(got, sep)
+            identical = bool(torch.equal(got, again))
+            ms = time_ms([lambda i=i: mlp(i) for i in range(L)])
+            chain_ms = time_ms([lambda i=i: chain(i) for i in range(L)])
+            plain_ms = time_ms([lambda: qm.qmm_mlp_plain(
+                x, *(t[1] for t in gu), *(t[1] for t in dn),
+                out_dtype=torch.bfloat16, **kw)], iters=2)
+            wrapper_us = host_us(lambda: mlp(1))
+        library_ms = time_ms([library])
+        nbytes = sum(t[0].numel() * t.element_size() for t in (*gu, *dn)) \
+            + M * (H + Nd) * 2
+        b_ms, b_by = bound(nbytes, 2 * M * (Ngu * H + Nd * I))
+        rec = dict(kernel="quant_matmul_mlp_indexed", site="mlp", nbits=nbits,
+                   M=M, meta="bfloat16", max_abs_err=err, rel_err=rel,
+                   tol=MLP_TOL, rel_err_vs_chain=rel_chain,
+                   tol_vs_chain=MLP_VS_CHAIN_TOL, bit_identical=identical,
+                   ms=ms, chain_ms=chain_ms, plain_ms=plain_ms,
+                   host_us=wrapper_us, library_ms=library_ms,
+                   library="bf16 torch.matmul -> silu*mul -> torch.matmul on "
+                   "dense dequantized weights (different function)",
+                   bound_ms=b_ms, bound_by=b_by,
+                   ok=(rel <= MLP_TOL and rel_chain <= MLP_VS_CHAIN_TOL
+                       and identical))
+        print("CASE " + json.dumps(rec), flush=True)
+        recs.append(rec)
+    del w_gu, w_d, gu, dn
+    return recs
 
 
 def attn_inputs(B, Hkv, G, hd, T, offsets, gen, L=2):
@@ -444,18 +618,15 @@ def logits_check(model, cfg, prompt, compute_dtype):
     return rec
 
 
-def profile_decode(eng, prompt, steps=8):
-    """Device time by kernel over ``steps`` decode steps (torch.profiler),
-    the wall time of the same window, and the card's busy share."""
+def device_profile(run, steps):
+    """Device time by kernel per step over ``run()`` (which takes ``steps``
+    decode steps; torch.profiler), the wall time of the same window and
+    the card's busy share."""
     from torch.profiler import ProfilerActivity, profile
-    model = eng.params
-    cache = eng.new_cache()
-    first, cache = eng._prefill_token(model, eng.tokens_to_device(prompt), cache)
-    eng._decode_n(model, first, cache, n_steps=2)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng._decode_n(model, first, cache, n_steps=steps)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     # device kernels only (aten:: rows repeat their kernels' time), names
@@ -468,10 +639,20 @@ def profile_decode(eng, prompt, steps=8):
                             + ev.self_device_time_total / steps / 1e3)
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    rec = dict(steps=steps, wall_ms_per_token=wall_ms,
-               device_ms_per_token=device_ms,
-               device_busy_share=device_ms / wall_ms,
-               top_kernels_ms_per_token=dict(top))
+    return dict(steps=steps, wall_ms_per_token=wall_ms,
+                device_ms_per_token=device_ms,
+                device_busy_share=device_ms / wall_ms,
+                top_kernels_ms_per_token=dict(top))
+
+
+def profile_decode(eng, prompt, steps=8):
+    """Device time by kernel over ``steps`` decode steps of one stream."""
+    model = eng.params
+    cache = eng.new_cache()
+    first, cache = eng._prefill_token(model, eng.tokens_to_device(prompt), cache)
+    eng._decode_n(model, first, cache, n_steps=2)
+    rec = device_profile(
+        lambda: eng._decode_n(model, first, cache, n_steps=steps), steps)
     print("PROFILE " + json.dumps(rec), flush=True)
     return rec
 
@@ -504,6 +685,223 @@ def long_prompt_generate(model, cfg):
                                           & (toks < cfg.vocab_size)).all():
         fail(f"long-prompt tokens out of range: {toks.shape}")
     return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: serving breadth (decode switches, continuous batching,
+# speculative decoding) at full width and depth
+
+SWITCHES = {"default": (False, False), "pipe": (True, False),
+            "pipe+mlp": (True, True)}
+SLOTS, REQUESTS, CHUNK = 4, 16, 8
+
+
+def reckon_decode(L, prefills, prefill_rows, steps, pipe, mlp):
+    """Launches of ``prefills`` prefills of ``prefill_rows`` rows and
+    ``steps`` decode steps of the fused, layer-uniform 7B model, reckoned
+    from the code: per layer qkv, o and gateup GEMVs, the SwiGLU-down
+    GEMV, decode attention; one head launch per forward.  Prefills take
+    the non-pipelined kernels (M > 8); under AMQ_PIPE the decode GEMVs
+    take the pipelined kernel; under AMQ_MLP_KERNEL too the gateup and
+    down GEMVs become one MLP launch."""
+    from amq_tpu_torch import ops
+    want = {n: 0 for n in ops.launch_counts()}
+    assert 8 < prefill_rows < 256
+    gemv = "quant_matmul_indexed_pipe" if pipe else "quant_matmul_indexed"
+    down = ("quant_matmul_swiglu_indexed_pipe" if pipe
+            else "quant_matmul_swiglu_indexed")
+    want["quant_matmul_indexed"] += 3 * L * prefills
+    want["quant_matmul_swiglu_indexed"] += L * prefills
+    want[gemv] += (2 if mlp else 3) * L * steps
+    if mlp:
+        want["quant_matmul_mlp_indexed"] += L * steps
+    else:
+        want[down] += L * steps
+    want["decode_attention_indexed"] = L * steps
+    want["quant_matmul"] = prefills + steps
+    return want
+
+
+def first_step_logits(eng, model, prompt):
+    """Logits [V] of the first decode step after the prompt's prefill."""
+    cache = eng.new_cache()
+    first, cache = eng._prefill_token(model, eng.tokens_to_device(prompt),
+                                      cache)
+    with torch.inference_mode():
+        logits, _ = eng._forward(model, first[:, None], cache)
+    return logits[0, -1].float()
+
+
+def switches_phase(eng, model, cfg, prompt, default_toks):
+    """(a), (b): one generate under AMQ_PIPE, then under both switches:
+    exact launch counts; tokens and first-step logits against the default
+    kernels (reported: bf16 sums in other orders).  Then decode ms/token
+    (benchmark_speed GEMV) of the three settings in turns, twice (ABCCBA),
+    so the comparison stays inside one call."""
+    from amq_tpu_torch import ops
+    from amq_tpu_torch.models.stacked import decode_switches
+    from amq_tpu_torch.serving.benchmark import benchmark_speed
+    L = cfg.num_layers
+    with decode_switches(pipe=False, mlp=False):
+        base = first_step_logits(eng, model, prompt)
+    recs = {}
+    for label in ("pipe", "pipe+mlp"):
+        pipe, mlp = SWITCHES[label]
+        with decode_switches(pipe=pipe, mlp=mlp):
+            ops.reset_launch_counts()
+            toks = eng.generate(prompt, max_new_tokens=GEN)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            logits = first_step_logits(eng, model, prompt)
+        want = reckon_decode(L, 1, PROMPT, GEN - 1, pipe, mlp)
+        rec = dict(switches=label, launches=counts, want=want,
+                   token_agreement=float((toks == default_toks).mean()),
+                   max_logit_diff=(logits - base).abs().max().item(),
+                   logit_scale=base.abs().max().item())
+        print("SWITCHES " + json.dumps(rec), flush=True)
+        if counts != want:
+            fail(f"{label}: launch counts {counts} != {want}")
+        if toks.shape != (1, GEN) or not ((toks >= 0)
+                                          & (toks < cfg.vocab_size)).all():
+            fail(f"{label}: generated tokens out of range")
+        recs[label] = rec
+    order = list(SWITCHES) + list(SWITCHES)[::-1]
+    ms = {label: [] for label in SWITCHES}
+    for label in order:
+        with decode_switches(*SWITCHES[label]):
+            ms[label].append(benchmark_speed(
+                eng, "GEMV", prompt_len=PROMPT, gen_len=GEN)["decode_token_ms"])
+    recs["decode_token_ms"] = ms
+    print("SWITCHES_DECODE_MS " + json.dumps(ms), flush=True)
+    return recs
+
+
+def continuous_profile(model, cfg):
+    """Where a slot-batched decode step's time goes: one chunk of 8 steps
+    with all 4 slots decoding, for the default kernels and both
+    switches."""
+    from amq_tpu_torch.models.stacked import decode_switches
+    from amq_tpu_torch.serving.batched import SlotEngine
+    rng = np.random.default_rng(3)
+    recs = {}
+    for label in ("default", "pipe+mlp"):
+        se = SlotEngine(model, cfg, n_slots=SLOTS, max_len=PROMPT + 3 * CHUNK,
+                        prefill_buckets=(PROMPT,), chunk_steps=CHUNK)
+        with decode_switches(*SWITCHES[label]):
+            for slot in range(SLOTS):
+                se.prefill(slot, rng.integers(0, cfg.vocab_size, PROMPT))
+            active = np.ones(SLOTS, bool)
+            se.step_chunk(active, CHUNK)                         # warm-up
+            rec = device_profile(lambda: se.step_chunk(active, CHUNK), CHUNK)
+        rec = dict(switches=label, slots=SLOTS, **rec)
+        print("CONTINUOUS_PROFILE " + json.dumps(rec), flush=True)
+        recs[label] = rec
+        del se
+    return recs
+
+
+def continuous_phase(model, cfg):
+    """(c): benchmark_continuous (4 slots, 16 requests, prompt 64, 128
+    tokens, decode chunks of 8) with the default kernels, then with both
+    switches; the launch counts of its two runs (warm-up and timed) equal
+    twice the count reckoned for one."""
+    from amq_tpu_torch import ops
+    from amq_tpu_torch.models.stacked import decode_switches
+    from amq_tpu_torch.serving.benchmark import benchmark_continuous
+    L = cfg.num_layers
+    # every request has the same length, so the slots run in waves: per
+    # wave one prefill per slot, then whole decode chunks until the
+    # GEN - 1 decode tokens are in (the last chunk runs to its end)
+    waves = math.ceil(REQUESTS / SLOTS)
+    steps = waves * math.ceil((GEN - 1) / CHUNK) * CHUNK
+    recs = {}
+    for label in ("default", "pipe+mlp"):
+        pipe, mlp = SWITCHES[label]
+        with decode_switches(pipe=pipe, mlp=mlp):
+            ops.reset_launch_counts()
+            res = benchmark_continuous(
+                model, cfg, n_slots=SLOTS, n_requests=REQUESTS,
+                prompt_len=PROMPT, gen_len=GEN, max_len=PROMPT + GEN + 8,
+                chunk_steps=CHUNK)
+            counts = ops.launch_counts()
+        per_run = reckon_decode(L, REQUESTS, PROMPT, steps, pipe, mlp)
+        want = {k: 2 * v for k, v in per_run.items()}
+        rec = dict(switches=label, **res, launches_per_run={
+            k: v / 2 for k, v in counts.items()}, want_per_run=per_run)
+        print("CONTINUOUS " + json.dumps(rec), flush=True)
+        if counts != want:
+            fail(f"continuous {label}: launch counts {counts} != {want}")
+        if res["total_tokens"] != REQUESTS * GEN:
+            fail(f"continuous {label}: {res['total_tokens']} tokens, want "
+                 f"{REQUESTS * GEN}")
+        recs[label] = rec
+    return recs
+
+
+def slot_f32_check(model, cfg):
+    """(d): float32, kernels on: SlotEngine.run (2 slots, 4 requests of
+    staggered prompt lengths, 16 tokens each) token-exact against each
+    request's own Engine.generate."""
+    from amq_tpu_torch.serving.batched import SlotEngine
+    from amq_tpu_torch.serving.engine import ContinuousBatcher, Engine, Request
+    lens, n_new = (64, 23, 40, 57), 16
+    max_len = max(lens) + n_new + 8
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    eng = Engine(model, cfg, batch_size=1, max_len=max_len,
+                 compute_dtype=torch.float32, cache_dtype=torch.float32)
+    want = {u: eng.generate(p[None], max_new_tokens=n_new)[0].tolist()
+            for u, p in enumerate(prompts)}
+    se = SlotEngine(model, cfg, n_slots=2, max_len=max_len,
+                    compute_dtype=torch.float32, prefill_buckets=lens)
+    batcher = ContinuousBatcher(n_slots=2, max_len=max_len)
+    for u, p in enumerate(prompts):
+        batcher.submit(Request(uid=u, prompt=p, max_new_tokens=n_new))
+    got = se.run(batcher)
+    agree = sum(got.get(u) == want[u] for u in want)
+    rec = dict(prompts=list(lens), new_tokens=n_new, slots=2,
+               requests_token_exact=agree, requests=len(want))
+    print("SLOT_F32 " + json.dumps(rec), flush=True)
+    if agree != len(want):
+        fail(f"float32 SlotEngine differs from generate: {got} vs {want}")
+    del se, eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+SPEC_GAMMA, SPEC_NEW = 4, 64
+
+
+def speculative_phase(model, cfg, prompt):
+    """(f): the target as its own draft (gamma 4, 64 tokens): in bf16 the
+    rate and the acceptance; in float32 the tokens equal to generate's."""
+    from amq_tpu_torch.serving.engine import Engine
+    from amq_tpu_torch.serving.speculative import SpeculativeEngine
+    recs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        eng = Engine(model, cfg, batch_size=1, max_len=PROMPT + SPEC_NEW + 8,
+                     compute_dtype=dt, cache_dtype=dt)
+        spec = SpeculativeEngine(eng, draft_params=model, gamma=SPEC_GAMMA)
+        spec.generate(prompt, max_new_tokens=8)                 # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, stats = spec.generate(prompt, max_new_tokens=SPEC_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want = eng.generate(prompt, max_new_tokens=SPEC_NEW)
+        label = str(dt).split(".")[-1]
+        rec = dict(compute=label, gamma=SPEC_GAMMA, tokens=SPEC_NEW,
+                   wall_s=wall, tokens_per_s=SPEC_NEW / wall,
+                   rounds=stats.rounds, accepted=stats.accepted,
+                   acceptance_rate=stats.acceptance_rate,
+                   token_agreement=float((toks == want).mean()))
+        print("SPECULATIVE " + json.dumps(rec), flush=True)
+        if dt == torch.float32 and not (toks == want).all():
+            fail(f"float32 speculative tokens differ from generate: {rec}")
+        recs[label] = rec
+        del spec, eng
+    return recs
 
 
 EVAL_MODEL, SENS_N, SENS_SEQ, SENS_BATCH = "Llama-2-7b-hf", 2, 2048, 2
@@ -696,6 +1094,7 @@ def search_phase(sens_path):
 
 def main():
     # -- phase 1: environment ------------------------------------------------
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
     card = smi_line()
@@ -745,6 +1144,13 @@ def main():
     for fc in FLASH_CASES:
         cases.append(check_flash(*fc, gen))
         torch.cuda.empty_cache()
+    for site in ("qkv", "o", "gateup", "down"):
+        for nbits in (2, 3, 4):
+            cases += check_pipe(site, nbits, (1, 4, 8), gen)
+            torch.cuda.empty_cache()
+    for nbits in (2, 3, 4):
+        cases += check_mlp(nbits, (1, 4, 8), gen)
+        torch.cuda.empty_cache()
     bad = [c for c in cases if not c["ok"]]
     if bad:
         fail(f"{len(bad)} kernel cases outside tolerance: {bad[:3]}")
@@ -771,10 +1177,7 @@ def main():
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     L = cfg.num_layers
-    want = {"quant_matmul_indexed": 3 * L * GEN,
-            "quant_matmul_swiglu_indexed": L * GEN,
-            "decode_attention_indexed": L * (GEN - 1),
-            "quant_matmul": GEN, "flash_attention": 0}
+    want = reckon_decode(L, 1, PROMPT, GEN - 1, pipe=False, mlp=False)
     print(f"launches over one generate: {counts} (want {want})", flush=True)
     if counts != want:
         fail(f"launch counts {counts} != {want}")
@@ -798,6 +1201,13 @@ def main():
     if not all(r["ok"] for r in logit_recs):
         fail(f"kernel-path logits differ from the plain path: {logit_recs}")
     long_rec = long_prompt_generate(model, cfg)
+
+    # -- phase 4b: serving breadth -------------------------------------------
+    switch_recs = switches_phase(eng, model, cfg, prompt, toks)
+    cont_recs = continuous_phase(model, cfg)
+    cont_recs["profile"] = continuous_profile(model, cfg)
+    slot_rec = slot_f32_check(model, cfg)
+    spec_recs = speculative_phase(model, cfg, prompt)
     del eng, model
     torch.cuda.empty_cache()
 
@@ -806,12 +1216,17 @@ def main():
     ops.reset_launch_counts()
     cli = speed_benchmark.main([
         "--model_name", "Llama-2-7b-hf", "--synthetic", "--modes", "TPS",
+        "CONTINUOUS", "--n_slots", str(SLOTS), "--n_requests", str(REQUESTS),
         "--save_path", OUT_DIR])
     print(f"CLI: setup {cli['setup_s']:.1f} s, TPS "
-          f"{cli['TPS']['tokens_per_s']:.2f} tok/s, launches "
+          f"{cli['TPS']['tokens_per_s']:.2f} tok/s, CONTINUOUS "
+          f"{cli['CONTINUOUS']['tokens_per_s']:.2f} tok/s, launches "
           f"{ops.launch_counts()}", flush=True)
     if not cli["TPS"]["tokens_per_s"] > 0:
         fail("CLI TPS gave no rate")
+    if not (cli["CONTINUOUS"]["tokens_per_s"] > 0
+            and cli["CONTINUOUS"]["total_tokens"] == REQUESTS * GEN):
+        fail(f"CLI CONTINUOUS: {cli['CONTINUOUS']}")
 
     torch.cuda.empty_cache()
 
@@ -850,11 +1265,32 @@ def main():
                                  case="llama2-7b-eval-bf16"),
                             "amq_tpu_torch/csrc/flash_attention.cu",
                             "amq_tpu/ops/flash_attention.py:157"),
+        "quant_matmul_indexed_pipe": (
+            pick("quant_matmul_indexed_pipe", site="gateup", nbits=4, M=1),
+            "amq_tpu_torch/csrc/quant_matmul_pipe.cu",
+            "amq_tpu/ops/quant_matmul.py:671"),
+        "quant_matmul_swiglu_indexed_pipe": (
+            pick("quant_matmul_swiglu_indexed_pipe", site="down", nbits=4,
+                 M=1),
+            "amq_tpu_torch/csrc/quant_matmul_pipe.cu",
+            "amq_tpu/ops/quant_matmul.py:869"),
+        "quant_matmul_mlp_indexed": (
+            pick("quant_matmul_mlp_indexed", nbits=4, M=1),
+            "amq_tpu_torch/csrc/quant_matmul_mlp.cu",
+            "amq_tpu/ops/quant_matmul.py:1112"),
     }
     # launches on each kernel's main path: the decode generate for the
-    # serving kernels, the sensitivity CLI for flash attention
+    # serving kernels (under AMQ_PIPE for the pipelined GEMVs, under both
+    # switches for the MLP kernel), the sensitivity CLI for flash attention
+    pipe_counts = switch_recs["pipe"]["launches"]
     main_counts = {**counts,
-                   "flash_attention": sens["launches"]["flash_attention"]}
+                   "flash_attention": sens["launches"]["flash_attention"],
+                   "quant_matmul_indexed_pipe":
+                       pipe_counts["quant_matmul_indexed_pipe"],
+                   "quant_matmul_swiglu_indexed_pipe":
+                       pipe_counts["quant_matmul_swiglu_indexed_pipe"],
+                   "quant_matmul_mlp_indexed": switch_recs["pipe+mlp"][
+                       "launches"]["quant_matmul_mlp_indexed"]}
     kernels = []
     for name, (c, src, rep) in headline.items():
         kernels.append({
@@ -869,12 +1305,15 @@ def main():
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "cases": cases, "speed": speed,
                    "logits": logit_recs, "launches": counts, "profile": prof,
-                   "long_prompt": long_rec, "cli": cli, "build_s": build_s,
+                   "long_prompt": long_rec, "switches": switch_recs,
+                   "continuous": cont_recs, "slot_f32": slot_rec,
+                   "speculative": spec_recs, "cli": cli, "build_s": build_s,
                    "sensitivity": {k: v for k, v in sens.items()
                                    if k != "table"},
                    "eval_parity": eval_recs, "eval_profile": eval_prof,
                    "search": search_rec},
                   f, indent=1)
+    print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {smi_line()}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -43,6 +43,93 @@ def test_cuda_quant_matmul_matches_plain(nbits, M):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("swiglu", [False, True])
+@pytest.mark.parametrize("nbits", [1, 2, 3, 4])
+@pytest.mark.parametrize("M", [1, 4, 8])
+def test_cuda_pipelined_gemv_matches_plain_and_gemv(M, nbits, swiglu):
+    """The software-pipelined decode GEMV against the plain version and
+    against the non-pipelined GEMV (the same arithmetic) on bf16 inputs,
+    two layers of a stack, K over two superblocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    rng = np.random.default_rng(70 + nbits + M)
+    N, K, L = 320, 2048, 2
+    qts = [tq.quantize(torch.from_numpy(rng.normal(size=(N, K)).astype(
+        np.float32) * 0.02).cuda(), nbits=nbits, meta_dtype=torch.bfloat16)
+        for _ in range(L)]
+    stack = [torch.stack([getattr(q, f) for q in qts])
+             for f in ("packed", "scale", "zero")]
+    x, u = (torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)
+                             ).cuda().to(torch.bfloat16) for _ in range(2))
+    kw = dict(nbits=nbits, group_size=128, shape=(N, K),
+              superblock=qts[0].superblock, out_dtype=torch.float32)
+    before = (tqm.quant_matmul_indexed_pipe.launches,
+              tqm.quant_matmul_swiglu_indexed_pipe.launches)
+    for layer in range(L):
+        if swiglu:
+            got = tqm.quant_matmul_swiglu_indexed_pipe(x, u, *stack, layer, **kw)
+            ref = tqm.quant_matmul_swiglu_indexed(x, u, *stack, layer, **kw)
+        else:
+            got = tqm.quant_matmul_indexed_pipe(x, *stack, layer, **kw)
+            ref = tqm.quant_matmul_indexed(x, *stack, layer, **kw)
+        want = tqm.qmm_plain(x, *(s[layer] for s in stack),
+                             up=u if swiglu else None, **kw)
+        torch.cuda.synchronize()
+        _norm_close(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4)
+        _norm_close(got.cpu().numpy(), ref.cpu().numpy(), atol=1e-5)
+    after = (tqm.quant_matmul_indexed_pipe.launches,
+             tqm.quant_matmul_swiglu_indexed_pipe.launches)
+    assert after[int(swiglu)] - before[int(swiglu)] == L
+    assert after[1 - int(swiglu)] == before[1 - int(swiglu)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbits", [2, 3, 4])
+@pytest.mark.parametrize("M", [1, 4, 8])
+def test_cuda_mlp_kernel_matches_plain_and_chain(M, nbits):
+    """The one-launch decode MLP against its plain version and against the
+    separate gateup -> SwiGLU-down kernel chain; the intermediate width
+    (1920) pads to 2048, so the zeroing past it is exercised.  Two calls
+    give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    rng = np.random.default_rng(80 + nbits + M)
+    H, I, L = 1024, 1920, 2
+
+    def stack(n, k):
+        qts = [tq.quantize(torch.from_numpy(rng.normal(size=(n, k)).astype(
+            np.float32) * 0.03).cuda(), nbits=nbits,
+            meta_dtype=torch.bfloat16) for _ in range(L)]
+        return ([torch.stack([getattr(q, f) for q in qts])
+                 for f in ("packed", "scale", "zero")], qts[0].superblock)
+
+    gu, sb = stack(2 * I, H)
+    dn, sb_d = stack(H, I)
+    assert sb == sb_d == 1024
+    x = torch.from_numpy(rng.normal(size=(M, H)).astype(np.float32)
+                         ).cuda().to(torch.bfloat16)
+    kw = dict(nbits=nbits, group_size=128, gu_shape=(2 * I, H),
+              d_shape=(H, I), superblock=sb, out_dtype=torch.float32)
+    before = tqm.quant_matmul_mlp_indexed.launches
+    for layer in range(L):
+        got = tqm.quant_matmul_mlp_indexed(x, *gu, *dn, layer, **kw)
+        again = tqm.quant_matmul_mlp_indexed(x, *gu, *dn, layer, **kw)
+        want = tqm.qmm_mlp_plain(x, *(s[layer] for s in gu),
+                                 *(s[layer] for s in dn), **kw)
+        g = tqm.quant_matmul_indexed(x, *gu, layer, nbits=nbits,
+                                     group_size=128, shape=(2 * I, H),
+                                     superblock=sb)
+        chain = tqm.quant_matmul_swiglu_indexed(
+            g[:, :I], g[:, I:], *dn, layer, nbits=nbits, group_size=128,
+            shape=(H, I), superblock=sb, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        _norm_close(got.cpu().numpy(), want.cpu().numpy(), atol=2e-2)
+        _norm_close(got.cpu().numpy(), chain.cpu().numpy(), atol=2e-3)
+    assert tqm.quant_matmul_mlp_indexed.launches - before == 2 * L
+
+
+@pytest.mark.cuda
 def test_cuda_decode_attention_matches_plain():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")

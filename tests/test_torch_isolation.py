@@ -16,7 +16,9 @@ _MODULES = ("amq_tpu_torch.serving.engine", "amq_tpu_torch.serving.benchmark",
             "amq_tpu_torch.ops", "amq_tpu_torch.cli.sensitivity",
             "amq_tpu_torch.cli.search", "amq_tpu_torch.evaluation",
             "amq_tpu_torch.evaluation.sensitivity", "amq_tpu_torch.search",
-            "amq_tpu_torch.search.decision", "amq_tpu_torch.predictor")
+            "amq_tpu_torch.search.decision", "amq_tpu_torch.predictor",
+            "amq_tpu_torch.serving", "amq_tpu_torch.serving.batched",
+            "amq_tpu_torch.serving.speculative", "amq_tpu_torch.native")
 
 
 def test_import_pulls_in_no_jax():
@@ -37,7 +39,8 @@ def test_import_pulls_in_no_jax():
 def test_source_names_no_jax_module():
     jax_import = re.compile(r"^\s*(import|from)\s+(jax|jaxlib)\b", re.M)
     jax_pkg = re.compile(r"\bamq_tpu\b(?!_torch)")
-    files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu"))
+    files = [f for ext in ("py", "cu", "cuh", "cpp")
+             for f in sorted(PORT.rglob(f"*.{ext}"))]
     assert len(files) > 10
     for f in files:
         text = f.read_text()
@@ -62,7 +65,21 @@ def test_entry_points_refuse_hidden_cpu(tmp_path):
         common.load_model(args)
     with pytest.raises(RuntimeError, match="CUDA"):
         speed_benchmark.main(["--synthetic", "--modes", "TPS"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        speed_benchmark.main(["--synthetic", "--modes", "CONTINUOUS"])
     assert resolve_device("cpu").type == "cpu"
+
+    from amq_tpu_torch.serving.batched import SlotEngine
+    from amq_tpu_torch.serving.benchmark import benchmark_continuous
+    cfg = get_config("tiny-llama")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SlotEngine(model={}, cfg=cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        benchmark_continuous({}, cfg)
+    # SpeculativeEngine decodes on its target Engine's device: the card
+    from amq_tpu_torch.serving.speculative import SpeculativeEngine
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SpeculativeEngine(Engine(params={}, cfg=cfg), draft_params={})
 
     from amq_tpu_torch.cli import search, sensitivity
     from amq_tpu_torch.evaluation import Evaluator
@@ -81,9 +98,12 @@ def test_benchmark_refuses_cpu_engine():
     from amq_tpu_torch.serving.benchmark import benchmark_speed
     from amq_tpu_torch.serving.engine import Engine
 
+    from amq_tpu_torch.serving.benchmark import benchmark_continuous
     eng = Engine(params={}, cfg=get_config("tiny-llama"), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         benchmark_speed(eng, "TPS")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        benchmark_continuous({}, get_config("tiny-llama"), device="cpu")
 
 
 def test_cuda_tensor_never_takes_plain_version(monkeypatch):
@@ -116,6 +136,70 @@ def test_cuda_tensor_never_takes_plain_version(monkeypatch):
     qf = torch.empty((1, 2, 128, 64), device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         fa.flash_attention(qf, qf, qf, 0)
+
+
+def test_decode_switch_wrappers_never_take_plain_versions(monkeypatch):
+    """The pipelined GEMVs and the one-launch MLP, given a non-CPU tensor,
+    launch or raise: with their plain versions (and the separate kernels
+    the MLP could fall back to) replaced by tripwires, meta-device calls
+    raise in the wrappers and the tripwires stay untouched."""
+    from amq_tpu_torch.ops import quant_matmul as qm
+
+    def tripwire(*a, **k):
+        raise AssertionError("plain version or fallback reached")
+
+    for name in ("qmm_plain", "qmm_mlp_plain", "swiglu_plain",
+                 "quant_matmul_indexed", "quant_matmul_swiglu_indexed"):
+        monkeypatch.setattr(qm, name, tripwire)
+    x = torch.empty((1, 1024), dtype=torch.bfloat16, device="meta")
+    packed = torch.empty((1, 128, 256), dtype=torch.int32, device="meta")
+    meta = torch.empty((1, 8, 256), dtype=torch.bfloat16, device="meta")
+    kw = dict(nbits=4, group_size=128, shape=(256, 1024), superblock=1024)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        qm.quant_matmul_indexed_pipe(x, packed, meta, meta, 0, **kw)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        qm.quant_matmul_swiglu_indexed_pipe(x, x, packed, meta, meta, 0, **kw)
+    gu = torch.empty((1, 128, 2048), dtype=torch.int32, device="meta")
+    gu_meta = torch.empty((1, 8, 2048), dtype=torch.bfloat16, device="meta")
+    dn = torch.empty((1, 128, 1024), dtype=torch.int32, device="meta")
+    dn_meta = torch.empty((1, 8, 1024), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        qm.quant_matmul_mlp_indexed(x, gu, gu_meta, gu_meta, dn, dn_meta,
+                                    dn_meta, 0, nbits=4, group_size=128,
+                                    gu_shape=(2048, 1024),
+                                    d_shape=(1024, 1024), superblock=1024)
+
+
+def test_decode_switches_route_and_restore(monkeypatch):
+    """decode_switches sets the JAX package's two switches in-process and
+    restores them; under AMQ_PIPE a qualifying call goes to the pipelined
+    wrappers, and the MLP routing declines on the CPU."""
+    from amq_tpu_torch.models import stacked
+    from amq_tpu_torch.ops import quant_matmul as qm
+    monkeypatch.delenv("AMQ_MLP_KERNEL", raising=False)
+    monkeypatch.setattr(qm, "_PIPE_DEFAULT", 0)
+    routed = []
+    for name in ("quant_matmul_indexed_pipe",
+                 "quant_matmul_swiglu_indexed_pipe"):
+        monkeypatch.setattr(qm, name, lambda *a, _n=name, **k: routed.append(_n))
+    x = torch.empty((4, 1024), dtype=torch.bfloat16)
+    packed = torch.empty((1, 128, 256), dtype=torch.int32)
+    kw = dict(nbits=4, group_size=128, shape=(256, 1024), superblock=1024)
+    with stacked.decode_switches(pipe=True, mlp=True):
+        assert qm._PIPE_DEFAULT == 1
+        assert qm._pipe_applies(x, packed, 4, 128, 1024)
+        assert not qm._pipe_applies(x, packed, 4, 128, 128)      # T = 1
+        assert not qm._pipe_applies(x.float(), packed, 4, 128, 1024)
+        assert not qm._pipe_applies(torch.empty((9, 1024), dtype=torch.bfloat16),
+                                    packed, 4, 128, 1024)
+        qm.quant_matmul_indexed(x, packed, packed, packed, 0, **kw)
+        qm.quant_matmul_swiglu_indexed(x, x, packed, packed, packed, 0, **kw)
+        assert routed == ["quant_matmul_indexed_pipe",
+                          "quant_matmul_swiglu_indexed_pipe"]
+        assert stacked.os.environ["AMQ_MLP_KERNEL"] == "1"
+        assert stacked._apply_mlp_merged(None, 0, x, torch.bfloat16, 0) is None
+    assert qm._PIPE_DEFAULT == 0
+    assert "AMQ_MLP_KERNEL" not in stacked.os.environ
 
 
 def test_model_attention_never_reaches_plain_flash_off_cpu(monkeypatch):
