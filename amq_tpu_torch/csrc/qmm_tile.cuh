@@ -1,24 +1,25 @@
-// One decode-GEMV tile walked through a two-stage cp.async ring.
+// The decode-GEMV arithmetic over pair-planar packed weights, and one GEMV
+// tile walked through a two-stage cp.async ring.
 //
-// Shared by quant_matmul_pipe.cu (the pipelined decode GEMV and its SwiGLU
-// variant) and quant_matmul_mlp.cu (the one-launch decode MLP).  A block of
-// kBN columns x kKS row slices (512 threads) accumulates x[M, K] @
-// dequant(W)[K, col0:col0+kBN] over the superblocks [sb_lo, sb_hi) of its K
-// range.  The packed words and the scale/zero of superblock i+1 travel from
-// device memory into one stage of a shared-memory ring with 16-byte
-// cp.async.cg copies (one commit group per superblock) while the threads
-// extract and accumulate superblock i from the other stage: the Hopper
-// counterpart of the TPU kernel's two code slabs, where the extraction of
-// tile k overlaps the dot of tile k-1.
+// Shared by quant_matmul.cu (the decode GEMV, whose loads go straight from
+// device memory into registers), quant_matmul_pipe.cu (the pipelined decode
+// GEMV and its SwiGLU variant) and quant_matmul_mlp.cu (the one-launch
+// decode MLP).  All three take their extraction and fma order from
+// superblock_fma, their row-slice sum from sum_slices and their split-K sum
+// from reduce_splits_kernel, so they give the same bits.
+//
+// A block of kBN columns x kKS row slices (512 threads) accumulates x[M, K]
+// @ dequant(W)[K, col0:col0+kBN].  In gemv_tile the packed words and the
+// scale/zero of superblock i+1 travel from device memory into one stage of a
+// shared-memory ring with 16-byte cp.async.cg copies (one commit group per
+// superblock) while the threads extract and accumulate superblock i from
+// the other stage: the Hopper counterpart of the TPU kernel's two code
+// slabs, where the extraction of tile k overlaps the dot of tile k-1.
 //
 // Storage is the JAX package's (see quant_matmul.cu): per superblock of sb
 // K-rows, R = sb*b/32 rows of 32-bit words [R, Np]; the code at block row
 // k = p*2R + 2r + h sits in word row r at bit 16h + b*p; 3-bit is a 2-bit
 // plane followed by a 1-bit plane; w = (c - z) * s per group of gs rows.
-//
-// The arithmetic is the decode GEMV's of quant_matmul.cu, operation for
-// operation (same row slices, same fma order, f32 accumulation, the same
-// eight-slice sum), so a tile gives the same bits as that kernel.
 
 #pragma once
 
@@ -54,6 +55,17 @@ struct Weights {
   int Np, group_size, superblock;
 };
 
+// One dequant-matmul call: out [M, N], or f32 partials [splits, M, N] when
+// K is split over blocks (sb_per_split superblocks each).
+struct GemvArgs {
+  Operand op;
+  Weights w;
+  void* out;
+  int out_bf16;
+  float* partial;
+  int N, Kp, sb_per_split;
+};
+
 __device__ __forceinline__ float load_f(const void* p, size_t i, int bf16) {
   return bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i])
               : reinterpret_cast<const float*>(p)[i];
@@ -71,7 +83,8 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// x[m, k] (or silu(x) * u in f32, rounded to the input type).
+// x[m, k] (or silu(x) * u in f32, rounded to the input type, as the plain
+// version does); zero past M and past K (the K pad is never read).
 __device__ __forceinline__ float act_at(const Operand& a, int m, int k) {
   if (m >= a.M || k >= a.K) return 0.f;
   const size_t i = static_cast<size_t>(m) * a.ldx + k;
@@ -81,6 +94,63 @@ __device__ __forceinline__ float act_at(const Operand& a, int m, int k) {
     if (a.x_bf16) v = round_bf16(v);
   }
   return v;
+}
+
+// One pair-planar plane of BITS-wide fields for this thread's column:
+// `word(r)` is the plane's word row r, `meta(g)` the column's {scale,
+// -zero*scale} of group g.  Within a chunk of rc rows, round p reads only
+// group (p*2R + 2*r0) / gs, so its scale and zero sit in registers.
+template <int BITS, bool ZERO, int MT, class Word, class Meta>
+__device__ __forceinline__ void plane_fma(Word word, Meta meta, int R,
+                                          float cmul, const float* xs, int sb,
+                                          int gs, int ty, float (&acc)[MT]) {
+  constexpr int P = 16 / BITS;
+  constexpr uint32_t mask = (1u << BITS) - 1u;
+  const int rc = R < gs / 2 ? R : gs / 2;
+  for (int r0 = 0; r0 < R; r0 += rc) {
+    float s[P], b[P];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const float2 sz = meta((p * 2 * R + 2 * r0) / gs);
+      s[p] = sz.x * cmul;
+      b[p] = ZERO ? sz.y : 0.f;
+    }
+#pragma unroll 2
+    for (int r = r0 + ty; r < r0 + rc; r += kKS) {
+      const uint32_t wd = word(r);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const float w0 = fmaf(static_cast<float>((wd >> (BITS * p)) & mask),
+                              s[p], b[p]);
+        const float w1 = fmaf(
+            static_cast<float>((wd >> (16 + BITS * p)) & mask), s[p], b[p]);
+        const int k = p * 2 * R + 2 * r;
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const float2 xv = *reinterpret_cast<const float2*>(xs + m * sb + k);
+          acc[m] = fmaf(xv.x, w0, fmaf(xv.y, w1, acc[m]));
+        }
+      }
+    }
+  }
+}
+
+// acc[m] += this thread's row slice of one superblock: xs [MT][sb] (f32
+// activations) times the column whose word row r is `word(r)`.
+template <int NB, int MT, class Word, class Meta>
+__device__ __forceinline__ void superblock_fma(Word word, Meta meta,
+                                               const float* xs, int sb, int gs,
+                                               int ty, float (&acc)[MT]) {
+  if constexpr (NB == 3) {
+    // (2*hi + lo - z) * s: the hi plane carries 2*s, the lo plane the zero
+    const int R2 = sb / 16;
+    plane_fma<2, false, MT>(word, meta, R2, 2.f, xs, sb, gs, ty, acc);
+    plane_fma<1, true, MT>([&](int r) { return word(R2 + r); }, meta, sb / 32,
+                           1.f, xs, sb, gs, ty, acc);
+  } else {
+    plane_fma<NB, true, MT>(word, meta, sb * NB / 32, 1.f, xs, sb, gs, ty,
+                            acc);
+  }
 }
 
 // Bytes of shared memory: one ring stage (words, then scale rows, then
@@ -159,51 +229,10 @@ __device__ __forceinline__ float meta_at(const unsigned char* ms, int row,
               : reinterpret_cast<const float*>(ms)[row * kBN + tx];
 }
 
-// One pair-planar plane of BITS-wide fields for this thread's column, read
-// from the ring stage.  `ws` points at the plane's first word of the
-// column (row stride kBN); `ms` at the stage's meta rows.  Within a chunk of
-// rc rows, round p reads only group (p*2R + 2*r0) / gs.
-template <int BITS, bool ZERO, int MT>
-__device__ __forceinline__ void plane_smem(const uint32_t* ws, int R,
-                                           float cmul, const float* xs, int sb,
-                                           const unsigned char* ms,
-                                           int meta_bf16, int T, int gs,
-                                           int tx, int ty, float (&acc)[MT]) {
-  constexpr int P = 16 / BITS;
-  constexpr uint32_t mask = (1u << BITS) - 1u;
-  const int rc = R < gs / 2 ? R : gs / 2;
-  for (int r0 = 0; r0 < R; r0 += rc) {
-    float s[P], b[P];
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const int g = (p * 2 * R + 2 * r0) / gs;
-      const float sc = meta_at(ms, g, tx, meta_bf16);
-      s[p] = sc * cmul;
-      b[p] = ZERO ? -meta_at(ms, T + g, tx, meta_bf16) * sc : 0.f;
-    }
-#pragma unroll 2
-    for (int r = r0 + ty; r < r0 + rc; r += kKS) {
-      const uint32_t word = ws[r * kBN];
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        const float w0 = fmaf(static_cast<float>((word >> (BITS * p)) & mask),
-                              s[p], b[p]);
-        const float w1 = fmaf(
-            static_cast<float>((word >> (16 + BITS * p)) & mask), s[p], b[p]);
-        const int k = p * 2 * R + 2 * r;
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const float2 xv = *reinterpret_cast<const float2*>(xs + m * sb + k);
-          acc[m] = fmaf(xv.x, w0, fmaf(xv.y, w1, acc[m]));
-        }
-      }
-    }
-  }
-}
-
 // acc[m] (per thread: its column, its row slice) over superblocks
-// [sb_lo, sb_hi) of the operand times the weight.  Every thread of the
-// block calls it; it ends with the block synchronised and the ring free.
+// [sb_lo, sb_hi) of the operand times the weight, through the ring.  Every
+// thread of the block calls it; it ends with the block synchronised and the
+// ring free.
 template <int NB, int MT>
 __device__ void gemv_tile(const Operand& op, const Weights& w, int col0,
                           int sb_lo, int sb_hi, unsigned char* smem,
@@ -212,6 +241,7 @@ __device__ void gemv_tile(const Operand& op, const Weights& w, int col0,
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * kBN + tx;
   const int R = sb * NB / 32;
   const int sbytes = stage_bytes(NB, sb, gs, w.meta_bf16);
+  const int meta_bf16 = w.meta_bf16;
   float* xs = reinterpret_cast<float*>(smem);
   unsigned char* ring = smem + MT * sb * 4;
 #pragma unroll
@@ -238,23 +268,20 @@ __device__ void gemv_tile(const Operand& op, const Weights& w, int col0,
     const unsigned char* st = ring + (i % kStages) * sbytes;
     const uint32_t* wcol = reinterpret_cast<const uint32_t*>(st) + tx;
     const unsigned char* ms = st + R * kBN * 4;
-    if constexpr (NB == 3) {
-      // (2*hi + lo - z) * s: the hi plane carries 2*s, the lo plane the zero
-      plane_smem<2, false, MT>(wcol, sb / 16, 2.f, xs, sb, ms, w.meta_bf16, T,
-                               gs, tx, ty, acc);
-      plane_smem<1, true, MT>(wcol + (sb / 16) * kBN, sb / 32, 1.f, xs, sb, ms,
-                              w.meta_bf16, T, gs, tx, ty, acc);
-    } else {
-      plane_smem<NB, true, MT>(wcol, R, 1.f, xs, sb, ms, w.meta_bf16, T, gs,
-                               tx, ty, acc);
-    }
+    superblock_fma<NB, MT>(
+        [=](int r) { return wcol[r * kBN]; },
+        [=](int g) {
+          const float sc = meta_at(ms, g, tx, meta_bf16);
+          return make_float2(sc, -meta_at(ms, T + g, tx, meta_bf16) * sc);
+        },
+        xs, sb, gs, ty, acc);
     __syncthreads();             // stage i and the activation are free
   }
 }
 
 // Sum the kKS row slices: afterwards the threads of slice 0 hold their
-// column's totals in acc (the same order as quant_matmul.cu's GEMV).
-// `red` may alias the ring (gemv_tile has released it).
+// column's totals in acc.  `red` [kKS][MT][kBN] may alias the ring
+// (gemv_tile has released it).
 template <int MT>
 __device__ __forceinline__ void sum_slices(float (&acc)[MT], float* red) {
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -271,6 +298,24 @@ __device__ __forceinline__ void sum_slices(float (&acc)[MT], float* red) {
     }
   }
   __syncthreads();
+}
+
+// After sum_slices: slice 0 writes its column n of the output (rounded
+// once), or of split blockIdx.y's partials when K is split.
+template <int MT>
+__device__ __forceinline__ void write_cols(const GemvArgs& a,
+                                           const float (&acc)[MT], int n) {
+  if (threadIdx.y != 0 || n >= a.N) return;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    if (m >= a.op.M) break;
+    if (gridDim.y == 1) {
+      store_f(a.out, static_cast<size_t>(m) * a.N + n, acc[m], a.out_bf16);
+    } else {
+      a.partial[(static_cast<size_t>(blockIdx.y) * a.op.M + m) * a.N + n] =
+          acc[m];
+    }
+  }
 }
 
 // out[i] = sum over splits of partial[s, i], rounded once.

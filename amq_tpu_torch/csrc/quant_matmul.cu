@@ -27,105 +27,24 @@
 // register-tiled f32 product over it, with K split across blocks when the
 // site has few column tiles.  Accumulation is f32 throughout.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "qmm_tile.cuh"
+
+using namespace amq;
 
 namespace {
 
-constexpr int kBN = 64;        // GEMV: columns per block
-constexpr int kKS = 8;         // GEMV: row slices per block
 constexpr int kGemmBN = 64;    // GEMM: columns per block
 constexpr int kGemmBM = 64;    // GEMM: rows per block
 constexpr int kGemmKC = 64;    // GEMM: K step
 
-struct QmmArgs {
-  const void* x;               // [M, K] f32 or bf16, row stride ldx
-  const void* u;               // like x, or null (SwiGLU prologue when set)
-  int x_bf16;
-  const uint32_t* packed;      // [Kp*nbits/32, Np] of one layer
-  const void* scale;           // [Kp/g, Np]
-  const void* zero;
-  int meta_bf16;
-  void* out;                   // [M, N]
-  int out_bf16;
-  float* partial;              // [splits, M, N] when K is split
-  int M, K, ldx, Kp, N, Np, group_size, superblock, sb_per_split;
-};
-
-__device__ __forceinline__ float load_f(const void* p, size_t i, int bf16) {
-  return bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i])
-              : reinterpret_cast<const float*>(p)[i];
-}
-
-__device__ __forceinline__ void store_f(void* p, size_t i, float v, int bf16) {
-  if (bf16) {
-    reinterpret_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
-  } else {
-    reinterpret_cast<float*>(p)[i] = v;
-  }
-}
-
-// Activation x[m, k]; zero past M and past K (the K pad is never read).
-// With the SwiGLU prologue, silu(g) * u in f32, rounded to the input type
-// as the plain version does.
-__device__ __forceinline__ float act_at(const QmmArgs& a, int m, int k) {
-  if (m >= a.M || k >= a.K) return 0.f;
-  const size_t i = static_cast<size_t>(m) * a.ldx + k;
-  float v = load_f(a.x, i, a.x_bf16);
-  if (a.u != nullptr) {
-    v = v / (1.f + expf(-v)) * load_f(a.u, i, a.x_bf16);
-    if (a.x_bf16) v = __bfloat162float(__float2bfloat16(v));
-  }
-  return v;
-}
-
-// One pair-planar plane of BITS-wide fields for one column.  `w` points at
-// the plane's first word of this column; `ss`/`bs` at this column's scale
-// and -zero*scale of the superblock's groups (stride kBN).  Within a chunk
-// of rc rows, round p reads only group (p*2R + 2*r0) / gs.
-template <int BITS, bool ZERO, int MT>
-__device__ __forceinline__ void gemv_plane(const uint32_t* __restrict__ w,
-                                           int Np, int R, float cmul,
-                                           const float* xs, int sb,
-                                           const float* ss, const float* bs,
-                                           int gs, int ty, float (&acc)[MT]) {
-  constexpr int P = 16 / BITS;
-  constexpr uint32_t mask = (1u << BITS) - 1u;
-  const int rc = R < gs / 2 ? R : gs / 2;
-  for (int r0 = 0; r0 < R; r0 += rc) {
-    float s[P], b[P];
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const int g = (p * 2 * R + 2 * r0) / gs;
-      s[p] = ss[g * kBN] * cmul;
-      b[p] = ZERO ? bs[g * kBN] : 0.f;
-    }
-#pragma unroll 2
-    for (int r = r0 + ty; r < r0 + rc; r += kKS) {
-      const uint32_t word = __ldg(w + static_cast<size_t>(r) * Np);
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        const float w0 = fmaf(static_cast<float>((word >> (BITS * p)) & mask),
-                              s[p], b[p]);
-        const float w1 = fmaf(
-            static_cast<float>((word >> (16 + BITS * p)) & mask), s[p], b[p]);
-        const int k = p * 2 * R + 2 * r;
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          const float2 xv = *reinterpret_cast<const float2*>(xs + m * sb + k);
-          acc[m] = fmaf(xv.x, w0, fmaf(xv.y, w1, acc[m]));
-        }
-      }
-    }
-  }
-}
-
 // Decode GEMV, M <= MT <= 8.  Block (kBN, kKS); grid (ceil(N/kBN), splits).
+// Each thread reads its column's words straight into registers; the
+// arithmetic is qmm_tile.cuh's superblock_fma, the pipelined GEMV's.
 template <int NB, int MT>
-__global__ void __launch_bounds__(kBN * kKS) qmm_gemv_kernel(QmmArgs a) {
+__global__ void __launch_bounds__(kThreads) qmm_gemv_kernel(GemvArgs a) {
   extern __shared__ __align__(16) float smem[];
-  const int sb = a.superblock, gs = a.group_size, T = sb / gs;
+  const int sb = a.w.superblock, gs = a.w.group_size, T = sb / gs;
+  const int Np = a.w.Np;
   float* xs = smem;                  // [MT][sb]
   float* ss = xs + MT * sb;          // [T][kBN] scale
   float* bs = ss + T * kBN;          // [T][kBN] -zero*scale
@@ -144,63 +63,34 @@ __global__ void __launch_bounds__(kBN * kKS) qmm_gemv_kernel(QmmArgs a) {
 
   for (int sbi = sb_lo; sbi < sb_hi; ++sbi) {
     __syncthreads();
-    for (int i = tid; i < MT * sb; i += kBN * kKS) {
+    for (int i = tid; i < MT * sb; i += kThreads) {
       const int m = i / sb;
-      xs[i] = act_at(a, m, sbi * sb + (i - m * sb));
+      xs[i] = act_at(a.op, m, sbi * sb + (i - m * sb));
     }
-    for (int i = tid; i < T * kBN; i += kBN * kKS) {
+    for (int i = tid; i < T * kBN; i += kThreads) {
       const int t = i / kBN;
       const int c = blockIdx.x * kBN + (i - t * kBN);
       float s = 0.f, z = 0.f;
-      if (c < a.Np) {
-        const size_t j = static_cast<size_t>(sbi * T + t) * a.Np + c;
-        s = load_f(a.scale, j, a.meta_bf16);
-        z = load_f(a.zero, j, a.meta_bf16);
+      if (c < Np) {
+        const size_t j = static_cast<size_t>(sbi * T + t) * Np + c;
+        s = load_f(a.w.scale, j, a.w.meta_bf16);
+        z = load_f(a.w.zero, j, a.w.meta_bf16);
       }
       ss[i] = s;
       bs[i] = -z * s;
     }
     __syncthreads();
     if (n < a.N) {
-      const uint32_t* w = a.packed + static_cast<size_t>(sbi) * rows_sb * a.Np + n;
-      if constexpr (NB == 3) {
-        // (2*hi + lo - z) * s: the hi plane carries 2*s, the lo plane the zero
-        gemv_plane<2, false, MT>(w, a.Np, sb / 16, 2.f, xs, sb, ss + tx,
-                                 bs + tx, gs, ty, acc);
-        gemv_plane<1, true, MT>(w + static_cast<size_t>(sb / 16) * a.Np, a.Np,
-                                sb / 32, 1.f, xs, sb, ss + tx, bs + tx, gs, ty,
-                                acc);
-      } else {
-        gemv_plane<NB, true, MT>(w, a.Np, rows_sb, 1.f, xs, sb, ss + tx,
-                                 bs + tx, gs, ty, acc);
-      }
+      const uint32_t* w =
+          a.w.packed + static_cast<size_t>(sbi) * rows_sb * Np + n;
+      superblock_fma<NB, MT>(
+          [=](int r) { return __ldg(w + static_cast<size_t>(r) * Np); },
+          [=](int g) { return make_float2(ss[g * kBN + tx], bs[g * kBN + tx]); },
+          xs, sb, gs, ty, acc);
     }
   }
-
-#pragma unroll
-  for (int m = 0; m < MT; ++m) red[(ty * MT + m) * kBN + tx] = acc[m];
-  __syncthreads();
-  if (ty == 0 && n < a.N) {
-    for (int m = 0; m < MT && m < a.M; ++m) {
-      float v = 0.f;
-#pragma unroll
-      for (int s = 0; s < kKS; ++s) v += red[(s * MT + m) * kBN + tx];
-      if (gridDim.y == 1) {
-        store_f(a.out, static_cast<size_t>(m) * a.N + n, v, a.out_bf16);
-      } else {
-        a.partial[(static_cast<size_t>(blockIdx.y) * a.M + m) * a.N + n] = v;
-      }
-    }
-  }
-}
-
-__global__ void qmm_reduce_kernel(const float* partial, void* out, int MN,
-                                  int splits, int out_bf16) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= MN) return;
-  float v = 0.f;
-  for (int s = 0; s < splits; ++s) v += partial[static_cast<size_t>(s) * MN + i];
-  store_f(out, i, v, out_bf16);
+  sum_slices<MT>(acc, red);
+  write_cols<MT>(a, acc, n);
 }
 
 template <int BITS>
@@ -226,12 +116,13 @@ __device__ __forceinline__ uint32_t code_at(const uint32_t* w, int Np, int sb,
 
 // Prefill GEMM, 8 < M.  256 threads; grid (ceil(N/64), ceil(M/64), splits).
 template <int NB>
-__global__ void __launch_bounds__(256) qmm_gemm_kernel(QmmArgs a) {
+__global__ void __launch_bounds__(256) qmm_gemm_kernel(GemvArgs a) {
   __shared__ float ws[kGemmKC][kGemmBN];
   __shared__ float xs[kGemmBM][kGemmKC + 1];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int n0 = blockIdx.x * kGemmBN, m0 = blockIdx.y * kGemmBM;
-  const int sb = a.superblock, gs = a.group_size, T = sb / gs;
+  const int sb = a.w.superblock, gs = a.w.group_size, T = sb / gs;
+  const int Np = a.w.Np;
   const int rows_sb = sb * NB / 32;
   const int k_lo = blockIdx.z * a.sb_per_split * sb;
   const int k_hi = min(a.Kp, k_lo + a.sb_per_split * sb);
@@ -239,23 +130,23 @@ __global__ void __launch_bounds__(256) qmm_gemm_kernel(QmmArgs a) {
 
   for (int k0 = k_lo; k0 < k_hi; k0 += kGemmKC) {
     const int sbi = k0 / sb, kin = k0 - sbi * sb;
-    const uint32_t* w = a.packed + static_cast<size_t>(sbi) * rows_sb * a.Np;
+    const uint32_t* w = a.w.packed + static_cast<size_t>(sbi) * rows_sb * Np;
     __syncthreads();
     for (int i = tid; i < kGemmKC * kGemmBN; i += 256) {
       const int kk = i / kGemmBN, nn = i - kk * kGemmBN, n = n0 + nn;
       const int k = kin + kk;
       float v = 0.f;
       if (n < a.N) {
-        const size_t j = static_cast<size_t>(sbi * T + k / gs) * a.Np + n;
-        const float s = load_f(a.scale, j, a.meta_bf16);
-        const float z = load_f(a.zero, j, a.meta_bf16);
-        v = (static_cast<float>(code_at<NB>(w + n, a.Np, sb, k)) - z) * s;
+        const size_t j = static_cast<size_t>(sbi * T + k / gs) * Np + n;
+        const float s = load_f(a.w.scale, j, a.w.meta_bf16);
+        const float z = load_f(a.w.zero, j, a.w.meta_bf16);
+        v = (static_cast<float>(code_at<NB>(w + n, Np, sb, k)) - z) * s;
       }
       ws[kk][nn] = v;
     }
     for (int i = tid; i < kGemmBM * kGemmKC; i += 256) {
       const int mm = i / kGemmKC, kk = i - mm * kGemmKC;
-      xs[mm][kk] = act_at(a, m0 + mm, k0 + kk);
+      xs[mm][kk] = act_at(a.op, m0 + mm, k0 + kk);
     }
     __syncthreads();
 #pragma unroll 8
@@ -277,11 +168,11 @@ __global__ void __launch_bounds__(256) qmm_gemm_kernel(QmmArgs a) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx + 16 * j;
-      if (m >= a.M || n >= a.N) continue;
+      if (m >= a.op.M || n >= a.N) continue;
       if (gridDim.z == 1) {
         store_f(a.out, static_cast<size_t>(m) * a.N + n, acc[i][j], a.out_bf16);
       } else {
-        a.partial[(static_cast<size_t>(blockIdx.z) * a.M + m) * a.N + n] =
+        a.partial[(static_cast<size_t>(blockIdx.z) * a.op.M + m) * a.N + n] =
             acc[i][j];
       }
     }
@@ -289,10 +180,10 @@ __global__ void __launch_bounds__(256) qmm_gemm_kernel(QmmArgs a) {
 }
 
 template <int NB, int MT>
-cudaError_t launch_gemv(const QmmArgs& a, int splits, cudaStream_t stream) {
-  const int T = a.superblock / a.group_size;
+cudaError_t launch_gemv(const GemvArgs& a, int splits, cudaStream_t stream) {
+  const int T = a.w.superblock / a.w.group_size;
   const size_t smem =
-      sizeof(float) * (MT * a.superblock + 2 * T * kBN + kKS * MT * kBN);
+      sizeof(float) * (MT * a.w.superblock + 2 * T * kBN + kKS * MT * kBN);
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -307,16 +198,16 @@ cudaError_t launch_gemv(const QmmArgs& a, int splits, cudaStream_t stream) {
 }
 
 template <int NB>
-cudaError_t dispatch_gemv(const QmmArgs& a, int splits, cudaStream_t stream) {
-  if (a.M <= 1) return launch_gemv<NB, 1>(a, splits, stream);
-  if (a.M <= 2) return launch_gemv<NB, 2>(a, splits, stream);
-  if (a.M <= 4) return launch_gemv<NB, 4>(a, splits, stream);
+cudaError_t dispatch_gemv(const GemvArgs& a, int splits, cudaStream_t stream) {
+  if (a.op.M <= 1) return launch_gemv<NB, 1>(a, splits, stream);
+  if (a.op.M <= 2) return launch_gemv<NB, 2>(a, splits, stream);
+  if (a.op.M <= 4) return launch_gemv<NB, 4>(a, splits, stream);
   return launch_gemv<NB, 8>(a, splits, stream);
 }
 
 template <int NB>
-cudaError_t launch_gemm(const QmmArgs& a, int splits, cudaStream_t stream) {
-  dim3 grid((a.N + kGemmBN - 1) / kGemmBN, (a.M + kGemmBM - 1) / kGemmBM,
+cudaError_t launch_gemm(const GemvArgs& a, int splits, cudaStream_t stream) {
+  dim3 grid((a.N + kGemmBN - 1) / kGemmBN, (a.op.M + kGemmBM - 1) / kGemmBM,
             splits);
   qmm_gemm_kernel<NB><<<grid, 256, 0, stream>>>(a);
   return cudaGetLastError();
@@ -336,9 +227,10 @@ extern "C" int amq_qmm(const void* x, const void* u, int x_bf16,
   if (M < 1 || superblock % 64 || superblock % group_size || Kp % superblock ||
       superblock > 1024 || splits < 1)
     return -1;
-  QmmArgs a{x, u, x_bf16, reinterpret_cast<const uint32_t*>(packed), scale,
-            zero, meta_bf16, out, out_bf16, partial, M, K, ldx, Kp, N, Np,
-            group_size, superblock, sb_per_split};
+  GemvArgs a{Operand{x, u, x_bf16, M, K, ldx},
+             Weights{reinterpret_cast<const uint32_t*>(packed), scale, zero,
+                     meta_bf16, Np, group_size, superblock},
+             out, out_bf16, partial, N, Kp, sb_per_split};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (M <= 8) {
@@ -362,7 +254,7 @@ extern "C" int amq_qmm(const void* x, const void* u, int x_bf16,
   }
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
   const int MN = M * N;
-  qmm_reduce_kernel<<<(MN + 255) / 256, 256, 0, s>>>(partial, out, MN, splits,
-                                                     out_bf16);
+  reduce_splits_kernel<<<(MN + 255) / 256, 256, 0, s>>>(partial, out, MN,
+                                                        splits, out_bf16);
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,8 +16,8 @@
 // while the threads extract and accumulate superblock k.  Columns per block,
 // the coalescing (a warp reads 128 contiguous bytes of a word row), the
 // split-K partials of small-N sites and f32 accumulation with one rounding
-// are those of the non-pipelined GEMV in quant_matmul.cu, and so are the
-// results, bit for bit.
+// are those of the non-pipelined GEMV in quant_matmul.cu, and the two share
+// their arithmetic (qmm_tile.cuh), so their results agree bit for bit.
 
 #include "qmm_tile.cuh"
 
@@ -25,18 +25,9 @@ using namespace amq;
 
 namespace {
 
-struct PipeArgs {
-  Operand op;
-  Weights w;
-  void* out;                   // [M, N]
-  int out_bf16;
-  float* partial;              // [splits, M, N] when K is split
-  int N, Kp, sb_per_split;
-};
-
 // Grid (ceil(N/kBN), splits); block (kBN, kKS).
 template <int NB, int MT>
-__global__ void __launch_bounds__(kThreads) qmm_pipe_kernel(PipeArgs a) {
+__global__ void __launch_bounds__(kThreads) qmm_pipe_kernel(GemvArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int sb = a.w.superblock;
   const int col0 = blockIdx.x * kBN;
@@ -45,22 +36,11 @@ __global__ void __launch_bounds__(kThreads) qmm_pipe_kernel(PipeArgs a) {
   float acc[MT];
   gemv_tile<NB, MT>(a.op, a.w, col0, sb_lo, sb_hi, smem, acc);
   sum_slices<MT>(acc, reinterpret_cast<float*>(smem + MT * sb * 4));
-  const int n = col0 + threadIdx.x;
-  if (threadIdx.y != 0 || n >= a.N) return;
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    if (m >= a.op.M) break;
-    if (gridDim.y == 1) {
-      store_f(a.out, static_cast<size_t>(m) * a.N + n, acc[m], a.out_bf16);
-    } else {
-      a.partial[(static_cast<size_t>(blockIdx.y) * a.op.M + m) * a.N + n] =
-          acc[m];
-    }
-  }
+  write_cols<MT>(a, acc, col0 + threadIdx.x);
 }
 
 template <int NB, int MT>
-cudaError_t launch(const PipeArgs& a, int splits, cudaStream_t stream) {
+cudaError_t launch(const GemvArgs& a, int splits, cudaStream_t stream) {
   const int smem = tile_smem_bytes(NB, MT, a.w.superblock, a.w.group_size,
                                    a.w.meta_bf16);
   static int smem_set = 0;
@@ -77,7 +57,7 @@ cudaError_t launch(const PipeArgs& a, int splits, cudaStream_t stream) {
 }
 
 template <int NB>
-cudaError_t dispatch(const PipeArgs& a, int splits, cudaStream_t stream) {
+cudaError_t dispatch(const GemvArgs& a, int splits, cudaStream_t stream) {
   if (a.op.M <= 1) return launch<NB, 1>(a, splits, stream);
   if (a.op.M <= 2) return launch<NB, 2>(a, splits, stream);
   if (a.op.M <= 4) return launch<NB, 4>(a, splits, stream);
@@ -100,7 +80,7 @@ extern "C" int amq_qmm_pipe(const void* x, const void* u, int x_bf16,
       Kp % superblock || superblock > 1024 || splits < 1 || Np % 8 ||
       !aligned16(packed) || !aligned16(scale) || !aligned16(zero))
     return -1;
-  PipeArgs a{Operand{x, u, x_bf16, M, K, ldx},
+  GemvArgs a{Operand{x, u, x_bf16, M, K, ldx},
              Weights{reinterpret_cast<const uint32_t*>(packed), scale, zero,
                      meta_bf16, Np, group_size, superblock},
              out, out_bf16, partial, N, Kp, sb_per_split};

@@ -38,7 +38,10 @@ Phases (any failed check exits non-zero before the last line):
    requests; default kernels, then both switches; exact launch counts);
    a float32 SlotEngine run token-exact against each request's generate;
    speculative decoding with the target as its own draft (bf16 rate and
-   acceptance; float32 tokens equal to generate's).
+   acceptance, with two witnesses of what that acceptance measures: the
+   M = 1 vs M = 5 top-1 agreement and logit gap on the kernel and the
+   plain path, and the acceptance on the plain path; float32 tokens equal
+   to generate's).
 5. the speed CLI (HQQ proxies -> stack_proxies -> Engine) at full width:
    TPS and CONTINUOUS (4 slots, 16 requests).
 6. the sensitivity CLI at full Llama-2-7B width and depth (2 samples of
@@ -87,6 +90,15 @@ def bound(nbytes, flops, peak=BF16_FLOPS):
     operations over the peak for the inputs' type (bf16 by default)."""
     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def weight_bytes(packed, scale, N):
+    """Bytes of one layer's packed words and scale/zero over the N columns
+    the kernels read: K padded to whole superblocks, while the lane pad
+    past N is never fetched (every kernel launches ceil(N/64) column tiles,
+    and N is a multiple of 64 at every site here)."""
+    return (packed.shape[-2] * N * packed.element_size()
+            + 2 * scale.shape[-2] * N * scale.element_size())
 
 
 def time_ms(calls, iters=20):
@@ -213,7 +225,7 @@ def check_matmul(site, nbits, M, meta_dtype, gen):
     xa = (qm.swiglu_plain(x, u) if "swiglu" in kernel else x)
     library_ms = time_ms([lambda: torch.matmul(xa, wt)])
     del wt
-    nbytes = (packed[0].numel() * 4 + 2 * scale[0].numel() * scale.element_size()
+    nbytes = (weight_bytes(packed, scale, N)
               + (2 if "swiglu" in kernel else 1) * x.numel() * 2
               + M * N * (4 if out_dtype == torch.float32 else 2))
     b_ms, b_by = bound(nbytes, 2 * M * N * K)
@@ -290,7 +302,7 @@ def check_pipe(site, nbits, Ms, gen):
                                                  **kw))
         xa = qm.swiglu_plain(x, u) if swiglu else x
         library_ms = time_ms([lambda: torch.matmul(xa, wt)])
-        nbytes = (packed[0].numel() * 4 + 2 * scale[0].numel() * 2
+        nbytes = (weight_bytes(packed, scale, N)
                   + len(act) * x.numel() * 2 + M * N * 2)
         b_ms, b_by = bound(nbytes, 2 * M * N * K)
         rec = dict(kernel=kernel, site=site, nbits=nbits, M=M, meta="bfloat16",
@@ -367,8 +379,8 @@ def check_mlp(nbits, Ms, gen):
                 out_dtype=torch.bfloat16, **kw)], iters=2)
             wrapper_us = host_us(lambda: mlp(1))
         library_ms = time_ms([library])
-        nbytes = sum(t[0].numel() * t.element_size() for t in (*gu, *dn)) \
-            + M * (H + Nd) * 2
+        nbytes = (weight_bytes(gu[0], gu[1], Ngu)
+                  + weight_bytes(dn[0], dn[1], Nd) + M * (H + Nd) * 2)
         b_ms, b_by = bound(nbytes, 2 * M * (Ngu * H + Nd * I))
         rec = dict(kernel="quant_matmul_mlp_indexed", site="mlp", nbits=nbits,
                    M=M, meta="bfloat16", max_abs_err=err, rel_err=rel,
@@ -577,10 +589,9 @@ def weight_bytes_per_token(model):
     for name, stacks in model.sites.items():
         for i in range(model.num_layers):
             s = stacks[model.select[name][i]]
-            total += (s.packed[0].numel() * 4
-                      + 2 * s.scale[0].numel() * s.scale.element_size())
+            total += weight_bytes(s.packed, s.scale, s.shape[0])
     qt = model.lm_head_qt
-    total += qt.packed.numel() * 4 + 2 * qt.scale.numel() * qt.scale.element_size()
+    total += weight_bytes(qt.packed, qt.scale, qt.shape[0])
     return total + model.embed.shape[1] * 2
 
 
@@ -870,29 +881,81 @@ def slot_f32_check(model, cfg):
     return rec
 
 
-SPEC_GAMMA, SPEC_NEW = 4, 64
+SPEC_GAMMA, SPEC_NEW, SPEC_PLAIN_NEW = 4, 64, 16
+VERIFY_WINDOWS = 6
+
+
+def verify_gap(model, cfg, prompt, use_kernels):
+    """A witness for the bf16 speculative acceptance, from one bf16
+    engine: along the target's greedy chain, each window of gamma + 1
+    tokens is fed one at a time (M = 1, the draft's pass), then the cache
+    is rewound and the same tokens go through one M = 5 forward (the
+    verify pass).  Returns the top-1 agreement of the two passes' logits
+    and the largest logit gap.  With ``use_kernels`` the M = 1 pass takes
+    the decode-attention kernel and the M = 5 pass the split attention;
+    without, both take the split attention and the plain linears."""
+    from amq_tpu_torch.models import llama
+    from amq_tpu_torch.serving.engine import Engine
+    W = SPEC_GAMMA + 1
+    eng = Engine(model, cfg, batch_size=1,
+                 max_len=PROMPT + VERIFY_WINDOWS * W + 8,
+                 use_kernels=use_kernels)
+    cache = eng.new_cache()
+    tok, cache = eng._prefill_token(model, eng.tokens_to_device(prompt),
+                                    cache)
+    agree, gap, scale = 0, 0.0, 0.0
+    with torch.inference_mode():
+        for _ in range(VERIFY_WINDOWS):
+            start, fed, seq = cache.length, [], []
+            for _ in range(W):
+                fed.append(tok)
+                logits, cache = eng._forward(model, tok[:, None], cache)
+                seq.append(logits[0, -1])
+                tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            seq = torch.stack(seq)
+            ver, cache = eng._forward(
+                model, torch.stack(fed, dim=1),
+                llama.KVCache(k=cache.k, v=cache.v, length=start))
+            ver = ver[0]
+            agree += int((ver.argmax(-1) == seq.argmax(-1)).sum())
+            gap = max(gap, (ver - seq).abs().max().item())
+            scale = max(scale, seq.abs().max().item())
+    rec = dict(use_kernels=use_kernels, positions=VERIFY_WINDOWS * W,
+               top1_agreement=agree / (VERIFY_WINDOWS * W),
+               max_logit_gap=gap, logit_scale=scale)
+    print("SPEC_VERIFY_GAP " + json.dumps(rec), flush=True)
+    del eng, cache
+    return rec
 
 
 def speculative_phase(model, cfg, prompt):
-    """(f): the target as its own draft (gamma 4, 64 tokens): in bf16 the
-    rate and the acceptance; in float32 the tokens equal to generate's."""
+    """(f): the target as its own draft (gamma 4): in bf16 the rate and
+    the acceptance over 64 tokens, then, as witnesses of what that
+    acceptance measures, the M = 1 vs M = 5 logit agreement on the kernel
+    path and on the plain path and the acceptance of 16 tokens on the
+    plain path (both passes through the split attention); in float32 the
+    tokens equal to generate's."""
     from amq_tpu_torch.serving.engine import Engine
     from amq_tpu_torch.serving.speculative import SpeculativeEngine
-    recs = {}
-    for dt in (torch.bfloat16, torch.float32):
-        eng = Engine(model, cfg, batch_size=1, max_len=PROMPT + SPEC_NEW + 8,
-                     compute_dtype=dt, cache_dtype=dt)
+    recs = {"verify_gap": [verify_gap(model, cfg, prompt, k)
+                           for k in (True, False)]}
+    runs = (("bfloat16", torch.bfloat16, True, SPEC_NEW),
+            ("bfloat16-plain", torch.bfloat16, False, SPEC_PLAIN_NEW),
+            ("float32", torch.float32, True, SPEC_NEW))
+    for label, dt, use_kernels, n_new in runs:
+        eng = Engine(model, cfg, batch_size=1, max_len=PROMPT + n_new + 8,
+                     compute_dtype=dt, cache_dtype=dt, use_kernels=use_kernels)
         spec = SpeculativeEngine(eng, draft_params=model, gamma=SPEC_GAMMA)
-        spec.generate(prompt, max_new_tokens=8)                 # warm-up
+        if use_kernels:
+            spec.generate(prompt, max_new_tokens=8)             # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        toks, stats = spec.generate(prompt, max_new_tokens=SPEC_NEW)
+        toks, stats = spec.generate(prompt, max_new_tokens=n_new)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        want = eng.generate(prompt, max_new_tokens=SPEC_NEW)
-        label = str(dt).split(".")[-1]
-        rec = dict(compute=label, gamma=SPEC_GAMMA, tokens=SPEC_NEW,
-                   wall_s=wall, tokens_per_s=SPEC_NEW / wall,
+        want = eng.generate(prompt, max_new_tokens=n_new)
+        rec = dict(compute=label, use_kernels=use_kernels, gamma=SPEC_GAMMA,
+                   tokens=n_new, wall_s=wall, tokens_per_s=n_new / wall,
                    rounds=stats.rounds, accepted=stats.accepted,
                    acceptance_rate=stats.acceptance_rate,
                    token_agreement=float((toks == want).mean()))
