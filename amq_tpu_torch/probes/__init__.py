@@ -1,0 +1,8 @@
+"""Decode-GEMV probes on the card: the port's counterparts of the JAX
+package's ``scripts/kernel_attrib.py`` (an attribution of the GEMV body,
+``kernel_attrib``), ``scripts/pipelined_gemv.py`` (an extract-ahead
+tensor-core GEMV, ``pipelined_gemv``) and ``scripts/kernel_roofline.py``
+(the dequant matmul per width and container, ``kernel_roofline``), with
+the chain timer they share (``chain``).  Each is a module with a CLI:
+``python -m amq_tpu_torch.probes.<name> ...``.
+"""

@@ -24,6 +24,18 @@ Phases (any failed check exits non-zero before the last line):
    and the non-pipelined GEMV, and the one-launch decode MLP (M 1, 4, 8;
    widths 2, 3, 4) against its plain version and the separate kernel
    chain, two calls bit-identical.
+3c. the decode-GEMV probes through their entry points
+   (amq_tpu_torch.probes): kernel_attrib.main and pipelined_gemv.main at
+   the qkv / o / gateup / down sites, widths 2, 3, 4 (ATTRIB lines: the
+   attribution kernel's four variants in both production bodies, full
+   bit-identical to production, each variant equal to its plain version,
+   chain-timed; PIPE_PROBE lines: the extract-ahead tensor-core GEMV
+   within 2e-2 of its plain version and of the reference, chain-timed
+   beside production), kernel_roofline.main (ROOFLINE lines), a
+   torch.profiler trace of one attribution chain (chiprun_out/
+   probe_trace/), the phase's Tracer summary, the chain timer against
+   this script's time_ms (TIMER_CHECK lines, reported) and exact launch
+   counts of the two probe kernels.
 4. full-width Llama-2-7B decode (32 layers, random packed weights drawn
    on the card from a seeded generator, 2/3/4 bits per layer with 3-bit in
    4-bit containers, bf16 meta, 8-bit head) through Engine.generate and
@@ -92,15 +104,6 @@ def bound(nbytes, flops, peak=BF16_FLOPS):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def weight_bytes(packed, scale, N):
-    """Bytes of one layer's packed words and scale/zero over the N columns
-    the kernels read: K padded to whole superblocks, while the lane pad
-    past N is never fetched (every kernel launches ceil(N/64) column tiles,
-    and N is a multiple of 64 at every site here)."""
-    return (packed.shape[-2] * N * packed.element_size()
-            + 2 * scale.shape[-2] * N * scale.element_size())
-
-
 def time_ms(calls, iters=20):
     """Mean device ms per call: ``iters`` calls (cycling ``calls``, argument
     sets spread over more than the 50 MB L2 so weights come from device
@@ -152,21 +155,6 @@ def rand_words(shape, gen):
                                     device="cuda", generator=gen))
 
 
-def rand_site(N, K, nbits, L, meta_dtype, gen):
-    """Random packed stack [L, Kp*b/32, Np] with scale/zero, in the serving
-    layout (K padded to whole superblocks, N to the lane tile)."""
-    from amq_tpu_torch.core.bitpack import pick_superblock_padded
-    from amq_tpu_torch.models.stacked import _pick_lane_pad
-    sb, k_pad = pick_superblock_padded(K)
-    Kp, Np = K + k_pad, N + _pick_lane_pad(N)
-    packed = rand_words((L, Kp * nbits // 32, Np), gen)
-    scale = (torch.rand((L, Kp // 128, Np), generator=gen, device="cuda")
-             * 0.02).to(meta_dtype)
-    zero = (torch.rand((L, Kp // 128, Np), generator=gen, device="cuda")
-            * (2**nbits - 1)).to(meta_dtype)
-    return packed, scale, zero, sb
-
-
 SITES_7B = {  # name -> (N, K, kernel)
     "qkv": (12288, 4096, "quant_matmul_indexed"),
     "o": (4096, 4096, "quant_matmul_indexed"),
@@ -184,11 +172,13 @@ def check_matmul(site, nbits, M, meta_dtype, gen):
     """One dequant-matmul case; returns its record."""
     from amq_tpu_torch.core.quantize import QuantizedTensor, dequantize_kn
     from amq_tpu_torch.ops import quant_matmul as qm
+    from amq_tpu_torch.probes.chain import random_stack, weight_bytes
     N, K, kernel = SITES_7B[site]
     out_dtype = torch.float32 if site == "head" else torch.bfloat16
     # enough layers that cycling through them overflows the L2
     L = max(2, min(24, math.ceil(200e6 / (N * K * nbits / 8))))
-    packed, scale, zero, sb = rand_site(N, K, nbits, L, meta_dtype, gen)
+    packed, scale, zero, sb = random_stack(N, K, nbits, L, gen, "cuda",
+                                           meta_dtype)
     x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
     u = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
     kw = dict(nbits=nbits, group_size=128, shape=(N, K), superblock=sb,
@@ -266,6 +256,7 @@ def check_pipe(site, nbits, Ms, gen):
     the non-pipelined GEMV's in the same call."""
     from amq_tpu_torch.models.stacked import decode_switches
     from amq_tpu_torch.ops import quant_matmul as qm
+    from amq_tpu_torch.probes.chain import random_stack, weight_bytes
     N, K, _ = SITES_7B[site]
     swiglu = site == "down"
     kernel = ("quant_matmul_swiglu_indexed_pipe" if swiglu
@@ -274,7 +265,7 @@ def check_pipe(site, nbits, Ms, gen):
     gemv_fn = (qm.quant_matmul_swiglu_indexed if swiglu
                else qm.quant_matmul_indexed)
     L = max(2, min(24, math.ceil(200e6 / (N * K * nbits / 8))))
-    packed, scale, zero, sb = rand_site(N, K, nbits, L, torch.bfloat16, gen)
+    packed, scale, zero, sb = random_stack(N, K, nbits, L, gen, "cuda")
     wt = dense_weight(packed[1], scale[1], zero[1], nbits, (N, K), sb)
     recs = []
     for M in Ms:
@@ -332,10 +323,11 @@ def check_mlp(nbits, Ms, gen):
     calls bit-identical; its time beside the chain's."""
     from amq_tpu_torch.models.stacked import decode_switches
     from amq_tpu_torch.ops import quant_matmul as qm
+    from amq_tpu_torch.probes.chain import random_stack, weight_bytes
     (Ngu, H), (Nd, I) = MLP_7B
     L = 3                               # > 50 MB of weights per call already
-    gu = rand_site(Ngu, H, nbits, L, torch.bfloat16, gen)
-    dn = rand_site(Nd, I, nbits, L, torch.bfloat16, gen)
+    gu = random_stack(Ngu, H, nbits, L, gen, "cuda")
+    dn = random_stack(Nd, I, nbits, L, gen, "cuda")
     sb = gu[3]
     assert dn[3] == sb
     gu, dn = gu[:3], dn[:3]
@@ -526,6 +518,167 @@ def check_flash(label, B, Hq, Hkv, S, T, d, offset, dtype, gen):
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: the decode-GEMV probes
+
+PROBE_SITES, PROBE_BITS = ("qkv", "o", "gu", "down"), (2, 3, 4)
+TRACE_CALLS = 8       # eager attribution calls under the profiler
+#: the chain timer and time_ms part by more than this: reported, not gated
+TIMER_GAP = 0.10
+
+
+def reckon_probe_launches():
+    """Launches of the two probe kernels over phase 3c, reckoned from the
+    code: per site and width, kernel_attrib runs both bodies' four
+    variants, each one checked call and one chain_us; pipelined_gemv one
+    parity call and one chain_us; then one warm-up and TRACE_CALLS traced
+    calls."""
+    from amq_tpu_torch.probes.chain import CHAIN_LAUNCHES
+    cases = len(PROBE_SITES) * len(PROBE_BITS)
+    return {"gemv_attrib": (cases * 2 * 4 * (1 + CHAIN_LAUNCHES)
+                            + 1 + TRACE_CALLS),
+            "gemv_extract_ahead": cases * (1 + CHAIN_LAUNCHES)}
+
+
+def probe_launch_counts():
+    from amq_tpu_torch.probes import kernel_attrib, pipelined_gemv
+    return {"gemv_attrib": kernel_attrib.gemv_attrib.launches,
+            "gemv_extract_ahead": pipelined_gemv.gemv_extract_ahead.launches}
+
+
+def probe_stack(site, nbits, L):
+    """The probes' stack and x at one case: chain.random_stack from a
+    generator seeded 0, then x, as the probes draw them."""
+    from amq_tpu_torch.probes import chain
+    N, K = chain.SITES[site]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    packed, scale, zero, sb = chain.random_stack(N, K, nbits, L, gen, "cuda")
+    x = torch.randn((1, K), generator=gen, device="cuda").to(torch.bfloat16)
+    return packed, scale, zero, sb, x
+
+
+def timer_check(rec):
+    """time_ms (this script's mean over a captured graph) of the
+    production GEMV at a PIPE_PROBE case, beside the chain timer's µs."""
+    from amq_tpu_torch.ops import quant_matmul as qm
+    from amq_tpu_torch.probes.chain import CHAIN_LENS
+    L = max(CHAIN_LENS)
+    packed, scale, zero, sb, x = probe_stack(rec["site"], rec["nbits"], L)
+    kw = dict(nbits=rec["nbits"], group_size=128, shape=(rec["N"], rec["K"]),
+              superblock=sb)
+    us = 1e3 * time_ms([lambda i=i: qm.quant_matmul_indexed(
+        x, packed, scale, zero, i, **kw) for i in range(L)], iters=L)
+    gap = abs(us - rec["production_us"]) / us
+    out = dict(site=rec["site"], nbits=rec["nbits"], time_ms_us=us,
+               chain_us=rec["production_us"], rel_gap=gap,
+               parted=gap > TIMER_GAP)
+    print("TIMER_CHECK " + json.dumps(out), flush=True)
+    return out
+
+
+def trace_attrib_chain():
+    """TRACE_CALLS eager calls of the attribution kernel (full, GEMV body,
+    gateup 4-bit) under amq_tpu_torch.utils.profiling.device_trace; the
+    kernel's device µs per call as the trace counts it."""
+    from amq_tpu_torch.probes import kernel_attrib
+    from amq_tpu_torch.utils.profiling import device_trace
+    packed, scale, zero, sb, x = probe_stack("gu", 4, TRACE_CALLS)
+    kw = dict(nbits=4, group_size=128, shape=(22016, 4096), superblock=sb)
+    kernel_attrib.gemv_attrib(x, packed[0], scale[0], zero[0], **kw)  # warm
+    logdir = os.path.join(OUT_DIR, "probe_trace")
+    with device_trace(logdir) as prof:
+        for i in range(TRACE_CALLS):
+            kernel_attrib.gemv_attrib(x, packed[i], scale[i], zero[i], **kw)
+    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if "attrib_gemv_kernel" in e.key)
+    rec = dict(logdir=logdir, calls=TRACE_CALLS,
+               trace_bytes=os.path.getsize(os.path.join(logdir, "trace.json")),
+               device_us_per_call=dev_us / TRACE_CALLS)
+    print("PROBE_TRACE " + json.dumps(rec), flush=True)
+    return rec
+
+
+def probe_headline(kind, attrib, pipe):
+    """The kernels-line numbers of one probe kernel at gateup, 4-bit, M 1:
+    time_ms over a 40-layer stack (outside the counted phase), the plain
+    version's time, the library yardstick (bf16 torch.matmul on the dense
+    dequantized weight, a different function) and the bound (weights + x +
+    output over 3.35 TB/s)."""
+    from amq_tpu_torch.probes import kernel_attrib as ka
+    from amq_tpu_torch.probes import pipelined_gemv as pg
+    from amq_tpu_torch.probes.chain import CHAIN_LENS, weight_bytes
+    L = max(CHAIN_LENS)
+    N, K = 22016, 4096
+    packed, scale, zero, sb, x = probe_stack("gu", 4, L)
+    kw = dict(nbits=4, group_size=128, shape=(N, K), superblock=sb)
+    if kind == "gemv_attrib":
+        rec = next(r for r in attrib if r["site"] == "gu" and r["nbits"] == 4
+                   and r["body"] == "gemv")
+        err = rec["checks"]["full"]["max_abs_err"]
+        fn = lambda i: ka.gemv_attrib(x, packed[i], scale[i], zero[i], **kw)
+        plain = lambda: ka.attrib_plain("full", x, packed[1], scale[1],
+                                        zero[1], **kw)
+    else:
+        rec = next(r for r in pipe if r["site"] == "gu" and r["nbits"] == 4)
+        err = rec["max_abs_err"]
+        fn = lambda i: pg.gemv_extract_ahead(x, packed[i], scale[i], zero[i],
+                                             **kw)
+        plain = lambda: pg.extract_ahead_plain(x, packed[1], scale[1],
+                                               zero[1], **kw)
+    ms = time_ms([lambda i=i: fn(i) for i in range(L)], iters=L)
+    plain_ms = time_ms([plain], iters=2)
+    wt = dense_weight(packed[1], scale[1], zero[1], 4, (N, K), sb)
+    library_ms = time_ms([lambda: torch.matmul(x, wt)])
+    del wt
+    b_ms, b_by = bound(weight_bytes(packed, scale, N) + K * 2 + N * 2,
+                       2 * N * K)
+    return dict(kernel=kind, site="gateup", nbits=4, M=1, meta="bfloat16",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def probes_phase():
+    """Phase 3c; returns its records, the launch counts and the two
+    headline records."""
+    from amq_tpu_torch.probes import (kernel_attrib, kernel_roofline,
+                                      pipelined_gemv)
+    from amq_tpu_torch.utils.profiling import Tracer
+    tracer = Tracer()
+    bits = [str(b) for b in PROBE_BITS]
+    kernel_attrib.gemv_attrib.launches = 0
+    pipelined_gemv.gemv_extract_ahead.launches = 0
+    attrib, pipe = [], []
+    for site in PROBE_SITES:
+        with tracer.span("kernel_attrib"):
+            attrib += kernel_attrib.main([site, *bits])
+        with tracer.span("pipelined_gemv"):
+            pipe += pipelined_gemv.main([site, *bits])
+        torch.cuda.empty_cache()
+    with tracer.span("kernel_roofline"):
+        roof = kernel_roofline.main([])
+    with tracer.span("device_trace"):
+        trace = trace_attrib_chain()
+    counts = probe_launch_counts()
+    want = reckon_probe_launches()
+    with tracer.span("timer_check"):
+        timers = [timer_check(r) for r in pipe]
+    torch.cuda.empty_cache()
+    print("PROBE_TRACER " + json.dumps(tracer.summary()), flush=True)
+    print(f"probe launches: {counts} (want {want})", flush=True)
+    if counts != want:
+        fail(f"probe launch counts {counts} != {want}")
+    bad = [r for r in attrib + pipe + roof if not r["ok"]]
+    if bad:
+        fail(f"{len(bad)} probe cases failed their checks: {bad[:2]}")
+    heads = {k: probe_headline(k, attrib, pipe)
+             for k in ("gemv_attrib", "gemv_extract_ahead")}
+    for h in heads.values():
+        print("PROBE_HEADLINE " + json.dumps(h), flush=True)
+    return dict(attrib=attrib, pipe=pipe, roofline=roof, trace=trace,
+                timer_check=timers, tracer=tracer.summary(),
+                launches=counts, want=want, headline=heads)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: full-width decode
 
 BITS = (2, 3, 4)
@@ -541,6 +694,7 @@ def random_llama7b(cfg, gen):
     from amq_tpu_torch.core.bitpack import pick_superblock_padded
     from amq_tpu_torch.core.quantize import QuantizedTensor
     from amq_tpu_torch.models.stacked import StackedModel, StackedQuant
+    from amq_tpu_torch.probes.chain import random_stack
     L, H = cfg.num_layers, cfg.hidden_size
     sites = {"self_attn.qkv_proj": (cfg.q_dim + 2 * cfg.kv_dim, H),
              "self_attn.o_proj": (H, cfg.q_dim),
@@ -556,8 +710,8 @@ def random_llama7b(cfg, gen):
     for name, (N, K) in sites.items():
         stacks[name] = []
         for ci, w in enumerate(containers):
-            packed, scale, zero, sb = rand_site(N, K, w, len(members[ci]),
-                                                torch.bfloat16, gen)
+            packed, scale, zero, sb = random_stack(N, K, w, len(members[ci]),
+                                                   gen, "cuda")
             stacks[name].append(StackedQuant(packed, scale, zero, w, 128,
                                              (N, K), sb))
         stacks[name] = tuple(stacks[name])
@@ -585,6 +739,7 @@ def random_llama7b(cfg, gen):
 def weight_bytes_per_token(model):
     """Packed weights + scale/zero the decode step must read once per
     token (the layers' selected stacks, the head), plus one embed row."""
+    from amq_tpu_torch.probes.chain import weight_bytes
     total = 0
     for name, stacks in model.sites.items():
         for i in range(model.num_layers):
@@ -1220,6 +1375,12 @@ def main():
     print(f"kernels vs plain: {len(cases)} cases within tolerance", flush=True)
     torch.cuda.empty_cache()
 
+    # -- phase 3c: the decode-GEMV probes ------------------------------------
+    t0 = time.perf_counter()
+    probes = probes_phase()
+    print(f"probes: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
     # -- phase 4: full-width decode ------------------------------------------
     cfg = get_config("Llama-2-7b-hf")
     t0 = time.perf_counter()
@@ -1365,6 +1526,21 @@ def main():
             "case": {k: c[k] for k in ("site", "nbits", "M", "meta", "case")
                      if k in c},
             "cases_checked": sum(1 for x in cases if x["kernel"] == name)})
+    # the probe kernels: launches over phase 3c, numbers of its gateup case
+    for name, src, rep, checked in (
+            ("gemv_attrib", "amq_tpu_torch/csrc/gemv_attrib.cu",
+             "scripts/kernel_attrib.py:108", len(probes["attrib"]) * 4),
+            ("gemv_extract_ahead", "amq_tpu_torch/csrc/gemv_extract_ahead.cu",
+             "scripts/pipelined_gemv.py:129", len(probes["pipe"]))):
+        c = probes["headline"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": probes["launches"][name],
+            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            "case": {k: c[k] for k in ("site", "nbits", "M", "meta")},
+            "cases_checked": checked})
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "cases": cases, "speed": speed,
                    "logits": logit_recs, "launches": counts, "profile": prof,
@@ -1374,7 +1550,7 @@ def main():
                    "sensitivity": {k: v for k, v in sens.items()
                                    if k != "table"},
                    "eval_parity": eval_recs, "eval_profile": eval_prof,
-                   "search": search_rec},
+                   "search": search_rec, "probes": probes},
                   f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -216,3 +216,71 @@ def test_cuda_model_forward_flash_matches_einsum(with_cache):
             cfg.num_layers if kernels else 0)
         outs.append(logits)
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["gemv", "pipe"])
+@pytest.mark.parametrize("swiglu", [False, True])
+@pytest.mark.parametrize("nbits", [2, 3, 4])
+def test_cuda_gemv_attrib_variants_match_plain(nbits, swiglu, body):
+    """The attribution kernel's four variants on layer 1 of a random stack
+    (N 320: five column tiles, so K splits and their atomics run): full
+    equal to the production GEMV of its body with torch.equal, each
+    stripped variant to its plain version (XOR folds and code sums
+    exactly, fma_only at the bf16 GEMV tolerance)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from amq_tpu_torch.probes import chain, kernel_attrib as ka
+    N, K = 320, 2048
+    gen = torch.Generator(device="cuda").manual_seed(90 + nbits)
+    packed, scale, zero, sb = chain.random_stack(N, K, nbits, 2, gen, "cuda")
+    x, u = (torch.randn((1, K), generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    up = u if swiglu else None
+    kw = dict(nbits=nbits, group_size=128, shape=(N, K), superblock=sb)
+    if body == "gemv":
+        prod_fn = (tqm.quant_matmul_swiglu_indexed if swiglu
+                   else tqm.quant_matmul_indexed)
+    else:
+        prod_fn = (tqm.quant_matmul_swiglu_indexed_pipe if swiglu
+                   else tqm.quant_matmul_indexed_pipe)
+    prod = prod_fn(*((x, u) if swiglu else (x,)), packed, scale, zero, 1, **kw)
+    before = ka.gemv_attrib.launches
+    for variant in ka.VARIANTS:
+        got = ka.gemv_attrib(x, packed[1], scale[1], zero[1], up=up,
+                             variant=variant, body=body, **kw)
+        want = ka.attrib_plain(variant, x, packed[1], scale[1], zero[1],
+                               up=up, **kw)
+        torch.cuda.synchronize()
+        rec = ka._check(variant, got, want, prod)
+        assert rec["ok"], (variant, rec)
+    assert ka.gemv_attrib.launches - before == len(ka.VARIANTS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [2048, 1920])
+@pytest.mark.parametrize("nbits", [2, 3, 4])
+def test_cuda_extract_ahead_matches_plain(nbits, K):
+    """The extract-ahead tensor-core GEMV against its plain version and the
+    dequantize-then-matmul reference on quantized weights (K 1920 pads to
+    two superblocks, so x's zero tail and the pad rows run)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from amq_tpu_torch.probes import pipelined_gemv as pg
+    rng = np.random.default_rng(95 + nbits + K)
+    N = 320
+    qt = tq.quantize(torch.from_numpy(rng.normal(size=(N, K)).astype(
+        np.float32) * 0.02).cuda(), nbits=nbits, meta_dtype=torch.bfloat16)
+    x = torch.from_numpy(rng.normal(size=(1, K)).astype(np.float32)).cuda().to(
+        torch.bfloat16)
+    kw = dict(nbits=nbits, group_size=128, shape=(N, K),
+              superblock=qt.superblock)
+    before = pg.gemv_extract_ahead.launches
+    got = pg.gemv_extract_ahead(x, qt.packed, qt.scale, qt.zero, **kw)
+    want = pg.extract_ahead_plain(x, qt.packed, qt.scale, qt.zero, **kw)
+    ref = tqm.quant_matmul_reference(x, qt, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert pg.gemv_extract_ahead.launches - before == 1
+    assert got.shape == (1, N) and got.dtype == torch.bfloat16
+    _norm_close(got.float().cpu().numpy(), want.float().cpu().numpy(), 2e-2)
+    _norm_close(got.float().cpu().numpy(), ref.cpu().numpy(), 2e-2)

@@ -18,7 +18,11 @@ _MODULES = ("amq_tpu_torch.serving.engine", "amq_tpu_torch.serving.benchmark",
             "amq_tpu_torch.evaluation.sensitivity", "amq_tpu_torch.search",
             "amq_tpu_torch.search.decision", "amq_tpu_torch.predictor",
             "amq_tpu_torch.serving", "amq_tpu_torch.serving.batched",
-            "amq_tpu_torch.serving.speculative", "amq_tpu_torch.native")
+            "amq_tpu_torch.serving.speculative", "amq_tpu_torch.native",
+            "amq_tpu_torch.utils.profiling", "amq_tpu_torch.probes.chain",
+            "amq_tpu_torch.probes.kernel_attrib",
+            "amq_tpu_torch.probes.pipelined_gemv",
+            "amq_tpu_torch.probes.kernel_roofline")
 
 
 def test_import_pulls_in_no_jax():
