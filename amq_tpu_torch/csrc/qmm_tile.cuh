@@ -229,14 +229,15 @@ __device__ __forceinline__ float meta_at(const unsigned char* ms, int row,
               : reinterpret_cast<const float*>(ms)[row * kBN + tx];
 }
 
-// acc[m] (per thread: its column, its row slice) over superblocks
-// [sb_lo, sb_hi) of the operand times the weight, through the ring.  Every
-// thread of the block calls it; it ends with the block synchronised and the
-// ring free.
-template <int NB, int MT>
+// Superblocks [sb_lo, sb_hi) of the operand and the weight through the
+// ring, each handed to `step(word, meta, xs, acc)` once it is staged:
+// `word(r)` is this thread's column's word row r, `meta(g)` its {scale,
+// zero} of group g, xs the activation [MT][sb].  Every thread of the block
+// calls it; it ends with the block synchronised and the ring free.
+template <int NB, int MT, class Step>
 __device__ void gemv_tile(const Operand& op, const Weights& w, int col0,
                           int sb_lo, int sb_hi, unsigned char* smem,
-                          float (&acc)[MT]) {
+                          float (&acc)[MT], Step step) {
   const int sb = w.superblock, gs = w.group_size, T = sb / gs;
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * kBN + tx;
   const int R = sb * NB / 32;
@@ -268,15 +269,35 @@ __device__ void gemv_tile(const Operand& op, const Weights& w, int col0,
     const unsigned char* st = ring + (i % kStages) * sbytes;
     const uint32_t* wcol = reinterpret_cast<const uint32_t*>(st) + tx;
     const unsigned char* ms = st + R * kBN * 4;
-    superblock_fma<NB, MT>(
-        [=](int r) { return wcol[r * kBN]; },
-        [=](int g) {
-          const float sc = meta_at(ms, g, tx, meta_bf16);
-          return make_float2(sc, -meta_at(ms, T + g, tx, meta_bf16) * sc);
-        },
-        xs, sb, gs, ty, acc);
+    step([=](int r) { return wcol[r * kBN]; },
+         [=](int g) {
+           return make_float2(meta_at(ms, g, tx, meta_bf16),
+                              meta_at(ms, T + g, tx, meta_bf16));
+         },
+         xs, acc);
     __syncthreads();             // stage i and the activation are free
   }
+}
+
+// acc[m] (per thread: its column, its row slice) over superblocks
+// [sb_lo, sb_hi) of the operand times the weight: gemv_tile with
+// superblock_fma as its step.
+template <int NB, int MT>
+__device__ void gemv_tile(const Operand& op, const Weights& w, int col0,
+                          int sb_lo, int sb_hi, unsigned char* smem,
+                          float (&acc)[MT]) {
+  const int sb = w.superblock, gs = w.group_size, ty = threadIdx.y;
+  gemv_tile<NB, MT>(
+      op, w, col0, sb_lo, sb_hi, smem, acc,
+      [=](auto word, auto meta, const float* xs, float (&a)[MT]) {
+        superblock_fma<NB, MT>(
+            word,
+            [=](int g) {
+              const float2 sz = meta(g);
+              return make_float2(sz.x, -sz.y * sz.x);
+            },
+            xs, sb, gs, ty, a);
+      });
 }
 
 // Sum the kKS row slices: afterwards the threads of slice 0 hold their

@@ -22,10 +22,9 @@ import torch
 from ..core.bitpack import pick_superblock_padded, wrap_int32
 from ..models.stacked import _pick_lane_pad
 
-#: decode sites of Llama-2-7B as (N, K): fused qkv, o, fused gateup, down;
-#: ``tiny`` is the CPU tests' size (two superblocks)
+#: decode sites of Llama-2-7B as (N, K): fused qkv, o, fused gateup, down
 SITES = {"o": (4096, 4096), "qkv": (12288, 4096), "gu": (22016, 4096),
-         "down": (4096, 11008), "tiny": (256, 2048)}
+         "down": (4096, 11008)}
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 CHAIN_LENS = (8, 40)
 REPLAYS = 3
@@ -34,8 +33,8 @@ REPLAYS = 3
 CHAIN_LAUNCHES = 2 * sum(CHAIN_LENS)
 
 
-def random_stack(N, K, nbits, L, gen, device, meta_dtype=torch.bfloat16):
-    """``(packed [L, Kp*b/32, Np] int32, scale, zero [L, Kp/128, Np],
+def random_stack(N, K, nbits, L, gen, device):
+    """``(packed [L, Kp*b/32, Np] int32, scale, zero [L, Kp/128, Np] bf16,
     superblock)``: random words, scale in [0, 0.02), zero in [0, 2^b - 1),
     in the serving layout."""
     sb, k_pad = pick_superblock_padded(K)
@@ -47,9 +46,9 @@ def random_stack(N, K, nbits, L, gen, device, meta_dtype=torch.bfloat16):
             0, 2**32, packed.shape[1:], dtype=torch.int64, device=device,
             generator=gen))
     scale = (torch.rand((L, Kp // 128, Np), generator=gen, device=device)
-             * 0.02).to(meta_dtype)
+             * 0.02).to(torch.bfloat16)
     zero = (torch.rand((L, Kp // 128, Np), generator=gen, device=device)
-            * (2**nbits - 1)).to(meta_dtype)
+            * (2**nbits - 1)).to(torch.bfloat16)
     return packed, scale, zero, sb
 
 

@@ -14,8 +14,11 @@ runs ``csrc/gemv_attrib.cu`` in four variants, chain-timed
   ext_only   full's extraction, codes summed, no FMA against x
   load_only  words and meta loaded and XOR-folded per column
 
-Every variant loads the same bytes.  ``full - max(others)`` is the overlap
-slack; the variant whose time tracks ``full`` is on the critical path.
+Every variant loads the same bytes, with as many blocks resident per SM
+as ``full`` (:func:`occupancy`; ``pinned`` in the record).
+``full - max(others)`` is the overlap slack; the variant whose time
+tracks ``full`` is on the critical path (``tracks_full``, None where a
+variant is not pinned).
 The down site takes the SwiGLU prologue, as production runs it.
 
 The stripped variants do not copy the TPU script's stripped outputs (its
@@ -33,7 +36,10 @@ from __future__ import annotations
 import ctypes
 import functools
 import json
+import re
+import subprocess
 import sys
+from pathlib import Path
 from typing import NamedTuple, Optional
 
 import torch
@@ -136,6 +142,28 @@ def _lib():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _occupancy_fn():
+    fn = _cuda.library("gemv_attrib").amq_gemv_attrib_occupancy
+    fn.argtypes = [_c_int] * 6 + [ctypes.POINTER(_c_int)]
+    fn.restype = _c_int
+    return fn
+
+
+def occupancy(variant: str, body: str, *, nbits: int, superblock: int,
+              group_size: int = 128, meta_bf16: bool = True) -> dict:
+    """How one variant launches at a layout on the current card: blocks
+    per SM (a stripped variant is held to ``full``'s), registers and local
+    (spill) bytes per thread, dynamic shared memory bytes."""
+    out = (_c_int * 4)()
+    what = f"gemv_attrib occupancy ({body}, {variant}, {nbits}-bit)"
+    _cuda.check(_occupancy_fn()(nbits, BODIES.index(body),
+                                VARIANTS.index(variant), superblock,
+                                group_size, int(meta_bf16), out), what)
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes",
+                     "smem_bytes"), out))
+
+
 def _attrib_cuda(variant, body, x, up, packed, scale, zero, *, nbits,
                  group_size, shape, superblock, acc) -> AttribOut:
     N, K = shape
@@ -220,6 +248,40 @@ def gemv_attrib(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
 gemv_attrib.launches = 0
 
 
+_SASS_FN = re.compile(
+    r"Function : \S*attrib_(gemv|pipe)_(?:kernel|pinned)ILi(\d)ELi1ELi(\d)E")
+_SASS_OP = re.compile(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)")
+SASS_OPS = ("FFMA", "I2F", "LDG", "LDGSTS")
+
+
+def count_sass(text: str) -> list:
+    """Per attribution kernel in a ``cuobjdump -sass`` listing: its body,
+    width, variant and how many FFMA, I2F (int->float; also I2FP),
+    LDG and LDGSTS (cp.async) instructions it holds."""
+    heads = list(_SASS_FN.finditer(text))
+    recs = []
+    for h, nxt in zip(heads, heads[1:] + [None]):
+        body = text[h.end():nxt.start() if nxt else len(text)]
+        ops = [op[:3] if op.startswith("I2F") else op
+               for op in _SASS_OP.findall(body)]
+        recs.append(dict(body=h.group(1), nbits=int(h.group(2)),
+                         variant=VARIANTS[int(h.group(3))],
+                         **{op: ops.count(op) for op in SASS_OPS}))
+    return sorted(recs, key=lambda r: (r["body"], r["nbits"],
+                                       VARIANTS.index(r["variant"])))
+
+
+def sass_counts() -> list:
+    """:func:`count_sass` of the built ``csrc/gemv_attrib.cu`` (needs
+    ``cuobjdump`` beside ``nvcc``)."""
+    _cuda.library("gemv_attrib")
+    tool = Path(_cuda._nvcc()).parent / "cuobjdump"
+    listing = subprocess.run(
+        [str(tool), "-sass", str(_cuda._lib_path("gemv_attrib"))],
+        check=True, capture_output=True, text=True).stdout
+    return count_sass(listing)
+
+
 # ---------------------------------------------------------------------------
 # the probe
 
@@ -285,12 +347,19 @@ def attrib_case(site: str, nbits: int, device) -> list:
                    bound_us=chain.bound_us(packed, scale, N), us=us or None,
                    checks=checks, ok=all(c["ok"] for c in checks.values()))
         if us:
+            occ = {v: occupancy(v, body, nbits=nbits, superblock=sb)
+                   for v in VARIANTS}
+            blocks = occ["full"]["blocks_per_sm"]
             others = {v: t for v, t in us.items() if v != "full"}
-            rec["slack_us"] = us["full"] - max(others.values())
-            rec["tracks_full"] = min(
-                others, key=lambda v: abs(others[v] - us["full"]))
-            rec["load_only_share_of_bound"] = (rec["bound_us"]
-                                               / us["load_only"])
+            rec.update(
+                occupancy=occ,
+                pinned=all(o["blocks_per_sm"] == blocks
+                           for o in occ.values()),
+                slack_us=us["full"] - max(others.values()),
+                load_only_share_of_bound=rec["bound_us"] / us["load_only"])
+            # only at full's occupancy does a time say what full waits on
+            rec["tracks_full"] = (min(others, key=lambda v: abs(
+                others[v] - us["full"])) if rec["pinned"] else None)
         print("ATTRIB " + json.dumps(rec), flush=True)
         recs.append(rec)
     return recs

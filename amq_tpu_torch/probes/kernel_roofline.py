@@ -1,6 +1,6 @@
 """The fused dequant GEMV alone, per width and container: share of 3.35 TB/s.
 
-    python -m amq_tpu_torch.probes.kernel_roofline [--scale S]
+    python -m amq_tpu_torch.probes.kernel_roofline
 
 The counterpart of the JAX package's ``scripts/kernel_roofline.py``: for
 each (bits, container) pair -- (2,2), (3,3), (3,4), (4,4), (8,8); (3,4)
@@ -15,8 +15,8 @@ its weights came from device memory every step).  The feedback ops (tile, scale,
 timed alone the same way and taken off: ``us`` is the GEMV's.  It reports
 µs, GB/s (packed words + scale/zero, whole arrays, as the script counts
 them) and the share of 3.35 TB/s, and checks each case once against
-``quant_matmul_reference``.  ``--scale S`` divides the shapes (the CPU
-tests' size); ``device="cpu"`` runs the checks only, timing nothing.
+``quant_matmul_reference``.  ``device="cpu"`` runs the checks only,
+timing nothing.
 """
 
 from __future__ import annotations
@@ -93,17 +93,11 @@ def bench_site(label, N, K, nbits, container, device) -> dict:
 def main(argv=None, device=None) -> list:
     """Every site x (bits, container) pair; returns the records.  Runs on
     the card unless ``device="cpu"`` is asked for."""
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scale", type=int, default=1,
-                    help="divide N and K by this (K kept a multiple of 128)")
-    args = ap.parse_args(argv)
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
+        argv)
     dev = resolve_device(device)
-    out = []
-    for label, N, K in SHAPES:
-        n, k = N // args.scale, (K // args.scale // 128) * 128
-        for nbits, container in PAIRS:
-            out.append(bench_site(label, n, k, nbits, container, dev))
-    return out
+    return [bench_site(label, N, K, nbits, container, dev)
+            for label, N, K in SHAPES for nbits, container in PAIRS]
 
 
 if __name__ == "__main__":

@@ -31,11 +31,13 @@ Phases (any failed check exits non-zero before the last line):
    bit-identical to production, each variant equal to its plain version,
    chain-timed; PIPE_PROBE lines: the extract-ahead tensor-core GEMV
    within 2e-2 of its plain version and of the reference, chain-timed
-   beside production), kernel_roofline.main (ROOFLINE lines), a
+   beside production; every variant at full's blocks per SM, else the
+   phase fails), kernel_roofline.main (ROOFLINE lines), a
    torch.profiler trace of one attribution chain (chiprun_out/
    probe_trace/), the phase's Tracer summary, the chain timer against
-   this script's time_ms (TIMER_CHECK lines, reported) and exact launch
-   counts of the two probe kernels.
+   this script's time_ms (TIMER_CHECK lines, reported), the attribution
+   kernels' FFMA / I2F / LDG / LDGSTS counts in their SASS (ATTRIB_SASS
+   lines, reported) and exact launch counts of the two probe kernels.
 4. full-width Llama-2-7B decode (32 layers, random packed weights drawn
    on the card from a seeded generator, 2/3/4 bits per layer with 3-bit in
    4-bit containers, bf16 meta, 8-bit head) through Engine.generate and
@@ -104,6 +106,15 @@ def bound(nbytes, flops, peak=BF16_FLOPS):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def weight_bytes(packed, scale, N):
+    """Bytes of one layer's packed words and scale/zero over the N columns
+    the kernels read: K padded to whole superblocks, while the lane pad
+    past N is never fetched (every kernel launches ceil(N/64) column tiles,
+    and N is a multiple of 64 at every site here)."""
+    return (packed.shape[-2] * N * packed.element_size()
+            + 2 * scale.shape[-2] * N * scale.element_size())
+
+
 def time_ms(calls, iters=20):
     """Mean device ms per call: ``iters`` calls (cycling ``calls``, argument
     sets spread over more than the 50 MB L2 so weights come from device
@@ -155,6 +166,21 @@ def rand_words(shape, gen):
                                     device="cuda", generator=gen))
 
 
+def rand_site(N, K, nbits, L, meta_dtype, gen):
+    """Random packed stack [L, Kp*b/32, Np] with scale/zero, in the serving
+    layout (K padded to whole superblocks, N to the lane tile)."""
+    from amq_tpu_torch.core.bitpack import pick_superblock_padded
+    from amq_tpu_torch.models.stacked import _pick_lane_pad
+    sb, k_pad = pick_superblock_padded(K)
+    Kp, Np = K + k_pad, N + _pick_lane_pad(N)
+    packed = rand_words((L, Kp * nbits // 32, Np), gen)
+    scale = (torch.rand((L, Kp // 128, Np), generator=gen, device="cuda")
+             * 0.02).to(meta_dtype)
+    zero = (torch.rand((L, Kp // 128, Np), generator=gen, device="cuda")
+            * (2**nbits - 1)).to(meta_dtype)
+    return packed, scale, zero, sb
+
+
 SITES_7B = {  # name -> (N, K, kernel)
     "qkv": (12288, 4096, "quant_matmul_indexed"),
     "o": (4096, 4096, "quant_matmul_indexed"),
@@ -172,13 +198,11 @@ def check_matmul(site, nbits, M, meta_dtype, gen):
     """One dequant-matmul case; returns its record."""
     from amq_tpu_torch.core.quantize import QuantizedTensor, dequantize_kn
     from amq_tpu_torch.ops import quant_matmul as qm
-    from amq_tpu_torch.probes.chain import random_stack, weight_bytes
     N, K, kernel = SITES_7B[site]
     out_dtype = torch.float32 if site == "head" else torch.bfloat16
     # enough layers that cycling through them overflows the L2
     L = max(2, min(24, math.ceil(200e6 / (N * K * nbits / 8))))
-    packed, scale, zero, sb = random_stack(N, K, nbits, L, gen, "cuda",
-                                           meta_dtype)
+    packed, scale, zero, sb = rand_site(N, K, nbits, L, meta_dtype, gen)
     x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
     u = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
     kw = dict(nbits=nbits, group_size=128, shape=(N, K), superblock=sb,
@@ -256,7 +280,6 @@ def check_pipe(site, nbits, Ms, gen):
     the non-pipelined GEMV's in the same call."""
     from amq_tpu_torch.models.stacked import decode_switches
     from amq_tpu_torch.ops import quant_matmul as qm
-    from amq_tpu_torch.probes.chain import random_stack, weight_bytes
     N, K, _ = SITES_7B[site]
     swiglu = site == "down"
     kernel = ("quant_matmul_swiglu_indexed_pipe" if swiglu
@@ -265,7 +288,7 @@ def check_pipe(site, nbits, Ms, gen):
     gemv_fn = (qm.quant_matmul_swiglu_indexed if swiglu
                else qm.quant_matmul_indexed)
     L = max(2, min(24, math.ceil(200e6 / (N * K * nbits / 8))))
-    packed, scale, zero, sb = random_stack(N, K, nbits, L, gen, "cuda")
+    packed, scale, zero, sb = rand_site(N, K, nbits, L, torch.bfloat16, gen)
     wt = dense_weight(packed[1], scale[1], zero[1], nbits, (N, K), sb)
     recs = []
     for M in Ms:
@@ -323,11 +346,10 @@ def check_mlp(nbits, Ms, gen):
     calls bit-identical; its time beside the chain's."""
     from amq_tpu_torch.models.stacked import decode_switches
     from amq_tpu_torch.ops import quant_matmul as qm
-    from amq_tpu_torch.probes.chain import random_stack, weight_bytes
     (Ngu, H), (Nd, I) = MLP_7B
     L = 3                               # > 50 MB of weights per call already
-    gu = random_stack(Ngu, H, nbits, L, gen, "cuda")
-    dn = random_stack(Nd, I, nbits, L, gen, "cuda")
+    gu = rand_site(Ngu, H, nbits, L, torch.bfloat16, gen)
+    dn = rand_site(Nd, I, nbits, L, torch.bfloat16, gen)
     sb = gu[3]
     assert dn[3] == sb
     gu, dn = gu[:3], dn[:3]
@@ -605,7 +627,7 @@ def probe_headline(kind, attrib, pipe):
     output over 3.35 TB/s)."""
     from amq_tpu_torch.probes import kernel_attrib as ka
     from amq_tpu_torch.probes import pipelined_gemv as pg
-    from amq_tpu_torch.probes.chain import CHAIN_LENS, weight_bytes
+    from amq_tpu_torch.probes.chain import CHAIN_LENS
     L = max(CHAIN_LENS)
     N, K = 22016, 4096
     packed, scale, zero, sb, x = probe_stack("gu", 4, L)
@@ -662,6 +684,10 @@ def probes_phase():
     with tracer.span("timer_check"):
         timers = [timer_check(r) for r in pipe]
     torch.cuda.empty_cache()
+    with tracer.span("sass"):
+        sass = kernel_attrib.sass_counts()
+    for r in sass:
+        print("ATTRIB_SASS " + json.dumps(r), flush=True)
     print("PROBE_TRACER " + json.dumps(tracer.summary()), flush=True)
     print(f"probe launches: {counts} (want {want})", flush=True)
     if counts != want:
@@ -669,12 +695,16 @@ def probes_phase():
     bad = [r for r in attrib + pipe + roof if not r["ok"]]
     if bad:
         fail(f"{len(bad)} probe cases failed their checks: {bad[:2]}")
+    unpinned = [(r["site"], r["nbits"], r["body"], r["occupancy"])
+                for r in attrib if not r["pinned"]]
+    if unpinned:
+        fail(f"attribution variants off full's blocks per SM: {unpinned}")
     heads = {k: probe_headline(k, attrib, pipe)
              for k in ("gemv_attrib", "gemv_extract_ahead")}
     for h in heads.values():
         print("PROBE_HEADLINE " + json.dumps(h), flush=True)
     return dict(attrib=attrib, pipe=pipe, roofline=roof, trace=trace,
-                timer_check=timers, tracer=tracer.summary(),
+                timer_check=timers, sass=sass, tracer=tracer.summary(),
                 launches=counts, want=want, headline=heads)
 
 
@@ -694,7 +724,6 @@ def random_llama7b(cfg, gen):
     from amq_tpu_torch.core.bitpack import pick_superblock_padded
     from amq_tpu_torch.core.quantize import QuantizedTensor
     from amq_tpu_torch.models.stacked import StackedModel, StackedQuant
-    from amq_tpu_torch.probes.chain import random_stack
     L, H = cfg.num_layers, cfg.hidden_size
     sites = {"self_attn.qkv_proj": (cfg.q_dim + 2 * cfg.kv_dim, H),
              "self_attn.o_proj": (H, cfg.q_dim),
@@ -710,8 +739,8 @@ def random_llama7b(cfg, gen):
     for name, (N, K) in sites.items():
         stacks[name] = []
         for ci, w in enumerate(containers):
-            packed, scale, zero, sb = random_stack(N, K, w, len(members[ci]),
-                                                   gen, "cuda")
+            packed, scale, zero, sb = rand_site(N, K, w, len(members[ci]),
+                                                torch.bfloat16, gen)
             stacks[name].append(StackedQuant(packed, scale, zero, w, 128,
                                              (N, K), sb))
         stacks[name] = tuple(stacks[name])
@@ -739,7 +768,6 @@ def random_llama7b(cfg, gen):
 def weight_bytes_per_token(model):
     """Packed weights + scale/zero the decode step must read once per
     token (the layers' selected stacks, the head), plus one embed row."""
-    from amq_tpu_torch.probes.chain import weight_bytes
     total = 0
     for name, stacks in model.sites.items():
         for i in range(model.num_layers):

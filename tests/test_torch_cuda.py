@@ -258,6 +258,22 @@ def test_cuda_gemv_attrib_variants_match_plain(nbits, swiglu, body):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("body", ["gemv", "pipe"])
+@pytest.mark.parametrize("nbits", [2, 3, 4])
+def test_cuda_gemv_attrib_variants_pinned_to_full(nbits, body):
+    """Every variant of the attribution kernel launches with as many blocks
+    resident per SM as full, so their times compare at one occupancy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from amq_tpu_torch.probes import kernel_attrib as ka
+    occ = {v: ka.occupancy(v, body, nbits=nbits, superblock=1024)
+           for v in ka.VARIANTS}
+    assert occ["full"]["blocks_per_sm"] >= 1, occ
+    assert {o["blocks_per_sm"] for o in occ.values()} == {
+        occ["full"]["blocks_per_sm"]}, occ
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("K", [2048, 1920])
 @pytest.mark.parametrize("nbits", [2, 3, 4])
 def test_cuda_extract_ahead_matches_plain(nbits, K):

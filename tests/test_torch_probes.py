@@ -235,28 +235,39 @@ def test_device_trace_writes_a_chrome_trace_and_raises(tmp_path, monkeypatch):
             pass
 
 
-def test_probe_entry_points_on_the_cpu(capsys):
-    recs = ka.main(["tiny", "2", "3", "4"], device="cpu")
+@pytest.fixture
+def small_sites(monkeypatch):
+    """The probes' sites and roofline shapes cut to the tests' size."""
+    monkeypatch.setattr(chain, "SITES", {"o": (N, K), "down": (N, K - 128)})
+    monkeypatch.setattr(kr, "SHAPES", (("o_proj", N, 256),
+                                       ("down", N, 640)))
+
+
+def test_probe_entry_points_on_the_cpu(capsys, small_sites):
+    recs = ka.main(["o", "2", "3", "4"], device="cpu")
+    recs += ka.main(["down", "4"], device="cpu")      # the SwiGLU prologue
     assert [(r["nbits"], r["body"]) for r in recs] == [
-        (b, body) for b in (2, 3, 4) for body in ("gemv", "pipe")]
+        (b, body) for b in (2, 3, 4, 4) for body in ("gemv", "pipe")]
     assert all(r["ok"] and r["us"] is None for r in recs)
     assert all(r["checks"]["full"]["equal_production"] for r in recs)
-    pipe = pg.main(["tiny", "2", "3", "4"], device="cpu")
+    pipe = pg.main(["o", "2", "3", "4"], device="cpu")
     assert all(r["ok"] and "extract_ahead_us" not in r for r in pipe)
-    roof = kr.main(["--scale", "16"], device="cpu")
+    roof = kr.main([], device="cpu")
     assert [(r["nbits"], r["container"]) for r in roof] == list(kr.PAIRS) * 2
     assert all(r["ok"] and "us" not in r for r in roof)
     out = capsys.readouterr().out
-    assert out.count("ATTRIB ") == 6 and out.count("PIPE_PROBE ") == 3
+    assert out.count("ATTRIB ") == 8 and out.count("PIPE_PROBE ") == 3
     assert out.count("ROOFLINE ") == 10
     assert chain.CHAIN_LAUNCHES == 2 * (8 + 40)
+    with pytest.raises(SystemExit):
+        ka.main(["gu", "4"], device="cpu")
 
 
-def test_probe_entry_points_refuse_without_a_card(monkeypatch):
+def test_probe_entry_points_refuse_without_a_card(monkeypatch, small_sites):
     if torch.cuda.is_available():
         pytest.skip("a card is present; the CUDA default is valid here")
-    for main, argv in ((ka.main, ["tiny", "2"]), (pg.main, ["tiny", "2"]),
-                       (kr.main, ["--scale", "16"])):
+    for main, argv in ((ka.main, ["o", "2"]), (pg.main, ["o", "2"]),
+                       (kr.main, [])):
         with pytest.raises(RuntimeError, match="CUDA"):
             main(argv)
 
@@ -272,3 +283,26 @@ def test_probe_entry_points_refuse_without_a_card(monkeypatch):
         ka.gemv_attrib(x, packed, meta, meta, **kw)
     with pytest.raises(ValueError, match="no kernel for device"):
         pg.gemv_extract_ahead(x, packed, meta, meta, **kw)
+
+
+def test_count_sass_reads_each_attribution_kernel():
+    """The SASS counter on a listing in cuobjdump's layout: per kernel its
+    body, width, variant and instruction counts (predicated ones too)."""
+    def fn(body, nb, v, lines):
+        kind = "kernel" if v == 0 else "pinned"
+        name = (f"_ZN47_GLOBAL__N__x_{body}_attrib_{body}_{kind}ILi{nb}ELi1E"
+                f"Li{v}EEEvN3amq8GemvArgsENS_5ProbeE")
+        code = "".join(f"        /*{i * 16:04x}*/   {op} R1, R2 ;  /* 0x0 */\n"
+                       f"                          /* 0x0 */\n"
+                       for i, op in enumerate(lines))
+        return f"\t\tFunction : {name}\n\t.headerflags ...\n{code}"
+    listing = ("Fatbin elf code:\n"
+               + fn("pipe", 4, 1, ["FFMA", "@P0 LDGSTS.E.BYPASS.128", "LDG.E",
+                                   "FFMA", "BRA"])
+               + fn("gemv", 2, 0, ["I2FP.F32.U32", "I2F.U32", "@!P1 FFMA",
+                                   "LDG.E.CONSTANT", "LDS"]))
+    assert ka.count_sass(listing) == [
+        dict(body="gemv", nbits=2, variant="full", FFMA=1, I2F=2, LDG=1,
+             LDGSTS=0),
+        dict(body="pipe", nbits=4, variant="fma_only", FFMA=2, I2F=0, LDG=1,
+             LDGSTS=1)]
