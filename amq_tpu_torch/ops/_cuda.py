@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -31,6 +32,8 @@ _BUILD = Path(__file__).resolve().parent.parent / "_build"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")
 _LIBS: Dict[str, ctypes.CDLL] = {}
+#: the compiler's report of each source built with ``verbose``
+LOGS: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -75,11 +78,33 @@ def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> float:
             failed.append(f"{name}:\n{log}")
             continue
         if verbose:
+            LOGS[name] = log
             print(f"[nvcc {name}]\n{log}", flush=True)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.perf_counter() - t0
+
+
+_PTXAS_FN = re.compile(r"Compiling entry function '(\S+)'")
+_PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_usage(log: str) -> Dict[str, dict]:
+    """Per kernel in an ``-Xptxas -v`` report (:data:`LOGS`): its
+    registers, stack frame and spill bytes, keyed by the symbol."""
+    usage = {}
+    for block in re.split(r"(?=ptxas info\s*: Compiling entry function)", log):
+        fn = _PTXAS_FN.search(block)
+        frame, regs = _PTXAS_FRAME.search(block), _PTXAS_REGS.search(block)
+        if fn and frame and regs:
+            usage[fn.group(1)] = dict(
+                registers=int(regs.group(1)), stack=int(frame.group(1)),
+                spill_stores=int(frame.group(2)),
+                spill_loads=int(frame.group(3)))
+    return usage
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -7,9 +7,16 @@ lengths ``offsets[B]`` (a device tensor, read inside the kernel), GQA, an
 optional sliding window (keys with ``t > off - window``), and this step's
 key/value as a final column -- the cache is read-only inside the layer
 loop.  The CUDA kernel (``csrc/decode_attention.cu``) runs for CUDA
-tensors, the plain version below for CPU tensors only.  What bounds the
-kernel on the H100 (bytes) and what its design does about it is set out
-at the top of the CUDA source.
+tensors, the plain version below for CPU tensors only.
+
+On the H100 the kernel is bound by bytes, but at decode sizes (a few
+hundred KB per call) latency sets its time: it is a warp-split
+flash-decode, eight warps per (row, KV head) each taking a contiguous
+share of the row's live keys (set by the row's own offset, so a row's
+result does not depend on the batch), 16-byte loads all issued before
+use, a warp-local online softmax, and one merge of the warps' states in
+fixed order (deterministic, no atomics).  The top of the CUDA source sets
+the design out.
 """
 
 from __future__ import annotations

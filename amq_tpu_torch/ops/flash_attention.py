@@ -5,10 +5,18 @@ package's ``ops/flash_attention.py``, with its layout: q ``[B, Hq, S, d]``,
 k/v ``[B, Hkv, T, d]``, output ``[B, Hq, S, d]`` in q's dtype.  Query row
 ``i`` sits at absolute position ``offset + i`` and attends keys
 ``j <= offset + i`` (and ``j < T``); GQA maps query head ``h`` to KV head
-``h // (Hq // Hkv)``.  The CUDA kernel (``csrc/flash_attention.cu``) runs
-for CUDA tensors, the plain version below for CPU tensors only.  What
-bounds the kernel on the H100 (operations) and what its design does about
-it is set out at the top of the CUDA source.
+``h // (Hq // Hkv)``.  The CUDA kernels (``csrc/flash_attention.cu``) run
+for CUDA tensors, the plain version below for CPU tensors only.
+
+On the H100 the kernel is bound by operations (hundreds of flops per byte
+at the evaluation shape), so bf16 inputs run both products on the tensor
+cores: warpgroup MMA (``wgmma``) over 128-query blocks, 64-key K/V tiles
+streamed through a two-stage ``cp.async`` ring while the previous tile is
+multiplied, the softmax in registers and P fed to the PV product from
+registers.  Its scores are scaled in f32 after the product (the JAX kernel
+scales q first).  f32 inputs run on CUDA cores in f32, which the JAX
+suite's 2e-4 tolerance needs (TF32 would not hold it).  The top of the CUDA
+source sets the design out.
 """
 
 from __future__ import annotations

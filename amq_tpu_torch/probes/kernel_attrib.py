@@ -37,6 +37,7 @@ import ctypes
 import functools
 import json
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -250,36 +251,78 @@ gemv_attrib.launches = 0
 
 _SASS_FN = re.compile(
     r"Function : \S*attrib_(gemv|pipe)_(?:kernel|pinned)ILi(\d)ELi1ELi(\d)E")
+_SASS_HEAD = re.compile(r"Function : (\S+)")
 _SASS_OP = re.compile(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)")
 SASS_OPS = ("FFMA", "I2F", "LDG", "LDGSTS")
+
+
+def _functions(text: str):
+    """(symbol, SASS body) of each kernel in a ``cuobjdump -sass`` listing."""
+    heads = list(_SASS_HEAD.finditer(text))
+    for h, nxt in zip(heads, heads[1:] + [None]):
+        yield h, text[h.end():nxt.start() if nxt else len(text)]
 
 
 def count_sass(text: str) -> list:
     """Per attribution kernel in a ``cuobjdump -sass`` listing: its body,
     width, variant and how many FFMA, I2F (int->float; also I2FP),
     LDG and LDGSTS (cp.async) instructions it holds."""
-    heads = list(_SASS_FN.finditer(text))
     recs = []
-    for h, nxt in zip(heads, heads[1:] + [None]):
-        body = text[h.end():nxt.start() if nxt else len(text)]
+    for h, body in _functions(text):
+        fn = _SASS_FN.match(h.group(0))
+        if fn is None:
+            continue
         ops = [op[:3] if op.startswith("I2F") else op
                for op in _SASS_OP.findall(body)]
-        recs.append(dict(body=h.group(1), nbits=int(h.group(2)),
-                         variant=VARIANTS[int(h.group(3))],
+        recs.append(dict(body=fn.group(1), nbits=int(fn.group(2)),
+                         variant=VARIANTS[int(fn.group(3))],
                          **{op: ops.count(op) for op in SASS_OPS}))
     return sorted(recs, key=lambda r: (r["body"], r["nbits"],
                                        VARIANTS.index(r["variant"])))
 
 
-def sass_counts() -> list:
-    """:func:`count_sass` of the built ``csrc/gemv_attrib.cu`` (needs
+def count_ops(text: str, symbol: str, ops) -> dict:
+    """Per kernel in a ``cuobjdump -sass`` listing whose symbol matches the
+    regex ``symbol``: how many instructions of each opcode in ``ops`` it
+    holds (the opcode before its first dot, predicated ones too), keyed
+    by the symbol."""
+    recs = {}
+    for h, body in _functions(text):
+        if re.search(symbol, h.group(1)):
+            found = _SASS_OP.findall(body)
+            recs[h.group(1)] = {op: found.count(op) for op in ops}
+    return recs
+
+
+def sass_listing(name: str) -> str:
+    """``cuobjdump -sass`` of the built ``csrc/<name>.cu`` (needs
     ``cuobjdump`` beside ``nvcc``)."""
-    _cuda.library("gemv_attrib")
+    _cuda.library(name)
     tool = Path(_cuda._nvcc()).parent / "cuobjdump"
-    listing = subprocess.run(
-        [str(tool), "-sass", str(_cuda._lib_path("gemv_attrib"))],
-        check=True, capture_output=True, text=True).stdout
-    return count_sass(listing)
+    return subprocess.run([str(tool), "-sass", str(_cuda._lib_path(name))],
+                          check=True, capture_output=True, text=True).stdout
+
+
+def kernel_names(symbols) -> dict:
+    """Short readable names of mangled kernel symbols, e.g.
+    ``flash_kernel_wgmma<128>``, through ``c++filt`` (or ``cu++filt``);
+    without either a symbol keeps its mangled name."""
+    symbols = list(symbols)
+    tool = shutil.which("c++filt") or shutil.which("cu++filt")
+    if tool is None or not symbols:
+        return {sym: sym for sym in symbols}
+    lines = subprocess.run([tool], input="\n".join(symbols), check=True,
+                           capture_output=True, text=True).stdout.splitlines()
+    names = {}
+    for sym, line in zip(symbols, lines):
+        name = line.split("(anonymous namespace)::")[-1].split("(")[0]
+        names[sym] = name.replace("__nv_bfloat16", "bf16") or sym
+    return names
+
+
+def sass_counts() -> list:
+    """:func:`count_sass` of the built ``csrc/gemv_attrib.cu``."""
+    return count_sass(sass_listing("gemv_attrib"))
 
 
 # ---------------------------------------------------------------------------

@@ -7,17 +7,23 @@ Phases (any failed check exits non-zero before the last line):
 1. environment: the card's name and power limit, torch / CUDA / Triton
    versions; TF32 off for float32 products, bf16 products reduced in f32.
 2. build: compile the port's CUDA sources (amq_tpu_torch/csrc) with nvcc,
-   one process per source, all started together.
+   one process per source, all started together; REGS (registers and
+   spill bytes of the attention kernels, from -Xptxas -v) and SASS (HGMMA
+   / HMMA / FFMA per flash kernel, from cuobjdump -sass) lines; fails if
+   the bf16 flash kernel holds no HGMMA or a redesigned kernel spills.
 3. kernels vs their plain PyTorch versions at the Llama-2-7B shapes:
    the dequant-matmuls (qkv / o / gateup / down sites, head) at M = 1 and
    64, widths 2, 3 (native planes) and 4, 8 on the head, bf16 and f32
    scale/zero; decode attention at the Llama-2-7B, GQA, hd-64 and
    sliding-window shapes; flash attention at the Llama-2-7B evaluation
    shape (bf16 and f32), prefill with a cache (unaligned T), the GQA
-   Llama-3-8B shape and d 64.  One line per case: error vs tolerance,
-   kernel / plain / library times, and the least time the card could
-   take (bytes over 3.35 TB/s or operations over the peak for the
-   inputs' type).
+   Llama-3-8B shape and d 64; decode attention at a 4000-key context
+   (reported) and a float32 batch-independence case (each row of a B = 4
+   call torch.equal to the row alone).  One line per case: error vs
+   tolerance, two calls torch.equal, kernel / plain / library times, the
+   least time the card could take (bytes over 3.35 TB/s or operations
+   over the peak for the inputs' type) and, for flash, the share of that
+   peak.
    The decode kernels of the JAX package's opt-in switches at the same
    shapes: the pipelined decode GEMV (qkv / o / gateup, down with the
    SwiGLU prologue; M 1, 4, 8; widths 2, 3, 4) against the plain version
@@ -432,10 +438,13 @@ def check_attention(label, B, Hkv, G, hd, T, offsets, gen, window=None):
     q, kc, vc, kn, vn, offs = attn_inputs(B, Hkv, G, hd, T, offsets, gen)
     got = da.decode_attention_indexed(q, kc, vc, kn, vn, offs, 1,
                                       window=window, out_dtype=torch.float32)
+    again = da.decode_attention_indexed(q, kc, vc, kn, vn, offs, 1,
+                                        window=window, out_dtype=torch.float32)
     want = da.decode_attention_plain(q, kc[1], vc[1], kn, vn, offs, window,
                                      torch.float32)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
+    deterministic = bool(torch.equal(got, again))
     ms = time_ms([lambda: da.decode_attention_indexed(
         q, kc, vc, kn, vn, offs, 1, window=window, out_dtype=torch.bfloat16)],
         iters=50)
@@ -465,11 +474,44 @@ def check_attention(label, B, Hkv, G, hd, T, offsets, gen, window=None):
     b_ms, b_by = bound(nbytes, 4 * live * Hkv * G * hd)
     rec = dict(kernel="decode_attention_indexed", case=label, B=B, Hkv=Hkv,
                G=G, hd=hd, T=T, offsets=list(offsets), window=window,
-               max_abs_err=err, tol=ATTN_TOL, ms=ms, plain_ms=plain_ms,
-               host_us=wrapper_us,
+               max_abs_err=err, tol=ATTN_TOL, deterministic=deterministic,
+               ms=ms, plain_ms=plain_ms, host_us=wrapper_us,
                library_ms=library_ms,
                library="scaled_dot_product_attention over the live keys",
-               bound_ms=b_ms, bound_by=b_by, ok=err <= ATTN_TOL)
+               bound_ms=b_ms, bound_by=b_by,
+               ok=err <= ATTN_TOL and deterministic)
+    print("CASE " + json.dumps(rec), flush=True)
+    return rec
+
+
+def check_batch_independence(gen):
+    """Each row of a float32 B = 4 decode-attention call (offsets 1, 63,
+    64, 199) against the same row run alone at B = 1, torch.equal: the
+    kernel's warp shares follow the row's own offset, never B (what the
+    token-exact float32 slot-batched run of phase 4b rests on)."""
+    from amq_tpu_torch.ops import decode_attention as da
+    offsets = (1, 63, 64, 199)
+    q, kc, vc, kn, vn, offs = (t.float() if t.is_floating_point() else t
+                               for t in attn_inputs(4, 32, 1, 128, 200,
+                                                    offsets, gen))
+    full = da.decode_attention_indexed(q, kc, vc, kn, vn, offs, 1,
+                                       out_dtype=torch.float32)
+    want = da.decode_attention_plain(q, kc[1], vc[1], kn, vn, offs, None,
+                                     torch.float32)
+    equal = []
+    for b in range(len(offsets)):
+        alone = da.decode_attention_indexed(
+            q[b:b + 1].contiguous(), kc[:, b:b + 1].contiguous(),
+            vc[:, b:b + 1].contiguous(), kn[b:b + 1].contiguous(),
+            vn[b:b + 1].contiguous(), offs[b:b + 1].contiguous(), 1,
+            out_dtype=torch.float32)
+        equal.append(bool(torch.equal(full[b:b + 1], alone)))
+    torch.cuda.synchronize()
+    err = (full - want).abs().max().item()
+    rec = dict(kernel="decode_attention_indexed", case="batch-independence",
+               B=4, Hkv=32, G=1, hd=128, T=200, offsets=list(offsets),
+               dtype="float32", rows_equal=equal, max_abs_err=err,
+               tol=ATTN_TOL, ok=all(equal) and err <= ATTN_TOL)
     print("CASE " + json.dumps(rec), flush=True)
     return rec
 
@@ -495,6 +537,7 @@ def check_flash(label, B, Hq, Hkv, S, T, d, offset, dtype, gen):
     v = torch.randn((B, Hkv, T, d), generator=gen, device="cuda").to(dtype)
     off = torch.tensor(offset, dtype=torch.int32, device="cuda")
     got = fa.flash_attention(q, k, v, off)
+    deterministic = bool(torch.equal(got, fa.flash_attention(q, k, v, off)))
     want = fa.flash_attention_plain(q, k, v, off)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
@@ -526,17 +569,62 @@ def check_flash(label, B, Hq, Hkv, S, T, d, offset, dtype, gen):
     live = min(offset + S, T)
     esize = q.element_size()
     nbytes = (2 * B * Hq * S * d + 2 * B * Hkv * live * d) * esize
-    b_ms, b_by = bound(nbytes, flops,
-                       BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    b_ms, b_by = bound(nbytes, flops, peak)
     rec = dict(kernel="flash_attention", case=label, B=B, Hq=Hq, Hkv=Hkv,
                S=S, T=T, d=d, offset=offset, dtype=str(dtype).split(".")[-1],
-               max_abs_err=err, err_vs_tol=score, tol=FLASH_TOL[dtype], ms=ms,
-               plain_ms=plain_ms, host_us=wrapper_us, library_ms=library_ms,
+               max_abs_err=err, err_vs_tol=score, tol=FLASH_TOL[dtype],
+               deterministic=deterministic, ms=ms, plain_ms=plain_ms,
+               host_us=wrapper_us, library_ms=library_ms,
                library="scaled_dot_product_attention(enable_gqa=True)",
-               tflops=flops / ms / 1e9, bound_ms=b_ms, bound_by=b_by,
-               ok=score <= FLASH_TOL[dtype])
+               tflops=flops / ms / 1e9,
+               share_of_peak=flops / ms / 1e-3 / peak, bound_ms=b_ms,
+               bound_by=b_by,
+               ok=score <= FLASH_TOL[dtype] and deterministic)
     print("CASE " + json.dumps(rec), flush=True)
     return rec
+
+
+#: the bf16 flash kernel's symbol (tensor cores) and the attention
+#: kernels whose registers and spills phase 2 reports
+WGMMA_FLASH = "flash_kernel_wgmma"
+ATTN_KERNELS = {"flash_attention": "flash_kernel", "decode_attention":
+                "decode_attn_kernel"}
+
+
+def attention_build_report():
+    """Phase 2's report on the two attention libraries: a REGS line (per
+    kernel instantiation its registers and local spill bytes, from nvcc's
+    -Xptxas -v) and a SASS line (per flash kernel its HGMMA, HMMA and FFMA
+    instructions, from cuobjdump -sass).  Fails if the bf16 flash kernel
+    holds no HGMMA (warpgroup MMA) or if a redesigned kernel spills."""
+    from amq_tpu_torch.ops import _cuda
+    from amq_tpu_torch.probes import kernel_attrib as ka
+    regs = {}
+    for name, pattern in ATTN_KERNELS.items():
+        if name not in _cuda.LOGS:          # built before this run: rebuild
+            _cuda._lib_path(name).unlink()
+            _cuda.build([name], verbose=True)
+        usage = {sym: use for sym, use in
+                 _cuda.ptxas_usage(_cuda.LOGS[name]).items()
+                 if pattern in sym}
+        names = ka.kernel_names(usage)
+        regs[name] = {names[sym]: use for sym, use in usage.items()}
+    print("REGS " + json.dumps(regs), flush=True)
+    counts = ka.count_ops(ka.sass_listing("flash_attention"), "flash_kernel",
+                          ("HGMMA", "HMMA", "FFMA"))
+    names = ka.kernel_names(counts)
+    sass = {names[sym]: c for sym, c in counts.items()}
+    print("SASS " + json.dumps(sass), flush=True)
+    wgmma = {sym: c for sym, c in sass.items() if WGMMA_FLASH in sym}
+    if len(wgmma) != 2 or not all(c["HGMMA"] > 0 for c in wgmma.values()):
+        fail(f"the bf16 flash kernels hold no HGMMA: {sass}")
+    spills = [sym for lib in regs.values() for sym, use in lib.items()
+              if (WGMMA_FLASH in sym or "decode_attn_kernel" in sym)
+              and use["spill_stores"] + use["spill_loads"] > 0]
+    if spills:
+        fail(f"redesigned attention kernels spill: {spills}")
+    return dict(regs=regs, sass=sass)
 
 
 # ---------------------------------------------------------------------------
@@ -1367,6 +1455,7 @@ def main():
     # -- phase 2: build -------------------------------------------------------
     build_s = _cuda.build(verbose=True)
     print(f"build: {build_s:.1f} s ({', '.join(_cuda.SOURCES)})", flush=True)
+    attn_build = attention_build_report()
 
     # -- phase 3: kernels vs plain versions ----------------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1387,6 +1476,11 @@ def main():
                                  (1, 63, 64, 199), gen))
     cases.append(check_attention("window16", 4, 32, 1, 128, 200,
                                  (1, 63, 64, 199), gen, window=16))
+    # reported: one row's context across one block (the evidence for a
+    # cross-block split)
+    cases.append(check_attention("long-context", 1, 32, 1, 128, 4096,
+                                 (4000,), gen))
+    cases.append(check_batch_independence(gen))
     for fc in FLASH_CASES:
         cases.append(check_flash(*fc, gen))
         torch.cuda.empty_cache()
@@ -1578,7 +1672,8 @@ def main():
                    "sensitivity": {k: v for k, v in sens.items()
                                    if k != "table"},
                    "eval_parity": eval_recs, "eval_profile": eval_prof,
-                   "search": search_rec, "probes": probes},
+                   "search": search_rec, "probes": probes,
+                   "attention_build": attn_build},
                   f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -129,28 +129,94 @@ def test_cuda_mlp_kernel_matches_plain_and_chain(M, nbits):
     assert tqm.quant_matmul_mlp_indexed.launches - before == 2 * L
 
 
+def _attn_inputs(B, Hkv, G, hd, T, offsets, seed, q_dtype=torch.float32,
+                 cache_dtype=torch.float32):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, Hkv, G, hd, generator=g, device="cuda").to(q_dtype)
+    kc, vc = (torch.randn(2, B, Hkv, T, hd, generator=g, device="cuda").to(
+        cache_dtype) for _ in range(2))
+    kn, vn = (torch.randn(B, Hkv, hd, generator=g, device="cuda").to(q_dtype)
+              for _ in range(2))
+    offs = torch.tensor(offsets, dtype=torch.int32, device="cuda")
+    return q, kc, vc, kn, vn, offs
+
+
 @pytest.mark.cuda
-def test_cuda_decode_attention_matches_plain():
+@pytest.mark.parametrize("case", [
+    dict(B=4, Hkv=8, G=4, hd=128, T=200, offsets=(1, 63, 64, 199)),
+    # a long context: each warp's share spans many chunks
+    dict(B=1, Hkv=4, G=1, hd=128, T=4096, offsets=(4000,)),
+    # G 16 (four groups of four heads), hd 64
+    dict(B=2, Hkv=2, G=16, hd=64, T=200, offsets=(0, 150)),
+], ids=["gqa", "t4096", "g16"])
+def test_cuda_decode_attention_matches_plain(case):
+    """f32 in and out: the kernel within the JAX suite's tolerance of the
+    plain version, with and without a window; two calls give the same
+    bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    g = torch.Generator(device="cuda").manual_seed(0)
-    B, Hkv, G, hd, T = 4, 8, 4, 128, 200
-    q = torch.randn(B, Hkv, G, hd, generator=g, device="cuda")
-    kc, vc = (torch.randn(2, B, Hkv, T, hd, generator=g, device="cuda")
-              for _ in range(2))
-    kn, vn = (torch.randn(B, Hkv, hd, generator=g, device="cuda")
-              for _ in range(2))
-    offs = torch.tensor([1, 63, 64, 199], dtype=torch.int32, device="cuda")
+    q, kc, vc, kn, vn, offs = _attn_inputs(seed=0, **case)
     for window in (None, 16):
         got = tda.decode_attention_indexed(q, kc, vc, kn, vn, offs, 1,
                                            window=window, out_dtype=torch.float32)
+        again = tda.decode_attention_indexed(q, kc, vc, kn, vn, offs, 1,
+                                             window=window,
+                                             out_dtype=torch.float32)
         want = tda.decode_attention_plain(q, kc[1], vc[1], kn, vn, offs,
                                           window, torch.float32)
+        torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_attention_dtypes(q_dtype, cache_dtype, out_dtype):
+    """Each of the kernel's eight dtype instantiations (at G 1 and G 4)
+    against the plain version on the same inputs; a bf16 output carries
+    one rounding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    for G in (1, 4):
+        q, kc, vc, kn, vn, offs = _attn_inputs(3, 4, G, 128, 200, (1, 64, 199),
+                                               seed=G, q_dtype=q_dtype,
+                                               cache_dtype=cache_dtype)
+        got = tda.decode_attention_indexed(q, kc, vc, kn, vn, offs, 0,
+                                           out_dtype=out_dtype)
+        want = tda.decode_attention_plain(q, kc[0], vc[0], kn, vn, offs,
+                                          None, torch.float32)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype
+        atol = 2e-4 if out_dtype == torch.float32 else 1e-2
+        _norm_close(got.float().cpu().numpy(), want.cpu().numpy(), atol=atol)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_batch_independent():
+    """Each row of a B = 4 call gives the same bits as that row alone at
+    B = 1: the warps' shares follow the row's own offset, never B or the
+    other rows (what the token-exact slot-batched run rests on)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    q, kc, vc, kn, vn, offs = _attn_inputs(4, 32, 1, 128, 200,
+                                           (1, 63, 64, 199), seed=5)
+    full = tda.decode_attention_indexed(q, kc, vc, kn, vn, offs, 1,
+                                        out_dtype=torch.float32)
+    for b in range(4):
+        alone = tda.decode_attention_indexed(
+            q[b:b + 1].contiguous(), kc[:, b:b + 1].contiguous(),
+            vc[:, b:b + 1].contiguous(), kn[b:b + 1].contiguous(),
+            vn[b:b + 1].contiguous(), offs[b:b + 1].contiguous(), 1,
+            out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(full[b:b + 1], alone), b
 
 
 #: (B, Hq, Hkv, S, T, d, offset, dtype, causal): the JAX suite's five cases
-#: (tests/test_flash_attention.py), bf16, d 64, non-causal
+#: (tests/test_flash_attention.py), bf16, d 64, non-causal; two calls give
+#: the same bits
 FLASH_CASES = [
     (1, 4, 2, 128, 128, 128, 0, torch.float32, True),
     (1, 4, 2, 128, 136, 128, 0, torch.float32, True),
@@ -160,6 +226,14 @@ FLASH_CASES = [
     (2, 8, 8, 512, 512, 128, 0, torch.bfloat16, True),
     (2, 16, 2, 256, 256, 64, 0, torch.float32, True),
     (1, 4, 4, 128, 192, 128, 0, torch.float32, False),
+    # bf16 (the tensor-core kernel): S 192 with GQA (half of a 128-row
+    # tile), d 64, an offset with T unaligned to 64 (the diagonal mid-tile),
+    # d 64 with GQA and an offset, non-causal
+    (1, 8, 2, 192, 192, 128, 0, torch.bfloat16, True),
+    (2, 4, 2, 256, 256, 64, 0, torch.bfloat16, True),
+    (1, 4, 4, 128, 200, 128, 40, torch.bfloat16, True),
+    (1, 8, 2, 192, 328, 64, 136, torch.bfloat16, True),
+    (1, 4, 4, 128, 192, 128, 0, torch.bfloat16, False),
 ]
 
 
@@ -177,9 +251,11 @@ def test_cuda_flash_attention_matches_plain(case):
             for _ in range(2))
     off = torch.tensor(offset, dtype=torch.int32, device="cuda")
     got = tfa.flash_attention(q, k, v, off, causal=causal)
+    again = tfa.flash_attention(q, k, v, off, causal=causal)
     want = tfa.flash_attention_plain(q, k, v, off, causal=causal)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, again)
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
     else:

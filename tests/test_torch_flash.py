@@ -2,8 +2,9 @@
 
 ``flash_attention_plain`` (what a CPU tensor gets, and what the CUDA
 kernel is held to on the card) against the JAX Pallas kernel run in
-interpret mode, on the JAX suite's five cases plus bf16, d 64 and
-non-causal ones; and the model's attention routing around the kernel.
+interpret mode, on the JAX suite's five cases plus bf16 (at d 64, with
+GQA at S 192, with an offset and T unaligned to 64), d 64 and non-causal
+ones; and the model's attention routing around the kernel.
 """
 
 import dataclasses
@@ -35,6 +36,10 @@ CASES = {
                         {"block_q": 128, "block_k": 128}),
     "bf16": (1, 4, 4, 128, 192, 128, 32, "bfloat16", {}),
     "d64": (2, 4, 2, 128, 128, 64, 0, "float32", {}),
+    # shapes the tensor-core kernel's 128-row, 64-key tiling meets in bf16
+    "bf16_d64": (2, 4, 2, 128, 128, 64, 0, "bfloat16", {}),
+    "bf16_gqa_s192": (1, 8, 2, 192, 192, 128, 0, "bfloat16", {}),
+    "bf16_offset_unaligned_t": (1, 4, 2, 128, 200, 128, 40, "bfloat16", {}),
 }
 
 

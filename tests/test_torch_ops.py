@@ -150,11 +150,12 @@ def test_indexed_bf16_decode(nbits, swiglu):
     _norm_close(got.numpy(), np.asarray(want))
 
 
-def _attn_case(B, Hkv, G, hd, T, offsets, window=None, seed=0, L=3):
+def _attn_case(B, Hkv, G, hd, T, offsets, window=None, seed=0, L=3,
+               cache_dtype=np.float32):
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(B, Hkv, G, hd)).astype(np.float32)
-    kc = rng.normal(size=(L, B, Hkv, T, hd)).astype(np.float32)
-    vc = rng.normal(size=(L, B, Hkv, T, hd)).astype(np.float32)
+    kc = rng.normal(size=(L, B, Hkv, T, hd)).astype(cache_dtype)
+    vc = rng.normal(size=(L, B, Hkv, T, hd)).astype(cache_dtype)
     kn = rng.normal(size=(B, Hkv, hd)).astype(np.float32)
     vn = rng.normal(size=(B, Hkv, hd)).astype(np.float32)
     offs = np.asarray(offsets, np.int32)
@@ -165,7 +166,7 @@ def _attn_case(B, Hkv, G, hd, T, offsets, window=None, seed=0, L=3):
             jnp.asarray(vn), jnp.asarray(offs), jnp.int32(layer),
             window=window, out_dtype=jnp.float32))
     got = tda.decode_attention_indexed(
-        *(torch.from_numpy(a) for a in (q, kc, vc, kn, vn, offs)), layer,
+        *(to_tensor(a) for a in (q, kc, vc, kn, vn, offs)), layer,
         window=window, out_dtype=torch.float32).numpy()
     return want, got
 
@@ -176,9 +177,26 @@ def _attn_case(B, Hkv, G, hd, T, offsets, window=None, seed=0, L=3):
     dict(B=3, Hkv=8, G=1, hd=128, T=96, offsets=(0, 32, 95), seed=1),
     dict(B=2, Hkv=4, G=2, hd=64, T=64, offsets=(10, 60), window=16, seed=2),
     dict(B=2, Hkv=2, G=4, hd=64, T=128, offsets=(1, 127), seed=3),
+    # live contexts spanning several of the kernel's eight warp shares
+    dict(B=4, Hkv=2, G=1, hd=128, T=512, offsets=(0, 1, 257, 511), seed=4),
+    # G 8 and 16 (two and four groups of four heads), hd 64, with and
+    # without a window
+    dict(B=2, Hkv=2, G=8, hd=64, T=128, offsets=(5, 100), seed=5),
+    dict(B=2, Hkv=2, G=8, hd=64, T=128, offsets=(5, 100), window=32, seed=6),
+    dict(B=2, Hkv=1, G=16, hd=64, T=128, offsets=(17, 128), seed=7),
+    dict(B=2, Hkv=1, G=16, hd=64, T=128, offsets=(17, 128), window=40,
+         seed=8),
 ])
 def test_decode_attention_matches_jax_kernel(case):
     want, got = _attn_case(**case)
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_decode_attention_bf16_cache_matches_jax_kernel():
+    """A bf16 cache (the serving default) widened to f32 in both."""
+    want, got = _attn_case(B=3, Hkv=4, G=2, hd=128, T=256,
+                           offsets=(1, 130, 255), seed=9,
+                           cache_dtype=jnp.bfloat16)
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
 
 

@@ -306,3 +306,67 @@ def test_count_sass_reads_each_attribution_kernel():
              LDGSTS=0),
         dict(body="pipe", nbits=4, variant="fma_only", FFMA=2, I2F=0, LDG=1,
              LDGSTS=1)]
+
+
+def test_count_ops_reads_each_matching_kernel():
+    """The generic SASS counter on a canned listing with the bf16 flash
+    kernel, the f32 one and a decode-attention kernel: only the symbols
+    matching the pattern, each with its own instructions."""
+    def fn(name, ops):
+        code = "".join(f"        /*{i * 16:04x}*/   {op} R1, R2 ;  /* 0x0 */\n"
+                       f"                          /* 0x0 */\n"
+                       for i, op in enumerate(ops))
+        return f"\t\tFunction : {name}\n\t.headerflags ...\n{code}"
+    wgmma = "_ZN52_GLOBAL__N__f_12345_18flash_kernel_wgmmaILi128EEEvPK13__nv_bfloat16"
+    f32 = "_ZN52_GLOBAL__N__f_12345_12flash_kernelIfLi64EEEvPKT_S3_"
+    dec = ("_ZN52_GLOBAL__N__d_12345_18decode_attn_kernelI13__nv_bfloat16S1_"
+           "fLi128ELi1EEEvPKT_")
+    listing = ("Fatbin elf code:\n"
+               + fn(wgmma, ["HGMMA.64x64x16.F32.BF16", "@P0 HGMMA.64x128x16.F32.BF16",
+                            "FFMA", "BAR.SYNC"])
+               + fn(f32, ["FFMA", "FFMA", "@!P2 FFMA", "LDS.128"])
+               + fn(dec, ["LDG.E.128.CONSTANT", "FFMA", "SHFL.BFLY"]))
+    ops = ("HGMMA", "HMMA", "FFMA")
+    assert ka.count_ops(listing, "flash_kernel", ops) == {
+        wgmma: dict(HGMMA=2, HMMA=0, FFMA=1),
+        f32: dict(HGMMA=0, HMMA=0, FFMA=3)}
+    assert ka.count_ops(listing, "decode_attn", ("LDG", "SHFL")) == {
+        dec: dict(LDG=1, SHFL=1)}
+    # the attribution counter ignores kernels that are not its own
+    assert ka.count_sass(listing) == []
+
+
+def test_ptxas_usage_reads_each_kernel():
+    """Registers, stack frame and spill bytes per kernel from nvcc's
+    ``-Xptxas -v`` report."""
+    from amq_tpu_torch.ops import _cuda
+    log = (
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Z1aPf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1aPf\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers, 400 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function '_Z1bPf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1bPf\n"
+        "    24 bytes stack frame, 20 bytes spill stores, 16 bytes spill loads\n"
+        "ptxas info    : Used 255 registers, 384 bytes cmem[0]\n")
+    assert _cuda.ptxas_usage(log) == {
+        "_Z1aPf": dict(registers=168, stack=0, spill_stores=0, spill_loads=0),
+        "_Z1bPf": dict(registers=255, stack=24, spill_stores=20,
+                       spill_loads=16)}
+
+
+def test_kernel_names_shorten_symbols(monkeypatch):
+    """Mangled kernel symbols as short names through c++filt; a symbol
+    stays as it is where no demangler is installed."""
+    import shutil
+    syms = ["_ZN51_GLOBAL__N__00f851f7_18_flash_attention_cu_ddd85e8f18"
+            "flash_kernel_wgmmaILi128EEEvPK13__nv_bfloat16S3_S3_PKiPS1_iiiiif",
+            "_ZN52_GLOBAL__N__28b647d7_19_decode_attention_cu_5aaacd3a18"
+            "decode_attn_kernelI13__nv_bfloat16S1_fLi128ELi1EEEvPKT_PKT0_S7_"
+            "S4_S4_PKiPT1_iiiif"]
+    if shutil.which("c++filt") or shutil.which("cu++filt"):
+        assert list(ka.kernel_names(syms).values()) == [
+            "flash_kernel_wgmma<128>", "decode_attn_kernel<bf16, bf16, float, 128, 1>"]
+    monkeypatch.setattr(ka.shutil, "which", lambda name: None)
+    assert ka.kernel_names(syms) == {s: s for s in syms}
