@@ -75,18 +75,18 @@ def _pack_pow2_group(codes: torch.Tensor, nbits: int) -> torch.Tensor:
 
 def _unpack_pow2_group(words: torch.Tensor, nbits: int,
                        group_size: int) -> torch.Tensor:
-    """Inverse of :func:`_pack_pow2_group`: ``[G, rows, N]`` -> ``[G, g, N]``."""
+    """Inverse of :func:`_pack_pow2_group` on int32 words: ``[G, rows, N]``
+    -> ``[G, g, N]``.  One broadcast shift and mask over the shifts
+    ``nbits*p + 16*h`` shaped ``[P, 1, 2, 1]``: block row ``p*2R + 2r + h``
+    comes out in K order."""
     G, rows, N = words.shape
     P = 16 // nbits
-    mask = 2**nbits - 1
-    parts = []
-    for p in range(P):
-        lo = (words >> (nbits * p)) & mask          # h = 0
-        hi = (words >> (16 + nbits * p)) & mask     # h = 1
-        parts.append(torch.stack([lo, hi], dim=3))  # [G, rows, N, 2]
-    out = torch.stack(parts, dim=1)                 # [G, P, rows, N, 2]
-    out = out.movedim(4, 3)                         # [G, P, rows, 2, N]
-    return out.reshape(G, group_size, N)
+    shifts = (nbits * torch.arange(P, dtype=torch.int32,
+                                   device=words.device).reshape(P, 1, 1, 1)
+              + 16 * torch.arange(2, dtype=torch.int32,
+                                  device=words.device).reshape(1, 1, 2, 1))
+    codes = (words[:, None, :, None, :] >> shifts) & (2**nbits - 1)
+    return codes.reshape(G, group_size, N)
 
 
 def pack(codes: torch.Tensor, nbits: int, group_size: int = 128) -> torch.Tensor:
@@ -112,13 +112,18 @@ def pack(codes: torch.Tensor, nbits: int, group_size: int = 128) -> torch.Tensor
 
 def unpack(words: torch.Tensor, nbits: int, group_size: int = 128,
            dtype=torch.int32) -> torch.Tensor:
-    """Unpack int32 (or int64) words ``[K * nbits / 32, N]`` -> codes ``[K, N]``."""
+    """Unpack int32 (or int64) words ``[K * nbits / 32, N]`` -> codes ``[K, N]``.
+
+    The codes are extracted from int32 words (int64 words in ``[0, 2**32)``
+    are wrapped first): no int64 intermediates."""
     assert nbits in SUPPORTED_BITS, nbits
     rows = packed_rows(group_size, nbits)
     R, N = words.shape
     assert R % rows == 0, (R, rows)
     G = R // rows
-    w = words.to(torch.int64).reshape(G, rows, N)
+    if words.dtype == torch.int64:
+        words = wrap_int32(words)
+    w = words.reshape(G, rows, N)
     if nbits in _PLANE_SPLIT:
         hb, lb = _PLANE_SPLIT[nbits]
         hi_rows = packed_rows(group_size, hb)

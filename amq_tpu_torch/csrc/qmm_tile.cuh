@@ -349,6 +349,264 @@ __global__ void reduce_splits_kernel(const float* partial, void* out, int MN,
   store_f(out, i, v, out_bf16);
 }
 
+// ---------------------------------------------------------------------------
+// The grouped form on tensor cores (the JAX package's _gemv_blockdiag).
+//
+// Codes become exact bf16 values 128 + c: a packed word's two 16-bit halves
+// hold K rows 2r and 2r+1 of one column, so ((w >> s) & F | F << 16) |
+// 0x43004300 is one bf16x2 register (128 + field at row 2r, at row 2r+1),
+// one shift and one LOP3 per two codes.  A width-b plane (b <= 4) is one
+// field per extraction round p (shift b*p); an 8-bit code is two 4-bit
+// nibble planes q (shift 8p + 4q) weighted 1 and 16, so 128 * 17 is added
+// per code.  Per quantization group g (its rows in round p):
+//   y = sum_q 2^(4q) * sum_k x_k (128 + field_q(k))        (f32, mma.sync)
+//   tot += s_g * y - xsum * ((z_g + zoff) * s_g)
+// where xsum, the f32 sum of the same bf16 x the products read, is one
+// more MMA of x against an A of ones.
+//
+// Operand mapping (mma.sync.m16n8k16, bf16 in, f32 accumulate): weight
+// columns are the A side's 16 rows, the <= 8 activation rows are B's n8
+// (columns of B past M hold whatever the buffer held: they only reach
+// output columns that are never written).  A row i is tile column 2i
+// (i < 8) or 2(i-8)+1, and A's k-pair j is word row 2j (j < 4) or
+// 2(j-4)+1 of an 8-row step, so a lane's four A registers come from two
+// 8-byte loads (word rows r0+2t and r0+2t+1, columns 2g and 2g+1; g =
+// lane/4, t = lane%4) and its two B registers from one 8-byte load of x
+// row g at offset 16*step + 4t.  An accumulator's registers are (col 2g,
+// row 2t), (2g, 2t+1), (2g+1, 2t), (2g+1, 2t+1).
+//
+// Written over the code width BITS (1, 2, 4: one plane; 8: two nibble
+// planes), so the 2/3/4-bit GEMVs can take the same step; only 8-bit
+// launches it now.  superblock_fma and its kernels are untouched.
+
+constexpr int kGWarps = 8;             // grouped GEMV: consumer warps
+constexpr int kGTiles = 2;             // 16-column MMA tiles per warp
+constexpr int kGBN = kGWarps * 16 * kGTiles;   // columns per block
+constexpr int kGSR = 32;               // word rows per ring stage
+constexpr int kGPart = 2 * kGSR;       // K rows per stage and round
+constexpr int kGStages = 2;
+constexpr int kGWordStride = kGBN + 4; // words per staged row (no conflicts)
+constexpr int kGXStride = kGPart + 8;  // bf16 per staged x row (no conflicts)
+
+template <int BITS>
+struct GroupedForm {
+  static constexpr int field = BITS < 4 ? BITS : 4;
+  static constexpr int planes = BITS / field;     // 1, or 2 for 8-bit
+  static constexpr int rounds = 16 / BITS;        // P
+  static constexpr uint32_t pair_mask =
+      ((1u << field) - 1u) | (((1u << field) - 1u) << 16);
+  static constexpr float zoff = BITS == 8 ? 128.f * 17.f : 128.f;
+};
+
+__device__ __forceinline__ void mma16816_bf16(float (&c)[4], uint32_t a0,
+                                              uint32_t a1, uint32_t a2,
+                                              uint32_t a3, uint32_t b0,
+                                              uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+template <int BITS>
+__device__ __forceinline__ uint32_t code_pair_bf16(uint32_t w, int shift) {
+  return ((w >> shift) & GroupedForm<BITS>::pair_mask) | 0x43004300u;
+}
+
+// One grouped ring stage, in bytes: kGSR word rows of kGBN columns; per
+// round a scale row and a zero row (room for f32 meta); the activations
+// of the stage's rows, bf16 [8 rows][P rounds][kGXStride]; and, with the
+// SwiGLU prologue, as much again for its second operand.
+__host__ __device__ inline int grouped_words_bytes() {
+  return kGSR * kGWordStride * 4;
+}
+__host__ __device__ inline int grouped_meta_bytes(int bits) {
+  return 2 * (16 / bits) * kGBN * 4;
+}
+__host__ __device__ inline int grouped_x_bytes(int bits) {
+  return 8 * (16 / bits) * kGXStride * 2;
+}
+__host__ __device__ inline int grouped_stage_bytes(int bits, bool swiglu) {
+  return grouped_words_bytes() + grouped_meta_bytes(bits) +
+         (swiglu ? 2 : 1) * grouped_x_bytes(bits);
+}
+
+// The accumulators of the group in progress: per tile, round and plane
+// (`acc`), and per round the activations against ones (`xacc`, the
+// group's xsum, shared by the tiles).
+template <int BITS>
+using GroupedAcc = float[kGTiles][GroupedForm<BITS>::rounds]
+                        [GroupedForm<BITS>::planes][4];
+template <int BITS>
+using GroupedXAcc = float[GroupedForm<BITS>::rounds][4];
+
+// silu(x) * u of two bf16 pairs in f32, rounded to bf16: the SwiGLU
+// prologue of the plain version, applied as the B fragment is read.
+__device__ __forceinline__ uint32_t swiglu_pair(uint32_t x, uint32_t u) {
+  const float2 xf = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
+  const float2 uf = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
+  __nv_bfloat162 r = __floats2bfloat162_rn(xf.x / (1.f + expf(-xf.x)) * uf.x,
+                                           xf.y / (1.f + expf(-xf.y)) * uf.y);
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
+// One warp's products over one stage: `ws` the stage's words
+// [kGSR][kGWordStride], `xs` its activations [8][P][kGXStride] (with `us`,
+// the SwiGLU operand beside them, silu(x) * u), the warp's kGTiles tiles
+// of 16 columns from wcol; added to acc and xacc.
+template <int BITS>
+__device__ __forceinline__ void grouped_step(const uint32_t* ws,
+                                             const __nv_bfloat16* xs,
+                                             const __nv_bfloat16* us,
+                                             int wcol, int lane,
+                                             GroupedAcc<BITS>& acc,
+                                             GroupedXAcc<BITS>& xacc) {
+  using F = GroupedForm<BITS>;
+  constexpr int P = F::rounds;
+  constexpr uint32_t kOnes = 0x3F803F80u;        // bf16 (1, 1)
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int st = 0; st < kGSR / 8; ++st) {
+    uint2 w0[kGTiles], w1[kGTiles];
+#pragma unroll
+    for (int ct = 0; ct < kGTiles; ++ct) {
+      const uint32_t* wr =
+          ws + (st * 8 + 2 * t) * kGWordStride + wcol + 16 * ct + 2 * g;
+      w0[ct] = *reinterpret_cast<const uint2*>(wr);
+      w1[ct] = *reinterpret_cast<const uint2*>(wr + kGWordStride);
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int xo = (g * P + p) * kGXStride + 16 * st + 4 * t;
+      uint2 b = *reinterpret_cast<const uint2*>(xs + xo);
+      if (us != nullptr) {
+        const uint2 u = *reinterpret_cast<const uint2*>(us + xo);
+        b = make_uint2(swiglu_pair(b.x, u.x), swiglu_pair(b.y, u.y));
+      }
+#pragma unroll
+      for (int ct = 0; ct < kGTiles; ++ct)
+#pragma unroll
+        for (int q = 0; q < F::planes; ++q) {
+          const int sh = BITS * p + F::field * q;
+          mma16816_bf16(acc[ct][p][q], code_pair_bf16<BITS>(w0[ct].x, sh),
+                        code_pair_bf16<BITS>(w0[ct].y, sh),
+                        code_pair_bf16<BITS>(w1[ct].x, sh),
+                        code_pair_bf16<BITS>(w1[ct].y, sh), b.x, b.y);
+        }
+      mma16816_bf16(xacc[p], kOnes, kOnes, kOnes, kOnes, b.x, b.y);
+    }
+  }
+}
+
+// The correction at a group's end: `meta` holds per round p the scale
+// row (2p) and zero row (2p + 1) of round p's group over the block's
+// kGBN columns; tot += s * y - xsum * ((z + zoff) * s) per tile, the
+// accumulators cleared.
+template <int BITS>
+__device__ __forceinline__ void grouped_correct(const unsigned char* meta,
+                                                int meta_bf16, int wcol,
+                                                int lane,
+                                                GroupedAcc<BITS>& acc,
+                                                GroupedXAcc<BITS>& xacc,
+                                                float (&tot)[kGTiles][4]) {
+  using F = GroupedForm<BITS>;
+#pragma unroll
+  for (int ct = 0; ct < kGTiles; ++ct)
+#pragma unroll
+  for (int p = 0; p < F::rounds; ++p) {
+    const int c0 = wcol + 16 * ct + 2 * (lane >> 2);
+    float s[2], z[2];
+    const unsigned char* ms = meta + 2 * p * kGBN * 4;
+    const unsigned char* mz = ms + kGBN * 4;
+    if (meta_bf16) {
+      const __nv_bfloat162 sv =
+          reinterpret_cast<const __nv_bfloat162*>(ms)[c0 / 2];
+      const __nv_bfloat162 zv =
+          reinterpret_cast<const __nv_bfloat162*>(mz)[c0 / 2];
+      s[0] = __low2float(sv); s[1] = __high2float(sv);
+      z[0] = __low2float(zv); z[1] = __high2float(zv);
+    } else {
+      const float2 sv = reinterpret_cast<const float2*>(ms)[c0 / 2];
+      const float2 zv = reinterpret_cast<const float2*>(mz)[c0 / 2];
+      s[0] = sv.x; s[1] = sv.y;
+      z[0] = zv.x; z[1] = zv.y;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = i >> 1;
+      const float xsum = xacc[p][i & 1];
+      float y = acc[ct][p][0][i];
+#pragma unroll
+      for (int q = 1; q < F::planes; ++q)
+        y = static_cast<float>(1 << (F::field * q)) * acc[ct][p][q][i] + y;
+      const float corr = (z[c] + F::zoff) * s[c];
+      tot[ct][i] += s[c] * y - xsum * corr;
+    }
+#pragma unroll
+    for (int q = 0; q < F::planes; ++q)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[ct][p][q][i] = 0.f;
+  }
+#pragma unroll
+  for (int p = 0; p < F::rounds; ++p)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) xacc[p][i] = 0.f;
+}
+
+// Bulk copies (TMA without a tensor map) into shared memory, completing
+// on an mbarrier, and the barrier's operations.
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(static_cast<unsigned>(
+          __cvta_generic_to_shared(dst))),
+      "l"(src), "r"(bytes),
+      "r"(static_cast<unsigned>(__cvta_generic_to_shared(bar)))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(bar))),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(bar)))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(static_cast<unsigned>(__cvta_generic_to_shared(bar))),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait for the barrier's phase of the given parity to complete; a phase
+// that never completes (a byte count that cannot be met) traps, so the
+// launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(bar));
+  for (long long spin = 0;; ++spin) {
+    unsigned done;
+    asm volatile(
+        "{\n"
+        ".reg .pred P1;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P1;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spin > (1ll << 26)) asm volatile("trap;");
+  }
+}
+
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }

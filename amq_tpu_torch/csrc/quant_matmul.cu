@@ -26,6 +26,35 @@
 // dequantizes a 64 x 64 weight tile into shared memory and runs a plain
 // register-tiled f32 product over it, with K split across blocks when the
 // site has few column tiles.  Accumulation is f32 throughout.
+//
+// The grouped GEMV (amq_qmm_grouped): 8-bit weights, bf16 activations,
+// M <= 8 -- the JAX package's serving condition (single_m and acc_dtype ==
+// bf16) for its block-diagonal grouped GEMV (_gemv_blockdiag), and the
+// 8-bit lm_head's decode and speculative-verify calls.  It computes the
+// reference's grouped form (qmm_tile.cuh grouped_step): codes extracted as
+// exact bf16 128 + nibble values (one shift and one LOP3 per two codes, no
+// I2F or FFMA per weight), products on tensor cores (mma.sync.m16n8k16,
+// f32 accumulation), the activation sums from one more MMA against ones,
+// one correction per group.  Bound: bytes (the head's 131 MB of words).
+// Design: a block owns 256 columns (8 consumer warps of two 16-column
+// MMA tiles each, every warp over all of its split's K, so no cross-warp
+// sum; the tiles share the activation fragments and the xsum MMA) and has
+// one producer warp.  Words, meta and activations stream through a ring
+// of bulk copies (cp.async.bulk, the TMA without a tensor map): the
+// producer issues a stage as 32 copies of one 1 KB word row each, the
+// meta rows at a group's end and one copy per activation row and round,
+// completing on the slot's full mbarrier; each consumer warp waits on it,
+// computes, and releases the slot on its empty mbarrier.  No barrier of
+// the whole block sits in the loop: with one per stage, copies and
+// products took turns on the H100 (the time of both added up).  A stage
+// is 32 word rows (39 KB with meta and activations) and the ring two
+// stages, so a block takes 78 KB of shared memory and two blocks share an
+// SM; among the ring shapes tried there (one to four tiles per warp, 8 to
+// 32 rows per stage, two to five stages) fewer, larger copies and stages
+// ran fastest.  K is split across blocks only as
+// far as two blocks per SM fill one wave; the splits are
+// summed in fixed order by reduce_splits_kernel, so two calls give the
+// same bits.
 
 #include "qmm_tile.cuh"
 
@@ -179,6 +208,177 @@ __global__ void __launch_bounds__(256) qmm_gemm_kernel(GemvArgs a) {
   }
 }
 
+// Grouped GEMV (see the top of this file): kGWarps consumer warps and one
+// producer warp; grid (ceil(N / kGBN), splits).  The producer fills ring
+// slot j % kGStages with stage j by bulk copies (one per word row, meta
+// row and activation row) that complete on the slot's full barrier, once
+// every consumer warp has released the slot's previous stage on its empty
+// barrier; no barrier of the whole block inside the loop.
+template <int BITS>
+__global__ void __launch_bounds__((kGWarps + 1) * 32, 2)
+    qmm_grouped_kernel(GemvArgs a) {
+  extern __shared__ __align__(16) unsigned char gsmem[];
+  constexpr int P = GroupedForm<BITS>::rounds;
+  const int sb = a.w.superblock, gs = a.w.group_size, Np = a.w.Np;
+  const bool swiglu = a.op.u != nullptr;
+  const int R = sb * BITS / 32, spb = R / kGSR;     // stages per superblock
+  // a group's rows in one round (its whole superblock when the group
+  // spans rounds): the stage ending them carries the meta and corrects
+  const int span = min(gs / 2, R);
+  const int stage = grouped_stage_bytes(BITS, swiglu);
+  const int meta_off = grouped_words_bytes();
+  const int x_off = meta_off + grouped_meta_bytes(BITS);
+  const int u_off = x_off + grouped_x_bytes(BITS);
+  uint64_t* full = reinterpret_cast<uint64_t*>(gsmem);
+  uint64_t* empty = full + kGStages;
+  unsigned char* ring = gsmem + 128;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int col0 = blockIdx.x * kGBN;
+  const int cols = min(kGBN, Np - col0);           // a multiple of 8
+  const int n_sb = a.Kp / sb;
+  const int sb_lo = blockIdx.y * a.sb_per_split;
+  const int sb_hi = min(n_sb, sb_lo + a.sb_per_split);
+  const int S = max(0, sb_hi - sb_lo) * spb;
+  const int M = a.op.M;
+
+  if (tid < kGStages) {
+    mbar_init(full + tid, 1);
+    mbar_init(empty + tid, kGWarps);
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncthreads();
+
+  if (warp == kGWarps) {
+    // producer.  Activation rows past M are not copied (they only reach
+    // unwritten outputs); rows past K are zeros, written before the
+    // barrier's arrival so that its completion publishes them.
+    const int es = a.w.meta_bf16 ? 2 : 4;
+    for (int j = 0; j < S; ++j) {
+      if (j >= kGStages)
+        mbar_wait(empty + j % kGStages, (j / kGStages - 1) & 1);
+      const int sbi = sb_lo + j / spb, row0 = (j % spb) * kGSR;
+      const bool finish = (row0 + kGSR) % span == 0;
+      unsigned char* st = ring + (j % kGStages) * stage;
+      uint64_t* bar = full + j % kGStages;
+      const int k0 = sbi * sb + 2 * row0;           // round 0's first row
+      int xbytes = 0;
+      for (int p = 0; p < P; ++p)
+        xbytes += 2 * max(0, min(kGPart, a.op.K - (k0 + p * 2 * R)));
+      const int which = lane >> 4, mp = lane & 15;   // lanes 16-31: u
+      const int m = mp / P, p = mp - m * P;
+      const bool xrow = m < M && (which == 0 || swiglu);
+      const int k = k0 + p * 2 * R;
+      const int len = max(0, min(kGPart, a.op.K - k));
+      __nv_bfloat16* xdst = reinterpret_cast<__nv_bfloat16*>(
+          st + (which ? u_off : x_off)) + mp * kGXStride;
+      if (xrow)
+        for (int i = len; i < kGPart; ++i) xdst[i] = __float2bfloat16(0.f);
+      // this lane's generic writes to the ring come before the copies'
+      // (async proxy) writes
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0)
+        mbar_expect_tx(bar, kGSR * cols * 4 +
+                                (finish ? 2 * P * cols * es : 0) +
+                                (swiglu ? 2 : 1) * M * xbytes);
+      __syncwarp();
+      for (int r = lane; r < kGSR; r += 32)
+        bulk_g2s(st + r * kGWordStride * 4,
+                 a.w.packed +
+                     (static_cast<size_t>(sbi) * R + row0 + r) * Np + col0,
+                 cols * 4, bar);
+      if (finish && lane < 2 * P) {                 // row 2p scale, 2p+1 zero
+        const int grp = (k0 + (lane >> 1) * 2 * R) / gs;
+        const unsigned char* base = static_cast<const unsigned char*>(
+            (lane & 1) ? a.w.zero : a.w.scale);
+        bulk_g2s(st + meta_off + lane * kGBN * 4,
+                 base + (static_cast<size_t>(grp) * Np + col0) * es,
+                 cols * es, bar);
+      }
+      if (xrow && len > 0)
+        bulk_g2s(xdst,
+                 static_cast<const __nv_bfloat16*>(which ? a.op.u : a.op.x) +
+                     static_cast<size_t>(m) * a.op.ldx + k,
+                 len * 2, bar);
+    }
+    return;
+  }
+
+  // consumers
+  const int wcol = warp * 16 * kGTiles;
+  GroupedAcc<BITS> acc;
+  GroupedXAcc<BITS> xacc;
+  float tot[kGTiles][4];
+#pragma unroll
+  for (int ct = 0; ct < kGTiles; ++ct)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      tot[ct][i] = 0.f;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        xacc[p][i] = 0.f;
+#pragma unroll
+        for (int q = 0; q < GroupedForm<BITS>::planes; ++q)
+          acc[ct][p][q][i] = 0.f;
+      }
+    }
+  for (int s = 0; s < S; ++s) {
+    mbar_wait(full + s % kGStages, (s / kGStages) & 1);
+    const unsigned char* st = ring + (s % kGStages) * stage;
+    grouped_step<BITS>(
+        reinterpret_cast<const uint32_t*>(st),
+        reinterpret_cast<const __nv_bfloat16*>(st + x_off),
+        swiglu ? reinterpret_cast<const __nv_bfloat16*>(st + u_off) : nullptr,
+        wcol, lane, acc, xacc);
+    if (((s % spb) * kGSR + kGSR) % span == 0)
+      grouped_correct<BITS>(st + meta_off, a.w.meta_bf16, wcol, lane, acc,
+                            xacc, tot);
+    __syncwarp();                    // the warp is done with the slot
+    if (lane == 0) mbar_arrive(empty + s % kGStages);
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int ct = 0; ct < kGTiles; ++ct)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = 2 * t + (i & 1);
+      const int n = col0 + wcol + 16 * ct + 2 * g + (i >> 1);
+      if (m >= M || n >= a.N) continue;
+      if (gridDim.y == 1) {
+        store_f(a.out, static_cast<size_t>(m) * a.N + n, tot[ct][i],
+                a.out_bf16);
+      } else {
+        a.partial[(static_cast<size_t>(blockIdx.y) * M + m) * a.N + n] =
+            tot[ct][i];
+      }
+    }
+}
+
+template <int BITS>
+cudaError_t launch_grouped(const GemvArgs& a, int splits, cudaStream_t stream) {
+  const bool swiglu = a.op.u != nullptr;
+  const size_t smem =
+      128 + static_cast<size_t>(kGStages) * grouped_stage_bytes(BITS, swiglu);
+  static bool attr_set = false;
+  if (!attr_set) {
+    // room for the SwiGLU ring, and the largest shared-memory carveout, so
+    // that two blocks share an SM
+    cudaError_t e = cudaFuncSetAttribute(
+        qmm_grouped_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        128 + kGStages * grouped_stage_bytes(BITS, true));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(qmm_grouped_kernel<BITS>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  dim3 grid((a.N + kGBN - 1) / kGBN, splits);
+  qmm_grouped_kernel<BITS><<<grid, (kGWarps + 1) * 32, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <int NB, int MT>
 cudaError_t launch_gemv(const GemvArgs& a, int splits, cudaStream_t stream) {
   const int T = a.w.superblock / a.w.group_size;
@@ -214,6 +414,15 @@ cudaError_t launch_gemm(const GemvArgs& a, int splits, cudaStream_t stream) {
 }
 
 }  // namespace
+
+// Sum the K splits' partials into out (fixed order), after a split launch.
+static int finish_splits(cudaError_t e, float* partial, void* out, int MN,
+                         int splits, int out_bf16, cudaStream_t s) {
+  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
+  reduce_splits_kernel<<<(MN + 255) / 256, 256, 0, s>>>(partial, out, MN,
+                                                        splits, out_bf16);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Returns 0 or a cudaError_t of the launch; -1 for arguments the kernels
 // do not take (the Python wrapper checks them first).
@@ -252,9 +461,33 @@ extern "C" int amq_qmm(const void* x, const void* u, int x_bf16,
       default: return -1;
     }
   }
-  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
-  const int MN = M * N;
-  reduce_splits_kernel<<<(MN + 255) / 256, 256, 0, s>>>(partial, out, MN,
-                                                        splits, out_bf16);
-  return static_cast<int>(cudaGetLastError());
+  return finish_splits(e, partial, out, M * N, splits, out_bf16, s);
+}
+
+// The grouped tensor-core GEMV: 8-bit words, bf16 activations, M <= 8,
+// group_size a multiple of 64, Np, K and the row stride of x multiples of
+// 8, 16-byte aligned activations, words and meta (the wrapper's
+// _grouped_applies).  Same arguments as
+// amq_qmm; -1 for a call it does not take.
+extern "C" int amq_qmm_grouped(const void* x, const void* u, int x_bf16,
+                               const int32_t* packed, const void* scale,
+                               const void* zero, int meta_bf16, void* out,
+                               int out_bf16, float* partial, int M, int K,
+                               int ldx, int Kp, int N, int Np, int nbits,
+                               int group_size, int superblock, int splits,
+                               int sb_per_split, void* stream) {
+  if (nbits != 8 || !x_bf16 || M < 1 || M > 8 || group_size % (2 * kGSR) ||
+      superblock % group_size || Kp % superblock || superblock > 1024 ||
+      (superblock * nbits / 32) % kGSR || Np % 8 || K % 8 || ldx % 8 ||
+      splits < 1 || (splits > 1 && partial == nullptr) || !aligned16(x) ||
+      (u != nullptr && !aligned16(u)) || !aligned16(packed) ||
+      !aligned16(scale) || !aligned16(zero))
+    return -1;
+  GemvArgs a{Operand{x, u, x_bf16, M, K, ldx},
+             Weights{reinterpret_cast<const uint32_t*>(packed), scale, zero,
+                     meta_bf16, Np, group_size, superblock},
+             out, out_bf16, partial, N, Kp, sb_per_split};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return finish_splits(launch_grouped<8>(a, splits, s), partial, out, M * N,
+                       splits, out_bf16, s);
 }

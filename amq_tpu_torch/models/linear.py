@@ -77,6 +77,22 @@ def matmul_f32(x: torch.Tensor, wt: torch.Tensor, bias,
     return y.to(compute_dtype)
 
 
+def matmul_out_f32(x: torch.Tensor, wt: torch.Tensor,
+                   compute_dtype) -> torch.Tensor:
+    """``x @ wt`` -> float32 with both operands in ``compute_dtype``: the
+    JAX ``jnp.dot(..., preferred_element_type=float32)`` of the logits
+    (``x`` arrives in ``compute_dtype``).  A bf16 call on the card is one
+    bf16 x bf16 product accumulated in f32 (``aten::mm.dtype``, the
+    tensor-core route); float32 and the CPU (which has no ``mm.dtype``)
+    take a float32 product of the same values (a bf16 product is exact in
+    f32)."""
+    if compute_dtype == torch.bfloat16 and x.device.type == "cuda":
+        x2 = x.reshape(-1, x.shape[-1]).to(torch.bfloat16)
+        y = torch.mm(x2, wt.to(torch.bfloat16), out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], wt.shape[-1])
+    return torch.matmul(x.float(), wt.to(compute_dtype).float())
+
+
 def apply_linear(p: LinearParams, x: torch.Tensor,
                  compute_dtype=torch.float32) -> torch.Tensor:
     """``x @ W.T (+ b)`` for any weight representation. x: [..., in]."""

@@ -25,7 +25,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from .config import LINEAR_NAMES, ModelConfig
-from .linear import DenseLinear, apply_linear
+from .linear import DenseLinear, apply_linear, matmul_out_f32
 
 
 # ---------------------------------------------------------------------------
@@ -310,8 +310,7 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     head = params.get("lm_head")
     if head is None:                       # tied embeddings
-        logits = torch.matmul(x.float(),
-                              params["embed"].to(compute_dtype).float().T)
+        logits = matmul_out_f32(x, params["embed"].T, compute_dtype)
     else:
         logits = apply_linear(head, x, compute_dtype).float()
     new_cache = None

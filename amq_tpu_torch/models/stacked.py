@@ -150,7 +150,7 @@ def apply_head(model: StackedModel, x: torch.Tensor, compute_dtype):
                                          out_dtype=torch.float32)
         return out.reshape(*lead, model.lm_head_qt.out_features)
     head = model.lm_head if model.lm_head is not None else model.embed
-    return torch.matmul(x.float(), head.to(compute_dtype).float().T)
+    return linear_mod.matmul_out_f32(x, head.T, compute_dtype)
 
 
 def stack_proxies(proxies: Sequence[Any], bits_range: Sequence[int],

@@ -26,7 +26,7 @@ import torch
 
 SOURCES = ("quant_matmul", "decode_attention", "flash_attention",
            "quant_matmul_pipe", "quant_matmul_mlp", "gemv_attrib",
-           "gemv_extract_ahead")
+           "gemv_extract_ahead", "dequant")
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -4,8 +4,10 @@ Each public function here replaces one Pallas kernel of the JAX package's
 ``ops/quant_matmul.py`` and has three parts:
 
 * the CUDA kernel (``csrc/quant_matmul.cu``, one template over nbits in
-  {1, 2, 3, 4, 8}: a decode GEMV for M <= 8, a dequantize-tile GEMM above),
-  launched for CUDA tensors,
+  {1, 2, 3, 4, 8}: a decode GEMV for M <= 8, a dequantize-tile GEMM above;
+  8-bit calls with bf16 activations and M <= 8 take the grouped
+  tensor-core GEMV instead, see :func:`_grouped_applies`), launched for
+  CUDA tensors,
 * a plain PyTorch version of the same function (dequantize in float32,
   then a float32 product), taken only for CPU tensors,
 * a launch counter (``<function>.launches``), raised where the kernel is
@@ -37,6 +39,7 @@ import os
 import torch
 import torch.nn.functional as F
 
+from ..core import bitpack
 from ..core.quantize import QuantizedTensor, dequantize_kn
 from . import _cuda
 
@@ -50,11 +53,12 @@ _PIPE_DEFAULT = int(os.environ.get("AMQ_PIPE", "0"))
 
 
 @functools.lru_cache(maxsize=None)
-def _lib(pipe: bool = False):
-    """``amq_qmm`` of ``csrc/quant_matmul.cu``, or with ``pipe`` the
-    pipelined ``amq_qmm_pipe`` (the same arguments)."""
-    fn = (_cuda.library("quant_matmul_pipe").amq_qmm_pipe if pipe
-          else _cuda.library("quant_matmul").amq_qmm)
+def _lib(entry: str = "amq_qmm"):
+    """An entry point of ``csrc/quant_matmul.cu`` (``amq_qmm``, the grouped
+    ``amq_qmm_grouped``) or ``amq_qmm_pipe`` of
+    ``csrc/quant_matmul_pipe.cu``; all take the same arguments."""
+    src = "quant_matmul_pipe" if entry == "amq_qmm_pipe" else "quant_matmul"
+    fn = getattr(_cuda.library(src), entry)
     fn.argtypes = [_c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_int,
                    _c_ptr, _c_int, _c_ptr] + [_c_int] * 11 + [_c_ptr]
     fn.restype = _c_int
@@ -84,6 +88,37 @@ def _splits(M: int, N: int, n_sb: int, device) -> tuple:
     want = max(1, min(n_sb, -(-2 * _sm_count(device.index or 0) // blocks)))
     per = -(-n_sb // want)
     return -(-n_sb // per), per
+
+
+#: columns per block of the grouped 8-bit GEMV (``qmm_grouped_kernel``)
+_GROUPED_BN = 256
+
+
+def _grouped_splits(N: int, n_sb: int, device) -> tuple:
+    """(splits, superblocks per split) for the grouped GEMV: whole
+    superblocks per split, as many splits as fit two blocks per SM in one
+    wave (a second, partial wave would cost a whole block's time)."""
+    tiles = -(-N // _GROUPED_BN)
+    want = max(1, min(n_sb, 2 * _sm_count(device.index or 0) // tiles))
+    per = -(-n_sb // want)
+    return -(-n_sb // per), per
+
+
+def _grouped_applies(x: torch.Tensor, packed: torch.Tensor,
+                     scale: torch.Tensor, zero: torch.Tensor, nbits: int,
+                     group_size: int, up=None) -> bool:
+    """Take the grouped tensor-core GEMV?  The JAX package takes its
+    grouped serving GEMV at ``single_m and acc_dtype == bf16`` (M <= 8,
+    bf16 activations) for every width; the port does for 8-bit, with the
+    CUDA kernel's own conditions (16-byte copies): groups of a multiple of
+    64 rows, a padded N, K and x's row stride that are multiples of 8, and
+    16-byte aligned activations and weights.  Other calls take the
+    CUDA-core GEMV."""
+    return (nbits == 8 and x.shape[0] <= 8 and x.dtype == torch.bfloat16
+            and group_size % 64 == 0 and packed.shape[-1] % 8 == 0
+            and x.shape[-1] % 8 == 0 and x.stride(0) % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, packed, scale, zero)
+                    + ((up,) if up is not None else ())))
 
 
 def _pipe_applies(x: torch.Tensor, packed: torch.Tensor, nbits: int,
@@ -116,6 +151,40 @@ def qmm_plain(x, packed, scale, zero, *, nbits, group_size, shape,
                          group_size=group_size, shape=tuple(shape),
                          superblock=superblock)
     return torch.matmul(x.float(), dequantize_kn(qt, torch.float32)).to(out_dtype)
+
+
+#: the 8-bit grouped form's code offset: two nibble planes of exact bf16
+#: ``128 + c`` values weighted 16 and 1 (the JAX ``_codes_chunks_bf16``)
+_ZOFF8 = 17 * 128.0
+
+
+def qmm_grouped_plain(x, packed, scale, zero, *, nbits, group_size, shape,
+                      superblock, out_dtype, up=None) -> torch.Tensor:
+    """The grouped form of the JAX package's serving GEMV
+    (``_gemv_blockdiag``), 8-bit: per group g of ``group_size`` K rows and
+    column n, ``y_g = 16 * sum x (128 + hi) + sum x (128 + lo)`` over the
+    bf16 activations (products exact, f32 sums), then
+    ``out = sum_g s_g * y_g - xsum_g * (z_g + 2176) * s_g`` with ``xsum_g``
+    the f32 sum of the same bf16 activations.  The reference of the grouped
+    CUDA GEMV; with ``up`` the activation is ``silu(x) * up``."""
+    if nbits != 8:
+        raise ValueError(f"the grouped form here is 8-bit, got {nbits}")
+    if up is not None:
+        x = swiglu_plain(x, up)
+    N, K = shape
+    codes = bitpack.unpack(packed, nbits, superblock)        # [Kp, Np]
+    Kp, Np = codes.shape
+    G, g = Kp // group_size, group_size
+    xb = F.pad(x.to(torch.bfloat16).float(), (0, Kp - K)).reshape(-1, G, g)
+    planes = [((codes >> sh) & 15).float().add_(128.0).reshape(G, g, Np)
+              for sh in (4, 0)]                               # hi, lo
+    y = (16.0 * torch.einsum("mgk,gkn->gmn", xb, planes[0])
+         + torch.einsum("mgk,gkn->gmn", xb, planes[1]))       # [G, M, Np]
+    xsum = xb.sum(dim=2).T[:, :, None]                        # [G, M, 1]
+    s = scale.float().reshape(G, 1, Np)
+    corr = (zero.float().reshape(G, 1, Np) + _ZOFF8) * s
+    out = (s * y - xsum * corr).sum(dim=0)
+    return out[:, :N].to(out_dtype)
 
 
 def qmm_mlp_plain(x, gu_packed, gu_scale, gu_zero, d_packed, d_scale, d_zero,
@@ -173,16 +242,23 @@ def _qmm_cuda(x, up, packed, scale, zero, *, nbits, group_size, shape,
         raise ValueError(f"{what}: packed {tuple(packed.shape)}, scale "
                          f"{tuple(scale.shape)}, superblock {superblock}, "
                          f"group {group_size} do not fit")
-    splits, per = _splits(M, N, Kp // superblock, x.device)
+    grouped = not pipe and _grouped_applies(x, packed, scale, zero, nbits,
+                                            group_size, up)
+    if grouped:
+        entry = "amq_qmm_grouped"
+        splits, per = _grouped_splits(N, Kp // superblock, x.device)
+    else:
+        entry = "amq_qmm_pipe" if pipe else "amq_qmm"
+        splits, per = _splits(M, N, Kp // superblock, x.device)
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     partial = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
                if splits > 1 else None)
-    rc = _lib(pipe)(_cuda.ptr(x), _cuda.ptr(up), _cuda.dtype_flag(x, what),
-                _cuda.ptr(packed), _cuda.ptr(scale), _cuda.ptr(zero),
-                _cuda.dtype_flag(scale, what), _cuda.ptr(out),
-                _cuda.dtype_flag(out, what), _cuda.ptr(partial),
-                M, K, x.stride(0), Kp, N, Np, nbits, group_size, superblock,
-                splits, per, _cuda.stream())
+    rc = _lib(entry)(_cuda.ptr(x), _cuda.ptr(up), _cuda.dtype_flag(x, what),
+                     _cuda.ptr(packed), _cuda.ptr(scale), _cuda.ptr(zero),
+                     _cuda.dtype_flag(scale, what), _cuda.ptr(out),
+                     _cuda.dtype_flag(out, what), _cuda.ptr(partial),
+                     M, K, x.stride(0), Kp, N, Np, nbits, group_size,
+                     superblock, splits, per, _cuda.stream())
     _cuda.check(rc, what)
     return out
 

@@ -315,7 +315,9 @@ def kernel_names(symbols) -> dict:
                            capture_output=True, text=True).stdout.splitlines()
     names = {}
     for sym, line in zip(symbols, lines):
-        name = line.split("(anonymous namespace)::")[-1].split("(")[0]
+        # the kernel's own name: after its namespace, before its arguments
+        # (which may name anonymous-namespace types too)
+        name = line.split("(anonymous namespace)::", 1)[-1].split("(")[0]
         names[sym] = name.replace("__nv_bfloat16", "bf16") or sym
     return names
 

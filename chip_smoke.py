@@ -8,28 +8,33 @@ Phases (any failed check exits non-zero before the last line):
    versions; TF32 off for float32 products, bf16 products reduced in f32.
 2. build: compile the port's CUDA sources (amq_tpu_torch/csrc) with nvcc,
    one process per source, all started together; REGS (registers and
-   spill bytes of the attention kernels, from -Xptxas -v) and SASS (HGMMA
-   / HMMA / FFMA per flash kernel, from cuobjdump -sass) lines; fails if
-   the bf16 flash kernel holds no HGMMA or a redesigned kernel spills.
+   spill bytes of the attention kernels, the grouped 8-bit GEMV and the
+   dequantization kernel, from -Xptxas -v) and SASS (HGMMA / HMMA / FFMA
+   per flash kernel and the grouped GEMV, from cuobjdump -sass) lines;
+   fails if the bf16 flash kernel holds no HGMMA, the grouped GEMV no
+   HMMA or HGMMA, or a redesigned kernel spills.
 3. kernels vs their plain PyTorch versions at the Llama-2-7B shapes:
    the dequant-matmuls (qkv / o / gateup / down sites, head) at M = 1 and
    64, widths 2, 3 (native planes) and 4, 8 on the head, bf16 and f32
-   scale/zero; decode attention at the Llama-2-7B, GQA, hd-64 and
-   sliding-window shapes; flash attention at the Llama-2-7B evaluation
-   shape (bf16 and f32), prefill with a cache (unaligned T), the GQA
-   Llama-3-8B shape and d 64; decode attention at a 4000-key context
-   (reported) and a float32 batch-independence case (each row of a B = 4
-   call torch.equal to the row alone).  One line per case: error vs
-   tolerance, two calls torch.equal, kernel / plain / library times, the
-   least time the card could take (bytes over 3.35 TB/s or operations
-   over the peak for the inputs' type) and, for flash, the share of that
-   peak.
+   scale/zero, the head also at M = 5 and 8 (the grouped tensor-core GEMV
+   at M <= 8, held to the grouped form's plain version); decode
+   attention at the Llama-2-7B, GQA, hd-64 and sliding-window shapes;
+   flash attention at the Llama-2-7B evaluation shape (bf16 and f32),
+   prefill with a cache (unaligned T), the GQA Llama-3-8B shape and d 64;
+   decode attention at a 4000-key context (reported) and a float32 batch-
+   independence case (each row of a B = 4 call torch.equal to the row
+   alone).  One line per case: error vs tolerance, two calls torch.equal,
+   kernel / plain / library times, the least time the card could take
+   (bytes over 3.35 TB/s or operations over the peak for the inputs' type)
+   and, for flash, the share of that peak.
    The decode kernels of the JAX package's opt-in switches at the same
    shapes: the pipelined decode GEMV (qkv / o / gateup, down with the
    SwiGLU prologue; M 1, 4, 8; widths 2, 3, 4) against the plain version
    and the non-pipelined GEMV, and the one-launch decode MLP (M 1, 4, 8;
    widths 2, 3, 4) against its plain version and the separate kernel
-   chain, two calls bit-identical.
+   chain, two calls bit-identical.  DEQUANT lines: the dequantization
+   kernel at the 7B gateup shape for every packed width, torch.equal to
+   its plain version in bf16 and f32, its time beside the byte bound.
 3c. the decode-GEMV probes through their entry points
    (amq_tpu_torch.probes): kernel_attrib.main and pipelined_gemv.main at
    the qkv / o / gateup / down sites, widths 2, 3, 4 (ATTRIB lines: the
@@ -50,7 +55,8 @@ Phases (any failed check exits non-zero before the last line):
    serving.benchmark.benchmark_speed (TPS / GEMV / GEMM / TTFT), with the
    kernels' launch counts checked over one generate, kernel-path vs
    plain-path prefill logits, and one generate from a 512-token prompt
-   whose prefill runs the flash kernel once per layer.
+   whose prefill runs the flash kernel once per layer and dequantizes
+   once per site.
 4b. serving breadth on the same model at full width and depth: generate
    with AMQ_PIPE, then with AMQ_PIPE and AMQ_MLP_KERNEL (exact launch
    counts; token agreement and logit gap to the default kernels
@@ -60,15 +66,22 @@ Phases (any failed check exits non-zero before the last line):
    speculative decoding with the target as its own draft (bf16 rate and
    acceptance, with two witnesses of what that acceptance measures: the
    M = 1 vs M = 5 top-1 agreement and logit gap on the kernel and the
-   plain path, and the acceptance on the plain path; float32 tokens equal
+   plain path, SPEC_LAYER_GAP (per layer the M = 1 vs M = 5 gap of the
+   qkv and attention outputs and the residual stream after attention and
+   after the MLP, both paths, and the first layer and output where the
+   kernel path's gap exceeds the plain path's by more than one bf16
+   rounding), and the acceptance on the plain path; float32 tokens equal
    to generate's).
 5. the speed CLI (HQQ proxies -> stack_proxies -> Engine) at full width:
    TPS and CONTINUOUS (4 slots, 16 requests).
 6. the sensitivity CLI at full Llama-2-7B width and depth (2 samples of
-   2048 synthetic tokens, bf16): a 224-entry table, flash launches equal
-   to the count reckoned from the code; then one evaluator in f32 holding
-   the kernel path's eval loss to the plain path's (einsum attention), and
-   a profile of one bf16 search evaluation.
+   2048 synthetic tokens, bf16): a 224-entry table, flash and
+   dequantization launches equal to the counts reckoned from the code;
+   then one evaluator in f32 holding the kernel path's eval loss to the
+   plain path's (einsum attention), and a profile of one bf16 search
+   evaluation (EVAL_PROFILE: dequantization launches equal to the count
+   reckoned, the loss with the bf16 tensor-core dense head within 1e-3 of
+   the float32 head's, no float32 GEMM left).
 7. the search CLI on that table with a small budget: the archive, finite
    losses and hypervolume.
 8. the kernels line, the card line, and the last line
@@ -224,15 +237,23 @@ def check_matmul(site, nbits, M, meta_dtype, gen):
                              sb)
         return qm.quant_matmul(x, qt, out_dtype=out_dtype)
 
-    def plain_call(i):
-        return qm.qmm_plain(x, packed[i], scale[i], zero[i],
-                            up=u if "swiglu" in kernel else None, **kw)
+    # the kernel's plain version: the grouped form where the grouped
+    # tensor-core GEMV runs (8-bit, bf16 x, M <= 8), else the f32 one
+    grouped = qm._grouped_applies(x, packed[1], scale[1], zero[1], nbits, 128)
+    plain_fn = qm.qmm_grouped_plain if grouped else qm.qmm_plain
+
+    def plain_call(i, fn=plain_fn):
+        return fn(x, packed[i], scale[i], zero[i],
+                  up=u if "swiglu" in kernel else None, **kw)
 
     got = kernel_call(1)
     want = plain_call(1)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     rel = err / max(want.float().abs().max().item(), 1e-30)
+    # against the f32 dequantize-then-multiply too (another rounding)
+    rel_f32 = (rel_err(got, plain_call(1, qm.qmm_plain))[0] if grouped
+               else rel)
     tol = MM_TOL[out_dtype]
     ms = time_ms([lambda i=i: kernel_call(i) for i in range(L)])
     plain_ms = time_ms([lambda: plain_call(1)], iters=3)
@@ -250,8 +271,10 @@ def check_matmul(site, nbits, M, meta_dtype, gen):
               + M * N * (4 if out_dtype == torch.float32 else 2))
     b_ms, b_by = bound(nbytes, 2 * M * N * K)
     rec = dict(kernel=kernel, site=site, nbits=nbits, M=M,
-               meta=str(meta_dtype).split(".")[-1], max_abs_err=err,
-               rel_err=rel, tol=tol, ms=ms, plain_ms=plain_ms,
+               meta=str(meta_dtype).split(".")[-1],
+               route="grouped" if grouped else ("gemv" if M <= 8 else "gemm"),
+               max_abs_err=err, rel_err=rel, rel_err_vs_f32_plain=rel_f32,
+               tol=tol, ms=ms, plain_ms=plain_ms,
                host_us=wrapper_us,
                library_ms=library_ms, library="torch.matmul bf16 x dense "
                "dequantized weight (different function)", bound_ms=b_ms,
@@ -272,6 +295,42 @@ def rel_err(got, want):
     """max |got - want| / max |want|, and max |got - want|."""
     err = (got.float() - want.float()).abs().max().item()
     return err / max(want.float().abs().max().item(), 1e-30), err
+
+
+def check_dequant(nbits, gen):
+    """The dequantization kernel at the 7B gateup site (an evaluation
+    linear: K 4096, N 22016, bf16 meta), torch.equal to its plain version
+    in bf16 and f32 out; its time in bf16 (the evaluation's compute type)
+    beside the plain version's and the byte bound (packed words and meta
+    read once, [K, N] written once).  No single PyTorch call unpacks the
+    layout, so no library time."""
+    from amq_tpu_torch.core.quantize import (QuantizedTensor, dequantize_kn,
+                                             dequantize_kn_plain)
+    N, K, _ = SITES_7B["gateup"]
+    packed, scale, zero, sb = rand_site(N, K, nbits, 2, torch.bfloat16, gen)
+    qts = [QuantizedTensor(packed[i], scale[i], zero[i], nbits, 128, (N, K),
+                           sb) for i in range(2)]
+    equal = {}
+    for dt in (torch.bfloat16, torch.float32):
+        got = dequantize_kn(qts[1], dt)
+        want = dequantize_kn_plain(qts[1], dt)
+        torch.cuda.synchronize()
+        equal[str(dt).split(".")[-1]] = bool(torch.equal(got, want))
+        err = (got.float() - want.float()).abs().max().item()
+        del got, want
+    ms = time_ms([lambda i=i: dequantize_kn(qts[i], torch.bfloat16)
+                  for i in range(2)], iters=10)
+    plain_ms = time_ms([lambda: dequantize_kn_plain(qts[1], torch.bfloat16)],
+                       iters=3)
+    nbytes = weight_bytes(packed, scale, N) + K * N * 2
+    b_ms, b_by = bound(nbytes, 0)
+    rec = dict(kernel="dequantize_kn", site="gateup", nbits=nbits, M=None,
+               meta="bfloat16", out="bfloat16", equal=equal, max_abs_err=err,
+               ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+               bound_by=b_by, share_of_bound=b_ms / ms,
+               ok=all(equal.values()))
+    print("DEQUANT " + json.dumps(rec), flush=True)
+    return rec
 
 
 #: pipelined GEMV, bf16 outputs: against the plain version the JAX suite's
@@ -585,23 +644,28 @@ def check_flash(label, B, Hq, Hkv, S, T, d, offset, dtype, gen):
     return rec
 
 
-#: the bf16 flash kernel's symbol (tensor cores) and the attention
-#: kernels whose registers and spills phase 2 reports
+#: the bf16 flash kernel's symbol (tensor cores), the grouped 8-bit GEMV's
+#: (tensor cores), and the kernels whose registers and spills phase 2
+#: reports (library -> symbol pattern)
 WGMMA_FLASH = "flash_kernel_wgmma"
-ATTN_KERNELS = {"flash_attention": "flash_kernel", "decode_attention":
-                "decode_attn_kernel"}
+GROUPED_GEMV = "qmm_grouped_kernel"
+REPORT_KERNELS = {"flash_attention": "flash_kernel", "decode_attention":
+                  "decode_attn_kernel", "quant_matmul": GROUPED_GEMV,
+                  "dequant": "dequant_kernel"}
 
 
-def attention_build_report():
-    """Phase 2's report on the two attention libraries: a REGS line (per
-    kernel instantiation its registers and local spill bytes, from nvcc's
-    -Xptxas -v) and a SASS line (per flash kernel its HGMMA, HMMA and FFMA
-    instructions, from cuobjdump -sass).  Fails if the bf16 flash kernel
-    holds no HGMMA (warpgroup MMA) or if a redesigned kernel spills."""
+def build_report():
+    """Phase 2's report on the redesigned kernels: a REGS line (per kernel
+    instantiation of the attention kernels, the grouped GEMV and the
+    dequantization kernel its registers and local spill bytes, from nvcc's
+    -Xptxas -v) and a SASS line (per flash kernel and the grouped GEMV its
+    HGMMA, HMMA and FFMA instructions, from cuobjdump -sass).  Fails if the
+    bf16 flash kernel holds no HGMMA (warpgroup MMA), the grouped GEMV no
+    HMMA or HGMMA, or if one of these kernels spills."""
     from amq_tpu_torch.ops import _cuda
     from amq_tpu_torch.probes import kernel_attrib as ka
     regs = {}
-    for name, pattern in ATTN_KERNELS.items():
+    for name, pattern in REPORT_KERNELS.items():
         if name not in _cuda.LOGS:          # built before this run: rebuild
             _cuda._lib_path(name).unlink()
             _cuda.build([name], verbose=True)
@@ -611,19 +675,26 @@ def attention_build_report():
         names = ka.kernel_names(usage)
         regs[name] = {names[sym]: use for sym, use in usage.items()}
     print("REGS " + json.dumps(regs), flush=True)
-    counts = ka.count_ops(ka.sass_listing("flash_attention"), "flash_kernel",
-                          ("HGMMA", "HMMA", "FFMA"))
+    counts = {}
+    for lib, pattern in (("flash_attention", "flash_kernel"),
+                         ("quant_matmul", GROUPED_GEMV)):
+        counts.update(ka.count_ops(ka.sass_listing(lib), pattern,
+                                   ("HGMMA", "HMMA", "FFMA")))
     names = ka.kernel_names(counts)
     sass = {names[sym]: c for sym, c in counts.items()}
     print("SASS " + json.dumps(sass), flush=True)
     wgmma = {sym: c for sym, c in sass.items() if WGMMA_FLASH in sym}
     if len(wgmma) != 2 or not all(c["HGMMA"] > 0 for c in wgmma.values()):
         fail(f"the bf16 flash kernels hold no HGMMA: {sass}")
+    grouped = {sym: c for sym, c in sass.items() if GROUPED_GEMV in sym}
+    if not grouped or not all(c["HMMA"] + c["HGMMA"] > 0
+                              for c in grouped.values()):
+        fail(f"the grouped GEMV holds no HMMA or HGMMA: {sass}")
     spills = [sym for lib in regs.values() for sym, use in lib.items()
-              if (WGMMA_FLASH in sym or "decode_attn_kernel" in sym)
-              and use["spill_stores"] + use["spill_loads"] > 0]
+              if use["spill_stores"] + use["spill_loads"] > 0
+              and not ("flash_kernel" in sym and WGMMA_FLASH not in sym)]
     if spills:
-        fail(f"redesigned attention kernels spill: {spills}")
+        fail(f"redesigned kernels spill: {spills}")
     return dict(regs=regs, sass=sass)
 
 
@@ -945,7 +1016,7 @@ LONG_PROMPT, LONG_GEN = 512, 16
 def long_prompt_generate(model, cfg):
     """One generate from a 512-token prompt: the prefill's attention runs
     the flash kernel once per layer (the decode steps take decode
-    attention)."""
+    attention), and its linears dequantize once per site."""
     from amq_tpu_torch import ops
     from amq_tpu_torch.serving.engine import Engine
     eng = Engine(model, cfg, batch_size=1, max_len=LONG_PROMPT + LONG_GEN + 8)
@@ -963,6 +1034,11 @@ def long_prompt_generate(model, cfg):
     if counts["flash_attention"] != cfg.num_layers:
         fail(f"512-token prefill: {counts['flash_attention']} flash launches, "
              f"want {cfg.num_layers}")
+    # M = 512 >= 256: the four fused sites of every layer and the packed
+    # head dequantize (then a library matmul); the decode steps do not
+    if counts["dequantize_kn"] != 4 * cfg.num_layers + 1:
+        fail(f"512-token prefill: {counts['dequantize_kn']} dequantize_kn "
+             f"launches, want {4 * cfg.num_layers + 1}")
     if toks.shape != (1, LONG_GEN) or not ((toks >= 0)
                                           & (toks < cfg.vocab_size)).all():
         fail(f"long-prompt tokens out of range: {toks.shape}")
@@ -1156,6 +1232,85 @@ SPEC_GAMMA, SPEC_NEW, SPEC_PLAIN_NEW = 4, 64, 16
 VERIFY_WINDOWS = 6
 
 
+class LayerRecorder:
+    """Sub-block outputs of every layer of each forward, recorded by
+    wrapping the model's own functions (nothing in the model changes):
+    the qkv product, the attention output, the o_proj and down outputs.
+    ``take()`` returns one forward's lists (layer order) and clears."""
+
+    SITES = ("self_attn.qkv_proj", "self_attn.o_proj")
+
+    def __init__(self):
+        self.rec = {"qkv": [], "attn": [], "o": [], "down": []}
+        #: per layer, the largest |decode kernel - its plain version| on
+        #: the same inputs (the kernel path's M = 1 attention)
+        self.decode_vs_plain = {}
+
+    def patches(self):
+        from unittest import mock
+        from amq_tpu_torch.models import llama, stacked
+        from amq_tpu_torch.ops import decode_attention as da
+        site, down = stacked._apply_site, stacked._apply_down_swiglu
+        attn, dec = llama.attention_append, da.decode_attention_indexed
+
+        def site_w(model, name, i, x, *a, **k):
+            y = site(model, name, i, x, *a, **k)
+            if name in self.SITES:
+                self.rec["qkv" if "qkv" in name else "o"].append(y)
+            return y
+
+        def down_w(*a, **k):
+            y = down(*a, **k)
+            self.rec["down"].append(y)
+            return y
+
+        def attn_w(q, *a, **k):
+            y = attn(q, *a, **k)
+            self.rec["attn"].append(y.reshape(q.shape[0], q.shape[1], -1))
+            return y
+
+        def dec_w(q, kc, vc, kn, vn, offs, layer, window=None,
+                  out_dtype=torch.bfloat16):
+            # the wrapper counts on the module's function, here dec_w
+            dec_w.launches = dec.launches
+            y = dec(q, kc, vc, kn, vn, offs, layer, window=window,
+                    out_dtype=out_dtype)
+            dec.launches = dec_w.launches
+            self.rec["attn"].append(y.reshape(q.shape[0], 1, -1))
+            ref = da.decode_attention_plain(q, kc[layer], vc[layer], kn, vn,
+                                            offs, window, out_dtype)
+            err = (y.float() - ref.float()).abs().max().item()
+            self.decode_vs_plain[layer] = max(
+                err, self.decode_vs_plain.get(layer, 0.0))
+            return y
+
+        return (mock.patch.object(stacked, "_apply_site", site_w),
+                mock.patch.object(stacked, "_apply_down_swiglu", down_w),
+                mock.patch.object(llama, "attention_append", attn_w),
+                mock.patch.object(da, "decode_attention_indexed", dec_w))
+
+    def take(self):
+        out = {k: list(v) for k, v in self.rec.items()}
+        for v in self.rec.values():
+            v.clear()
+        return out
+
+
+def layer_states(rec, x0):
+    """Per layer [1, S, .] the qkv and attention outputs and the residual
+    stream after attention and after the MLP, rebuilt from the recorded
+    sub-block outputs with the model's own bf16 additions."""
+    states = {"qkv": rec["qkv"], "attn": rec["attn"], "h_attn": [],
+              "h_mlp": []}
+    x = x0
+    for o, d in zip(rec["o"], rec["down"]):
+        x = x + o
+        states["h_attn"].append(x)
+        x = x + d
+        states["h_mlp"].append(x)
+    return states
+
+
 def verify_gap(model, cfg, prompt, use_kernels):
     """A witness for the bf16 speculative acceptance, from one bf16
     engine: along the target's greedy chain, each window of gamma + 1
@@ -1175,27 +1330,79 @@ def verify_gap(model, cfg, prompt, use_kernels):
     tok, cache = eng._prefill_token(model, eng.tokens_to_device(prompt),
                                     cache)
     agree, gap, scale = 0, 0.0, 0.0
-    with torch.inference_mode():
+    kinds = ("qkv", "attn", "h_attn", "h_mlp")
+    L = cfg.num_layers
+    lgap = {k: [0.0] * L for k in kinds}
+    lscale = {k: [0.0] * L for k in kinds}
+    recorder = LayerRecorder()
+    patches = recorder.patches()
+    with torch.inference_mode(), patches[0], patches[1], patches[2], \
+            patches[3]:
         for _ in range(VERIFY_WINDOWS):
-            start, fed, seq = cache.length, [], []
+            start, fed, seq, one = cache.length, [], [], []
             for _ in range(W):
                 fed.append(tok)
                 logits, cache = eng._forward(model, tok[:, None], cache)
+                one.append(recorder.take())
                 seq.append(logits[0, -1])
                 tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
             seq = torch.stack(seq)
+            toks = torch.stack(fed, dim=1)
             ver, cache = eng._forward(
-                model, torch.stack(fed, dim=1),
-                llama.KVCache(k=cache.k, v=cache.v, length=start))
+                model, toks, llama.KVCache(k=cache.k, v=cache.v, length=start))
+            five = recorder.take()
             ver = ver[0]
             agree += int((ver.argmax(-1) == seq.argmax(-1)).sum())
             gap = max(gap, (ver - seq).abs().max().item())
             scale = max(scale, seq.abs().max().item())
+            # per layer: the M = 1 pass's positions side by side against
+            # the M = 5 pass
+            x0 = model.embed[toks.long()].to(torch.bfloat16)
+            m1 = layer_states({k: [torch.cat([r[k][i] for r in one], dim=1)
+                                   for i in range(L)] for k in one[0]}, x0)
+            m5 = layer_states(five, x0)
+            for k in kinds:
+                for i in range(L):
+                    a, b = m1[k][i].float(), m5[k][i].float()
+                    lgap[k][i] = max(lgap[k][i], (a - b).abs().max().item())
+                    lscale[k][i] = max(lscale[k][i], b.abs().max().item())
     rec = dict(use_kernels=use_kernels, positions=VERIFY_WINDOWS * W,
                top1_agreement=agree / (VERIFY_WINDOWS * W),
                max_logit_gap=gap, logit_scale=scale)
     print("SPEC_VERIFY_GAP " + json.dumps(rec), flush=True)
+    # half a bf16 unit in the last place at each output's largest value:
+    # what one rounding of that output can move it
+    half_ulp = {k: [2.0 ** (math.floor(math.log2(v)) - 8) if v > 0 else 0.0
+                    for v in lscale[k]] for k in kinds}
+    layers = dict(use_kernels=use_kernels, max_gap=lgap, max_abs=lscale,
+                  half_ulp=half_ulp, decode_kernel_vs_plain=[
+                      recorder.decode_vs_plain.get(i) for i in range(L)])
     del eng, cache
+    return rec, layers
+
+
+def spec_layer_gap(kern, plain):
+    """SPEC_LAYER_GAP: per layer the largest |h(M = 1) - h(M = 5)| of the
+    qkv and attention outputs and of the residual stream after attention
+    and after the MLP, on the kernel and the plain path, and the first
+    (layer, output) where the kernel path's gap exceeds the plain path's
+    by more than one bf16 rounding of that output (half an ulp at its
+    largest value): where the two paths first part.  Beside it, per layer,
+    the decode-attention kernel against its plain version on the M = 1
+    pass's own inputs, which tells a kernel fault from the two attention
+    routes' own difference."""
+    order = ("qkv", "attn", "h_attn", "h_mlp")
+    first = None
+    for i in range(len(kern["max_gap"]["qkv"])):
+        for k in order:
+            excess = kern["max_gap"][k][i] - plain["max_gap"][k][i]
+            if first is None and excess > kern["half_ulp"][k][i]:
+                first = dict(layer=i, output=k,
+                             kernel_gap=kern["max_gap"][k][i],
+                             plain_gap=plain["max_gap"][k][i],
+                             half_ulp=kern["half_ulp"][k][i])
+    rec = dict(kernel=kern, plain=plain, first_excess=first)
+    print("SPEC_LAYER_GAP " + json.dumps(rec), flush=True)
     return rec
 
 
@@ -1208,8 +1415,9 @@ def speculative_phase(model, cfg, prompt):
     tokens equal to generate's."""
     from amq_tpu_torch.serving.engine import Engine
     from amq_tpu_torch.serving.speculative import SpeculativeEngine
-    recs = {"verify_gap": [verify_gap(model, cfg, prompt, k)
-                           for k in (True, False)]}
+    gaps = [verify_gap(model, cfg, prompt, k) for k in (True, False)]
+    recs = {"verify_gap": [g[0] for g in gaps],
+            "layer_gap": spec_layer_gap(gaps[0][1], gaps[1][1])}
     runs = (("bfloat16", torch.bfloat16, True, SPEC_NEW),
             ("bfloat16-plain", torch.bfloat16, False, SPEC_PLAIN_NEW),
             ("float32", torch.float32, True, SPEC_NEW))
@@ -1244,19 +1452,27 @@ EVAL_ARGS = ["--model_name", EVAL_MODEL, "--synthetic",
              "--batch_size", str(SENS_BATCH), "--compute_dtype", "bfloat16"]
 
 
-def reckon_sensitivity_flash(cfg, n, seqlen, batch):
-    """Flash launches of one sensitivity run, reckoned from the code: the
-    dense pass (one per layer per dense batch of <= 4), then per loss batch
-    the baseline's advances through blocks 0..L-2 and every probe's
-    suffix (7 probes at block b run blocks b..L-1).  The loss batch follows
-    the evaluator's rule (capped when one f32 [B, S, V] exceeds 1 GiB)."""
-    L, P = cfg.num_layers, 7
+def loss_batches(cfg, n, seqlen, batch):
+    """Loss batches of one pass over n samples: the evaluator's rule (the
+    batch capped when one f32 [B, S, V] exceeds 1 GiB)."""
     row_gib = seqlen * cfg.vocab_size * 4 / 2**30
     loss_batch = (min(batch, max(1, int(1.0 // row_gib)))
                   if batch * row_gib > 1.0 else batch)
+    return math.ceil(n / loss_batch)
+
+
+def reckon_sensitivity(cfg, n, seqlen, batch):
+    """Flash and dequantization launches of one sensitivity run, reckoned
+    from the code: the dense pass (flash once per layer per dense batch of
+    <= 4; dense linears, no dequantization), then per loss batch the
+    baseline's advances through blocks 0..L-2 and every probe's suffix (7
+    probes at block b run blocks b..L-1), each block one flash launch and
+    one dequantization per site (7 unfused sites)."""
+    L, P = cfg.num_layers, 7
     dense = L * math.ceil(n / min(batch, 4))
-    per_batch = (L - 1) + sum(P * (L - b) for b in range(L))
-    return dense + per_batch * math.ceil(n / loss_batch)
+    blocks = ((L - 1) + sum(P * (L - b) for b in range(L))) * loss_batches(
+        cfg, n, seqlen, batch)
+    return {"flash_attention": dense + blocks, "dequantize_kn": 7 * blocks}
 
 
 def sensitivity_phase():
@@ -1272,22 +1488,22 @@ def sensitivity_phase():
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     losses = list(out["table"]["loss"].values())
-    want = reckon_sensitivity_flash(cfg, SENS_N, SENS_SEQ, SENS_BATCH)
+    want = reckon_sensitivity(cfg, SENS_N, SENS_SEQ, SENS_BATCH)
     rec = dict(path=out["path"], wall_s=wall, proxies_s=out["proxies"],
                dense_logits_s=out["dense_logits"], probes_s=out["probes_s"],
                s_per_probe=out["probes_s"] / max(len(losses), 1),
                n_entries=len(losses), loss_min=min(losses),
                loss_median=float(np.median(losses)), loss_max=max(losses),
-               launches=counts, flash_reckoned=want,
+               launches=counts, reckoned=want,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
     print("SENSITIVITY " + json.dumps(rec), flush=True)
     if len(losses) != cfg.num_layers * 7 or not all(
             math.isfinite(v) and v >= 0 for v in losses):
         fail(f"sensitivity table: {len(losses)} entries, want "
              f"{cfg.num_layers * 7} finite non-negative")
-    if counts["flash_attention"] != want:
-        fail(f"sensitivity flash launches {counts['flash_attention']} != "
-             f"reckoned {want}")
+    for name, n in want.items():
+        if counts[name] != n:
+            fail(f"sensitivity {name} launches {counts[name]} != reckoned {n}")
     torch.cuda.empty_cache()
     return {**rec, "table": out["table"]}
 
@@ -1332,15 +1548,34 @@ def eval_parity_phase():
     return recs
 
 
+#: bf16 evaluation loss with the bf16 x bf16 (f32-accumulated) dense head
+#: against the float32 head product of the same values, relative: the two
+#: differ only in summation order
+HEAD_TOL = 1e-3
+
+
+def f32_head(x, wt, compute_dtype):
+    """The dense head as a float32 product of the compute-type operands
+    (the port's route before the bf16 tensor-core head)."""
+    return torch.matmul(x.float(), wt.to(compute_dtype).float())
+
+
 def profile_eval_phase():
     """Where one search evaluation's time goes: a bf16 evaluator at full
     width (the CLIs' settings), one warm eval of the cycled arch under
     torch.profiler; device time by kernel, grouped, and the busy share.
     A sensitivity probe runs the same per-block program over L - b
-    blocks, so its time splits the same way."""
+    blocks, so its time splits the same way.  Also: the dequantization
+    launches of one evaluation equal to the count reckoned (one per site,
+    layer and loss batch), the loss with the bf16 dense head within
+    HEAD_TOL of the float32 head's, and no float32 GEMM left in the
+    profile."""
+    from unittest import mock
     from torch.profiler import ProfilerActivity, profile
+    from amq_tpu_torch import ops
     from amq_tpu_torch.cli.common import base_parser, load_model, load_tokens
     from amq_tpu_torch.evaluation import Evaluator
+    from amq_tpu_torch.models import linear as linear_mod
     from amq_tpu_torch.models.config import cycled_arch
     args = base_parser("eval profile").parse_args(EVAL_ARGS)
     cfg, params = load_model(args)
@@ -1351,16 +1586,24 @@ def profile_eval_phase():
     arch = cycled_arch(cfg.num_layers, (2, 3, 4))
     ev.eval(arch)
     torch.cuda.synchronize()
+    ops.reset_launch_counts()
     t0 = time.perf_counter()
-    ev.eval(arch)
+    loss = ev.eval(arch)[0]["synthetic"]
     unprofiled_s = time.perf_counter() - t0
+    dequant = ops.launch_counts()["dequantize_kn"]
+    dequant_want = 7 * cfg.num_layers * loss_batches(cfg, SENS_N, SENS_SEQ,
+                                                     SENS_BATCH)
+    with mock.patch.object(linear_mod, "matmul_out_f32", f32_head):
+        loss_f32_head = ev.eval(arch)[0]["synthetic"]
+    head_rel = abs(loss - loss_f32_head) / abs(loss_f32_head)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         ev.eval(arch)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    other = "elementwise and copies (dequantize, norms, rope, JSD)"
-    groups = {"flash_attention": 0.0, "matmul (cuBLAS)": 0.0, other: 0.0}
+    other = "elementwise and copies (norms, rope, JSD)"
+    groups = {"flash_attention": 0.0, "matmul (cuBLAS)": 0.0,
+              "dequantize_kn": 0.0, other: 0.0}
     by_name = {}
     for e in prof.key_averages():
         # device kernels only: aten:: rows repeat their kernels' time, and
@@ -1372,22 +1615,39 @@ def profile_eval_phase():
         by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) + ms
         if "flash_kernel" in e.key:
             groups["flash_attention"] += ms
+        elif "dequant_kernel" in e.key:
+            groups["dequantize_kn"] += ms
         elif any(t in e.key.lower() for t in ("gemm", "xmma", "nvjet",
                                                 "cutlass", "cublas")):
             groups["matmul (cuBLAS)"] += ms
         else:
             groups[other] += ms
     device_ms = sum(by_name.values())
+    # a GEMM of f32 operands (cuBLAS names it ..._gemm_f32f32_...)
+    f32_gemm_ms = sum(ms for k, ms in by_name.items() if "gemm_f32f32" in k)
+    dequant_ms = sum(ms for k, ms in by_name.items() if "dequant_kernel" in k)
     rec = dict(arch="cycled", compute="bfloat16", samples=SENS_N,
                seqlen=SENS_SEQ, unprofiled_s=unprofiled_s,
                profiled_wall_s=wall_s, device_ms=device_ms,
                device_busy_share=device_ms / (wall_s * 1e3),
-               groups_ms=groups,
+               groups_ms=groups, dequant_kernel_ms=dequant_ms,
+               dequant_share=dequant_ms / device_ms,
+               f32_gemm_ms=f32_gemm_ms, dequant_launches=dequant,
+               dequant_reckoned=dequant_want, loss=loss,
+               loss_f32_head=loss_f32_head, head_rel_err=head_rel,
+               head_tol=HEAD_TOL,
                top_kernels_ms=dict(sorted(by_name.items(),
                                           key=lambda kv: -kv[1])[:10]))
     print("EVAL_PROFILE " + json.dumps(rec), flush=True)
     del ev
     torch.cuda.empty_cache()
+    if dequant != dequant_want:
+        fail(f"one evaluation: {dequant} dequantize_kn launches, reckoned "
+             f"{dequant_want}")
+    if not (math.isfinite(loss) and head_rel <= HEAD_TOL):
+        fail(f"bf16 head loss {loss} vs float32 head {loss_f32_head}")
+    if f32_gemm_ms > 0:
+        fail(f"a float32 GEMM is left in the evaluation: {rec}")
     return rec
 
 
@@ -1455,7 +1715,7 @@ def main():
     # -- phase 2: build -------------------------------------------------------
     build_s = _cuda.build(verbose=True)
     print(f"build: {build_s:.1f} s ({', '.join(_cuda.SOURCES)})", flush=True)
-    attn_build = attention_build_report()
+    build_rec = build_report()
 
     # -- phase 3: kernels vs plain versions ----------------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1466,6 +1726,10 @@ def main():
                 for nbits in (2, 3, 4):
                     cases.append(check_matmul(site, nbits, M, meta, gen))
             cases.append(check_matmul("head", 8, M, meta, gen))
+    # the head's speculative-verify row counts (gamma + 1) and the
+    # grouped GEMV's largest M
+    for M in (5, 8):
+        cases.append(check_matmul("head", 8, M, torch.bfloat16, gen))
     cases.append(check_attention("llama2-7b", 4, 32, 1, 128, 200,
                                  (1, 63, 64, 199), gen))
     cases.append(check_attention("llama2-7b-decode", 1, 32, 1, 128, 200,
@@ -1490,6 +1754,9 @@ def main():
             torch.cuda.empty_cache()
     for nbits in (2, 3, 4):
         cases += check_mlp(nbits, (1, 4, 8), gen)
+        torch.cuda.empty_cache()
+    for nbits in (1, 2, 3, 4, 5, 6, 8):
+        cases.append(check_dequant(nbits, gen))
         torch.cuda.empty_cache()
     bad = [c for c in cases if not c["ok"]]
     if bad:
@@ -1624,10 +1891,15 @@ def main():
             pick("quant_matmul_mlp_indexed", nbits=4, M=1),
             "amq_tpu_torch/csrc/quant_matmul_mlp.cu",
             "amq_tpu/ops/quant_matmul.py:1112"),
+        # no Pallas kernel: the JAX package's XLA dequantization
+        "dequantize_kn": (pick("dequantize_kn", nbits=4),
+                          "amq_tpu_torch/csrc/dequant.cu",
+                          "amq_tpu/core/quantize.py:227"),
     }
     # launches on each kernel's main path: the decode generate for the
     # serving kernels (under AMQ_PIPE for the pipelined GEMVs, under both
     # switches for the MLP kernel), the sensitivity CLI for flash attention
+    # and the dequantization
     pipe_counts = switch_recs["pipe"]["launches"]
     main_counts = {**counts,
                    "flash_attention": sens["launches"]["flash_attention"],
@@ -1636,7 +1908,8 @@ def main():
                    "quant_matmul_swiglu_indexed_pipe":
                        pipe_counts["quant_matmul_swiglu_indexed_pipe"],
                    "quant_matmul_mlp_indexed": switch_recs["pipe+mlp"][
-                       "launches"]["quant_matmul_mlp_indexed"]}
+                       "launches"]["quant_matmul_mlp_indexed"],
+                   "dequantize_kn": sens["launches"]["dequantize_kn"]}
     kernels = []
     for name, (c, src, rep) in headline.items():
         kernels.append({
@@ -1673,7 +1946,7 @@ def main():
                                    if k != "table"},
                    "eval_parity": eval_recs, "eval_profile": eval_prof,
                    "search": search_rec, "probes": probes,
-                   "attention_build": attn_build},
+                   "build_report": build_rec},
                   f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

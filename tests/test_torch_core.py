@@ -115,3 +115,60 @@ def test_quantize_bf16_meta_and_explicit_superblock():
                                rtol=1e-2)
     np.testing.assert_allclose(tq.dequantize(tqt).numpy(),
                                np.asarray(jq.dequantize(jqt)), atol=0.05)
+
+
+def _unpack_int64_route(words: torch.Tensor, nbits: int, group_size: int):
+    """The port's earlier unpack (int64 words, two torch.stack per plane),
+    kept here as the reference of the int32 rewrite."""
+    def group(w, b):
+        G, rows, N = w.shape
+        parts = []
+        for p in range(16 // b):
+            lo = (w >> (b * p)) & (2**b - 1)
+            hi = (w >> (16 + b * p)) & (2**b - 1)
+            parts.append(torch.stack([lo, hi], dim=3))
+        return torch.stack(parts, dim=1).movedim(4, 3).reshape(
+            G, group_size, N)
+
+    rows = tbp.packed_rows(group_size, nbits)
+    G = words.shape[0] // rows
+    w = words.to(torch.int64).reshape(G, rows, -1) & (2**32 - 1)
+    if nbits in tbp._PLANE_SPLIT:
+        hb, lb = tbp._PLANE_SPLIT[nbits]
+        hr = tbp.packed_rows(group_size, hb)
+        out = (group(w[:, :hr], hb) << lb) | group(w[:, hr:], lb)
+    else:
+        out = group(w, nbits)
+    return out.reshape(G * group_size, -1)
+
+
+@pytest.mark.parametrize("nbits", tbp.SUPPORTED_BITS)
+def test_int32_unpack_and_dequantize_bit_equal(nbits):
+    """The int32 unpack equals the int64 route and the JAX unpack at every
+    width (every bit pattern of the words, bit 31 included); dequantize_kn
+    in f32 and bf16 equals the JAX dequantize_kn on the same arrays, with
+    a K pad (1280 -> 1152 rows) and an N cut (96 -> 90 columns)."""
+    rng = np.random.default_rng(40 + nbits)
+    sb, Kp, Np = 256, 1280, 96
+    words = rng.integers(0, 2**32, (Kp * nbits // 32, Np), dtype=np.uint64
+                         ).astype(np.uint32)
+    tw = to_tensor(words)
+    got = tbp.unpack(tw, nbits, sb)
+    assert got.dtype == torch.int32
+    assert torch.equal(got.long(), _unpack_int64_route(tw, nbits, sb))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jbp.unpack(jnp.asarray(words), nbits, sb)))
+    scale = (rng.random((Kp // 128, Np)) * 0.02).astype(np.float32)
+    zero = (rng.random((Kp // 128, Np)) * (2**nbits - 1)).astype(np.float32)
+    for meta in (jnp.float32, jnp.bfloat16):
+        jqt = jq.QuantizedTensor(
+            packed=jnp.asarray(words), scale=jnp.asarray(scale).astype(meta),
+            zero=jnp.asarray(zero).astype(meta), nbits=nbits, group_size=128,
+            shape=(90, 1152), superblock=sb)
+        tqt = _jax_qt_to_port(jqt)
+        for dt_j, dt_t in ((jnp.float32, torch.float32),
+                           (jnp.bfloat16, torch.bfloat16)):
+            want = np.asarray(jq.dequantize_kn(jqt, dt_j).astype(jnp.float32))
+            got_w = tq.dequantize_kn(tqt, dt_t)
+            assert got_w.dtype == dt_t and got_w.shape == (1152, 90)
+            np.testing.assert_array_equal(got_w.float().numpy(), want)

@@ -129,6 +129,91 @@ def test_cuda_mlp_kernel_matches_plain_and_chain(M, nbits):
     assert tqm.quant_matmul_mlp_indexed.launches - before == 2 * L
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("meta", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("swiglu", [False, True])
+@pytest.mark.parametrize("M", [1, 3, 5, 8])
+def test_cuda_grouped_gemv_matches_grouped_plain(M, swiglu, out_dtype, meta):
+    """The grouped 8-bit tensor-core GEMV (bf16 x, M <= 8) against its
+    plain version, the grouped form: N = 320 is not a multiple of the
+    128-column tile, K = 2048 is split over two blocks; f32 out within
+    1e-4 (normalized; summation order only), bf16 out one rounding; the
+    SwiGLU prologue through quant_matmul_swiglu_indexed; two calls give
+    the same bits; one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    rng = np.random.default_rng(100 + M + 10 * swiglu)
+    N, K = 320, 2048
+    W = torch.from_numpy(rng.normal(size=(N, K)).astype(np.float32) * 0.02)
+    qt = tq.quantize(W.cuda(), nbits=8, meta_dtype=meta)
+    x, u = (torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)
+                             ).cuda().to(torch.bfloat16) for _ in range(2))
+    assert tqm._grouped_applies(x, qt.packed, qt.scale, qt.zero, 8, 128)
+    assert tqm._grouped_splits(N, K // qt.superblock, x.device)[0] == 2
+    kw = dict(nbits=8, group_size=128, shape=(N, K),
+              superblock=qt.superblock, out_dtype=out_dtype)
+    counter = (tqm.quant_matmul_swiglu_indexed if swiglu else tqm.quant_matmul)
+    before = counter.launches
+
+    def call():
+        if swiglu:
+            return tqm.quant_matmul_swiglu_indexed(
+                x, u, qt.packed[None], qt.scale[None], qt.zero[None], 0, **kw)
+        return tqm.quant_matmul(x, qt, out_dtype=out_dtype)
+
+    got, again = call(), call()
+    want = tqm.qmm_grouped_plain(x, qt.packed, qt.scale, qt.zero,
+                                 up=u if swiglu else None, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (M, N)
+    atol = 1e-4 if out_dtype == torch.float32 else 1e-2
+    _norm_close(got.float().cpu().numpy(), want.float().cpu().numpy(), atol)
+    assert torch.equal(got, again)
+    assert counter.launches - before == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [320, 90])
+@pytest.mark.parametrize("nbits", [1, 2, 3, 4, 5, 6, 8])
+def test_cuda_dequant_kernel_equals_plain(nbits, N):
+    """amq_dequant_kn is torch.equal to the plain version at every width,
+    in f32 and bf16 out, from f32 and bf16 meta; K = 1152 pads to 1280
+    (the pad rows are not written); N = 90 takes the 1-column path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    rng = np.random.default_rng(110 + nbits + N)
+    W = torch.from_numpy(rng.normal(size=(N, 1152)).astype(np.float32))
+    before = tq.dequantize_kn.launches
+    for meta in (torch.float32, torch.bfloat16):
+        qt = tq.quantize(W.cuda(), nbits=nbits, meta_dtype=meta)
+        for dt in (torch.float32, torch.bfloat16):
+            got = tq.dequantize_kn(qt, dt)
+            want = tq.dequantize_kn_plain(qt, dt)
+            torch.cuda.synchronize()
+            assert got.dtype == dt and got.shape == (1152, N)
+            assert torch.equal(got, want)
+    assert tq.dequantize_kn.launches - before == 4
+
+
+@pytest.mark.cuda
+def test_cuda_dense_head_bf16_route_close_to_f32_route():
+    """The dense logits in bf16 compute: one bf16 x bf16 product with f32
+    accumulation (aten::mm.dtype) against the float32 product of the same
+    values; both sum exact products in f32, so only the order differs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from amq_tpu_torch.models.linear import matmul_out_f32
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((2, 7, 512), generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.randn((1000, 512), generator=g, device="cuda").to(torch.bfloat16)
+    got = matmul_out_f32(x, w.T, torch.bfloat16)
+    want = torch.matmul(x.float(), w.float().T)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (2, 7, 1000)
+    _norm_close(got.cpu().numpy(), want.cpu().numpy(), atol=1e-5)
+
+
 def _attn_inputs(B, Hkv, G, hd, T, offsets, seed, q_dtype=torch.float32,
                  cache_dtype=torch.float32):
     g = torch.Generator(device="cuda").manual_seed(seed)

@@ -142,6 +142,31 @@ def test_cuda_tensor_never_takes_plain_version(monkeypatch):
         fa.flash_attention(qf, qf, qf, 0)
 
 
+def test_dequantize_and_grouped_head_never_take_plain_versions(monkeypatch):
+    """dequantize_kn and an 8-bit bf16 head call, given non-CPU tensors,
+    launch their kernels or raise: with the plain versions replaced by
+    tripwires, meta-device calls raise and the tripwires stay untouched."""
+    from amq_tpu_torch.core import quantize as tq
+    from amq_tpu_torch.ops import quant_matmul as qm
+
+    def tripwire(*a, **k):
+        raise AssertionError("plain version reached")
+
+    for mod, name in ((tq, "dequantize_kn_plain"), (qm, "qmm_plain"),
+                      (qm, "qmm_grouped_plain")):
+        monkeypatch.setattr(mod, name, tripwire)
+    qt = tq.QuantizedTensor(
+        packed=torch.empty((256, 256), dtype=torch.int32, device="meta"),
+        scale=torch.empty((8, 256), dtype=torch.bfloat16, device="meta"),
+        zero=torch.empty((8, 256), dtype=torch.bfloat16, device="meta"),
+        nbits=8, group_size=128, shape=(256, 1024), superblock=1024)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tq.dequantize_kn(qt, torch.bfloat16)
+    x = torch.empty((1, 1024), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        qm.quant_matmul(x, qt, out_dtype=torch.float32)
+
+
 def test_decode_switch_wrappers_never_take_plain_versions(monkeypatch):
     """The pipelined GEMVs and the one-launch MLP, given a non-CPU tensor,
     launch or raise: with their plain versions (and the separate kernels

@@ -9,6 +9,7 @@ atol 2e-2 on outputs normalized by their largest magnitude.
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 import torch
@@ -70,6 +71,59 @@ def test_quant_matmul_bf16_decode(nbits, M):
     xt = to_tensor(np.asarray(x))
     got = tqm.quant_matmul(xt, _port_qt(qt), out_dtype=torch.float32).numpy()
     _norm_close(got, want)
+
+
+@pytest.mark.parametrize("swiglu", [False, True])
+@pytest.mark.parametrize("M", [1, 5, 8])
+def test_grouped_plain_matches_jax_and_qmm_plain(M, swiglu):
+    """The grouped form's plain version (the grouped CUDA GEMV's reference)
+    against the JAX quant_matmul at 8 bits with bf16 x (its grouped
+    serving GEMV, in interpret mode; the suite's normalized 2e-2), and
+    against qmm_plain in f32 out at 1e-4 (the same function, other
+    rounding).  K = 1152 pads to 1280 (superblock 256), N = 384 (the JAX
+    kernel tiles N by 128)."""
+    rng = np.random.default_rng(90 + M + 10 * swiglu)
+    N, K = 384, 1152
+    qt = jq.quantize(jnp.asarray(rng.normal(size=(N, K)).astype(np.float32)
+                                 * 0.02), nbits=8,
+                     meta_dtype=jnp.bfloat16)
+    x = jnp.asarray(rng.normal(size=(M, K)).astype(np.float32)).astype(
+        jnp.bfloat16)
+    u = jnp.asarray(rng.normal(size=(M, K)).astype(np.float32)).astype(
+        jnp.bfloat16)
+    pq = _port_qt(qt)
+    kw = dict(nbits=8, group_size=128, shape=(N, K),
+              superblock=pq.superblock, out_dtype=torch.float32,
+              up=to_tensor(np.asarray(u)) if swiglu else None)
+    xt = to_tensor(np.asarray(x))
+    got = tqm.qmm_grouped_plain(xt, pq.packed, pq.scale, pq.zero, **kw)
+    assert got.shape == (M, N) and got.dtype == torch.float32
+    act = (jax.nn.silu(x.astype(jnp.float32)) * u.astype(jnp.float32)
+           ).astype(jnp.bfloat16) if swiglu else x
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jqm.quant_matmul(act, qt, out_dtype=jnp.float32))
+    _norm_close(got.numpy(), want)
+    plain = tqm.qmm_plain(xt, pq.packed, pq.scale, pq.zero, **kw).numpy()
+    _norm_close(got.numpy(), plain, atol=1e-4)
+
+
+def test_grouped_routing_conditions():
+    """8-bit, bf16 activations, M <= 8, groups of a multiple of 64, Np, K
+    and x's row stride multiples of 8, 16-byte aligned operands: the
+    grouped GEMV; anything else keeps the CUDA-core GEMV (f32 activations
+    are the JAX package's per-weight route)."""
+    x = torch.zeros((8, 256), dtype=torch.bfloat16)
+    packed = torch.zeros((64, 128), dtype=torch.int32)
+    meta = torch.zeros((2, 128), dtype=torch.bfloat16)
+    ok = tqm._grouped_applies
+    assert ok(x, packed, meta, meta, 8, 128)
+    assert not ok(x, packed, meta, meta, 4, 128)
+    assert not ok(x.float(), packed, meta, meta, 8, 128)
+    assert not ok(torch.zeros((9, 256), dtype=torch.bfloat16), packed, meta,
+                  meta, 8, 128)
+    assert not ok(x, packed, meta, meta, 8, 32)
+    assert not ok(x, packed[:, :124], meta, meta, 8, 128)
+    assert not ok(x[:, 1:253], packed, meta, meta, 8, 128)   # K, alignment
 
 
 @pytest.mark.parametrize("nbits", [2, 3, 4, 8])

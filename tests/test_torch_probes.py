@@ -364,9 +364,12 @@ def test_kernel_names_shorten_symbols(monkeypatch):
             "flash_kernel_wgmmaILi128EEEvPK13__nv_bfloat16S3_S3_PKiPS1_iiiiif",
             "_ZN52_GLOBAL__N__28b647d7_19_decode_attention_cu_5aaacd3a18"
             "decode_attn_kernelI13__nv_bfloat16S1_fLi128ELi1EEEvPKT_PKT0_S7_"
-            "S4_S4_PKiPT1_iiiif"]
+            "S4_S4_PKiPT1_iiiif",
+            "_ZN43_GLOBAL__N__aecdb13f_10_dequant_cu_8759f20414dequant_kernel"
+            "ILi8ELi1EEEvNS_6DqArgsE"]
     if shutil.which("c++filt") or shutil.which("cu++filt"):
         assert list(ka.kernel_names(syms).values()) == [
-            "flash_kernel_wgmma<128>", "decode_attn_kernel<bf16, bf16, float, 128, 1>"]
+            "flash_kernel_wgmma<128>", "decode_attn_kernel<bf16, bf16, float, 128, 1>",
+            "dequant_kernel<8, 1>"]
     monkeypatch.setattr(ka.shutil, "which", lambda name: None)
     assert ka.kernel_names(syms) == {s: s for s in syms}
