@@ -12,9 +12,7 @@ codes are packed transposed ``[K, N]`` in the pair-planar layout of
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import functools
 from typing import Optional
 
 import torch
@@ -155,11 +153,10 @@ def to_container(qt: QuantizedTensor, container_bits: int) -> QuantizedTensor:
     return dataclasses.replace(qt, packed=packed, nbits=container_bits)
 
 
-def dequantize_kn_plain(qt: QuantizedTensor,
-                        dtype=torch.float32) -> torch.Tensor:
-    """Plain PyTorch version of :func:`dequantize_kn` (the CPU path, and
-    the reference the CUDA kernel is held to): int32 codes, then
-    ``(c - z) * s`` in ``dtype``."""
+def dequantize_kn(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
+    """Dequantize to the transposed ``[in, out]`` layout (logical block):
+    int32 codes, then ``(c - z) * s`` in ``dtype``.  Plain PyTorch on any
+    device; ``ops.dequant.dequantize_kn`` is the CUDA kernel held to it."""
     codes = bitpack.unpack(qt.packed, qt.nbits, qt.superblock_)   # [Kp, Np]
     K, N = codes.shape
     g = qt.group_size
@@ -168,68 +165,6 @@ def dequantize_kn_plain(qt: QuantizedTensor,
     zero = qt.zero.reshape(K // g, 1, N).to(dtype)
     w = ((c - zero) * scale).reshape(K, N)
     return w[:qt.in_features, :qt.out_features]
-
-
-def dequantize_kn(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
-    """Dequantize to the transposed ``[in, out]`` layout (logical block).
-
-    On a CUDA tensor this launches ``csrc/dequant.cu`` (one pass, each
-    packed word read once; float32 or bfloat16 out; the plain version's
-    bits) and counts ``dequantize_kn.launches``; CPU tensors take
-    :func:`dequantize_kn_plain`."""
-    if qt.packed.device.type == "cpu":
-        return dequantize_kn_plain(qt, dtype)
-    if qt.packed.device.type != "cuda":
-        raise ValueError(f"no kernel for device {qt.packed.device}")
-    out = _dequant_cuda(qt, dtype)
-    dequantize_kn.launches += 1
-    return out
-
-
-dequantize_kn.launches = 0
-
-
-@functools.lru_cache(maxsize=None)
-def _dequant_lib():
-    from ..ops import _cuda
-    fn = _cuda.library("dequant").amq_dequant_kn
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, i, p, i, i, i, i, i, i, i, i, p]
-    fn.restype = i
-    return fn
-
-
-def _dequant_cuda(qt: QuantizedTensor, dtype) -> torch.Tensor:
-    from ..ops import _cuda
-    K, N = qt.in_features, qt.out_features
-    R, Np = qt.packed.shape
-    sb, g = qt.superblock_, qt.group_size
-    what = f"dequantize_kn ({qt.nbits}-bit, K={K}, N={N})"
-    out_flag = _cuda.dtype_flag(torch.empty(0, dtype=dtype), what)
-    if qt.packed.dtype != torch.int32:
-        raise TypeError(f"{what}: packed words must be int32, got "
-                        f"{qt.packed.dtype}")
-    if qt.scale.dtype != qt.zero.dtype:
-        raise TypeError(f"{what}: scale {qt.scale.dtype} vs zero "
-                        f"{qt.zero.dtype}")
-    if any(t.device != qt.packed.device for t in (qt.scale, qt.zero)):
-        raise ValueError(f"{what}: tensors on different devices")
-    if not all(t.is_contiguous() for t in (qt.packed, qt.scale, qt.zero)):
-        raise ValueError(f"{what}: packed/scale/zero must be contiguous")
-    Kp = R * 32 // qt.nbits
-    if (Kp % sb or sb % g or K > Kp or N > Np
-            or qt.scale.shape != (Kp // g, Np)
-            or qt.zero.shape != qt.scale.shape):
-        raise ValueError(f"{what}: packed {tuple(qt.packed.shape)}, scale "
-                         f"{tuple(qt.scale.shape)}, superblock {sb}, group "
-                         f"{g} do not fit")
-    out = torch.empty((K, N), dtype=dtype, device=qt.packed.device)
-    ptr = _cuda.ptr
-    rc = _dequant_lib()(ptr(qt.packed), ptr(qt.scale), ptr(qt.zero),
-                        _cuda.dtype_flag(qt.scale, what), ptr(out), out_flag,
-                        K, N, Np, qt.nbits, g, sb, -(-K // sb), _cuda.stream())
-    _cuda.check(rc, what)
-    return out
 
 
 def dequantize(qt: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:

@@ -14,7 +14,7 @@
 // each pair-planar.  Scale and zero are [Kp/gs, Np], f32 or bf16.
 //
 // Function: w[k, n] = (c - z) * s in the output type, rounded as the plain
-// PyTorch version (core/quantize.py dequantize_kn_plain) rounds it: in bf16
+// PyTorch version (core/quantize.py dequantize_kn) rounds it: in bf16
 // t = bf16(c - z), then bf16(t * s) (meta rounded to bf16 first); in f32
 // (c - z) * s.  Only the logical [K, N] block is written (no K or N pad).
 //

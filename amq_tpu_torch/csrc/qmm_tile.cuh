@@ -153,6 +153,18 @@ __device__ __forceinline__ void superblock_fma(Word word, Meta meta,
   }
 }
 
+// The GEMVs take one group's meta per extraction round of a plane
+// (plane_fma, grouped_step): a round of a `field`-bit plane spans
+// sb * field / 16 K rows of its superblock, and that span and the group
+// must nest.  Power-of-two superblocks and groups always do; the JAX
+// layout allows others (a 384-row superblock of 128-row groups), which
+// the GEMV entry points refuse.
+__host__ __device__ inline bool rounds_nest_groups(int nbits, int sb, int gs) {
+  const int hi = nbits == 3 ? 2 : nbits, lo = nbits == 3 ? 1 : nbits;
+  const int a = sb * hi / 16, b = sb * lo / 16;
+  return (a % gs == 0 || gs % a == 0) && (b % gs == 0 || gs % b == 0);
+}
+
 // Bytes of shared memory: one ring stage (words, then scale rows, then
 // zero rows, each row kBN wide), and the whole block (activation of one
 // superblock in f32, then the ring, which the final cross-slice sum reuses).
@@ -379,12 +391,25 @@ __global__ void reduce_splits_kernel(const float* partial, void* out, int MN,
 // planes), so the 2/3/4-bit GEMVs can take the same step; only 8-bit
 // launches it now.  superblock_fma and its kernels are untouched.
 
+// The ring's shape can be set at build time (-DAMQ_GTILES=...,
+// -DAMQ_GSR=..., -DAMQ_GSTAGES=...) for the ring-shape sweep
+// (probes/grouped_ring.py); the defaults are the shipped kernel's.
+#ifndef AMQ_GTILES
+#define AMQ_GTILES 2
+#endif
+#ifndef AMQ_GSR
+#define AMQ_GSR 32
+#endif
+#ifndef AMQ_GSTAGES
+#define AMQ_GSTAGES 2
+#endif
 constexpr int kGWarps = 8;             // grouped GEMV: consumer warps
-constexpr int kGTiles = 2;             // 16-column MMA tiles per warp
+constexpr int kGTiles = AMQ_GTILES;    // 16-column MMA tiles per warp
 constexpr int kGBN = kGWarps * 16 * kGTiles;   // columns per block
-constexpr int kGSR = 32;               // word rows per ring stage
+constexpr int kGSR = AMQ_GSR;          // word rows per ring stage
 constexpr int kGPart = 2 * kGSR;       // K rows per stage and round
-constexpr int kGStages = 2;
+constexpr int kGStages = AMQ_GSTAGES;
+static_assert(kGSR % 8 == 0 && kGStages >= 1, "grouped ring shape");
 constexpr int kGWordStride = kGBN + 4; // words per staged row (no conflicts)
 constexpr int kGXStride = kGPart + 8;  // bf16 per staged x row (no conflicts)
 

@@ -434,7 +434,8 @@ extern "C" int amq_qmm(const void* x, const void* u, int x_bf16,
                        int nbits, int group_size, int superblock, int splits,
                        int sb_per_split, void* stream) {
   if (M < 1 || superblock % 64 || superblock % group_size || Kp % superblock ||
-      superblock > 1024 || splits < 1)
+      superblock > 1024 || splits < 1 ||
+      (M <= 8 && !rounds_nest_groups(nbits, superblock, group_size)))
     return -1;
   GemvArgs a{Operand{x, u, x_bf16, M, K, ldx},
              Weights{reinterpret_cast<const uint32_t*>(packed), scale, zero,
@@ -465,10 +466,11 @@ extern "C" int amq_qmm(const void* x, const void* u, int x_bf16,
 }
 
 // The grouped tensor-core GEMV: 8-bit words, bf16 activations, M <= 8,
-// group_size a multiple of 64, Np, K and the row stride of x multiples of
-// 8, 16-byte aligned activations, words and meta (the wrapper's
-// _grouped_applies).  Same arguments as
-// amq_qmm; -1 for a call it does not take.
+// group_size a multiple of 2 * kGSR (64), a superblock of at most 1024
+// rows and whole ring stages (a multiple of 128 rows), Np, K and the row
+// stride of x multiples of 8, 16-byte aligned activations, words and meta
+// (the wrapper's _grouped_applies, at the default ring shape).  Same
+// arguments as amq_qmm; -1 for a call it does not take.
 extern "C" int amq_qmm_grouped(const void* x, const void* u, int x_bf16,
                                const int32_t* packed, const void* scale,
                                const void* zero, int meta_bf16, void* out,
@@ -481,7 +483,8 @@ extern "C" int amq_qmm_grouped(const void* x, const void* u, int x_bf16,
       (superblock * nbits / 32) % kGSR || Np % 8 || K % 8 || ldx % 8 ||
       splits < 1 || (splits > 1 && partial == nullptr) || !aligned16(x) ||
       (u != nullptr && !aligned16(u)) || !aligned16(packed) ||
-      !aligned16(scale) || !aligned16(zero))
+      !aligned16(scale) || !aligned16(zero) ||
+      !rounds_nest_groups(nbits, superblock, group_size))
     return -1;
   GemvArgs a{Operand{x, u, x_bf16, M, K, ldx},
              Weights{reinterpret_cast<const uint32_t*>(packed), scale, zero,

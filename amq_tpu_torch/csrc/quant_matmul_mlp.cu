@@ -179,7 +179,8 @@ extern "C" int amq_qmm_mlp(const void* x, int x_bf16, int M, int K_gu,
       Np_gu % 8 || Np_d % 8 || 2 * inter > N_gu || inter > Kp_d ||
       splits_gu < 1 || splits_d < 1 || !aligned16(gu_packed) ||
       !aligned16(gu_scale) || !aligned16(gu_zero) || !aligned16(d_packed) ||
-      !aligned16(d_scale) || !aligned16(d_zero))
+      !aligned16(d_scale) || !aligned16(d_zero) ||
+      !rounds_nest_groups(nbits, superblock, group_size))
     return -1;
   MlpArgs a{Operand{x, nullptr, x_bf16, M, K_gu, ldx},
             Weights{reinterpret_cast<const uint32_t*>(gu_packed), gu_scale,

@@ -78,7 +78,8 @@ extern "C" int amq_qmm_pipe(const void* x, const void* u, int x_bf16,
                             void* stream) {
   if (M < 1 || M > 8 || superblock % 64 || superblock % group_size ||
       Kp % superblock || superblock > 1024 || splits < 1 || Np % 8 ||
-      !aligned16(packed) || !aligned16(scale) || !aligned16(zero))
+      !aligned16(packed) || !aligned16(scale) || !aligned16(zero) ||
+      !rounds_nest_groups(nbits, superblock, group_size))
     return -1;
   GemvArgs a{Operand{x, u, x_bf16, M, K, ldx},
              Weights{reinterpret_cast<const uint32_t*>(packed), scale, zero,

@@ -105,8 +105,9 @@ class Evaluator:
     # -- low level ---------------------------------------------------------
 
     def kernels(self):
-        """The attention routing of this evaluator's forwards."""
-        return llama.attention_kernels(self.use_kernels)
+        """The kernel routing (flash attention, dequantization) of this
+        evaluator's forwards."""
+        return llama.forward_kernels(self.use_kernels)
 
     def tokens(self, batch: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(batch, dtype=torch.int64, device=self.device)

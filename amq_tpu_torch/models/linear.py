@@ -1,9 +1,10 @@
 """Linear-layer application over interchangeable weight representations.
 
 * :class:`DenseLinear` ``[out, in]`` -- plain matmul,
-* :class:`QuantLinear` -- dequantize-then-matmul, or the fused CUDA
-  dequant-matmul (``ops.quant_matmul``) while :class:`kernel_linears` has
-  installed a kernel implementation.
+* :class:`QuantLinear` -- dequantize-then-matmul (the dequantization
+  through :func:`dequantize_weight`), or the fused CUDA dequant-matmul
+  (``ops.quant_matmul``) while :class:`kernel_linears` has installed a
+  kernel implementation.
 """
 
 from __future__ import annotations
@@ -34,6 +35,10 @@ LinearParams = Union[DenseLinear, QuantLinear]
 # installed by the serving engine for the duration of a forward.  None ->
 # dequantize-then-matmul.
 _KERNEL_IMPL = None
+
+#: False inside ``llama.forward_kernels(False)``: the dequantize-then-matmul
+#: routes take the plain dequantization
+_DEQUANT_KERNEL = True
 
 
 class kernel_linears:
@@ -93,6 +98,16 @@ def matmul_out_f32(x: torch.Tensor, wt: torch.Tensor,
     return torch.matmul(x.float(), wt.to(compute_dtype).float())
 
 
+def dequantize_weight(qt: QuantizedTensor, dtype) -> torch.Tensor:
+    """``[in, out]`` weight of a dequantize-then-matmul route: the CUDA
+    kernel (``ops.dequant``, plain on a CPU tensor) unless
+    ``llama.forward_kernels(False)`` asks for the plain version."""
+    if not _DEQUANT_KERNEL:
+        return dequantize_kn(qt, dtype)
+    from ..ops.dequant import dequantize_kn as kernel
+    return kernel(qt, dtype)
+
+
 def apply_linear(p: LinearParams, x: torch.Tensor,
                  compute_dtype=torch.float32) -> torch.Tensor:
     """``x @ W.T (+ b)`` for any weight representation. x: [..., in]."""
@@ -101,6 +116,6 @@ def apply_linear(p: LinearParams, x: torch.Tensor,
     if isinstance(p, QuantLinear):
         if _KERNEL_IMPL is not None:
             return _KERNEL_IMPL(p, x, compute_dtype)
-        wt = dequantize_kn(p.qt, dtype=compute_dtype)   # [in, out]
+        wt = dequantize_weight(p.qt, compute_dtype)     # [in, out]
         return matmul_f32(x, wt, p.bias, compute_dtype)
     raise TypeError(f"unsupported linear params: {type(p)}")

@@ -12,8 +12,9 @@ package takes its blockwise flash kernel (S >= 128, S % 64 == 0, no
 sliding window in range, on its accelerator), :func:`attention` and
 :func:`attention_append` launch the CUDA flash kernel
 (``ops.flash_attention``) on a CUDA tensor; the CPU takes the einsum path,
-as the JAX package does on its CPU backend.  :class:`attention_kernels`
-turns the kernel off for a kernel-vs-plain comparison on the card.
+as the JAX package does on its CPU backend.  :class:`forward_kernels`
+turns it and the dequantization kernel off for a kernel-vs-plain
+comparison on the card.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from . import linear as _linear
 from .config import LINEAR_NAMES, ModelConfig
 from .linear import DenseLinear, apply_linear, matmul_out_f32
 
@@ -160,27 +162,28 @@ def _attention_split(q, k_c, v_c, k_new, v_new, offset,
     return out.reshape(B, S, Hq, hd).to(compute_dtype)
 
 
-#: False inside ``attention_kernels(False)``
+#: False inside ``forward_kernels(False)``
 _FLASH_KERNEL = True
 
 
-class attention_kernels:
-    """Context manager: ``attention_kernels(False)`` sends attention that
-    would take the flash kernel through the einsum path instead (the plain
-    side of a kernel-vs-plain comparison on the card)."""
+class forward_kernels:
+    """Context manager: ``forward_kernels(False)`` sends attention that
+    would take the flash kernel through the einsum path, and the
+    dequantize-then-matmul linears through the plain dequantization (the
+    plain side of a kernel-vs-plain comparison on the card)."""
 
     def __init__(self, enabled: bool):
         self.enabled = enabled
 
     def __enter__(self):
         global _FLASH_KERNEL
-        self._old = _FLASH_KERNEL
-        _FLASH_KERNEL = self.enabled
+        self._old = _FLASH_KERNEL, _linear._DEQUANT_KERNEL
+        _FLASH_KERNEL = _linear._DEQUANT_KERNEL = self.enabled
         return self
 
     def __exit__(self, *exc):
         global _FLASH_KERNEL
-        _FLASH_KERNEL = self._old
+        _FLASH_KERNEL, _linear._DEQUANT_KERNEL = self._old
         return False
 
 

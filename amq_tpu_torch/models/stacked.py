@@ -26,7 +26,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..core.quantize import QuantizedTensor, dequantize_kn, quantize, to_container
+from ..core.quantize import QuantizedTensor, quantize, to_container
 from .config import LINEAR_NAMES, ModelConfig
 from . import linear as linear_mod
 from . import llama
@@ -140,14 +140,14 @@ def apply_head(model: StackedModel, x: torch.Tensor, compute_dtype):
     """Logits matmul: packed head when quantized, dense otherwise.
     x: [..., H] -> [..., vocab] float32."""
     if model.lm_head_qt is not None:
-        from ..ops.quant_matmul import quant_matmul, quant_matmul_reference
+        from ..ops.quant_matmul import quant_matmul
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
         if linear_mod.kernels_active() and x2.shape[0] < _PREFILL_XLA_M:
             out = quant_matmul(x2, model.lm_head_qt, out_dtype=torch.float32)
-        else:
-            out = quant_matmul_reference(x2, model.lm_head_qt,
-                                         out_dtype=torch.float32)
+        else:                  # dequantize (in x's dtype), then f32 matmul
+            wt = linear_mod.dequantize_weight(model.lm_head_qt, x2.dtype)
+            out = torch.matmul(x2.float(), wt.float())
         return out.reshape(*lead, model.lm_head_qt.out_features)
     head = model.lm_head if model.lm_head is not None else model.embed
     return linear_mod.matmul_out_f32(x, head.T, compute_dtype)
@@ -332,7 +332,7 @@ def _apply_stack(stack: StackedQuant, i: int, x: torch.Tensor, compute_dtype):
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
         if x2.shape[0] >= _PREFILL_XLA_M:
-            wt = dequantize_kn(stack.layer(i), dtype=compute_dtype)
+            wt = linear_mod.dequantize_weight(stack.layer(i), compute_dtype)
             return linear_mod.matmul_f32(x, wt, None, compute_dtype)
         out = quant_matmul_indexed(
             x2, stack.packed, stack.scale, stack.zero, i, nbits=stack.nbits,

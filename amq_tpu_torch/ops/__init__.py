@@ -5,8 +5,8 @@
 call).
 """
 
-from ..core.quantize import dequantize_kn as _dequantize_kn
 from . import decode_attention as _attn
+from . import dequant as _dequant
 from . import flash_attention as _flash
 from . import quant_matmul as _qmm
 
@@ -14,7 +14,7 @@ KERNELS = (_qmm.quant_matmul_indexed, _qmm.quant_matmul_swiglu_indexed,
            _attn.decode_attention_indexed, _qmm.quant_matmul,
            _flash.flash_attention, _qmm.quant_matmul_indexed_pipe,
            _qmm.quant_matmul_swiglu_indexed_pipe,
-           _qmm.quant_matmul_mlp_indexed, _dequantize_kn)
+           _qmm.quant_matmul_mlp_indexed, _dequant.dequantize_kn)
 
 
 def reset_launch_counts() -> None:

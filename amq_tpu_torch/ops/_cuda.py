@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a
 -std=c++17 -O3 -shared -Xcompiler -fPIC``), at first use, into
 ``amq_tpu_torch/_build/`` (listed in ``.gitignore``).  The library name
-carries a hash of its source and the shared headers (``csrc/*.cuh``), so
-an edited source or header is rebuilt.  Pointers and the stream cross as
+carries a hash of its source, the shared headers (``csrc/*.cuh``) and any
+``-D`` defines (a probe's build-time variant), so an edited source or
+header is rebuilt.  Pointers and the stream cross as
 ``c_void_p``; every C entry point returns the launch's
 ``cudaGetLastError()`` (or -1 for arguments it does not take).
 """
@@ -20,7 +21,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 import torch
 
@@ -31,7 +32,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 #: the compiler's report of each source built with ``verbose``
 LOGS: Dict[str, str] = {}
 
@@ -46,28 +47,32 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _lib_path(name: str) -> Path:
-    """The library's path, named by a hash of its source and of the
-    shared headers it may include."""
+def _lib_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
+    """The library's path, named by a hash of its source, of the shared
+    headers it may include and of its defines."""
     h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
     for header in sorted(_CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
+    h.update(" ".join(defines).encode())
     return _BUILD / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
-def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> float:
+def build(names: Iterable[str] = SOURCES, verbose: bool = False,
+          defines: Tuple[str, ...] = ()) -> float:
     """Compile the named sources that are not built yet, one nvcc each,
     all started together.  Returns the wall seconds spent.  ``verbose``
-    adds ``-Xptxas -v`` and prints the compiler's report."""
+    adds ``-Xptxas -v`` and prints the compiler's report; ``defines``
+    (``NAME=value``) are passed as ``-D``."""
     t0 = time.perf_counter()
     _BUILD.mkdir(parents=True, exist_ok=True)
     procs = []
     for name in names:
-        out = _lib_path(name)
+        out = _lib_path(name, defines)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+               *(f"-D{d}" for d in defines),
                "-o", str(tmp), str(_CSRC / f"{name}.cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -107,15 +112,16 @@ def ptxas_usage(log: str) -> Dict[str, dict]:
     return usage
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    lib = _LIBS.get(name)
+def library(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built with ``defines``),
+    built on first use."""
+    lib = _LIBS.get((name, defines))
     if lib is None:
-        path = _lib_path(name)
+        path = _lib_path(name, defines)
         if not path.exists():
-            build([name])
+            build([name], defines=defines)
         lib = ctypes.CDLL(str(path))
-        _LIBS[name] = lib
+        _LIBS[(name, defines)] = lib
     return lib
 
 

@@ -106,16 +106,18 @@ def _grouped_splits(N: int, n_sb: int, device) -> tuple:
 
 def _grouped_applies(x: torch.Tensor, packed: torch.Tensor,
                      scale: torch.Tensor, zero: torch.Tensor, nbits: int,
-                     group_size: int, up=None) -> bool:
+                     group_size: int, superblock: int, up=None) -> bool:
     """Take the grouped tensor-core GEMV?  The JAX package takes its
     grouped serving GEMV at ``single_m and acc_dtype == bf16`` (M <= 8,
     bf16 activations) for every width; the port does for 8-bit, with the
-    CUDA kernel's own conditions (16-byte copies): groups of a multiple of
-    64 rows, a padded N, K and x's row stride that are multiples of 8, and
-    16-byte aligned activations and weights.  Other calls take the
-    CUDA-core GEMV."""
+    conditions ``amq_qmm_grouped`` checks (whole ring stages of 32 word
+    rows, 16-byte copies): groups of a multiple of 64 rows, a superblock of
+    a multiple of 128 rows and at most 1024, a padded N, K and x's row
+    stride that are multiples of 8, and 16-byte aligned activations and
+    weights.  Other calls take the CUDA-core GEMV."""
     return (nbits == 8 and x.shape[0] <= 8 and x.dtype == torch.bfloat16
-            and group_size % 64 == 0 and packed.shape[-1] % 8 == 0
+            and group_size % 64 == 0 and superblock % 128 == 0
+            and superblock <= 1024 and packed.shape[-1] % 8 == 0
             and x.shape[-1] % 8 == 0 and x.stride(0) % 8 == 0
             and all(t.data_ptr() % 16 == 0 for t in (x, packed, scale, zero)
                     + ((up,) if up is not None else ())))
@@ -243,7 +245,7 @@ def _qmm_cuda(x, up, packed, scale, zero, *, nbits, group_size, shape,
                          f"{tuple(scale.shape)}, superblock {superblock}, "
                          f"group {group_size} do not fit")
     grouped = not pipe and _grouped_applies(x, packed, scale, zero, nbits,
-                                            group_size, up)
+                                            group_size, superblock, up)
     if grouped:
         entry = "amq_qmm_grouped"
         splits, per = _grouped_splits(N, Kp // superblock, x.device)

@@ -3,6 +3,7 @@ package's ``scripts/kernel_attrib.py`` (an attribution of the GEMV body,
 ``kernel_attrib``), ``scripts/pipelined_gemv.py`` (an extract-ahead
 tensor-core GEMV, ``pipelined_gemv``) and ``scripts/kernel_roofline.py``
 (the dequant matmul per width and container, ``kernel_roofline``), with
-the chain timer they share (``chain``).  Each is a module with a CLI:
+the chain timer they share (``chain``), and a ring-shape sweep of the
+grouped 8-bit GEMV at the head (``grouped_ring``, the port's own).  Each is a module with a CLI:
 ``python -m amq_tpu_torch.probes.<name> ...``.
 """

@@ -67,7 +67,7 @@ class SlotCache:
 def _kernels(impl):
     """Route the linears through ``impl`` and attention through its
     kernels while ``impl`` is set (``None``: the plain paths)."""
-    with kernel_linears(impl), llama.attention_kernels(impl is not None):
+    with kernel_linears(impl), llama.forward_kernels(impl is not None):
         yield
 
 

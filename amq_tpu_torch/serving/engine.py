@@ -67,7 +67,7 @@ class Engine:
 
     def _forward(self, params, tokens, cache):
         with kernel_linears(self._impl), \
-                llama.attention_kernels(self.use_kernels):
+                llama.forward_kernels(self.use_kernels):
             if isinstance(params, StackedModel):
                 return forward_stacked(params, self.cfg, tokens, cache=cache,
                                        compute_dtype=self.compute_dtype)

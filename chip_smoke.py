@@ -33,8 +33,10 @@ Phases (any failed check exits non-zero before the last line):
    and the non-pipelined GEMV, and the one-launch decode MLP (M 1, 4, 8;
    widths 2, 3, 4) against its plain version and the separate kernel
    chain, two calls bit-identical.  DEQUANT lines: the dequantization
-   kernel at the 7B gateup shape for every packed width, torch.equal to
-   its plain version in bf16 and f32, its time beside the byte bound.
+   kernel at the 7B gateup shape for every packed width, and at the
+   evaluation's own sites (o, gate/up, down with its K tail) for widths
+   2, 3, 4, torch.equal to its plain version in bf16 and f32, its time
+   beside the byte bound.
 3c. the decode-GEMV probes through their entry points
    (amq_tpu_torch.probes): kernel_attrib.main and pipelined_gemv.main at
    the qkv / o / gateup / down sites, widths 2, 3, 4 (ATTRIB lines: the
@@ -185,13 +187,14 @@ def rand_words(shape, gen):
                                     device="cuda", generator=gen))
 
 
-def rand_site(N, K, nbits, L, meta_dtype, gen):
+def rand_site(N, K, nbits, L, meta_dtype, gen, lane_pad=True):
     """Random packed stack [L, Kp*b/32, Np] with scale/zero, in the serving
-    layout (K padded to whole superblocks, N to the lane tile)."""
+    layout (K padded to whole superblocks, N to the lane tile; the
+    evaluation's stacks, ``lane_pad=False``, keep N)."""
     from amq_tpu_torch.core.bitpack import pick_superblock_padded
     from amq_tpu_torch.models.stacked import _pick_lane_pad
     sb, k_pad = pick_superblock_padded(K)
-    Kp, Np = K + k_pad, N + _pick_lane_pad(N)
+    Kp, Np = K + k_pad, N + (_pick_lane_pad(N) if lane_pad else 0)
     packed = rand_words((L, Kp * nbits // 32, Np), gen)
     scale = (torch.rand((L, Kp // 128, Np), generator=gen, device="cuda")
              * 0.02).to(meta_dtype)
@@ -239,7 +242,8 @@ def check_matmul(site, nbits, M, meta_dtype, gen):
 
     # the kernel's plain version: the grouped form where the grouped
     # tensor-core GEMV runs (8-bit, bf16 x, M <= 8), else the f32 one
-    grouped = qm._grouped_applies(x, packed[1], scale[1], zero[1], nbits, 128)
+    grouped = qm._grouped_applies(x, packed[1], scale[1], zero[1], nbits, 128,
+                                  sb)
     plain_fn = qm.qmm_grouped_plain if grouped else qm.qmm_plain
 
     def plain_call(i, fn=plain_fn):
@@ -297,17 +301,28 @@ def rel_err(got, want):
     return err / max(want.float().abs().max().item(), 1e-30), err
 
 
-def check_dequant(nbits, gen):
-    """The dequantization kernel at the 7B gateup site (an evaluation
-    linear: K 4096, N 22016, bf16 meta), torch.equal to its plain version
-    in bf16 and f32 out; its time in bf16 (the evaluation's compute type)
-    beside the plain version's and the byte bound (packed words and meta
-    read once, [K, N] written once).  No single PyTorch call unpacks the
-    layout, so no library time."""
-    from amq_tpu_torch.core.quantize import (QuantizedTensor, dequantize_kn,
-                                             dequantize_kn_plain)
-    N, K, _ = SITES_7B["gateup"]
-    packed, scale, zero, sb = rand_site(N, K, nbits, 2, torch.bfloat16, gen)
+#: the evaluation's dequantized sites at 7B (its stacks are unfused and
+#: keep N): q/k/v/o, gate/up, and down (K 11008 in whole 1024-superblocks,
+#: Kp 11264: the kernel's K tail)
+EVAL_SITES_7B = {"o": (4096, 4096), "gate": (11008, 4096),
+                 "down": (4096, 11008)}
+
+
+def check_dequant(nbits, gen, site="gateup"):
+    """The dequantization kernel at one 7B site (bf16 meta): the fused
+    gateup of a long prefill (K 4096, N 22016 in the lane-padded serving
+    layout) or one of the evaluation's own sites (``EVAL_SITES_7B``),
+    torch.equal to its plain version in bf16 and f32 out; its time in bf16
+    (the evaluation's compute type) beside the plain version's and the
+    byte bound (packed words and meta read once, [K, N] written once).  No
+    single PyTorch call unpacks the layout, so no library time."""
+    from amq_tpu_torch.core.quantize import QuantizedTensor
+    from amq_tpu_torch.core.quantize import dequantize_kn as dequantize_kn_plain
+    from amq_tpu_torch.ops.dequant import dequantize_kn
+    serving = site == "gateup"
+    N, K = SITES_7B[site][:2] if serving else EVAL_SITES_7B[site]
+    packed, scale, zero, sb = rand_site(N, K, nbits, 2, torch.bfloat16, gen,
+                                        lane_pad=serving)
     qts = [QuantizedTensor(packed[i], scale[i], zero[i], nbits, 128, (N, K),
                            sb) for i in range(2)]
     equal = {}
@@ -324,8 +339,9 @@ def check_dequant(nbits, gen):
                        iters=3)
     nbytes = weight_bytes(packed, scale, N) + K * N * 2
     b_ms, b_by = bound(nbytes, 0)
-    rec = dict(kernel="dequantize_kn", site="gateup", nbits=nbits, M=None,
-               meta="bfloat16", out="bfloat16", equal=equal, max_abs_err=err,
+    rec = dict(kernel="dequantize_kn", site=site, nbits=nbits, M=None,
+               K=K, N=N, Kp=packed.shape[-2] * 32 // nbits,
+               Np=packed.shape[-1], meta="bfloat16", out="bfloat16", equal=equal, max_abs_err=err,
                ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
                bound_by=b_by, share_of_bound=b_ms / ms,
                ok=all(equal.values()))
@@ -1758,6 +1774,10 @@ def main():
     for nbits in (1, 2, 3, 4, 5, 6, 8):
         cases.append(check_dequant(nbits, gen))
         torch.cuda.empty_cache()
+    for site in EVAL_SITES_7B:          # the sensitivity run's widths
+        for nbits in (2, 3, 4):
+            cases.append(check_dequant(nbits, gen, site))
+            torch.cuda.empty_cache()
     bad = [c for c in cases if not c["ok"]]
     if bad:
         fail(f"{len(bad)} kernel cases outside tolerance: {bad[:3]}")
@@ -1892,7 +1912,7 @@ def main():
             "amq_tpu_torch/csrc/quant_matmul_mlp.cu",
             "amq_tpu/ops/quant_matmul.py:1112"),
         # no Pallas kernel: the JAX package's XLA dequantization
-        "dequantize_kn": (pick("dequantize_kn", nbits=4),
+        "dequantize_kn": (pick("dequantize_kn", site="gate", nbits=4),
                           "amq_tpu_torch/csrc/dequant.cu",
                           "amq_tpu/core/quantize.py:227"),
     }

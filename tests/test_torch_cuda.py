@@ -13,6 +13,7 @@ import torch
 
 from amq_tpu_torch.core import quantize as tq
 from amq_tpu_torch.ops import decode_attention as tda
+from amq_tpu_torch.ops import dequant as tdq
 from amq_tpu_torch.ops import quant_matmul as tqm
 
 
@@ -137,7 +138,7 @@ def test_cuda_mlp_kernel_matches_plain_and_chain(M, nbits):
 def test_cuda_grouped_gemv_matches_grouped_plain(M, swiglu, out_dtype, meta):
     """The grouped 8-bit tensor-core GEMV (bf16 x, M <= 8) against its
     plain version, the grouped form: N = 320 is not a multiple of the
-    128-column tile, K = 2048 is split over two blocks; f32 out within
+    256-column tile, K = 2048 is split over two blocks; f32 out within
     1e-4 (normalized; summation order only), bf16 out one rounding; the
     SwiGLU prologue through quant_matmul_swiglu_indexed; two calls give
     the same bits; one launch per call."""
@@ -149,7 +150,8 @@ def test_cuda_grouped_gemv_matches_grouped_plain(M, swiglu, out_dtype, meta):
     qt = tq.quantize(W.cuda(), nbits=8, meta_dtype=meta)
     x, u = (torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)
                              ).cuda().to(torch.bfloat16) for _ in range(2))
-    assert tqm._grouped_applies(x, qt.packed, qt.scale, qt.zero, 8, 128)
+    assert tqm._grouped_applies(x, qt.packed, qt.scale, qt.zero, 8, 128,
+                                qt.superblock)
     assert tqm._grouped_splits(N, K // qt.superblock, x.device)[0] == 2
     kw = dict(nbits=8, group_size=128, shape=(N, K),
               superblock=qt.superblock, out_dtype=out_dtype)
@@ -174,6 +176,42 @@ def test_cuda_grouped_gemv_matches_grouped_plain(M, swiglu, out_dtype, meta):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("group,superblock", [(64, 64), (64, 128), (64, 192),
+                                              (128, 384), (128, 1024)])
+def test_cuda_8bit_bf16_gemv_routes_every_superblock(group, superblock):
+    """An 8-bit bf16 M = 1 call at every superblock the common checks
+    accept: where the grouped GEMV's conditions hold it takes that kernel
+    (held to the grouped form), elsewhere the CUDA-core GEMV (held to the
+    f32 plain version).  A superblock whose extraction rounds (sb / 2 rows
+    at 8 bits) straddle groups (192 of 64-row groups, 384 of 128-row
+    groups) is refused by both kernels with a ValueError, never answered
+    wrongly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    rng = np.random.default_rng(120 + group + superblock)
+    N, K = 256, 1024 // superblock * superblock
+    W = torch.from_numpy(rng.normal(size=(N, K)).astype(np.float32) * 0.02)
+    qt = tq.quantize(W.cuda(), nbits=8, group_size=group,
+                     meta_dtype=torch.bfloat16, superblock=superblock)
+    x = torch.from_numpy(rng.normal(size=(1, K)).astype(np.float32)
+                         ).cuda().to(torch.bfloat16)
+    grouped = tqm._grouped_applies(x, qt.packed, qt.scale, qt.zero, 8, group,
+                                   superblock)
+    assert grouped == (superblock % 128 == 0)
+    half = superblock // 2
+    if half % group and group % half:
+        with pytest.raises(ValueError, match="does not take"):
+            tqm.quant_matmul(x, qt, out_dtype=torch.float32)
+        return
+    got = tqm.quant_matmul(x, qt, out_dtype=torch.float32)
+    plain = tqm.qmm_grouped_plain if grouped else tqm.qmm_plain
+    want = plain(x, qt.packed, qt.scale, qt.zero, nbits=8, group_size=group,
+                 shape=(N, K), superblock=superblock, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    _norm_close(got.cpu().numpy(), want.cpu().numpy(), 1e-4)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("N", [320, 90])
 @pytest.mark.parametrize("nbits", [1, 2, 3, 4, 5, 6, 8])
 def test_cuda_dequant_kernel_equals_plain(nbits, N):
@@ -184,16 +222,16 @@ def test_cuda_dequant_kernel_equals_plain(nbits, N):
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     rng = np.random.default_rng(110 + nbits + N)
     W = torch.from_numpy(rng.normal(size=(N, 1152)).astype(np.float32))
-    before = tq.dequantize_kn.launches
+    before = tdq.dequantize_kn.launches
     for meta in (torch.float32, torch.bfloat16):
         qt = tq.quantize(W.cuda(), nbits=nbits, meta_dtype=meta)
         for dt in (torch.float32, torch.bfloat16):
-            got = tq.dequantize_kn(qt, dt)
-            want = tq.dequantize_kn_plain(qt, dt)
+            got = tdq.dequantize_kn(qt, dt)
+            want = tq.dequantize_kn(qt, dt)
             torch.cuda.synchronize()
             assert got.dtype == dt and got.shape == (1152, N)
             assert torch.equal(got, want)
-    assert tq.dequantize_kn.launches - before == 4
+    assert tdq.dequantize_kn.launches - before == 4
 
 
 @pytest.mark.cuda
@@ -369,7 +407,7 @@ def test_cuda_model_forward_flash_matches_einsum(with_cache):
         cache = (llama.KVCache.create(cfg, 2, 200, dtype=torch.float32,
                                       device="cuda") if with_cache else None)
         before = tfa.flash_attention.launches
-        with llama.attention_kernels(kernels):
+        with llama.forward_kernels(kernels):
             if cache is not None:       # a short first chunk, then S = 128
                 _, cache = llama.forward(params, cfg, toks[:, :8], cache=cache)
             logits, _ = llama.forward(params, cfg, toks, cache=cache)

@@ -98,7 +98,7 @@ def test_flash_routing_rule():
     assert not tllama._flash_ok(192 + 32, 256, cfg, "cuda")  # S % 64
     windowed = dataclasses.replace(cfg, sliding_window=100)
     assert not tllama._flash_ok(128, 128, windowed, "cuda")
-    with tllama.attention_kernels(False):
+    with tllama.forward_kernels(False):
         assert not tllama._flash_ok(128, 128, cfg, "cuda")
     assert tllama._flash_ok(128, 128, cfg, "cuda")
 

@@ -147,12 +147,13 @@ def test_dequantize_and_grouped_head_never_take_plain_versions(monkeypatch):
     launch their kernels or raise: with the plain versions replaced by
     tripwires, meta-device calls raise and the tripwires stay untouched."""
     from amq_tpu_torch.core import quantize as tq
+    from amq_tpu_torch.ops import dequant as dq
     from amq_tpu_torch.ops import quant_matmul as qm
 
     def tripwire(*a, **k):
         raise AssertionError("plain version reached")
 
-    for mod, name in ((tq, "dequantize_kn_plain"), (qm, "qmm_plain"),
+    for mod, name in ((dq, "dequantize_kn_plain"), (qm, "qmm_plain"),
                       (qm, "qmm_grouped_plain")):
         monkeypatch.setattr(mod, name, tripwire)
     qt = tq.QuantizedTensor(
@@ -161,10 +162,39 @@ def test_dequantize_and_grouped_head_never_take_plain_versions(monkeypatch):
         zero=torch.empty((8, 256), dtype=torch.bfloat16, device="meta"),
         nbits=8, group_size=128, shape=(256, 1024), superblock=1024)
     with pytest.raises(ValueError, match="no kernel for device"):
-        tq.dequantize_kn(qt, torch.bfloat16)
+        dq.dequantize_kn(qt, torch.bfloat16)
     x = torch.empty((1, 1024), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         qm.quant_matmul(x, qt, out_dtype=torch.float32)
+
+
+def test_plain_side_dequantizes_through_the_plain_version(monkeypatch):
+    """The dequantize-then-matmul routes take the kernel wrapper, and
+    inside ``forward_kernels(False)`` (the plain side of a kernel-vs-plain
+    comparison) the plain version; the plain versions of the matmul
+    kernels never reach the dequantization kernel."""
+    from amq_tpu_torch.core import quantize as tq
+    from amq_tpu_torch.models import linear, llama
+    from amq_tpu_torch.ops import dequant as dq
+    from amq_tpu_torch.ops import quant_matmul as qm
+
+    calls = []
+    monkeypatch.setattr(dq, "dequantize_kn",
+                        lambda qt, dt: calls.append(dt) or tq.dequantize_kn(qt, dt))
+    W = torch.randn((64, 256), generator=torch.Generator().manual_seed(0))
+    qt = tq.quantize(W, nbits=4)
+    want = tq.dequantize_kn(qt, torch.float32)
+    assert torch.equal(linear.dequantize_weight(qt, torch.float32), want)
+    assert calls == [torch.float32]
+    with llama.forward_kernels(False):
+        assert torch.equal(linear.dequantize_weight(qt, torch.float32), want)
+    assert calls == [torch.float32]
+    assert linear._DEQUANT_KERNEL and llama._FLASH_KERNEL
+    x = torch.randn((2, 256), generator=torch.Generator().manual_seed(1))
+    qm.qmm_plain(x, qt.packed, qt.scale, qt.zero, nbits=4, group_size=128,
+                 shape=(64, 256), superblock=qt.superblock,
+                 out_dtype=torch.float32)
+    assert calls == [torch.float32]
 
 
 def test_decode_switch_wrappers_never_take_plain_versions(monkeypatch):

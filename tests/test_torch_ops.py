@@ -108,22 +108,30 @@ def test_grouped_plain_matches_jax_and_qmm_plain(M, swiglu):
 
 
 def test_grouped_routing_conditions():
-    """8-bit, bf16 activations, M <= 8, groups of a multiple of 64, Np, K
-    and x's row stride multiples of 8, 16-byte aligned operands: the
-    grouped GEMV; anything else keeps the CUDA-core GEMV (f32 activations
-    are the JAX package's per-weight route)."""
+    """8-bit, bf16 activations, M <= 8, groups of a multiple of 64, a
+    superblock of a multiple of 128 and at most 1024, Np, K and x's row
+    stride multiples of 8, 16-byte aligned operands: the grouped GEMV;
+    anything else keeps the CUDA-core GEMV (f32 activations are the JAX
+    package's per-weight route)."""
     x = torch.zeros((8, 256), dtype=torch.bfloat16)
     packed = torch.zeros((64, 128), dtype=torch.int32)
     meta = torch.zeros((2, 128), dtype=torch.bfloat16)
-    ok = tqm._grouped_applies
-    assert ok(x, packed, meta, meta, 8, 128)
-    assert not ok(x, packed, meta, meta, 4, 128)
-    assert not ok(x.float(), packed, meta, meta, 8, 128)
-    assert not ok(torch.zeros((9, 256), dtype=torch.bfloat16), packed, meta,
-                  meta, 8, 128)
-    assert not ok(x, packed, meta, meta, 8, 32)
-    assert not ok(x, packed[:, :124], meta, meta, 8, 128)
-    assert not ok(x[:, 1:253], packed, meta, meta, 8, 128)   # K, alignment
+
+    def ok(x=x, packed=packed, nbits=8, group=128, superblock=256):
+        return tqm._grouped_applies(x, packed, meta, meta, nbits, group,
+                                    superblock)
+
+    assert ok()
+    assert ok(group=64, superblock=128)
+    assert not ok(nbits=4)
+    assert not ok(x=x.float())
+    assert not ok(x=torch.zeros((9, 256), dtype=torch.bfloat16))
+    assert not ok(group=32)
+    assert not ok(group=64, superblock=64)     # half a ring stage
+    assert not ok(group=64, superblock=192)    # 48 word rows: 1.5 stages
+    assert not ok(superblock=2048)
+    assert not ok(packed=packed[:, :124])
+    assert not ok(x=x[:, 1:253])               # K, alignment
 
 
 @pytest.mark.parametrize("nbits", [2, 3, 4, 8])

@@ -17,6 +17,7 @@ import functools
 import importlib.util
 import json
 import os
+import re
 import sys
 from pathlib import Path
 
@@ -31,7 +32,9 @@ import torch
 from amq_tpu.core import quantize as jq
 from amq_tpu.utils import profiling as jprof
 from amq_tpu_torch.models.convert import to_tensor
+from amq_tpu_torch.ops import quant_matmul as tqm
 from amq_tpu_torch.probes import chain, kernel_attrib as ka
+from amq_tpu_torch.probes import grouped_ring as gr
 from amq_tpu_torch.probes import kernel_roofline as kr
 from amq_tpu_torch.probes import pipelined_gemv as pg
 from amq_tpu_torch.utils import profiling as tprof
@@ -283,6 +286,24 @@ def test_probe_entry_points_refuse_without_a_card(monkeypatch, small_sites):
         ka.gemv_attrib(x, packed, meta, meta, **kw)
     with pytest.raises(ValueError, match="no kernel for device"):
         pg.gemv_extract_ahead(x, packed, meta, meta, **kw)
+
+
+def test_grouped_ring_sweep_starts_at_the_shipped_shape():
+    """The ring-shape sweep's first variant is qmm_tile.cuh's default ring,
+    whose column tile is the wrapper's; its shared memory lets two blocks
+    share an SM, as the wrapper's split rule assumes; every variant's
+    stage is whole 8-row MMA steps; the probe refuses the CPU."""
+    src = (Path(__file__).resolve().parent.parent / "amq_tpu_torch" / "csrc"
+           / "qmm_tile.cuh").read_text()
+    default = tuple(int(re.search(rf"#define {name} (\d+)", src).group(1))
+                    for name in ("AMQ_GTILES", "AMQ_GSR", "AMQ_GSTAGES"))
+    assert gr.VARIANTS[0] == default
+    assert 128 * default[0] == tqm._GROUPED_BN
+    assert gr.blocks_per_sm(*default) == 2
+    assert all(rows % 8 == 0 and 64 % rows == 0 for _, rows, _ in gr.VARIANTS)
+    assert len(set(gr.VARIANTS)) == len(gr.VARIANTS)
+    with pytest.raises(SystemExit):
+        gr.main(device="cpu")
 
 
 def test_count_sass_reads_each_attribution_kernel():
