@@ -378,18 +378,37 @@ __global__ void reduce_splits_kernel(const float* partial, void* out, int MN,
 //
 // Operand mapping (mma.sync.m16n8k16, bf16 in, f32 accumulate): weight
 // columns are the A side's 16 rows, the <= 8 activation rows are B's n8
-// (columns of B past M hold whatever the buffer held: they only reach
-// output columns that are never written).  A row i is tile column 2i
-// (i < 8) or 2(i-8)+1, and A's k-pair j is word row 2j (j < 4) or
-// 2(j-4)+1 of an 8-row step, so a lane's four A registers come from two
-// 8-byte loads (word rows r0+2t and r0+2t+1, columns 2g and 2g+1; g =
-// lane/4, t = lane%4) and its two B registers from one 8-byte load of x
-// row g at offset 16*step + 4t.  An accumulator's registers are (col 2g,
-// row 2t), (2g, 2t+1), (2g+1, 2t), (2g+1, 2t+1).
+// (columns of B past M hold whatever the buffer held, or a copy of row
+// M - 1: they only reach output columns that are never written).  A row i
+// is tile column 2i (i < 8) or 2(i-8)+1, and A's k-pair j is word row 2j
+// (j < 4) or 2(j-4)+1 of an 8-row step, so a lane's four A registers come
+// from two 8-byte loads (word rows r0+2t and r0+2t+1, columns 2g and
+// 2g+1; g = lane/4, t = lane%4) and its two B registers from one 8-byte
+// load of x row g at offset 16*step + 4t.  An accumulator's registers are
+// (col 2g, row 2t), (2g, 2t+1), (2g+1, 2t), (2g+1, 2t+1).
 //
-// Written over the code width BITS (1, 2, 4: one plane; 8: two nibble
-// planes), so the 2/3/4-bit GEMVs can take the same step; only 8-bit
-// launches it now.  superblock_fma and its kernels are untouched.
+// Two consumers of one ring.  8-bit (grouped_step, grouped_correct): the
+// step loops over the stage's 8-row steps and keeps per tile, round and
+// plane an accumulator until the group ends, where it corrects.  2/3/4-bit
+// and 1-bit (grouped_stage_low): up to 16 rounds per word, so accumulators
+// kept per round would not fit in registers; instead each lane loads its
+// share of the stage's words into registers once, runs the rounds as the
+// outer loop (one accumulator per tile, live for one round) and corrects
+// every round at the end of every stage with the meta of the round's group
+// there.  The correction is linear in y and xsum, so correcting a group
+// piecewise, stage by stage, computes the same function (the f32 sums in
+// another order).  Field extraction folds shifts into masks where the
+// value stays exact: a field at bit offset o <= 7 - b of a half-word is
+// read in place as 128 + 2^o c (the mantissa's unit is 1 at 128), and the
+// correction scales y by 2^-o and the offset to 128 * 2^-o (powers of two:
+// exact).  So at 2 bits one shift serves three rounds, at 1 bit seven.
+// 3-bit is the 2-bit plane (c >> 1) and the 1-bit plane (c & 1) of the
+// layout, recombined at extraction as the reference does: word row r of
+// the 1-bit plane (16 rounds q) pairs with 2-bit row r (q even) or r + sb/32
+// (q odd) at round q/2, giving the exact bf16 128 + 2 c_hi + c_lo of one
+// plane (zoff 128).  A 3-bit stage holds 1-bit rows [r0, r0+n) and 2-bit
+// rows [r0, r0+n) and [r0+sb/32, r0+sb/32+n), so every word crosses the
+// memory bus once.
 
 // The ring's shape can be set at build time (-DAMQ_GTILES=...,
 // -DAMQ_GSR=..., -DAMQ_GSTAGES=...) for the ring-shape sweep
@@ -407,21 +426,74 @@ constexpr int kGWarps = 8;             // grouped GEMV: consumer warps
 constexpr int kGTiles = AMQ_GTILES;    // 16-column MMA tiles per warp
 constexpr int kGBN = kGWarps * 16 * kGTiles;   // columns per block
 constexpr int kGSR = AMQ_GSR;          // word rows per ring stage
-constexpr int kGPart = 2 * kGSR;       // K rows per stage and round
 constexpr int kGStages = AMQ_GSTAGES;
 static_assert(kGSR % 8 == 0 && kGStages >= 1, "grouped ring shape");
 constexpr int kGWordStride = kGBN + 4; // words per staged row (no conflicts)
-constexpr int kGXStride = kGPart + 8;  // bf16 per staged x row (no conflicts)
 
 template <int BITS>
 struct GroupedForm {
   static constexpr int field = BITS < 4 ? BITS : 4;
   static constexpr int planes = BITS / field;     // 1, or 2 for 8-bit
-  static constexpr int rounds = 16 / BITS;        // P
+  static constexpr int rounds = BITS == 3 ? 16 : 16 / BITS;   // P
   static constexpr uint32_t pair_mask =
       ((1u << field) - 1u) | (((1u << field) - 1u) << 16);
   static constexpr float zoff = BITS == 8 ? 128.f * 17.f : 128.f;
+  // word rows of one round plane per stage (3-bit: of the 1-bit plane,
+  // with twice as many 2-bit rows beside them), the stage's word rows, K
+  // rows per stage and round, bf16 per staged x row (no bank conflicts)
+  static constexpr int n = BITS == 3 && kGSR >= 16 ? kGSR / 2 : kGSR;
+  static constexpr int wrows = BITS == 3 ? 3 * n : kGSR;
+  static constexpr int part = 2 * n;
+  static constexpr int xstride = part + 8;
+  // 1/2/4-bit: rounds whose fields one shift brings within bits 0..7-b
+  static constexpr int per_shift = BITS < 4 ? (7 - BITS) / BITS + 1 : 1;
 };
+
+// Word rows per superblock of the round plane (the 1-bit plane at 3 bits):
+// a round spans twice as many K rows.
+__host__ __device__ inline int grouped_round_rows(int bits, int sb) {
+  return bits == 3 ? sb / 32 : sb * bits / 32;
+}
+
+// 2/3/4-bit and 1-bit: meta slots per stage, one per group its rounds
+// touch (rounds sharing a group share a slot: gs / (2 * round rows) of
+// them when a round spans less than a group); 8-bit: one per round.
+__host__ __device__ inline int grouped_meta_slots(int bits, int sb, int gs) {
+  const int P = bits == 3 ? 16 : 16 / bits;
+  if (bits == 8) return P;
+  const int span = 2 * grouped_round_rows(bits, sb);
+  return span >= gs ? P : P / (gs / span);
+}
+
+// One grouped ring stage, in bytes: the word rows of kGBN columns; two
+// meta rows (scale, zero) per slot, f32-wide at 8 bits, else in the meta's
+// own type; the activations of the stage's rows, bf16 [rows][P][xstride]
+// (8 rows at 8 bits, M below); and, with the SwiGLU prologue, as much
+// again for its second operand.
+struct GroupedLayout {
+  int meta_off, x_off, u_off, stage;
+};
+
+template <int BITS>
+__host__ __device__ inline GroupedLayout grouped_layout(int M, bool swiglu,
+                                                        int meta_es,
+                                                        int slots) {
+  using F = GroupedForm<BITS>;
+  const int words = F::wrows * kGWordStride * 4;
+  const int meta = 2 * slots * kGBN * (BITS == 8 ? 4 : meta_es);
+  const int x = (BITS == 8 ? 8 : M) * F::rounds * F::xstride * 2;
+  return GroupedLayout{words, words + meta, words + meta + x,
+                       words + meta + (swiglu ? 2 : 1) * x};
+}
+
+// The accumulators of the group in progress (8-bit): per tile, round and
+// plane (`acc`), and per round the activations against ones (`xacc`, the
+// group's xsum, shared by the tiles).
+template <int BITS>
+using GroupedAcc = float[kGTiles][GroupedForm<BITS>::rounds]
+                        [GroupedForm<BITS>::planes][4];
+template <int BITS>
+using GroupedXAcc = float[GroupedForm<BITS>::rounds][4];
 
 __device__ __forceinline__ void mma16816_bf16(float (&c)[4], uint32_t a0,
                                               uint32_t a1, uint32_t a2,
@@ -438,35 +510,8 @@ __device__ __forceinline__ uint32_t code_pair_bf16(uint32_t w, int shift) {
   return ((w >> shift) & GroupedForm<BITS>::pair_mask) | 0x43004300u;
 }
 
-// One grouped ring stage, in bytes: kGSR word rows of kGBN columns; per
-// round a scale row and a zero row (room for f32 meta); the activations
-// of the stage's rows, bf16 [8 rows][P rounds][kGXStride]; and, with the
-// SwiGLU prologue, as much again for its second operand.
-__host__ __device__ inline int grouped_words_bytes() {
-  return kGSR * kGWordStride * 4;
-}
-__host__ __device__ inline int grouped_meta_bytes(int bits) {
-  return 2 * (16 / bits) * kGBN * 4;
-}
-__host__ __device__ inline int grouped_x_bytes(int bits) {
-  return 8 * (16 / bits) * kGXStride * 2;
-}
-__host__ __device__ inline int grouped_stage_bytes(int bits, bool swiglu) {
-  return grouped_words_bytes() + grouped_meta_bytes(bits) +
-         (swiglu ? 2 : 1) * grouped_x_bytes(bits);
-}
-
-// The accumulators of the group in progress: per tile, round and plane
-// (`acc`), and per round the activations against ones (`xacc`, the
-// group's xsum, shared by the tiles).
-template <int BITS>
-using GroupedAcc = float[kGTiles][GroupedForm<BITS>::rounds]
-                        [GroupedForm<BITS>::planes][4];
-template <int BITS>
-using GroupedXAcc = float[GroupedForm<BITS>::rounds][4];
-
-// silu(x) * u of two bf16 pairs in f32, rounded to bf16: the SwiGLU
-// prologue of the plain version, applied as the B fragment is read.
+// silu(x) * u in f32, rounded to bf16: the SwiGLU prologue of the plain
+// version.
 __device__ __forceinline__ uint32_t swiglu_pair(uint32_t x, uint32_t u) {
   const float2 xf = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
   const float2 uf = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
@@ -475,10 +520,11 @@ __device__ __forceinline__ uint32_t swiglu_pair(uint32_t x, uint32_t u) {
   return *reinterpret_cast<uint32_t*>(&r);
 }
 
-// One warp's products over one stage: `ws` the stage's words
-// [kGSR][kGWordStride], `xs` its activations [8][P][kGXStride] (with `us`,
-// the SwiGLU operand beside them, silu(x) * u), the warp's kGTiles tiles
-// of 16 columns from wcol; added to acc and xacc.
+// One warp's products over one 8-bit stage: `ws` the stage's words
+// [kGSR][kGWordStride], `xs` its activations [8][P][xstride] (with `us`,
+// the SwiGLU operand beside them, silu(x) * u, applied as the B fragment
+// is read), the warp's kGTiles tiles of 16 columns from wcol; added to acc
+// and xacc.
 template <int BITS>
 __device__ __forceinline__ void grouped_step(const uint32_t* ws,
                                              const __nv_bfloat16* xs,
@@ -502,7 +548,7 @@ __device__ __forceinline__ void grouped_step(const uint32_t* ws,
     }
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      const int xo = (g * P + p) * kGXStride + 16 * st + 4 * t;
+      const int xo = (g * P + p) * F::xstride + 16 * st + 4 * t;
       uint2 b = *reinterpret_cast<const uint2*>(xs + xo);
       if (us != nullptr) {
         const uint2 u = *reinterpret_cast<const uint2*>(us + xo);
@@ -523,8 +569,8 @@ __device__ __forceinline__ void grouped_step(const uint32_t* ws,
   }
 }
 
-// The correction at a group's end: `meta` holds per round p the scale
-// row (2p) and zero row (2p + 1) of round p's group over the block's
+// The correction at a group's end (8-bit): `meta` holds per round p the
+// scale row (2p) and zero row (2p + 1) of round p's group over the block's
 // kGBN columns; tot += s * y - xsum * ((z + zoff) * s) per tile, the
 // accumulators cleared.
 template <int BITS>
@@ -576,6 +622,152 @@ __device__ __forceinline__ void grouped_correct(const unsigned char* meta,
   for (int p = 0; p < F::rounds; ++p)
 #pragma unroll
     for (int i = 0; i < 4; ++i) xacc[p][i] = 0.f;
+}
+
+// Round p's A register from word registers that low_round has shifted to
+// the round's fields: 1/2/4-bit, the field at offset o of each half-word
+// (`mask` = the pair mask << o), read in place as exact bf16 128 + 2^o c;
+// 3-bit, the 2-bit word wh's field at bits 0..1 and the 1-bit word wl's at
+// bit 0, combined as 128 + 2 c_hi + c_lo.
+template <int BITS>
+__device__ __forceinline__ uint32_t low_pair(uint32_t w, uint32_t wl,
+                                             uint32_t mask) {
+  if constexpr (BITS == 3)
+    return ((w << 1) & 0x00060006u) | (wl & 0x00010001u) | 0x43004300u;
+  else
+    return (w & mask) | 0x43004300u;
+}
+
+// One round p of a low-width stage (3-bit: p & 1 says which 2-bit rows
+// pair with the 1-bit rows): products of the warp's tiles (words in
+// registers) with x round p over the stage's steps, the xsum MMA beside
+// them, the correction with slot (p >> lg_share)'s meta; then the words
+// shift in place to the next round's fields (1/2/4-bit: once per
+// per_shift rounds; 3-bit: the 1-bit words every round, the 2-bit words
+// every second), so that no shifted copy is live beside them.
+template <int BITS, int S, int W>
+__device__ __forceinline__ void low_round(uint32_t (&w)[S][kGTiles][W][4],
+                                          int p, const __nv_bfloat16* xr,
+                                          const unsigned char* meta,
+                                          int meta_es, int lg_share, int c0,
+                                          float (&tot)[kGTiles][4]) {
+  using F = GroupedForm<BITS>;
+  constexpr uint32_t kOnes = 0x3F803F80u;        // bf16 (1, 1)
+  const int t = (threadIdx.x & 31) & 3;
+  // 1/2/4-bit: the field's offset o weighs it 2^o (3-bit: o = 0)
+  const int o = BITS == 3 ? 0 : p % F::per_shift * BITS;
+  const bool odd = p & 1;
+  const uint32_t mask = F::pair_mask << o;
+  const float inv = __int_as_float((127 - o) << 23);   // 2^-o, exact
+  float acc[kGTiles][4], xa[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int ct = 0; ct < kGTiles; ++ct)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[ct][i] = 0.f;
+#pragma unroll
+  for (int st = 0; st < S; ++st) {
+    const uint2 b = *reinterpret_cast<const uint2*>(
+        xr + p * F::xstride + 16 * st + 4 * t);
+#pragma unroll
+    for (int ct = 0; ct < kGTiles; ++ct) {
+      const uint32_t(&v)[W][4] = w[st][ct];
+      uint32_t a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)       // 3-bit: 2-bit rows of p's parity
+        a[i] = low_pair<BITS>(BITS == 3 && odd ? v[W > 1][i] : v[0][i],
+                              v[W - 1][i], mask);
+      mma16816_bf16(acc[ct], a[0], a[1], a[2], a[3], b.x, b.y);
+    }
+    mma16816_bf16(xa, kOnes, kOnes, kOnes, kOnes, b.x, b.y);
+  }
+  const bool shift = BITS == 3 || (p + 1) % F::per_shift == 0;
+#pragma unroll
+  for (int st = 0; st < S; ++st)
+#pragma unroll
+    for (int ct = 0; ct < kGTiles; ++ct)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (BITS == 3) {
+          w[st][ct][W - 1][i] >>= 1;
+          if (odd) {
+            w[st][ct][0][i] >>= 2;
+            w[st][ct][W > 1][i] >>= 2;
+          }
+        } else if (shift) {
+          w[st][ct][0][i] >>= F::per_shift * BITS;
+        }
+      }
+  const unsigned char* ms = meta + 2 * (p >> lg_share) * kGBN * meta_es;
+  const unsigned char* mz = ms + kGBN * meta_es;
+#pragma unroll
+  for (int ct = 0; ct < kGTiles; ++ct) {
+    const int c = c0 + 16 * ct;
+    float s[2], z[2];
+    if (meta_es == 2) {
+      const __nv_bfloat162 sv =
+          reinterpret_cast<const __nv_bfloat162*>(ms)[c / 2];
+      const __nv_bfloat162 zv =
+          reinterpret_cast<const __nv_bfloat162*>(mz)[c / 2];
+      s[0] = __low2float(sv); s[1] = __high2float(sv);
+      z[0] = __low2float(zv); z[1] = __high2float(zv);
+    } else {
+      const float2 sv = reinterpret_cast<const float2*>(ms)[c / 2];
+      const float2 zv = reinterpret_cast<const float2*>(mz)[c / 2];
+      s[0] = sv.x; s[1] = sv.y;
+      z[0] = zv.x; z[1] = zv.y;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int cc = i >> 1;
+      const float corr = (z[cc] + F::zoff * inv) * s[cc];
+      tot[ct][i] = fmaf(-xa[i & 1], corr, fmaf(s[cc] * inv, acc[ct][i],
+                                                tot[ct][i]));
+    }
+  }
+}
+
+// One warp's share of a 1/2/3/4-bit stage: `ws` the stage's words
+// [wrows][kGWordStride], `xr` x row g's rounds [P][xstride] (silu(x) * u
+// already, under SwiGLU), `meta` the stage's slots (scale row 2i, zero row
+// 2i + 1, kGBN values each of meta_es bytes); the warp's kGTiles tiles of
+// 16 columns from wcol, corrected into tot.
+template <int BITS>
+__device__ __forceinline__ void grouped_stage_low(const uint32_t* ws,
+                                                  const __nv_bfloat16* xr,
+                                                  const unsigned char* meta,
+                                                  int meta_es, int lg_share,
+                                                  int wcol, int lane,
+                                                  float (&tot)[kGTiles][4]) {
+  using F = GroupedForm<BITS>;
+  constexpr int S = F::n / 8;                    // 8-row MMA steps
+  constexpr int W = BITS == 3 ? 3 : 1;           // word rows per K row pair
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t w[S][kGTiles][W][4];
+#pragma unroll
+  for (int st = 0; st < S; ++st)
+#pragma unroll
+    for (int ct = 0; ct < kGTiles; ++ct)
+#pragma unroll
+      for (int pl = 0; pl < W; ++pl) {
+        const uint32_t* wr = ws + (pl * F::n + st * 8 + 2 * t) * kGWordStride +
+                             wcol + 16 * ct + 2 * g;
+        const uint2 a = *reinterpret_cast<const uint2*>(wr);
+        const uint2 b = *reinterpret_cast<const uint2*>(wr + kGWordStride);
+        w[st][ct][pl][0] = a.x; w[st][ct][pl][1] = a.y;
+        w[st][ct][pl][2] = b.x; w[st][ct][pl][3] = b.y;
+      }
+  const int c0 = wcol + 2 * g;
+  // 4-bit: four rounds, unrolled; below, rounds in a loop (unrolled, the
+  // compiler interleaved rounds past the register budget and spilled)
+  if constexpr (BITS == 4) {
+#pragma unroll
+    for (int p = 0; p < F::rounds; ++p)
+      low_round<BITS>(w, p, xr, meta, meta_es, lg_share, c0, tot);
+  } else {
+#pragma unroll 1
+    for (int p = 0; p < F::rounds; ++p)
+      low_round<BITS>(w, p, xr, meta, meta_es, lg_share, c0, tot);
+  }
 }
 
 // Bulk copies (TMA without a tensor map) into shared memory, completing

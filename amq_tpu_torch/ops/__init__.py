@@ -2,7 +2,8 @@
 
 ``KERNELS`` lists each kernel's wrapper; every wrapper carries a
 ``launches`` counter that counts its kernel launches (never a plain-version
-call).
+call).  ``GROUPED`` lists the wrappers whose decode calls may take the
+grouped tensor-core GEMV; their ``grouped_launches`` count those.
 """
 
 from . import decode_attention as _attn
@@ -15,12 +16,20 @@ KERNELS = (_qmm.quant_matmul_indexed, _qmm.quant_matmul_swiglu_indexed,
            _flash.flash_attention, _qmm.quant_matmul_indexed_pipe,
            _qmm.quant_matmul_swiglu_indexed_pipe,
            _qmm.quant_matmul_mlp_indexed, _dequant.dequantize_kn)
+GROUPED = (_qmm.quant_matmul_indexed, _qmm.quant_matmul_swiglu_indexed,
+           _qmm.quant_matmul)
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    for fn in GROUPED:
+        fn.grouped_launches = 0
 
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def grouped_launch_counts() -> dict:
+    return {fn.__name__: fn.grouped_launches for fn in GROUPED}

@@ -4,14 +4,16 @@ Each public function here replaces one Pallas kernel of the JAX package's
 ``ops/quant_matmul.py`` and has three parts:
 
 * the CUDA kernel (``csrc/quant_matmul.cu``, one template over nbits in
-  {1, 2, 3, 4, 8}: a decode GEMV for M <= 8, a dequantize-tile GEMM above;
-  8-bit calls with bf16 activations and M <= 8 take the grouped
-  tensor-core GEMV instead, see :func:`_grouped_applies`), launched for
-  CUDA tensors,
+  {1, 2, 3, 4, 8}: calls with bf16 activations and M <= 8 take the grouped
+  tensor-core GEMV, the JAX package's serving form, where its conditions
+  hold (:func:`_grouped_applies`); other calls with M <= 8, f32
+  activations among them, the CUDA-core decode GEMV; a dequantize-tile
+  GEMM above), launched for CUDA tensors,
 * a plain PyTorch version of the same function (dequantize in float32,
   then a float32 product), taken only for CPU tensors,
 * a launch counter (``<function>.launches``), raised where the kernel is
-  launched and nowhere else.
+  launched and nowhere else; beside it ``<function>.grouped_launches``
+  counts the launches that took the grouped GEMV.
 
 Under the JAX package's ``AMQ_PIPE`` switch (read once, at import, into
 ``_PIPE_DEFAULT``; default off) the decode GEMVs of
@@ -90,18 +92,62 @@ def _splits(M: int, N: int, n_sb: int, device) -> tuple:
     return -(-n_sb // per), per
 
 
-#: columns per block of the grouped 8-bit GEMV (``qmm_grouped_kernel``)
-_GROUPED_BN = 256
+#: the grouped GEMV's ring (``qmm_tile.cuh``'s defaults): columns per
+#: block, and word rows of a round plane per ring stage (3-bit: half as
+#: many 1-bit rows, each with two 2-bit rows)
+_GROUPED_BN, _GROUPED_ROWS = 256, 32
 
 
-def _grouped_splits(N: int, n_sb: int, device) -> tuple:
-    """(splits, superblocks per split) for the grouped GEMV: whole
-    superblocks per split, as many splits as fit two blocks per SM in one
-    wave (a second, partial wave would cost a whole block's time)."""
-    tiles = -(-N // _GROUPED_BN)
-    want = max(1, min(n_sb, 2 * _sm_count(device.index or 0) // tiles))
-    per = -(-n_sb // want)
-    return -(-n_sb // per), per
+def _grouped_round_rows(nbits: int, superblock: int) -> int:
+    """Word rows per superblock of the grouped GEMV's round plane (3-bit:
+    its 1-bit plane)."""
+    return superblock // 32 if nbits == 3 else superblock * nbits // 32
+
+
+def _grouped_stage_rows(nbits: int, rows: int = _GROUPED_ROWS) -> int:
+    """Word rows of the round plane per ring stage of ``rows`` rows."""
+    return rows // 2 if nbits == 3 and rows >= 16 else rows
+
+
+@functools.lru_cache(maxsize=None)
+def _grouped_blocks(nbits: int, swiglu: bool, meta_bf16: int,
+                    group_size: int, superblock: int, index: int) -> int:
+    """Blocks of the grouped GEMV one SM holds (the CUDA occupancy
+    calculator, at its registers and the shared memory of an M = 8 call:
+    the split rule then gives every M the same splits, so row m of a call
+    has the same bits at any M)."""
+    fn = _cuda.library("quant_matmul").amq_qmm_grouped_blocks
+    fn.argtypes = [_c_int] * 6
+    fn.restype = _c_int
+    with torch.cuda.device(index):
+        n = fn(nbits, 8, int(swiglu), meta_bf16, group_size, superblock)
+    if n < 1:
+        raise RuntimeError(f"grouped GEMV ({nbits}-bit): no block fits an "
+                           f"SM ({n})")
+    return n
+
+
+def _grouped_splits(N: int, nbits: int, superblock: int, Kp: int,
+                    blocks: int, device, rows: int = _GROUPED_ROWS,
+                    bn: int = _GROUPED_BN) -> tuple:
+    """(splits, ring stages per split) for the grouped GEMV: as many splits
+    as fit ``blocks`` blocks per SM in one wave (a second, partial wave
+    would cost a whole block's time).  The 1/2/3/4-bit kernel corrects at
+    every stage, so a split may end at any stage; the 8-bit one corrects at
+    group ends and splits at superblocks.  ``rows`` and ``bn`` are the
+    ring's shape (``probes/grouped_ring.py`` sweeps others)."""
+    spb = (_grouped_round_rows(nbits, superblock)
+           // _grouped_stage_rows(nbits, rows))
+    unit = spb if nbits == 8 else 1
+    units = Kp // superblock * spb // unit
+    tiles = -(-N // bn)
+    want = max(1, min(units, blocks * _sm_count(device.index or 0) // tiles))
+    per = -(-units // want)
+    return -(-units // per), per * unit
+
+
+def _pow2(v: int) -> bool:
+    return v > 0 and v & (v - 1) == 0
 
 
 def _grouped_applies(x: torch.Tensor, packed: torch.Tensor,
@@ -109,18 +155,31 @@ def _grouped_applies(x: torch.Tensor, packed: torch.Tensor,
                      group_size: int, superblock: int, up=None) -> bool:
     """Take the grouped tensor-core GEMV?  The JAX package takes its
     grouped serving GEMV at ``single_m and acc_dtype == bf16`` (M <= 8,
-    bf16 activations) for every width; the port does for 8-bit, with the
-    conditions ``amq_qmm_grouped`` checks (whole ring stages of 32 word
-    rows, 16-byte copies): groups of a multiple of 64 rows, a superblock of
-    a multiple of 128 rows and at most 1024, a padded N, K and x's row
-    stride that are multiples of 8, and 16-byte aligned activations and
-    weights.  Other calls take the CUDA-core GEMV."""
-    return (nbits == 8 and x.shape[0] <= 8 and x.dtype == torch.bfloat16
-            and group_size % 64 == 0 and superblock % 128 == 0
-            and superblock <= 1024 and packed.shape[-1] % 8 == 0
-            and x.shape[-1] % 8 == 0 and x.stride(0) % 8 == 0
+    bf16 activations) for every width; the port does too, wherever the
+    kernel's own conditions hold (``grouped_takes`` in
+    ``csrc/quant_matmul.cu``, which refuses the rest): a padded N, K and
+    x's row stride that are multiples of 8, 16-byte aligned activations and
+    weights (16-byte bulk copies), groups of a multiple of 64 rows, a
+    superblock of at most 1024 rows holding whole ring stages (a multiple
+    of 128 rows at 8 bits, 256 at 4, 512 at 3 and 2, 1024 at 1); at 8 bits
+    extraction rounds that nest with the groups, below it power-of-two
+    groups and superblock.  Other calls take the CUDA-core GEMV; this is
+    the only predicate that routes."""
+    if nbits not in (1, 2, 3, 4, 8) or not (
+            1 <= x.shape[0] <= 8 and x.dtype == torch.bfloat16
+            and group_size % (2 * _GROUPED_ROWS) == 0
+            and superblock % group_size == 0 and superblock <= 1024
+            and _grouped_round_rows(nbits, superblock)
+            % _grouped_stage_rows(nbits) == 0
+            and packed.shape[-1] % 8 == 0 and x.shape[-1] % 8 == 0
+            and x.stride(0) % 8 == 0
             and all(t.data_ptr() % 16 == 0 for t in (x, packed, scale, zero)
-                    + ((up,) if up is not None else ())))
+                    + ((up,) if up is not None else ()))):
+        return False
+    if nbits == 8:
+        half = superblock // 2          # an 8-bit round's K rows
+        return half % group_size == 0 or group_size % half == 0
+    return _pow2(group_size) and _pow2(superblock)
 
 
 def _pipe_applies(x: torch.Tensor, packed: torch.Tensor, nbits: int,
@@ -155,22 +214,19 @@ def qmm_plain(x, packed, scale, zero, *, nbits, group_size, shape,
     return torch.matmul(x.float(), dequantize_kn(qt, torch.float32)).to(out_dtype)
 
 
-#: the 8-bit grouped form's code offset: two nibble planes of exact bf16
-#: ``128 + c`` values weighted 16 and 1 (the JAX ``_codes_chunks_bf16``)
-_ZOFF8 = 17 * 128.0
-
-
 def qmm_grouped_plain(x, packed, scale, zero, *, nbits, group_size, shape,
                       superblock, out_dtype, up=None) -> torch.Tensor:
     """The grouped form of the JAX package's serving GEMV
-    (``_gemv_blockdiag``), 8-bit: per group g of ``group_size`` K rows and
-    column n, ``y_g = 16 * sum x (128 + hi) + sum x (128 + lo)`` over the
-    bf16 activations (products exact, f32 sums), then
-    ``out = sum_g s_g * y_g - xsum_g * (z_g + 2176) * s_g`` with ``xsum_g``
-    the f32 sum of the same bf16 activations.  The reference of the grouped
-    CUDA GEMV; with ``up`` the activation is ``silu(x) * up``."""
-    if nbits != 8:
-        raise ValueError(f"the grouped form here is 8-bit, got {nbits}")
+    (``_gemv_blockdiag``): per group g of ``group_size`` K rows and column
+    n, over the bf16 activations (products exact, f32 sums),
+    ``y_g = sum x (128 + c)`` at 1/2/3/4 bits (one plane, 3-bit codes
+    recombined; offset 128), ``16 * sum x (128 + hi) + sum x (128 + lo)``
+    at 8 bits (two nibble planes; offset 2176), then
+    ``out = sum_g s_g * y_g - xsum_g * (z_g + offset) * s_g`` with
+    ``xsum_g`` the f32 sum of the same bf16 activations.  The reference of
+    the grouped CUDA GEMV; with ``up`` the activation is ``silu(x) * up``."""
+    if nbits not in (1, 2, 3, 4, 8):
+        raise ValueError(f"no grouped form for {nbits}-bit")
     if up is not None:
         x = swiglu_plain(x, up)
     N, K = shape
@@ -178,13 +234,17 @@ def qmm_grouped_plain(x, packed, scale, zero, *, nbits, group_size, shape,
     Kp, Np = codes.shape
     G, g = Kp // group_size, group_size
     xb = F.pad(x.to(torch.bfloat16).float(), (0, Kp - K)).reshape(-1, G, g)
-    planes = [((codes >> sh) & 15).float().add_(128.0).reshape(G, g, Np)
-              for sh in (4, 0)]                               # hi, lo
-    y = (16.0 * torch.einsum("mgk,gkn->gmn", xb, planes[0])
-         + torch.einsum("mgk,gkn->gmn", xb, planes[1]))       # [G, M, Np]
+    if nbits == 8:      # nibble planes weighted 16 and 1 (hi, lo)
+        planes = [(16.0, (codes >> 4) & 15), (1.0, codes & 15)]
+        zoff = 17 * 128.0
+    else:
+        planes, zoff = [(1.0, codes)], 128.0
+    y = sum(w * torch.einsum("mgk,gkn->gmn", xb,
+                             c.float().add_(128.0).reshape(G, g, Np))
+            for w, c in planes)                               # [G, M, Np]
     xsum = xb.sum(dim=2).T[:, :, None]                        # [G, M, 1]
     s = scale.float().reshape(G, 1, Np)
-    corr = (zero.float().reshape(G, 1, Np) + _ZOFF8) * s
+    corr = (zero.float().reshape(G, 1, Np) + zoff) * s
     out = (s * y - xsum * corr).sum(dim=0)
     return out[:, :N].to(out_dtype)
 
@@ -209,7 +269,12 @@ def qmm_mlp_plain(x, gu_packed, gu_scale, gu_zero, d_packed, d_scale, d_zero,
 # kernel launch
 
 def _qmm_cuda(x, up, packed, scale, zero, *, nbits, group_size, shape,
-              superblock, out_dtype, pipe=False) -> torch.Tensor:
+              superblock, out_dtype, pipe=False, cuda_core=False) -> tuple:
+    """Launch the kernel; returns (out, whether the grouped GEMV ran).
+    ``cuda_core`` keeps a call that the grouped GEMV would take on the
+    CUDA-core GEMV (the probes' and tests' bit-identity pins: the pipelined
+    GEMV, the one-launch MLP and the attribution probe share its
+    arithmetic); no public switch reaches it."""
     N, K = shape
     M = x.shape[0]
     rows, Np = packed.shape
@@ -244,11 +309,15 @@ def _qmm_cuda(x, up, packed, scale, zero, *, nbits, group_size, shape,
         raise ValueError(f"{what}: packed {tuple(packed.shape)}, scale "
                          f"{tuple(scale.shape)}, superblock {superblock}, "
                          f"group {group_size} do not fit")
-    grouped = not pipe and _grouped_applies(x, packed, scale, zero, nbits,
-                                            group_size, superblock, up)
+    grouped = not (pipe or cuda_core) and _grouped_applies(
+        x, packed, scale, zero, nbits, group_size, superblock, up)
+    meta_bf16 = _cuda.dtype_flag(scale, what)
     if grouped:
         entry = "amq_qmm_grouped"
-        splits, per = _grouped_splits(N, Kp // superblock, x.device)
+        blocks = _grouped_blocks(nbits, up is not None, meta_bf16,
+                                 group_size, superblock, x.device.index or 0)
+        splits, per = _grouped_splits(N, nbits, superblock, Kp, blocks,
+                                      x.device)
     else:
         entry = "amq_qmm_pipe" if pipe else "amq_qmm"
         splits, per = _splits(M, N, Kp // superblock, x.device)
@@ -257,12 +326,12 @@ def _qmm_cuda(x, up, packed, scale, zero, *, nbits, group_size, shape,
                if splits > 1 else None)
     rc = _lib(entry)(_cuda.ptr(x), _cuda.ptr(up), _cuda.dtype_flag(x, what),
                      _cuda.ptr(packed), _cuda.ptr(scale), _cuda.ptr(zero),
-                     _cuda.dtype_flag(scale, what), _cuda.ptr(out),
+                     meta_bf16, _cuda.ptr(out),
                      _cuda.dtype_flag(out, what), _cuda.ptr(partial),
                      M, K, x.stride(0), Kp, N, Np, nbits, group_size,
                      superblock, splits, per, _cuda.stream())
     _cuda.check(rc, what)
-    return out
+    return out, grouped
 
 
 def _qmm(x, up, packed, scale, zero, *, out_dtype, counter, pipe=False,
@@ -272,10 +341,26 @@ def _qmm(x, up, packed, scale, zero, *, out_dtype, counter, pipe=False,
                          **static)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    out = _qmm_cuda(x, up, packed, scale, zero, out_dtype=out_dtype,
-                    pipe=pipe, **static)
+    out, grouped = _qmm_cuda(x, up, packed, scale, zero, out_dtype=out_dtype,
+                             pipe=pipe, **static)
     counter.launches += 1
+    if grouped:
+        counter.grouped_launches += 1
     return out
+
+
+def _qmm_cuda_core(x, packed, scale, zero, *, out_dtype, up=None,
+                  **static) -> torch.Tensor:
+    """One layer's dequant-matmul on the CUDA-core GEMV, even where the
+    grouped GEMV would take the call: the route that the pipelined GEMV,
+    the one-launch MLP and the attribution probe's ``full`` give the same
+    bits as (their ``torch.equal`` pins).  The plain version on the CPU.
+    Counts no launch."""
+    if x.device.type == "cpu":
+        return qmm_plain(x, packed, scale, zero, out_dtype=out_dtype, up=up,
+                         **static)
+    return _qmm_cuda(x, up, packed, scale, zero, out_dtype=out_dtype,
+                     cuda_core=True, **static)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -305,6 +390,8 @@ def quant_matmul_indexed(x: torch.Tensor, packed_stack: torch.Tensor,
 
 
 quant_matmul_indexed.launches = 0
+#: launches that took the grouped tensor-core GEMV
+quant_matmul_indexed.grouped_launches = 0
 
 
 def quant_matmul_indexed_pipe(x: torch.Tensor, packed_stack: torch.Tensor,
@@ -356,6 +443,8 @@ def quant_matmul_swiglu_indexed(gate: torch.Tensor, up: torch.Tensor,
 
 
 quant_matmul_swiglu_indexed.launches = 0
+#: launches that took the grouped tensor-core GEMV
+quant_matmul_swiglu_indexed.grouped_launches = 0
 
 
 def quant_matmul_swiglu_indexed_pipe(gate: torch.Tensor, up: torch.Tensor,
@@ -493,6 +582,8 @@ def quant_matmul(x: torch.Tensor, qt: QuantizedTensor,
 
 
 quant_matmul.launches = 0
+#: launches that took the grouped tensor-core GEMV
+quant_matmul.grouped_launches = 0
 
 
 def quant_matmul_reference(x: torch.Tensor, qt: QuantizedTensor,

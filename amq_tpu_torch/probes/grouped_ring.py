@@ -1,25 +1,31 @@
-"""Ring-shape sweep of the grouped 8-bit tensor-core GEMV at the head shape.
+"""Ring-shape sweep of the grouped tensor-core GEMV, per code width.
 
-The grouped GEMV (``csrc/quant_matmul.cu`` ``amq_qmm_grouped``, step in
+The grouped GEMV (``csrc/quant_matmul.cu`` ``amq_qmm_grouped``, steps in
 ``csrc/qmm_tile.cuh``) streams word rows through a ring of bulk copies;
 its shape is three build-time constants: 16-column MMA tiles per consumer
 warp (``AMQ_GTILES``, a block owns 128 x tiles columns), word rows per
 stage (``AMQ_GSR``) and stages (``AMQ_GSTAGES``).  This probe builds one
 library per shape in :data:`VARIANTS` (one nvcc each, all started
-together), holds each to the grouped form's plain version at the 7B head
-(M = 1, K 4096, N 32000 in Vp 32768, superblock 1024, bf16 meta, f32
-out), and times each with the chain timer (:func:`chain.chain_us` over a
-40-layer stack, so the words come from device memory) beside the shipped
-kernel through ``ops.quant_matmul.quant_matmul``.  K is split as the
-wrapper splits it, at the blocks per SM the variant's shared memory
-allows (at most two, the kernel's launch bound).  One ``RING`` line per
-variant; ``python -m amq_tpu_torch.probes.grouped_ring`` on the card.
+together) and, for each width asked for, holds each to the grouped form's
+plain version at that width's site (:data:`SITES`: the 7B head at 8
+bits, K 4096 x N 32000 in Vp 32768; the fused gateup at 1-4 bits, K 4096
+x N 22016 in 22528; M = 1, superblock 1024, bf16 meta) and times each with
+the chain timer (:func:`chain.chain_us` over a 40-layer stack, so the
+words come from device memory) beside the shipped kernel through the
+public wrapper.  K is split as the wrapper splits it, at the blocks per SM
+the variant's own occupancy calculator reports.  One ``RING`` line per
+width and variant:
+
+    python -m amq_tpu_torch.probes.grouped_ring [WIDTH ...]   # default 2 4 8
+
+on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
+import sys
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -32,10 +38,13 @@ from . import chain
 
 #: (tiles per warp, word rows per stage, stages); the first is the
 #: shipped kernel's (qmm_tile.cuh's defaults)
-VARIANTS = ((2, 32, 2), (2, 32, 3), (2, 32, 4), (2, 32, 5), (2, 16, 2),
-            (2, 16, 3), (2, 16, 4), (2, 16, 6), (2, 8, 4), (2, 8, 8),
-            (1, 32, 2), (1, 32, 4), (4, 16, 2), (4, 8, 4))
-HEAD = (32000, 4096)                  # (N, K) of the Llama-2-7B lm_head
+VARIANTS = ((2, 32, 2), (2, 32, 3), (2, 32, 4), (2, 16, 2), (2, 16, 3),
+            (2, 16, 4), (2, 8, 4), (1, 32, 2), (1, 32, 4), (1, 64, 2),
+            (4, 16, 2), (4, 8, 4))
+#: the site each width is timed at, (N, K): the 8-bit head, else gateup
+SITES = {8: (32000, 4096), 4: chain.SITES["gu"], 3: chain.SITES["gu"],
+         2: chain.SITES["gu"], 1: chain.SITES["gu"]}
+WIDTHS = (2, 4, 8)
 SMEM_PER_SM = 228 * 1024              # H100: shared memory per SM
 SMEM_PER_BLOCK = 227 * 1024           # H100: the most one block may take
 TOL = 1e-4                            # f32 out: summation order only
@@ -46,51 +55,67 @@ def defines(tiles: int, rows: int, stages: int) -> tuple:
             f"AMQ_GSTAGES={stages}")
 
 
-def smem_bytes(tiles: int, rows: int, stages: int,
-               swiglu: bool = False) -> int:
+def smem_bytes(tiles: int, rows: int, stages: int, nbits: int = 8,
+               M: int = 8, swiglu: bool = False, meta_bytes: int = 2,
+               superblock: int = 1024, group: int = 128) -> int:
     """Dynamic shared memory of one block, as ``launch_grouped`` sizes it
-    (mirrors ``qmm_tile.cuh``'s ``grouped_stage_bytes`` at 8 bits): 128
-    bytes of barriers, then per stage the word rows (128 x tiles + 4 words
-    each), two meta rows per round (f32 room) and the activations (8 rows
-    x 2 rounds x (2 x rows + 8) bf16), twice with the SwiGLU operand."""
+    (mirrors ``qmm_tile.cuh``'s ``grouped_layout``): 128 bytes of
+    barriers, then per stage the word rows (128 x tiles + 4 words each;
+    3-bit: 1.5 times the rows), two meta rows per slot (per round at 8 bits,
+    f32-wide; else per group a stage's rounds touch, in the meta's type)
+    and the activations ([8 at 8 bits, else M] rows x rounds x (2 x rows +
+    8) bf16; 3-bit: half the rows per round), twice with the SwiGLU
+    operand."""
     bn = 128 * tiles
-    x = 8 * 2 * (2 * rows + 8) * 2
-    stage = rows * (bn + 4) * 4 + 2 * 2 * bn * 4 + (2 if swiglu else 1) * x
+    n = qm._grouped_stage_rows(nbits, rows)
+    wrows = 3 * n if nbits == 3 else rows
+    P = 16 if nbits == 3 else 16 // nbits
+    span = 2 * qm._grouped_round_rows(nbits, superblock)
+    slots = P if nbits == 8 or span >= group else P // (group // span)
+    meta = 2 * slots * bn * (4 if nbits == 8 else meta_bytes)
+    x = (8 if nbits == 8 else M) * P * (2 * n + 8) * 2
+    stage = wrows * (bn + 4) * 4 + meta + (2 if swiglu else 1) * x
     return 128 + stages * stage
 
 
-def blocks_per_sm(tiles: int, rows: int, stages: int) -> int:
-    """Blocks of the variant one SM holds by shared memory (each block
-    also takes 1 KB of the runtime's), at most the launch bound's two; 0
-    where the kernel's shared-memory attribute (sized for the SwiGLU
-    ring) exceeds what one block may take."""
-    if smem_bytes(tiles, rows, stages, swiglu=True) > SMEM_PER_BLOCK:
+def blocks_per_sm(tiles: int, rows: int, stages: int, nbits: int = 8) -> int:
+    """Blocks of the variant one SM holds by shared memory at M = 8 (each
+    block also takes 1 KB of the runtime's), at most the launch bound's
+    two; 0 where a SwiGLU call at M = 8 with f32 meta would exceed what
+    one block may take (the variant is not built)."""
+    if smem_bytes(tiles, rows, stages, nbits, swiglu=True,
+                  meta_bytes=4) > SMEM_PER_BLOCK:
         return 0
-    return min(2, SMEM_PER_SM // (smem_bytes(tiles, rows, stages) + 1024))
+    return min(2, SMEM_PER_SM // (smem_bytes(tiles, rows, stages, nbits)
+                                  + 1024))
 
 
-def _entry(var: tuple):
-    fn = _cuda.library("quant_matmul", defines(*var)).amq_qmm_grouped
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p,
-                                              ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+def _entry(var: tuple, name: str = "amq_qmm_grouped"):
+    fn = getattr(_cuda.library("quant_matmul", defines(*var)), name)
+    if name == "amq_qmm_grouped_blocks":
+        fn.argtypes = [ctypes.c_int] * 6
+    else:
+        fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+                       + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_void_p] + [ctypes.c_int] * 11
+                       + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def variant_call(var, x, packed, scale, zero, sb):
+def variant_call(var, nbits, x, packed, scale, zero, sb):
     """``call(i)``: the variant on layer ``i`` of the stack -> [M, N] f32,
     K split as the wrapper splits it at the variant's blocks per SM."""
     fn = _entry(var)
-    N, K = HEAD
-    M, Kp, Np = x.shape[0], packed.shape[1] * 4, packed.shape[2]
-    n_sb = Kp // sb
-    tiles = -(-N // (128 * var[0]))
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    want = max(1, min(n_sb, blocks_per_sm(*var) * sms // tiles))
-    per = -(-n_sb // want)
-    splits = -(-n_sb // per)
+    N, K = SITES[nbits]
+    M, Np = x.shape[0], packed.shape[2]
+    Kp = packed.shape[1] * 32 // nbits
+    blocks = _entry(var, "amq_qmm_grouped_blocks")(nbits, 8, 0, 1, 128, sb)
+    if blocks < 1:
+        raise RuntimeError(f"grouped ring {var}: no block fits ({blocks})")
+    splits, per = qm._grouped_splits(N, nbits, sb, Kp, blocks, x.device,
+                                     rows=var[1], bn=128 * var[0])
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     partial = (torch.empty((splits, M, N), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
@@ -98,50 +123,45 @@ def variant_call(var, x, packed, scale, zero, sb):
 
     def call(i):
         rc = fn(p(x), p(None), 1, p(packed[i]), p(scale[i]), p(zero[i]), 1,
-                p(out), 0, p(partial), M, K, x.stride(0), Kp, N, Np, 8, 128,
-                sb, splits, per, _cuda.stream())
-        _cuda.check(rc, f"grouped ring {var}")
+                p(out), 0, p(partial), M, K, x.stride(0), Kp, N, Np, nbits,
+                128, sb, splits, per, _cuda.stream())
+        _cuda.check(rc, f"grouped ring {var}, {nbits}-bit")
         return out
 
-    return call, splits
+    return call, splits, blocks
 
 
-def main(argv=None, device=None) -> list:
-    """Build every variant, check and time each; returns the records.
-    Runs on the card; the kernels have no CPU mode, so ``device="cpu"``
-    refuses.  ``argv`` is unused (the variants are :data:`VARIANTS`)."""
-    dev = resolve_device(device)
-    if dev.type != "cuda":
-        raise SystemExit("grouped_ring: times kernels, so it needs the card")
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:      # one nvcc each
-        built = list(pool.map(
-            lambda v: _cuda.build(["quant_matmul"], defines=defines(*v))
-            if blocks_per_sm(*v) else 0.0, VARIANTS))
-    print(f"grouped_ring: built {len(VARIANTS)} variants in "
-          f"{max(built):.1f} s", flush=True)
-    N, K = HEAD
-    gen = torch.Generator(device=dev).manual_seed(0)
+def sweep(nbits: int, dev, built: dict) -> list:
+    """Check and time every built variant at one width's site."""
+    N, K = SITES[nbits]
+    gen = torch.Generator(device=dev).manual_seed(nbits)
     L = max(chain.CHAIN_LENS)
-    packed, scale, zero, sb = chain.random_stack(N, K, 8, L, gen, dev)
+    packed, scale, zero, sb = chain.random_stack(N, K, nbits, L, gen, dev)
     x = torch.randn((1, K), generator=gen, device=dev).to(torch.bfloat16)
-    kw = dict(nbits=8, group_size=128, shape=(N, K), superblock=sb,
+    kw = dict(nbits=nbits, group_size=128, shape=(N, K), superblock=sb,
               out_dtype=torch.float32)
     want = qm.qmm_grouped_plain(x, packed[0], scale[0], zero[0], **kw)
-    head = [QuantizedTensor(packed[i], scale[i], zero[i], 8, 128, (N, K), sb)
-            for i in range(L)]
-    shipped = qm.quant_matmul(x, head[0], out_dtype=torch.float32)
-    shipped_us = chain.chain_us(
-        lambda i: qm.quant_matmul(x, head[i], out_dtype=torch.float32))
+    if nbits == 8:
+        layers = [QuantizedTensor(packed[i], scale[i], zero[i], 8, 128,
+                                  (N, K), sb) for i in range(L)]
+
+        def public(i):
+            return qm.quant_matmul(x, layers[i], out_dtype=torch.float32)
+    else:
+        def public(i):
+            return qm.quant_matmul_indexed(x, packed, scale, zero, i, **kw)
+    shipped = public(0)
+    shipped_us = chain.chain_us(public)
     bound = chain.bound_us(packed, scale, N)
     recs = []
     for var in VARIANTS:
-        rec = dict(tiles=var[0], columns=128 * var[0], rows_per_stage=var[1],
-                   stages=var[2], smem_bytes=smem_bytes(*var),
-                   blocks_per_sm=blocks_per_sm(*var), bound_us=bound,
-                   shipped_us=shipped_us)
-        if rec["blocks_per_sm"]:
-            call, rec["splits"] = variant_call(var, x, packed, scale, zero,
-                                               sb)
+        rec = dict(nbits=nbits, N=N, K=K, tiles=var[0], columns=128 * var[0],
+                   rows_per_stage=var[1], stages=var[2],
+                   smem_bytes=smem_bytes(*var, nbits=nbits, M=1),
+                   bound_us=bound, shipped_us=shipped_us)
+        if built[var]:
+            call, rec["splits"], rec["blocks_per_sm"] = variant_call(
+                var, nbits, x, packed, scale, zero, sb)
             got = call(0).clone()
             torch.cuda.synchronize()
             rec["rel_err"] = chain.rel_err(got, want)
@@ -155,11 +175,34 @@ def main(argv=None, device=None) -> list:
             rec["ok"] = None          # does not fit one block's shared memory
         print("RING " + json.dumps(rec), flush=True)
         recs.append(rec)
+    del packed, scale, zero
+    torch.cuda.empty_cache()
     return recs
 
 
+def main(argv=None, device=None) -> list:
+    """Build every variant, check and time each at every width in ``argv``
+    (default :data:`WIDTHS`); returns the records.  Runs on the card; the
+    kernels have no CPU mode, so ``device="cpu"`` refuses."""
+    widths = [int(a) for a in (argv or [])] or list(WIDTHS)
+    if any(w not in SITES for w in widths):
+        raise SystemExit(f"grouped_ring: widths are {sorted(SITES)}")
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise SystemExit("grouped_ring: times kernels, so it needs the card")
+    fits = {v: all(blocks_per_sm(*v, nbits=w) for w in widths)
+            for v in VARIANTS}
+    with ThreadPoolExecutor(len(VARIANTS)) as pool:      # one nvcc each
+        times = list(pool.map(
+            lambda v: _cuda.build(["quant_matmul"], defines=defines(*v))
+            if fits[v] else 0.0, VARIANTS))
+    print(f"grouped_ring: built {sum(fits.values())} variants in "
+          f"{max(times):.1f} s", flush=True)
+    return [rec for w in widths for rec in sweep(w, dev, fits)]
+
+
 if __name__ == "__main__":
-    recs = main()
+    recs = main(sys.argv[1:])
     if any(r["ok"] is False for r in recs):
         raise SystemExit("grouped_ring: a variant disagrees with the plain "
                          "version")

@@ -366,14 +366,18 @@ def attrib_case(site: str, nbits: int, device) -> list:
           if site == "down" else None)
     kw = dict(nbits=nbits, group_size=128, shape=(N, K), superblock=sb)
     act = (x,) if up is None else (x, up)
+    # the production kernels whose bodies the probe carries: the CUDA-core
+    # GEMV (which the public wrapper leaves for the grouped GEMV at bf16,
+    # M <= 8) and the pipelined GEMV
+    pipe = (qm.quant_matmul_indexed_pipe if up is None
+            else qm.quant_matmul_swiglu_indexed_pipe)
     production = {
-        "gemv": (qm.quant_matmul_indexed if up is None
-                 else qm.quant_matmul_swiglu_indexed),
-        "pipe": (qm.quant_matmul_indexed_pipe if up is None
-                 else qm.quant_matmul_swiglu_indexed_pipe)}
+        "gemv": lambda: qm._qmm_cuda_core(x, packed[1], scale[1], zero[1],
+                                          up=up, out_dtype=x.dtype, **kw),
+        "pipe": lambda: pipe(*act, packed, scale, zero, 1, **kw)}
     recs = []
     for body in BODIES:
-        prod = production[body](*act, packed, scale, zero, 1, **kw)
+        prod = production[body]()
         checks, us = {}, {}
         for variant in VARIANTS:
             got = gemv_attrib(x, packed[1], scale[1], zero[1], up=up,

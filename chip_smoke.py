@@ -8,16 +8,19 @@ Phases (any failed check exits non-zero before the last line):
    versions; TF32 off for float32 products, bf16 products reduced in f32.
 2. build: compile the port's CUDA sources (amq_tpu_torch/csrc) with nvcc,
    one process per source, all started together; REGS (registers and
-   spill bytes of the attention kernels, the grouped 8-bit GEMV and the
-   dequantization kernel, from -Xptxas -v) and SASS (HGMMA / HMMA / FFMA
-   per flash kernel and the grouped GEMV, from cuobjdump -sass) lines;
-   fails if the bf16 flash kernel holds no HGMMA, the grouped GEMV no
-   HMMA or HGMMA, or a redesigned kernel spills.
+   spill bytes of the attention kernels, every width's grouped GEMV and
+   the dequantization kernel, from -Xptxas -v) and SASS (HGMMA / HMMA /
+   FFMA per flash kernel, and also LOP3 / SHF per grouped GEMV, from
+   cuobjdump -sass) lines; fails if the bf16 flash kernel holds no HGMMA,
+   a grouped GEMV no HMMA or HGMMA, or a redesigned kernel spills.
 3. kernels vs their plain PyTorch versions at the Llama-2-7B shapes:
    the dequant-matmuls (qkv / o / gateup / down sites, head) at M = 1 and
    64, widths 2, 3 (native planes) and 4, 8 on the head, bf16 and f32
-   scale/zero, the head also at M = 5 and 8 (the grouped tensor-core GEMV
-   at M <= 8, held to the grouped form's plain version); decode
+   scale/zero, the four sites also at M = 4 and 8 and the head at M = 5
+   and 8 (bf16 scale/zero); at M <= 8 the grouped tensor-core GEMV
+   (route "grouped": held to the grouped form's plain version, its
+   launches counted as grouped, its time beside the CUDA-core GEMV's in
+   the same case, gemv_ms); decode
    attention at the Llama-2-7B, GQA, hd-64 and sliding-window shapes;
    flash attention at the Llama-2-7B evaluation shape (bf16 and f32),
    prefill with a cache (unaligned T), the GQA Llama-3-8B shape and d 64;
@@ -30,9 +33,10 @@ Phases (any failed check exits non-zero before the last line):
    The decode kernels of the JAX package's opt-in switches at the same
    shapes: the pipelined decode GEMV (qkv / o / gateup, down with the
    SwiGLU prologue; M 1, 4, 8; widths 2, 3, 4) against the plain version
-   and the non-pipelined GEMV, and the one-launch decode MLP (M 1, 4, 8;
-   widths 2, 3, 4) against its plain version and the separate kernel
-   chain, two calls bit-identical.  DEQUANT lines: the dequantization
+   and the CUDA-core GEMV (their shared arithmetic), and the one-launch
+   decode MLP (M 1, 4, 8; widths 2, 3, 4) against its plain version and
+   the CUDA-core kernel chain, two calls bit-identical (its gap to the
+   grouped chain reported).  DEQUANT lines: the dequantization
    kernel at the 7B gateup shape for every packed width, and at the
    evaluation's own sites (o, gate/up, down with its K tail) for widths
    2, 3, 4, torch.equal to its plain version in bf16 and f32, its time
@@ -55,13 +59,15 @@ Phases (any failed check exits non-zero before the last line):
    on the card from a seeded generator, 2/3/4 bits per layer with 3-bit in
    4-bit containers, bf16 meta, 8-bit head) through Engine.generate and
    serving.benchmark.benchmark_speed (TPS / GEMV / GEMM / TTFT), with the
-   kernels' launch counts checked over one generate, kernel-path vs
+   kernels' launch counts checked over one generate (GROUPED_LAUNCHES:
+   every decode GEMV of the layers, 96 + 32 per token, and the head took
+   the grouped GEMV), kernel-path vs
    plain-path prefill logits, and one generate from a 512-token prompt
    whose prefill runs the flash kernel once per layer and dequantizes
    once per site.
 4b. serving breadth on the same model at full width and depth: generate
    with AMQ_PIPE, then with AMQ_PIPE and AMQ_MLP_KERNEL (exact launch
-   counts; token agreement and logit gap to the default kernels
+   counts, grouped ones too; token agreement and logit gap to the default kernels
    reported); continuous batching (benchmark_continuous, 4 slots, 16
    requests; default kernels, then both switches; exact launch counts);
    a float32 SlotEngine run token-exact against each request's generate;
@@ -241,25 +247,35 @@ def check_matmul(site, nbits, M, meta_dtype, gen):
         return qm.quant_matmul(x, qt, out_dtype=out_dtype)
 
     # the kernel's plain version: the grouped form where the grouped
-    # tensor-core GEMV runs (8-bit, bf16 x, M <= 8), else the f32 one
+    # tensor-core GEMV runs (bf16 x, M <= 8), else the f32 one
     grouped = qm._grouped_applies(x, packed[1], scale[1], zero[1], nbits, 128,
                                   sb)
     plain_fn = qm.qmm_grouped_plain if grouped else qm.qmm_plain
+    up = u if "swiglu" in kernel else None
 
     def plain_call(i, fn=plain_fn):
-        return fn(x, packed[i], scale[i], zero[i],
-                  up=u if "swiglu" in kernel else None, **kw)
+        return fn(x, packed[i], scale[i], zero[i], up=up, **kw)
 
+    counter = getattr(qm, kernel)
+    before = counter.grouped_launches
     got = kernel_call(1)
+    again = kernel_call(1)
+    took_grouped = counter.grouped_launches - before == 2
     want = plain_call(1)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     rel = err / max(want.float().abs().max().item(), 1e-30)
+    deterministic = bool(torch.equal(got, again))
     # against the f32 dequantize-then-multiply too (another rounding)
     rel_f32 = (rel_err(got, plain_call(1, qm.qmm_plain))[0] if grouped
                else rel)
     tol = MM_TOL[out_dtype]
     ms = time_ms([lambda i=i: kernel_call(i) for i in range(L)])
+    # the CUDA-core GEMV in the same case (the grouped route's earlier
+    # design, through the wrapper's private route)
+    gemv_ms = (time_ms([lambda i=i: qm._qmm_cuda_core(
+        x, packed[i], scale[i], zero[i], up=up, **kw) for i in range(L)])
+        if grouped else None)
     plain_ms = time_ms([lambda: plain_call(1)], iters=3)
     wrapper_us = host_us(lambda: kernel_call(1))
     # yardstick, a different function: a bf16 matmul against the
@@ -278,11 +294,12 @@ def check_matmul(site, nbits, M, meta_dtype, gen):
                meta=str(meta_dtype).split(".")[-1],
                route="grouped" if grouped else ("gemv" if M <= 8 else "gemm"),
                max_abs_err=err, rel_err=rel, rel_err_vs_f32_plain=rel_f32,
-               tol=tol, ms=ms, plain_ms=plain_ms,
-               host_us=wrapper_us,
+               tol=tol, deterministic=deterministic, ms=ms, gemv_ms=gemv_ms,
+               plain_ms=plain_ms, host_us=wrapper_us,
                library_ms=library_ms, library="torch.matmul bf16 x dense "
                "dequantized weight (different function)", bound_ms=b_ms,
-               bound_by=b_by, ok=rel <= tol)
+               bound_by=b_by, share_of_bound=b_ms / ms,
+               ok=rel <= tol and deterministic and took_grouped == grouped)
     print("CASE " + json.dumps(rec), flush=True)
     return rec
 
@@ -357,8 +374,8 @@ PIPE_TOL, PIPE_VS_GEMV_TOL = 2e-2, 1e-2
 
 def check_pipe(site, nbits, Ms, gen):
     """The pipelined decode GEMV at one 7B site and width, for each M:
-    against the plain version and the non-pipelined GEMV; its time beside
-    the non-pipelined GEMV's in the same call."""
+    against the plain version and the non-pipelined CUDA-core GEMV; its
+    time beside the CUDA-core GEMV's in the same call."""
     from amq_tpu_torch.models.stacked import decode_switches
     from amq_tpu_torch.ops import quant_matmul as qm
     N, K, _ = SITES_7B[site]
@@ -366,8 +383,13 @@ def check_pipe(site, nbits, Ms, gen):
     kernel = ("quant_matmul_swiglu_indexed_pipe" if swiglu
               else "quant_matmul_indexed_pipe")
     pipe_fn = getattr(qm, kernel)
-    gemv_fn = (qm.quant_matmul_swiglu_indexed if swiglu
-               else qm.quant_matmul_indexed)
+
+    def gemv_fn(x, *rest, **kw):
+        # the CUDA-core GEMV, whose arithmetic the pipelined GEMV shares
+        # (the public wrapper takes the grouped GEMV at these calls)
+        *u, packed, scale, zero, i = rest
+        return qm._qmm_cuda_core(x, packed[i], scale[i], zero[i],
+                                 up=u[0] if u else None, **kw)
     L = max(2, min(24, math.ceil(200e6 / (N * K * nbits / 8))))
     packed, scale, zero, sb = rand_site(N, K, nbits, L, torch.bfloat16, gen)
     wt = dense_weight(packed[1], scale[1], zero[1], nbits, (N, K), sb)
@@ -423,8 +445,10 @@ MLP_7B = ((22016, 4096), (4096, 11008))      # gateup, down (N, K)
 
 def check_mlp(nbits, Ms, gen):
     """The one-launch decode MLP at the 7B shapes for each M: against its
-    plain version and the separate gateup -> SwiGLU-down kernel chain, two
-    calls bit-identical; its time beside the chain's."""
+    plain version and the separate gateup -> SwiGLU-down chain of the
+    CUDA-core GEMV (its arithmetic), two calls bit-identical; its time
+    beside that chain's, and (reported) its gap to and the time of the
+    public wrappers' chain, the grouped GEMVs."""
     from amq_tpu_torch.models.stacked import decode_switches
     from amq_tpu_torch.ops import quant_matmul as qm
     (Ngu, H), (Nd, I) = MLP_7B
@@ -447,6 +471,17 @@ def check_mlp(nbits, Ms, gen):
                                                out_dtype=out_dtype, **kw)
 
         def chain(i, out_dtype=torch.bfloat16):
+            # the CUDA-core GEMV's chain: the MLP kernel's arithmetic
+            g = qm._qmm_cuda_core(x, *(t[i] for t in gu), nbits=nbits,
+                                  group_size=128, shape=(Ngu, H),
+                                  superblock=sb, out_dtype=torch.bfloat16)
+            return qm._qmm_cuda_core(
+                g[:, :I], *(t[i] for t in dn), up=g[:, I:], nbits=nbits,
+                group_size=128, shape=(Nd, I), superblock=sb,
+                out_dtype=out_dtype)
+
+        def grouped_chain(i, out_dtype=torch.bfloat16):
+            # the public wrappers' chain (the grouped GEMVs), reported
             g = qm.quant_matmul_indexed(x, *gu, i, nbits=nbits, group_size=128,
                                         shape=(Ngu, H), superblock=sb)
             return qm.quant_matmul_swiglu_indexed(
@@ -461,14 +496,18 @@ def check_mlp(nbits, Ms, gen):
             got = mlp(1, torch.float32)
             again = mlp(1, torch.float32)
             sep = chain(1, torch.float32)
+            gsep = grouped_chain(1, torch.float32)
             want = qm.qmm_mlp_plain(x, *(t[1] for t in gu), *(t[1] for t in dn),
                                     out_dtype=torch.float32, **kw)
             torch.cuda.synchronize()
             rel, err = rel_err(got, want)
             rel_chain, _ = rel_err(got, sep)
+            rel_grouped_chain, _ = rel_err(got, gsep)
             identical = bool(torch.equal(got, again))
             ms = time_ms([lambda i=i: mlp(i) for i in range(L)])
             chain_ms = time_ms([lambda i=i: chain(i) for i in range(L)])
+            grouped_chain_ms = time_ms([lambda i=i: grouped_chain(i)
+                                        for i in range(L)])
             plain_ms = time_ms([lambda: qm.qmm_mlp_plain(
                 x, *(t[1] for t in gu), *(t[1] for t in dn),
                 out_dtype=torch.bfloat16, **kw)], iters=2)
@@ -481,7 +520,9 @@ def check_mlp(nbits, Ms, gen):
                    M=M, meta="bfloat16", max_abs_err=err, rel_err=rel,
                    tol=MLP_TOL, rel_err_vs_chain=rel_chain,
                    tol_vs_chain=MLP_VS_CHAIN_TOL, bit_identical=identical,
-                   ms=ms, chain_ms=chain_ms, plain_ms=plain_ms,
+                   rel_err_vs_grouped_chain=rel_grouped_chain,
+                   ms=ms, chain_ms=chain_ms, grouped_chain_ms=grouped_chain_ms,
+                   plain_ms=plain_ms,
                    host_us=wrapper_us, library_ms=library_ms,
                    library="bf16 torch.matmul -> silu*mul -> torch.matmul on "
                    "dense dequantized weights (different function)",
@@ -660,8 +701,8 @@ def check_flash(label, B, Hq, Hkv, S, T, d, offset, dtype, gen):
     return rec
 
 
-#: the bf16 flash kernel's symbol (tensor cores), the grouped 8-bit GEMV's
-#: (tensor cores), and the kernels whose registers and spills phase 2
+#: the bf16 flash kernel's symbol (tensor cores), the grouped GEMV's
+#: (tensor cores, every width), and the kernels whose registers and spills phase 2
 #: reports (library -> symbol pattern)
 WGMMA_FLASH = "flash_kernel_wgmma"
 GROUPED_GEMV = "qmm_grouped_kernel"
@@ -674,10 +715,11 @@ def build_report():
     """Phase 2's report on the redesigned kernels: a REGS line (per kernel
     instantiation of the attention kernels, the grouped GEMV and the
     dequantization kernel its registers and local spill bytes, from nvcc's
-    -Xptxas -v) and a SASS line (per flash kernel and the grouped GEMV its
-    HGMMA, HMMA and FFMA instructions, from cuobjdump -sass).  Fails if the
-    bf16 flash kernel holds no HGMMA (warpgroup MMA), the grouped GEMV no
-    HMMA or HGMMA, or if one of these kernels spills."""
+    -Xptxas -v) and a SASS line (per flash kernel and grouped GEMV its
+    HGMMA, HMMA and FFMA instructions, and the grouped GEMVs' LOP3 and SHF,
+    from cuobjdump -sass).  Fails if the bf16 flash kernel holds no HGMMA
+    (warpgroup MMA), a grouped GEMV (any width) no HMMA or HGMMA, or if one
+    of these kernels spills."""
     from amq_tpu_torch.ops import _cuda
     from amq_tpu_torch.probes import kernel_attrib as ka
     regs = {}
@@ -692,10 +734,12 @@ def build_report():
         regs[name] = {names[sym]: use for sym, use in usage.items()}
     print("REGS " + json.dumps(regs), flush=True)
     counts = {}
-    for lib, pattern in (("flash_attention", "flash_kernel"),
-                         ("quant_matmul", GROUPED_GEMV)):
-        counts.update(ka.count_ops(ka.sass_listing(lib), pattern,
-                                   ("HGMMA", "HMMA", "FFMA")))
+    for lib, pattern, ops in (
+            ("flash_attention", "flash_kernel", ("HGMMA", "HMMA", "FFMA")),
+            # the grouped GEMV's extraction (LOP3, SHF) beside its MMAs
+            ("quant_matmul", GROUPED_GEMV,
+             ("HGMMA", "HMMA", "FFMA", "LOP3", "SHF"))):
+        counts.update(ka.count_ops(ka.sass_listing(lib), pattern, ops))
     names = ka.kernel_names(counts)
     sass = {names[sym]: c for sym, c in counts.items()}
     print("SASS " + json.dumps(sass), flush=True)
@@ -1096,6 +1140,17 @@ def reckon_decode(L, prefills, prefill_rows, steps, pipe, mlp):
     return want
 
 
+def reckon_grouped(L, steps, pipe):
+    """Launches that take the grouped GEMV over ``steps`` decode steps (M
+    <= 8, bf16) of the fused 7B model, reckoned from the code: per layer
+    the qkv, o and gateup GEMVs and the SwiGLU-down GEMV (unless AMQ_PIPE
+    sends them to the pipelined kernel), and the head.  Prefills (M =
+    64, their head too) take the CUDA-core GEMM."""
+    return {"quant_matmul_indexed": 0 if pipe else 3 * L * steps,
+            "quant_matmul_swiglu_indexed": 0 if pipe else L * steps,
+            "quant_matmul": steps}
+
+
 def first_step_logits(eng, model, prompt):
     """Logits [V] of the first decode step after the prompt's prefill."""
     cache = eng.new_cache()
@@ -1126,15 +1181,20 @@ def switches_phase(eng, model, cfg, prompt, default_toks):
             toks = eng.generate(prompt, max_new_tokens=GEN)
             torch.cuda.synchronize()
             counts = ops.launch_counts()
+            grouped = ops.grouped_launch_counts()
             logits = first_step_logits(eng, model, prompt)
         want = reckon_decode(L, 1, PROMPT, GEN - 1, pipe, mlp)
+        want_grouped = reckon_grouped(L, GEN - 1, pipe)
         rec = dict(switches=label, launches=counts, want=want,
+                   grouped_launches=grouped, want_grouped=want_grouped,
                    token_agreement=float((toks == default_toks).mean()),
                    max_logit_diff=(logits - base).abs().max().item(),
                    logit_scale=base.abs().max().item())
         print("SWITCHES " + json.dumps(rec), flush=True)
         if counts != want:
             fail(f"{label}: launch counts {counts} != {want}")
+        if grouped != want_grouped:
+            fail(f"{label}: grouped launches {grouped} != {want_grouped}")
         if toks.shape != (1, GEN) or not ((toks >= 0)
                                           & (toks < cfg.vocab_size)).all():
             fail(f"{label}: generated tokens out of range")
@@ -1198,13 +1258,20 @@ def continuous_phase(model, cfg):
                 prompt_len=PROMPT, gen_len=GEN, max_len=PROMPT + GEN + 8,
                 chunk_steps=CHUNK)
             counts = ops.launch_counts()
+            grouped = ops.grouped_launch_counts()
         per_run = reckon_decode(L, REQUESTS, PROMPT, steps, pipe, mlp)
         want = {k: 2 * v for k, v in per_run.items()}
+        want_grouped = {k: 2 * v for k, v in
+                        reckon_grouped(L, steps, pipe).items()}
         rec = dict(switches=label, **res, launches_per_run={
-            k: v / 2 for k, v in counts.items()}, want_per_run=per_run)
+            k: v / 2 for k, v in counts.items()}, want_per_run=per_run,
+            grouped_per_run={k: v / 2 for k, v in grouped.items()})
         print("CONTINUOUS " + json.dumps(rec), flush=True)
         if counts != want:
             fail(f"continuous {label}: launch counts {counts} != {want}")
+        if grouped != want_grouped:
+            fail(f"continuous {label}: grouped launches {grouped} != "
+                 f"{want_grouped}")
         if res["total_tokens"] != REQUESTS * GEN:
             fail(f"continuous {label}: {res['total_tokens']} tokens, want "
                  f"{REQUESTS * GEN}")
@@ -1742,6 +1809,11 @@ def main():
                 for nbits in (2, 3, 4):
                     cases.append(check_matmul(site, nbits, M, meta, gen))
             cases.append(check_matmul("head", 8, M, meta, gen))
+    # the grouped GEMV at continuous batching's 4 rows and its largest M
+    for M in (4, 8):
+        for site in ("qkv", "o", "gateup", "down"):
+            for nbits in (2, 3, 4):
+                cases.append(check_matmul(site, nbits, M, torch.bfloat16, gen))
     # the head's speculative-verify row counts (gamma + 1) and the
     # grouped GEMV's largest M
     for M in (5, 8):
@@ -1809,11 +1881,21 @@ def main():
     toks = eng.generate(prompt, max_new_tokens=GEN)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
+    grouped_counts = ops.grouped_launch_counts()
     L = cfg.num_layers
     want = reckon_decode(L, 1, PROMPT, GEN - 1, pipe=False, mlp=False)
+    want_grouped = reckon_grouped(L, GEN - 1, pipe=False)
     print(f"launches over one generate: {counts} (want {want})", flush=True)
+    # every decode GEMV of rows 1 and 2 (96 + 32 per token) and the head
+    # took the grouped GEMV: no condition sent one back to the CUDA cores
+    print("GROUPED_LAUNCHES " + json.dumps(dict(
+        launches=grouped_counts, want=want_grouped, decode_tokens=GEN - 1,
+        per_token={k: v / (GEN - 1) for k, v in grouped_counts.items()})),
+        flush=True)
     if counts != want:
         fail(f"launch counts {counts} != {want}")
+    if grouped_counts != want_grouped:
+        fail(f"grouped launches {grouped_counts} != {want_grouped}")
     if toks.shape != (1, GEN) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
         fail(f"generated tokens out of range: {toks.shape}")
 
@@ -1958,7 +2040,8 @@ def main():
             "cases_checked": checked})
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "cases": cases, "speed": speed,
-                   "logits": logit_recs, "launches": counts, "profile": prof,
+                   "logits": logit_recs, "launches": counts,
+                   "grouped_launches": grouped_counts, "profile": prof,
                    "long_prompt": long_rec, "switches": switch_recs,
                    "continuous": cont_recs, "slot_f32": slot_rec,
                    "speculative": spec_recs, "cli": cli, "build_s": build_s,

@@ -49,8 +49,9 @@ def test_cuda_quant_matmul_matches_plain(nbits, M):
 @pytest.mark.parametrize("M", [1, 4, 8])
 def test_cuda_pipelined_gemv_matches_plain_and_gemv(M, nbits, swiglu):
     """The software-pipelined decode GEMV against the plain version and
-    against the non-pipelined GEMV (the same arithmetic, so the same bits)
-    on bf16 inputs, two layers of a stack, K over two superblocks."""
+    against the non-pipelined CUDA-core GEMV (the same arithmetic, so the
+    same bits) on bf16 inputs, two layers of a stack, K over two
+    superblocks."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     rng = np.random.default_rng(70 + nbits + M)
@@ -69,10 +70,11 @@ def test_cuda_pipelined_gemv_matches_plain_and_gemv(M, nbits, swiglu):
     for layer in range(L):
         if swiglu:
             got = tqm.quant_matmul_swiglu_indexed_pipe(x, u, *stack, layer, **kw)
-            ref = tqm.quant_matmul_swiglu_indexed(x, u, *stack, layer, **kw)
         else:
             got = tqm.quant_matmul_indexed_pipe(x, *stack, layer, **kw)
-            ref = tqm.quant_matmul_indexed(x, *stack, layer, **kw)
+        # the CUDA-core GEMV (the public wrapper takes the grouped GEMV here)
+        ref = tqm._qmm_cuda_core(x, *(s[layer] for s in stack),
+                                 up=u if swiglu else None, **kw)
         want = tqm.qmm_plain(x, *(s[layer] for s in stack),
                              up=u if swiglu else None, **kw)
         torch.cuda.synchronize()
@@ -89,7 +91,9 @@ def test_cuda_pipelined_gemv_matches_plain_and_gemv(M, nbits, swiglu):
 @pytest.mark.parametrize("M", [1, 4, 8])
 def test_cuda_mlp_kernel_matches_plain_and_chain(M, nbits):
     """The one-launch decode MLP against its plain version and against the
-    separate gateup -> SwiGLU-down kernel chain; the intermediate width
+    separate gateup -> SwiGLU-down chain of the CUDA-core GEMV (its
+    arithmetic; the public wrappers' grouped chain is held to the plain
+    version at the same tolerance); the intermediate width
     (1920) pads to 2048, so the zeroing past it is exercised.  Two calls
     give the same bits."""
     if not torch.cuda.is_available():
@@ -117,16 +121,22 @@ def test_cuda_mlp_kernel_matches_plain_and_chain(M, nbits):
         again = tqm.quant_matmul_mlp_indexed(x, *gu, *dn, layer, **kw)
         want = tqm.qmm_mlp_plain(x, *(s[layer] for s in gu),
                                  *(s[layer] for s in dn), **kw)
-        g = tqm.quant_matmul_indexed(x, *gu, layer, nbits=nbits,
-                                     group_size=128, shape=(2 * I, H),
-                                     superblock=sb)
-        chain = tqm.quant_matmul_swiglu_indexed(
-            g[:, :I], g[:, I:], *dn, layer, nbits=nbits, group_size=128,
-            shape=(H, I), superblock=sb, out_dtype=torch.float32)
+        gkw = dict(nbits=nbits, group_size=128, superblock=sb)
+        g = tqm._qmm_cuda_core(x, *(s[layer] for s in gu), shape=(2 * I, H),
+                               out_dtype=torch.bfloat16, **gkw)
+        chain = tqm._qmm_cuda_core(
+            g[:, :I], *(s[layer] for s in dn), up=g[:, I:], shape=(H, I),
+            out_dtype=torch.float32, **gkw)
+        # the public wrappers' chain: the grouped GEMVs
+        gg = tqm.quant_matmul_indexed(x, *gu, layer, shape=(2 * I, H), **gkw)
+        grouped = tqm.quant_matmul_swiglu_indexed(
+            gg[:, :I], gg[:, I:], *dn, layer, shape=(H, I),
+            out_dtype=torch.float32, **gkw)
         torch.cuda.synchronize()
         assert torch.equal(got, again)
         _norm_close(got.cpu().numpy(), want.cpu().numpy(), atol=2e-2)
         _norm_close(got.cpu().numpy(), chain.cpu().numpy(), atol=2e-3)
+        _norm_close(grouped.cpu().numpy(), want.cpu().numpy(), atol=2e-2)
     assert tqm.quant_matmul_mlp_indexed.launches - before == 2 * L
 
 
@@ -135,34 +145,43 @@ def test_cuda_mlp_kernel_matches_plain_and_chain(M, nbits):
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("swiglu", [False, True])
 @pytest.mark.parametrize("M", [1, 3, 5, 8])
-def test_cuda_grouped_gemv_matches_grouped_plain(M, swiglu, out_dtype, meta):
-    """The grouped 8-bit tensor-core GEMV (bf16 x, M <= 8) against its
-    plain version, the grouped form: N = 320 is not a multiple of the
-    256-column tile, K = 2048 is split over two blocks; f32 out within
-    1e-4 (normalized; summation order only), bf16 out one rounding; the
-    SwiGLU prologue through quant_matmul_swiglu_indexed; two calls give
-    the same bits; one launch per call."""
+@pytest.mark.parametrize("nbits", [1, 2, 3, 4, 8])
+def test_cuda_grouped_gemv_matches_grouped_plain(nbits, M, swiglu, out_dtype,
+                                                 meta):
+    """The grouped tensor-core GEMV (bf16 x, M <= 8) at every width against
+    its plain version, the grouped form: N = 320 is not a multiple of the
+    256-column tile, K = 2048 (superblock 1024) is split over blocks; f32
+    out within 1e-4 (normalized; summation order only), bf16 out one
+    rounding; the SwiGLU prologue through quant_matmul_swiglu_indexed; two
+    calls give the same bits; one launch per call, counted as grouped."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    rng = np.random.default_rng(100 + M + 10 * swiglu)
+    rng = np.random.default_rng(100 + M + 10 * swiglu + 100 * nbits)
     N, K = 320, 2048
     W = torch.from_numpy(rng.normal(size=(N, K)).astype(np.float32) * 0.02)
-    qt = tq.quantize(W.cuda(), nbits=8, meta_dtype=meta)
+    qt = tq.quantize(W.cuda(), nbits=nbits, meta_dtype=meta)
     x, u = (torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)
                              ).cuda().to(torch.bfloat16) for _ in range(2))
-    assert tqm._grouped_applies(x, qt.packed, qt.scale, qt.zero, 8, 128,
+    assert tqm._grouped_applies(x, qt.packed, qt.scale, qt.zero, nbits, 128,
                                 qt.superblock)
-    assert tqm._grouped_splits(N, K // qt.superblock, x.device)[0] == 2
-    kw = dict(nbits=8, group_size=128, shape=(N, K),
+    blocks = tqm._grouped_blocks(nbits, swiglu, int(meta == torch.bfloat16),
+                                 128, qt.superblock, 0)
+    assert tqm._grouped_splits(N, nbits, qt.superblock, K, blocks,
+                               x.device)[0] >= 2
+    kw = dict(nbits=nbits, group_size=128, shape=(N, K),
               superblock=qt.superblock, out_dtype=out_dtype)
-    counter = (tqm.quant_matmul_swiglu_indexed if swiglu else tqm.quant_matmul)
-    before = counter.launches
+    counter = (tqm.quant_matmul_swiglu_indexed if swiglu
+               else tqm.quant_matmul if nbits == 8
+               else tqm.quant_matmul_indexed)
+    before = counter.launches, counter.grouped_launches
 
     def call():
+        stack = (qt.packed[None], qt.scale[None], qt.zero[None], 0)
         if swiglu:
-            return tqm.quant_matmul_swiglu_indexed(
-                x, u, qt.packed[None], qt.scale[None], qt.zero[None], 0, **kw)
-        return tqm.quant_matmul(x, qt, out_dtype=out_dtype)
+            return tqm.quant_matmul_swiglu_indexed(x, u, *stack, **kw)
+        if nbits == 8:
+            return tqm.quant_matmul(x, qt, out_dtype=out_dtype)
+        return tqm.quant_matmul_indexed(x, *stack, **kw)
 
     got, again = call(), call()
     want = tqm.qmm_grouped_plain(x, qt.packed, qt.scale, qt.zero,
@@ -172,43 +191,123 @@ def test_cuda_grouped_gemv_matches_grouped_plain(M, swiglu, out_dtype, meta):
     atol = 1e-4 if out_dtype == torch.float32 else 1e-2
     _norm_close(got.float().cpu().numpy(), want.float().cpu().numpy(), atol)
     assert torch.equal(got, again)
-    assert counter.launches - before == 2
+    assert (counter.launches - before[0],
+            counter.grouped_launches - before[1]) == (2, 2)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("group,superblock", [(64, 64), (64, 128), (64, 192),
-                                              (128, 384), (128, 1024)])
-def test_cuda_8bit_bf16_gemv_routes_every_superblock(group, superblock):
-    """An 8-bit bf16 M = 1 call at every superblock the common checks
-    accept: where the grouped GEMV's conditions hold it takes that kernel
-    (held to the grouped form), elsewhere the CUDA-core GEMV (held to the
-    f32 plain version).  A superblock whose extraction rounds (sb / 2 rows
-    at 8 bits) straddle groups (192 of 64-row groups, 384 of 128-row
-    groups) is refused by both kernels with a ValueError, never answered
-    wrongly."""
+@pytest.mark.parametrize("swiglu", [False, True])
+@pytest.mark.parametrize("nbits", [1, 2, 3, 4, 8])
+def test_cuda_grouped_gemv_rows_independent_of_M(nbits, swiglu):
+    """Row m of an M = 5 call (the speculative verify's gamma + 1 rows)
+    has the bits of the same activation row alone (M = 1): the MMA's n8
+    side holds every row, and the splits (reckoned at the largest M) and
+    sums do not depend on M."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    rng = np.random.default_rng(120 + group + superblock)
-    N, K = 256, 1024 // superblock * superblock
+    rng = np.random.default_rng(130 + nbits + 10 * swiglu)
+    N, K = 4096, 4096
     W = torch.from_numpy(rng.normal(size=(N, K)).astype(np.float32) * 0.02)
-    qt = tq.quantize(W.cuda(), nbits=8, group_size=group,
+    qt = tq.quantize(W.cuda(), nbits=nbits, meta_dtype=torch.bfloat16)
+    x, u = (torch.from_numpy(rng.normal(size=(5, K)).astype(np.float32)
+                             ).cuda().to(torch.bfloat16) for _ in range(2))
+    stack = (qt.packed[None], qt.scale[None], qt.zero[None], 0)
+    kw = dict(nbits=nbits, group_size=128, shape=(N, K),
+              superblock=qt.superblock, out_dtype=torch.bfloat16)
+
+    def call(rows):
+        if swiglu:
+            return tqm.quant_matmul_swiglu_indexed(x[rows], u[rows], *stack,
+                                                   **kw)
+        return tqm.quant_matmul_indexed(x[rows], *stack, **kw)
+
+    before = tqm.quant_matmul_indexed.grouped_launches + \
+        tqm.quant_matmul_swiglu_indexed.grouped_launches
+    five = call(slice(0, 5))
+    for m in range(5):
+        assert torch.equal(call(slice(m, m + 1))[0], five[m]), m
+    assert (tqm.quant_matmul_indexed.grouped_launches
+            + tqm.quant_matmul_swiglu_indexed.grouped_launches
+            - before) == 6
+
+
+#: (group, superblock) layouts the common checks accept, for every width
+_LAYOUTS = [(64, 64), (64, 128), (64, 192), (128, 384), (64, 256), (128, 256),
+            (128, 512), (64, 768), (128, 1024), (256, 1024)]
+
+
+def _grouped_expected(nbits, group, superblock):
+    """Whether the grouped GEMV takes the layout, reckoned here from the
+    kernel's rules: groups of a multiple of 64; whole ring stages (32 word
+    rows of the round plane, 16 of the 1-bit plane at 3 bits); 8-bit
+    rounds (superblock / 2 rows) nesting with the groups; below 8 bits
+    power-of-two groups and superblock."""
+    rows = superblock // 32 if nbits == 3 else superblock * nbits // 32
+    whole = rows % (16 if nbits == 3 else 32) == 0
+    if nbits == 8:
+        half = superblock // 2
+        shape = half % group == 0 or group % half == 0
+    else:
+        shape = all(v & (v - 1) == 0 for v in (group, superblock))
+    return group % 64 == 0 and whole and shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group,superblock", _LAYOUTS)
+@pytest.mark.parametrize("nbits", [1, 2, 3, 4, 8])
+def test_cuda_8bit_bf16_gemv_routes_every_superblock(nbits, group,
+                                                     superblock):
+    """A bf16 M = 1 call at every width and every layout the common checks
+    accept: where _grouped_applies takes it, the grouped GEMV launches
+    (held to the grouped form; the grouped counter moves); elsewhere the
+    CUDA-core GEMV (held to the f32 plain version), and the C entry of the
+    grouped GEMV refuses that call too, so the predicate is the one that
+    routes.  A layout whose extraction rounds straddle groups (the 8-bit
+    superblocks of 192 rows of 64-row groups, 384 of 128-row groups) is
+    refused by both kernels with a ValueError, never answered wrongly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    rng = np.random.default_rng(120 + group + superblock + nbits)
+    N, K = 256, 1536 // superblock * superblock
+    W = torch.from_numpy(rng.normal(size=(N, K)).astype(np.float32) * 0.02)
+    qt = tq.quantize(W.cuda(), nbits=nbits, group_size=group,
                      meta_dtype=torch.bfloat16, superblock=superblock)
     x = torch.from_numpy(rng.normal(size=(1, K)).astype(np.float32)
                          ).cuda().to(torch.bfloat16)
-    grouped = tqm._grouped_applies(x, qt.packed, qt.scale, qt.zero, 8, group,
-                                   superblock)
-    assert grouped == (superblock % 128 == 0)
-    half = superblock // 2
-    if half % group and group % half:
+    grouped = tqm._grouped_applies(x, qt.packed, qt.scale, qt.zero, nbits,
+                                   group, superblock)
+    assert grouped == _grouped_expected(nbits, group, superblock)
+    out = torch.empty((1, N), dtype=torch.float32, device="cuda")
+    rows = superblock // 32 if nbits == 3 else superblock * nbits // 32
+    per = max(1, rows // (16 if nbits == 3 else 32) * (K // superblock))
+    p = tqm._cuda.ptr
+    rc = tqm._lib("amq_qmm_grouped")(
+        p(x), None, 1, p(qt.packed), p(qt.scale), p(qt.zero), 1, p(out), 0,
+        None, 1, K, x.stride(0), K, N, N, nbits, group, superblock, 1,
+        max(1, per), tqm._cuda.stream())
+    torch.cuda.synchronize()
+    assert (rc == 0) == grouped, rc
+    before = tqm.quant_matmul_indexed.grouped_launches
+    stack = (qt.packed[None], qt.scale[None], qt.zero[None], 0)
+    kw = dict(nbits=nbits, group_size=group, shape=(N, K),
+              superblock=superblock, out_dtype=torch.float32)
+    # the CUDA-core GEMV's own refusal: a plane's extraction round (sb * b
+    # / 16 rows; 3-bit: its 2-bit and 1-bit planes) straddles groups
+    spans = ((superblock // 8, superblock // 16) if nbits == 3
+             else (superblock * nbits // 16,))
+    nest = all(r % group == 0 or group % r == 0 for r in spans)
+    if not grouped and not nest:
         with pytest.raises(ValueError, match="does not take"):
-            tqm.quant_matmul(x, qt, out_dtype=torch.float32)
+            tqm.quant_matmul_indexed(x, *stack, **kw)
         return
-    got = tqm.quant_matmul(x, qt, out_dtype=torch.float32)
+    got = tqm.quant_matmul_indexed(x, *stack, **kw)
+    assert tqm.quant_matmul_indexed.grouped_launches - before == int(grouped)
     plain = tqm.qmm_grouped_plain if grouped else tqm.qmm_plain
-    want = plain(x, qt.packed, qt.scale, qt.zero, nbits=8, group_size=group,
-                 shape=(N, K), superblock=superblock, out_dtype=torch.float32)
+    want = plain(x, qt.packed, qt.scale, qt.zero, **kw)
     torch.cuda.synchronize()
     _norm_close(got.cpu().numpy(), want.cpu().numpy(), 1e-4)
+    if grouped:             # the direct launch, unsplit
+        _norm_close(out.cpu().numpy(), want.cpu().numpy(), 1e-4)
 
 
 @pytest.mark.cuda

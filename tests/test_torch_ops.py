@@ -107,31 +107,87 @@ def test_grouped_plain_matches_jax_and_qmm_plain(M, swiglu):
     _norm_close(got.numpy(), plain, atol=1e-4)
 
 
-def test_grouped_routing_conditions():
-    """8-bit, bf16 activations, M <= 8, groups of a multiple of 64, a
-    superblock of a multiple of 128 and at most 1024, Np, K and x's row
-    stride multiples of 8, 16-byte aligned operands: the grouped GEMV;
-    anything else keeps the CUDA-core GEMV (f32 activations are the JAX
-    package's per-weight route)."""
-    x = torch.zeros((8, 256), dtype=torch.bfloat16)
-    packed = torch.zeros((64, 128), dtype=torch.int32)
+@pytest.mark.parametrize("swiglu", [False, True])
+@pytest.mark.parametrize("M", [1, 5, 8])
+@pytest.mark.parametrize("nbits", [1, 2, 3, 4])
+def test_grouped_plain_low_widths_match_jax_indexed(nbits, M, swiglu):
+    """The grouped form's plain version at 1/2/3/4 bits (one plane of
+    128 + c, 3-bit codes recombined) against the JAX quant_matmul_indexed /
+    quant_matmul_swiglu_indexed at bf16 x, M <= 8 (their grouped serving
+    GEMV, _gemv_blockdiag, in interpret mode; the suite's normalized
+    2e-2), and against qmm_plain in f32 out at 1e-4.  K = 2048 (superblock
+    1024, the 7B sites' and every width's whole ring stages), N = 384."""
+    rng = np.random.default_rng(150 + 10 * nbits + M + 100 * swiglu)
+    N, K = 384, 2048
+    qt = jq.quantize(jnp.asarray(rng.normal(size=(N, K)).astype(np.float32)
+                                 * 0.02), nbits=nbits,
+                     meta_dtype=jnp.bfloat16)
+    assert qt.superblock == 1024
+    packed, scale, zero = _stack([qt])
+    x, u = (jnp.asarray(rng.normal(size=(M, K)).astype(np.float32)).astype(
+        jnp.bfloat16) for _ in range(2))
+    kw = dict(nbits=nbits, group_size=128, shape=(N, K),
+              superblock=qt.superblock)
+    with pltpu.force_tpu_interpret_mode():
+        if swiglu:
+            want = jqm.quant_matmul_swiglu_indexed(
+                x, u, packed, scale, zero, jnp.int32(0),
+                acc_dtype=jnp.bfloat16, out_dtype=jnp.float32, **kw)
+        else:
+            want = jqm.quant_matmul_indexed(
+                x, packed, scale, zero, jnp.int32(0), acc_dtype=jnp.bfloat16,
+                out_dtype=jnp.float32, **kw)
+    pq = _port_qt(qt)
+    xt, ut = to_tensor(np.asarray(x)), to_tensor(np.asarray(u))
+    args = dict(out_dtype=torch.float32, up=ut if swiglu else None, **kw)
+    got = tqm.qmm_grouped_plain(xt, pq.packed, pq.scale, pq.zero, **args)
+    assert got.shape == (M, N) and got.dtype == torch.float32
+    _norm_close(got.numpy(), np.asarray(want))
+    plain = tqm.qmm_plain(xt, pq.packed, pq.scale, pq.zero, **args).numpy()
+    _norm_close(got.numpy(), plain, atol=1e-4)
+
+
+#: per width, the smallest superblock of whole grouped ring stages (32
+#: word rows of the round plane; 16 at 3 bits, beside 32 2-bit rows)
+_WHOLE_STAGE = {8: 128, 4: 256, 3: 512, 2: 512, 1: 1024}
+
+
+@pytest.mark.parametrize("nbits", [1, 2, 3, 4, 8])
+def test_grouped_routing_conditions(nbits):
+    """bf16 activations, M <= 8, groups of a multiple of 64, a superblock
+    of at most 1024 rows holding whole ring stages (each width's smallest
+    is accepted, half of it refused), Np, K and x's row stride multiples
+    of 8, 16-byte aligned operands; at 8 bits rounds that nest with the
+    groups, below 8 bits power-of-two groups and superblock (binding at 4
+    bits only: whole stages imply it at 1-3): the grouped
+    GEMV; anything else keeps the CUDA-core GEMV (f32 activations are the
+    JAX package's per-weight route)."""
+    sb = _WHOLE_STAGE[nbits]
+    x = torch.zeros((8, 1024), dtype=torch.bfloat16)
     meta = torch.zeros((2, 128), dtype=torch.bfloat16)
 
-    def ok(x=x, packed=packed, nbits=8, group=128, superblock=256):
+    def ok(x=x, nbits=nbits, group=64, superblock=sb, cols=128):
+        packed = torch.zeros((superblock * nbits // 32, 128),
+                             dtype=torch.int32)[:, :cols]
         return tqm._grouped_applies(x, packed, meta, meta, nbits, group,
                                     superblock)
 
     assert ok()
-    assert ok(group=64, superblock=128)
-    assert not ok(nbits=4)
+    assert ok(group=128, superblock=1024)
+    assert not ok(superblock=sb // 2)               # half a ring stage
     assert not ok(x=x.float())
-    assert not ok(x=torch.zeros((9, 256), dtype=torch.bfloat16))
+    assert not ok(x=torch.zeros((9, 1024), dtype=torch.bfloat16))
     assert not ok(group=32)
-    assert not ok(group=64, superblock=64)     # half a ring stage
-    assert not ok(group=64, superblock=192)    # 48 word rows: 1.5 stages
     assert not ok(superblock=2048)
-    assert not ok(packed=packed[:, :124])
-    assert not ok(x=x[:, 1:253])               # K, alignment
+    assert not ok(cols=124)
+    assert not ok(x=x[:, 1:1021])                   # K, alignment
+    if nbits == 8:
+        assert not ok(nbits=4, superblock=128)      # half a 4-bit stage
+        assert ok(group=64, superblock=384)         # 64-row groups nest
+        assert not ok(group=128, superblock=384)    # rounds straddle groups
+    if nbits == 4:      # whole stages, but not powers of two
+        assert not ok(group=128, superblock=768)
+        assert not ok(group=192, superblock=768)
 
 
 @pytest.mark.parametrize("nbits", [2, 3, 4, 8])

@@ -290,20 +290,24 @@ def test_probe_entry_points_refuse_without_a_card(monkeypatch, small_sites):
 
 def test_grouped_ring_sweep_starts_at_the_shipped_shape():
     """The ring-shape sweep's first variant is qmm_tile.cuh's default ring,
-    whose column tile is the wrapper's; its shared memory lets two blocks
-    share an SM, as the wrapper's split rule assumes; every variant's
-    stage is whole 8-row MMA steps; the probe refuses the CPU."""
+    whose column tile and stage rows are the wrapper's; its shared memory
+    lets two blocks share an SM at 8, 4 and 2 bits (M = 8, no SwiGLU);
+    every variant's stage is whole 8-row MMA steps; the probe refuses the
+    CPU and widths it has no site for."""
     src = (Path(__file__).resolve().parent.parent / "amq_tpu_torch" / "csrc"
            / "qmm_tile.cuh").read_text()
     default = tuple(int(re.search(rf"#define {name} (\d+)", src).group(1))
                     for name in ("AMQ_GTILES", "AMQ_GSR", "AMQ_GSTAGES"))
     assert gr.VARIANTS[0] == default
     assert 128 * default[0] == tqm._GROUPED_BN
-    assert gr.blocks_per_sm(*default) == 2
+    assert default[1] == tqm._GROUPED_ROWS
+    assert all(gr.blocks_per_sm(*default, nbits=b) == 2 for b in (8, 4, 2))
     assert all(rows % 8 == 0 and 64 % rows == 0 for _, rows, _ in gr.VARIANTS)
     assert len(set(gr.VARIANTS)) == len(gr.VARIANTS)
     with pytest.raises(SystemExit):
         gr.main(device="cpu")
+    with pytest.raises(SystemExit):
+        gr.main(["5"], device="cpu")
 
 
 def test_count_sass_reads_each_attribution_kernel():
