@@ -467,8 +467,10 @@ int grouped_blocks(int M, bool swiglu, int meta_bf16, int sb, int gs) {
   if (grouped_allow<BITS>(smem) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &n, qmm_grouped_kernel<BITS>, (kGWarps + 1) * 32, smem) !=
-          cudaSuccess)
+          cudaSuccess) {
+    cudaGetLastError();       // not left for the next launch's check
     return -1;
+  }
   return n;
 }
 
@@ -634,6 +636,22 @@ extern "C" int amq_qmm_grouped_blocks(int nbits, int M, int swiglu,
     case 3: return grouped_blocks<3>(M, swiglu, meta_bf16, superblock, group_size);
     case 4: return grouped_blocks<4>(M, swiglu, meta_bf16, superblock, group_size);
     case 8: return grouped_blocks<8>(M, swiglu, meta_bf16, superblock, group_size);
+    default: return -1;
+  }
+}
+
+// Dynamic shared memory of one grouped block for a call of this shape, in
+// bytes (what launch_grouped asks for), or -1 for a width it has no
+// kernel for.
+extern "C" long long amq_qmm_grouped_smem(int nbits, int M, int swiglu,
+                                          int meta_bf16, int group_size,
+                                          int superblock) {
+  switch (nbits) {
+    case 1: return grouped_smem<1>(M, swiglu, meta_bf16, superblock, group_size);
+    case 2: return grouped_smem<2>(M, swiglu, meta_bf16, superblock, group_size);
+    case 3: return grouped_smem<3>(M, swiglu, meta_bf16, superblock, group_size);
+    case 4: return grouped_smem<4>(M, swiglu, meta_bf16, superblock, group_size);
+    case 8: return grouped_smem<8>(M, swiglu, meta_bf16, superblock, group_size);
     default: return -1;
   }
 }

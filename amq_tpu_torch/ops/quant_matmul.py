@@ -150,36 +150,53 @@ def _pow2(v: int) -> bool:
     return v > 0 and v & (v - 1) == 0
 
 
+@functools.lru_cache(maxsize=None)
+def _grouped_layout(nbits: int, group_size: int, superblock: int) -> bool:
+    """The weight layouts the grouped GEMV takes (``grouped_takes`` in
+    ``csrc/quant_matmul.cu`` refuses the rest): groups of a multiple of 64
+    rows, a superblock of at most 1024 rows holding whole groups and whole
+    ring stages (a multiple of 128 rows at 8 bits, 256 at 4, 512 at 3 and
+    2, 1024 at 1); at 8 bits extraction rounds that nest with the groups,
+    below it power-of-two groups and superblock."""
+    if nbits not in (1, 2, 3, 4, 8) or not (
+            group_size % (2 * _GROUPED_ROWS) == 0
+            and superblock % group_size == 0 and superblock <= 1024
+            and _grouped_round_rows(nbits, superblock)
+            % _grouped_stage_rows(nbits) == 0):
+        return False
+    if nbits == 8:
+        half = superblock // 2          # an 8-bit round's K rows
+        return half % group_size == 0 or group_size % half == 0
+    return _pow2(group_size) and _pow2(superblock)
+
+
 def _grouped_applies(x: torch.Tensor, packed: torch.Tensor,
                      scale: torch.Tensor, zero: torch.Tensor, nbits: int,
                      group_size: int, superblock: int, up=None) -> bool:
     """Take the grouped tensor-core GEMV?  The JAX package takes its
     grouped serving GEMV at ``single_m and acc_dtype == bf16`` (M <= 8,
     bf16 activations) for every width; the port does too, wherever the
-    kernel's own conditions hold (``grouped_takes`` in
-    ``csrc/quant_matmul.cu``, which refuses the rest): a padded N, K and
-    x's row stride that are multiples of 8, 16-byte aligned activations and
-    weights (16-byte bulk copies), groups of a multiple of 64 rows, a
-    superblock of at most 1024 rows holding whole ring stages (a multiple
-    of 128 rows at 8 bits, 256 at 4, 512 at 3 and 2, 1024 at 1); at 8 bits
-    extraction rounds that nest with the groups, below it power-of-two
-    groups and superblock.  Other calls take the CUDA-core GEMV; this is
-    the only predicate that routes."""
-    if nbits not in (1, 2, 3, 4, 8) or not (
-            1 <= x.shape[0] <= 8 and x.dtype == torch.bfloat16
-            and group_size % (2 * _GROUPED_ROWS) == 0
-            and superblock % group_size == 0 and superblock <= 1024
-            and _grouped_round_rows(nbits, superblock)
-            % _grouped_stage_rows(nbits) == 0
+    kernel's own conditions hold: a layout :func:`_grouped_layout` takes,
+    a padded N, K and x's row stride that are multiples of 8, and 16-byte
+    aligned activations and weights (16-byte bulk copies).  Other calls
+    take the CUDA-core GEMV; this is the only predicate that routes."""
+    return (1 <= x.shape[0] <= 8 and x.dtype == torch.bfloat16
+            and _grouped_layout(nbits, group_size, superblock)
             and packed.shape[-1] % 8 == 0 and x.shape[-1] % 8 == 0
             and x.stride(0) % 8 == 0
             and all(t.data_ptr() % 16 == 0 for t in (x, packed, scale, zero)
-                    + ((up,) if up is not None else ()))):
-        return False
-    if nbits == 8:
-        half = superblock // 2          # an 8-bit round's K rows
-        return half % group_size == 0 or group_size % half == 0
-    return _pow2(group_size) and _pow2(superblock)
+                    + ((up,) if up is not None else ())))
+
+
+@functools.lru_cache(maxsize=None)
+def _grouped_plan(N: int, Kp: int, nbits: int, swiglu: bool, meta_bf16: int,
+                  group_size: int, superblock: int, index: int) -> tuple:
+    """(splits, ring stages per split) of a grouped call, once per weight
+    shape and card (the decode loop repeats a few shapes)."""
+    blocks = _grouped_blocks(nbits, swiglu, meta_bf16, group_size,
+                             superblock, index)
+    return _grouped_splits(N, nbits, superblock, Kp, blocks,
+                           torch.device("cuda", index))
 
 
 def _pipe_applies(x: torch.Tensor, packed: torch.Tensor, nbits: int,
@@ -314,10 +331,9 @@ def _qmm_cuda(x, up, packed, scale, zero, *, nbits, group_size, shape,
     meta_bf16 = _cuda.dtype_flag(scale, what)
     if grouped:
         entry = "amq_qmm_grouped"
-        blocks = _grouped_blocks(nbits, up is not None, meta_bf16,
-                                 group_size, superblock, x.device.index or 0)
-        splits, per = _grouped_splits(N, nbits, superblock, Kp, blocks,
-                                      x.device)
+        splits, per = _grouped_plan(N, Kp, nbits, up is not None, meta_bf16,
+                                    group_size, superblock,
+                                    x.device.index or 0)
     else:
         entry = "amq_qmm_pipe" if pipe else "amq_qmm"
         splits, per = _splits(M, N, Kp // superblock, x.device)

@@ -4,6 +4,7 @@ package's ``scripts/kernel_attrib.py`` (an attribution of the GEMV body,
 tensor-core GEMV, ``pipelined_gemv``) and ``scripts/kernel_roofline.py``
 (the dequant matmul per width and container, ``kernel_roofline``), with
 the chain timer they share (``chain``), and a ring-shape sweep of the
-grouped 8-bit GEMV at the head (``grouped_ring``, the port's own).  Each is a module with a CLI:
+grouped GEMV per code width (``grouped_ring``) and a decode A/B across
+checkouts (``decode_ab``), the port's own.  Each is a module with a CLI:
 ``python -m amq_tpu_torch.probes.<name> ...``.
 """

@@ -45,8 +45,6 @@ VARIANTS = ((2, 32, 2), (2, 32, 3), (2, 32, 4), (2, 16, 2), (2, 16, 3),
 SITES = {8: (32000, 4096), 4: chain.SITES["gu"], 3: chain.SITES["gu"],
          2: chain.SITES["gu"], 1: chain.SITES["gu"]}
 WIDTHS = (2, 4, 8)
-SMEM_PER_SM = 228 * 1024              # H100: shared memory per SM
-SMEM_PER_BLOCK = 227 * 1024           # H100: the most one block may take
 TOL = 1e-4                            # f32 out: summation order only
 
 
@@ -55,52 +53,21 @@ def defines(tiles: int, rows: int, stages: int) -> tuple:
             f"AMQ_GSTAGES={stages}")
 
 
-def smem_bytes(tiles: int, rows: int, stages: int, nbits: int = 8,
-               M: int = 8, swiglu: bool = False, meta_bytes: int = 2,
-               superblock: int = 1024, group: int = 128) -> int:
-    """Dynamic shared memory of one block, as ``launch_grouped`` sizes it
-    (mirrors ``qmm_tile.cuh``'s ``grouped_layout``): 128 bytes of
-    barriers, then per stage the word rows (128 x tiles + 4 words each;
-    3-bit: 1.5 times the rows), two meta rows per slot (per round at 8 bits,
-    f32-wide; else per group a stage's rounds touch, in the meta's type)
-    and the activations ([8 at 8 bits, else M] rows x rounds x (2 x rows +
-    8) bf16; 3-bit: half the rows per round), twice with the SwiGLU
-    operand."""
-    bn = 128 * tiles
-    n = qm._grouped_stage_rows(nbits, rows)
-    wrows = 3 * n if nbits == 3 else rows
-    P = 16 if nbits == 3 else 16 // nbits
-    span = 2 * qm._grouped_round_rows(nbits, superblock)
-    slots = P if nbits == 8 or span >= group else P // (group // span)
-    meta = 2 * slots * bn * (4 if nbits == 8 else meta_bytes)
-    x = (8 if nbits == 8 else M) * P * (2 * n + 8) * 2
-    stage = wrows * (bn + 4) * 4 + meta + (2 if swiglu else 1) * x
-    return 128 + stages * stage
-
-
-def blocks_per_sm(tiles: int, rows: int, stages: int, nbits: int = 8) -> int:
-    """Blocks of the variant one SM holds by shared memory at M = 8 (each
-    block also takes 1 KB of the runtime's), at most the launch bound's
-    two; 0 where a SwiGLU call at M = 8 with f32 meta would exceed what
-    one block may take (the variant is not built)."""
-    if smem_bytes(tiles, rows, stages, nbits, swiglu=True,
-                  meta_bytes=4) > SMEM_PER_BLOCK:
-        return 0
-    return min(2, SMEM_PER_SM // (smem_bytes(tiles, rows, stages, nbits)
-                                  + 1024))
-
-
 def _entry(var: tuple, name: str = "amq_qmm_grouped"):
+    """An entry of the variant's library: the GEMV, or one of its shape
+    queries (``amq_qmm_grouped_blocks``, ``amq_qmm_grouped_smem``)."""
     fn = getattr(_cuda.library("quant_matmul", defines(*var)), name)
-    if name == "amq_qmm_grouped_blocks":
-        fn.argtypes = [ctypes.c_int] * 6
-    else:
+    if name == "amq_qmm_grouped":
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
                        + [ctypes.c_void_p] * 3
                        + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                           ctypes.c_void_p] + [ctypes.c_int] * 11
                        + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+        fn.restype = ctypes.c_int
+    else:
+        fn.argtypes = [ctypes.c_int] * 6
+        fn.restype = (ctypes.c_longlong if name == "amq_qmm_grouped_smem"
+                      else ctypes.c_int)
     return fn
 
 
@@ -131,8 +98,8 @@ def variant_call(var, nbits, x, packed, scale, zero, sb):
     return call, splits, blocks
 
 
-def sweep(nbits: int, dev, built: dict) -> list:
-    """Check and time every built variant at one width's site."""
+def sweep(nbits: int, dev, fits: dict) -> list:
+    """Check and time every variant that fits at one width's site."""
     N, K = SITES[nbits]
     gen = torch.Generator(device=dev).manual_seed(nbits)
     L = max(chain.CHAIN_LENS)
@@ -157,9 +124,10 @@ def sweep(nbits: int, dev, built: dict) -> list:
     for var in VARIANTS:
         rec = dict(nbits=nbits, N=N, K=K, tiles=var[0], columns=128 * var[0],
                    rows_per_stage=var[1], stages=var[2],
-                   smem_bytes=smem_bytes(*var, nbits=nbits, M=1),
+                   smem_bytes=_entry(var, "amq_qmm_grouped_smem")(
+                       nbits, 1, 0, 1, 128, sb),
                    bound_us=bound, shipped_us=shipped_us)
-        if built[var]:
+        if fits[var]:
             call, rec["splits"], rec["blocks_per_sm"] = variant_call(
                 var, nbits, x, packed, scale, zero, sb)
             got = call(0).clone()
@@ -190,14 +158,20 @@ def main(argv=None, device=None) -> list:
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise SystemExit("grouped_ring: times kernels, so it needs the card")
-    fits = {v: all(blocks_per_sm(*v, nbits=w) for w in widths)
-            for v in VARIANTS}
     with ThreadPoolExecutor(len(VARIANTS)) as pool:      # one nvcc each
         times = list(pool.map(
-            lambda v: _cuda.build(["quant_matmul"], defines=defines(*v))
-            if fits[v] else 0.0, VARIANTS))
-    print(f"grouped_ring: built {sum(fits.values())} variants in "
+            lambda v: _cuda.build(["quant_matmul"], defines=defines(*v)),
+            VARIANTS))
+    print(f"grouped_ring: built {len(VARIANTS)} variants in "
           f"{max(times):.1f} s", flush=True)
+    # run a variant only where its stage divides every width's superblock
+    # and a block of every width's largest call (M = 8, SwiGLU, f32 meta)
+    # fits an SM, as its own library reckons it
+    fits = {v: all(qm._grouped_round_rows(w, 1024)
+                   % qm._grouped_stage_rows(w, v[1]) == 0
+                   and _entry(v, "amq_qmm_grouped_blocks")(
+                       w, 8, 1, 0, 128, 1024) >= 1
+                   for w in widths) for v in VARIANTS}
     return [rec for w in widths for rec in sweep(w, dev, fits)]
 
 

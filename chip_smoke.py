@@ -1814,6 +1814,10 @@ def main():
         for site in ("qkv", "o", "gateup", "down"):
             for nbits in (2, 3, 4):
                 cases.append(check_matmul(site, nbits, M, torch.bfloat16, gen))
+    # width 1 (on no 7B path) on both routes, at the largest and smallest
+    # decode sites
+    for site in ("gateup", "o"):
+        cases.append(check_matmul(site, 1, 1, torch.bfloat16, gen))
     # the head's speculative-verify row counts (gamma + 1) and the
     # grouped GEMV's largest M
     for M in (5, 8):

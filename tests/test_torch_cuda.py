@@ -236,27 +236,21 @@ _LAYOUTS = [(64, 64), (64, 128), (64, 192), (128, 384), (64, 256), (128, 256),
             (128, 512), (64, 768), (128, 1024), (256, 1024)]
 
 
-def _grouped_expected(nbits, group, superblock):
-    """Whether the grouped GEMV takes the layout, reckoned here from the
-    kernel's rules: groups of a multiple of 64; whole ring stages (32 word
-    rows of the round plane, 16 of the 1-bit plane at 3 bits); 8-bit
-    rounds (superblock / 2 rows) nesting with the groups; below 8 bits
-    power-of-two groups and superblock."""
-    rows = superblock // 32 if nbits == 3 else superblock * nbits // 32
-    whole = rows % (16 if nbits == 3 else 32) == 0
-    if nbits == 8:
-        half = superblock // 2
-        shape = half % group == 0 or group % half == 0
-    else:
-        shape = all(v & (v - 1) == 0 for v in (group, superblock))
-    return group % 64 == 0 and whole and shape
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbits", [2, 4, 8])
+def test_cuda_grouped_ring_holds_two_blocks_per_sm(nbits):
+    """The shipped ring's shared memory and registers let two grouped
+    blocks share an SM at 8, 4 and 2 bits (M = 8, no SwiGLU, bf16 meta,
+    superblock 1024), by the library's own occupancy query."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    assert tqm._grouped_blocks(nbits, False, 1, 128, 1024, 0) == 2
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("group,superblock", _LAYOUTS)
 @pytest.mark.parametrize("nbits", [1, 2, 3, 4, 8])
-def test_cuda_8bit_bf16_gemv_routes_every_superblock(nbits, group,
-                                                     superblock):
+def test_cuda_grouped_gemv_routes_every_layout(nbits, group, superblock):
     """A bf16 M = 1 call at every width and every layout the common checks
     accept: where _grouped_applies takes it, the grouped GEMV launches
     (held to the grouped form; the grouped counter moves); elsewhere the
@@ -276,10 +270,10 @@ def test_cuda_8bit_bf16_gemv_routes_every_superblock(nbits, group,
                          ).cuda().to(torch.bfloat16)
     grouped = tqm._grouped_applies(x, qt.packed, qt.scale, qt.zero, nbits,
                                    group, superblock)
-    assert grouped == _grouped_expected(nbits, group, superblock)
     out = torch.empty((1, N), dtype=torch.float32, device="cuda")
-    rows = superblock // 32 if nbits == 3 else superblock * nbits // 32
-    per = max(1, rows // (16 if nbits == 3 else 32) * (K // superblock))
+    # unsplit: every ring stage of K in one block
+    per = (tqm._grouped_round_rows(nbits, superblock)
+           // tqm._grouped_stage_rows(nbits) * (K // superblock))
     p = tqm._cuda.ptr
     rc = tqm._lib("amq_qmm_grouped")(
         p(x), None, 1, p(qt.packed), p(qt.scale), p(qt.zero), 1, p(out), 0,
@@ -523,7 +517,9 @@ def test_cuda_model_forward_flash_matches_einsum(with_cache):
 def test_cuda_gemv_attrib_variants_match_plain(nbits, swiglu, body):
     """The attribution kernel's four variants on layer 1 of a random stack
     (N 320: five column tiles, so K splits and their atomics run): full
-    equal to the production GEMV of its body with torch.equal, each
+    equal to the production GEMV of its body with torch.equal (the
+    CUDA-core GEMV through the wrapper's private route; the pipelined
+    GEMV), each
     stripped variant to its plain version (XOR folds and code sums
     exactly, fma_only at the bf16 GEMV tolerance)."""
     if not torch.cuda.is_available():
@@ -536,13 +532,14 @@ def test_cuda_gemv_attrib_variants_match_plain(nbits, swiglu, body):
         torch.bfloat16) for _ in range(2))
     up = u if swiglu else None
     kw = dict(nbits=nbits, group_size=128, shape=(N, K), superblock=sb)
-    if body == "gemv":
-        prod_fn = (tqm.quant_matmul_swiglu_indexed if swiglu
-                   else tqm.quant_matmul_indexed)
+    if body == "gemv":      # the CUDA-core GEMV, not the public route
+        prod = tqm._qmm_cuda_core(x, packed[1], scale[1], zero[1], up=up,
+                                  out_dtype=x.dtype, **kw)
     else:
         prod_fn = (tqm.quant_matmul_swiglu_indexed_pipe if swiglu
                    else tqm.quant_matmul_indexed_pipe)
-    prod = prod_fn(*((x, u) if swiglu else (x,)), packed, scale, zero, 1, **kw)
+        prod = prod_fn(*((x, u) if swiglu else (x,)), packed, scale, zero, 1,
+                       **kw)
     before = ka.gemv_attrib.launches
     for variant in ka.VARIANTS:
         got = ka.gemv_attrib(x, packed[1], scale[1], zero[1], up=up,

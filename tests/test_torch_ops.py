@@ -156,7 +156,7 @@ _WHOLE_STAGE = {8: 128, 4: 256, 3: 512, 2: 512, 1: 1024}
 def test_grouped_routing_conditions(nbits):
     """bf16 activations, M <= 8, groups of a multiple of 64, a superblock
     of at most 1024 rows holding whole ring stages (each width's smallest
-    is accepted, half of it refused), Np, K and x's row stride multiples
+    is accepted, half and one and a half of it refused), Np, K and x's row stride multiples
     of 8, 16-byte aligned operands; at 8 bits rounds that nest with the
     groups, below 8 bits power-of-two groups and superblock (binding at 4
     bits only: whole stages imply it at 1-3): the grouped
@@ -175,6 +175,9 @@ def test_grouped_routing_conditions(nbits):
     assert ok()
     assert ok(group=128, superblock=1024)
     assert not ok(superblock=sb // 2)               # half a ring stage
+    # 1.5 ring stages (1-bit: 1536 rows, also past 1024; 8-bit: 192 rows,
+    # 48 word rows)
+    assert not ok(superblock=3 * sb // 2)
     assert not ok(x=x.float())
     assert not ok(x=torch.zeros((9, 1024), dtype=torch.bfloat16))
     assert not ok(group=32)

@@ -34,6 +34,7 @@ from amq_tpu.utils import profiling as jprof
 from amq_tpu_torch.models.convert import to_tensor
 from amq_tpu_torch.ops import quant_matmul as tqm
 from amq_tpu_torch.probes import chain, kernel_attrib as ka
+from amq_tpu_torch.probes import decode_ab as dab
 from amq_tpu_torch.probes import grouped_ring as gr
 from amq_tpu_torch.probes import kernel_roofline as kr
 from amq_tpu_torch.probes import pipelined_gemv as pg
@@ -290,10 +291,10 @@ def test_probe_entry_points_refuse_without_a_card(monkeypatch, small_sites):
 
 def test_grouped_ring_sweep_starts_at_the_shipped_shape():
     """The ring-shape sweep's first variant is qmm_tile.cuh's default ring,
-    whose column tile and stage rows are the wrapper's; its shared memory
-    lets two blocks share an SM at 8, 4 and 2 bits (M = 8, no SwiGLU);
-    every variant's stage is whole 8-row MMA steps; the probe refuses the
-    CPU and widths it has no site for."""
+    whose column tile and stage rows are the wrapper's (the card test
+    ``test_cuda_grouped_ring_holds_two_blocks_per_sm`` holds its
+    occupancy); every variant's stage is whole 8-row MMA steps; the probe
+    refuses the CPU and widths it has no site for."""
     src = (Path(__file__).resolve().parent.parent / "amq_tpu_torch" / "csrc"
            / "qmm_tile.cuh").read_text()
     default = tuple(int(re.search(rf"#define {name} (\d+)", src).group(1))
@@ -301,13 +302,22 @@ def test_grouped_ring_sweep_starts_at_the_shipped_shape():
     assert gr.VARIANTS[0] == default
     assert 128 * default[0] == tqm._GROUPED_BN
     assert default[1] == tqm._GROUPED_ROWS
-    assert all(gr.blocks_per_sm(*default, nbits=b) == 2 for b in (8, 4, 2))
     assert all(rows % 8 == 0 and 64 % rows == 0 for _, rows, _ in gr.VARIANTS)
     assert len(set(gr.VARIANTS)) == len(gr.VARIANTS)
     with pytest.raises(SystemExit):
         gr.main(device="cpu")
     with pytest.raises(SystemExit):
         gr.main(["5"], device="cpu")
+
+
+def test_decode_ab_refuses_no_roots_and_a_failed_root(tmp_path):
+    """The decode A/B takes at least one checkout, and a checkout whose run
+    fails (here: no ``chip_smoke.py`` to import) stops it with the
+    child's error rather than a record."""
+    with pytest.raises(SystemExit, match="usage"):
+        dab.main([])
+    with pytest.raises(SystemExit, match="chip_smoke"):
+        dab.run(str(tmp_path), steps=1, repeats=1)
 
 
 def test_count_sass_reads_each_attribution_kernel():
