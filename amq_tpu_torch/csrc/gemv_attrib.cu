@@ -11,9 +11,10 @@
 //   kGemv  qmm_gemv_kernel (quant_matmul.cu): words straight from device
 //          memory into registers, activation and meta staged in shared
 //          memory once per superblock;
-//   kPipe  qmm_pipe_kernel (quant_matmul_pipe.cu): words and meta through
-//          the two-stage cp.async ring of qmm_tile.cuh's gemv_tile, which
-//          every variant runs, with its own step per superblock.
+//   kPipe  the same GEMV with words and meta through the two-stage
+//          cp.async ring of qmm_tile.cuh's gemv_tile, which every variant
+//          runs, with its own step per superblock (the pipelined route's
+//          design before it took the grouped form).
 //
 // Every variant loads the same bytes as production (the activation, every
 // scale/zero, every packed word); they differ only in what they do with
@@ -337,7 +338,7 @@ int own_smem(int nb, int body, int sb, int gs, int meta_bf16) {
   if (body == kGemv)   // quant_matmul.cu's launch_gemv, M = 1
     return static_cast<int>(sizeof(float) *
                             (sb + 2 * (sb / gs) * kBN + kKS * kBN));
-  return tile_smem_bytes(nb, 1, sb, gs, meta_bf16);   // quant_matmul_pipe.cu
+  return tile_smem_bytes(nb, 1, sb, gs, meta_bf16);   // gemv_tile's ring
 }
 
 cudaError_t blocks_per_sm(const void* fn, int smem, int* blocks) {

@@ -1,0 +1,411 @@
+// The grouped GEMV's ring: one producer warp streaming words, meta and
+// activations by bulk copies through full / empty mbarriers to kGWarps
+// consumer warps that run the grouped form on tensor cores (qmm_tile.cuh's
+// grouped_step, grouped_stage_low, grouped_stage_pipe).
+//
+// One copy of the ring serves three kernels: quant_matmul.cu's grouped
+// GEMV (qmm_grouped_kernel<BITS, false>), quant_matmul_pipe.cu's pipelined
+// one (qmm_grouped_kernel<BITS, true>: the same ring, the pipelined
+// consumer) and quant_matmul_mlp.cu's one-launch MLP, whose blocks walk
+// many (column tile, K split) items through one ring (the stage count runs
+// on across items, so the barriers re-arm) and may issue a stage's weights
+// ahead of its activations (grouped_issue's parts).
+//
+// The design (bound: bytes).  A block owns kGBN = 256 columns: kGWarps = 8
+// consumer warps of kGTiles = 2 16-column MMA tiles each, every warp over
+// all of its split's K, so no cross-warp sum; the tiles share the
+// activation fragments and the xsum MMA.  The producer issues a stage as
+// one copy per 1 KB word row, meta row and activation row and round,
+// completing on the slot's full mbarrier; each consumer warp waits on it,
+// computes, and releases the slot on its empty mbarrier.  No barrier of
+// the whole block sits in the loop: with one per stage, copies and
+// products took turns on the H100 (the time of both added up).  A stage is
+// kGSR = 32 word rows (48 at 3 bits: 16 of the 1-bit plane, 32 of the
+// 2-bit one) and the ring two stages; among the ring shapes tried at 8, 4
+// and 2 bits (one to four tiles per warp, 8 to 64 rows per stage, two to
+// five stages; probes/grouped_ring.py) this one ran fastest.  Under SwiGLU
+// the consumer warps apply silu(x) * u to the stage's activations once, in
+// place, behind a barrier of their own.  K is split across blocks as far
+// as the blocks one SM holds (the occupancy of an M = 8 call, so every M
+// splits alike and row m has the same bits at any M) fill one wave: at
+// whole superblocks at 8 bits, at any stage below; the splits are summed
+// in fixed order by reduce_splits_kernel, so two calls give the same bits.
+
+#pragma once
+
+#include "qmm_tile.cuh"
+
+namespace amq {
+
+// What grouped_issue issues of one stage: its words and meta (after
+// waiting for the slot), its activation rows (with the barrier's arrival),
+// or both.
+constexpr int kIssueWeights = 1;
+constexpr int kIssueActs = 2;
+constexpr int kIssueAll = kIssueWeights | kIssueActs;
+
+// A block's ring in its dynamic shared memory: per slot a full and an
+// empty barrier (the first 128 bytes), then kGStages stages of `lay`.
+// The kernels reach it through this symbol, so that the compiler
+// addresses the ring at constant offsets in shared space (no pointer
+// registers).
+extern __shared__ __align__(16) unsigned char ring_smem[];
+
+struct GroupedRing {
+  GroupedLayout lay;
+  int slots, es;            // meta slots per stage, bytes per meta value
+};
+
+__device__ __forceinline__ uint64_t* ring_full(int j) {
+  return reinterpret_cast<uint64_t*>(ring_smem) + j % kGStages;
+}
+
+__device__ __forceinline__ uint64_t* ring_empty(int j) {
+  return reinterpret_cast<uint64_t*>(ring_smem) + kGStages + j % kGStages;
+}
+
+// The slot of the block's j-th stage.
+__device__ __forceinline__ unsigned char* ring_stage(const GroupedRing& r,
+                                                     int j) {
+  return ring_smem + 128 + (j % kGStages) * r.lay.stage;
+}
+
+// The ring of a call shaped like `a`; with `init` (once per kernel, every
+// thread of the block) its barriers are set up.
+template <int BITS>
+__device__ GroupedRing grouped_ring(const GemvArgs& a, bool init) {
+  const int es = a.w.meta_bf16 ? 2 : 4;
+  const int slots =
+      grouped_meta_slots(BITS, a.w.superblock, a.w.group_size);
+  const GroupedRing r{grouped_layout<BITS>(a.op.M, a.op.u != nullptr, es,
+                                           slots),
+                      slots, es};
+  if (init) {
+    if (threadIdx.x < kGStages) {
+      mbar_init(ring_full(threadIdx.x), 1);
+      mbar_init(ring_empty(threadIdx.x), kGWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    __syncthreads();
+  }
+  return r;
+}
+
+// Ring stages per superblock (of the round plane's word rows).
+template <int BITS>
+__device__ __forceinline__ int grouped_spb(int sb) {
+  return grouped_round_rows(BITS, sb) / GroupedForm<BITS>::n;
+}
+
+// Stages of the split that starts at stage st_lo.
+template <int BITS>
+__device__ __forceinline__ int grouped_stages(const GemvArgs& a, int st_lo) {
+  const int n_st = a.Kp / a.w.superblock * grouped_spb<BITS>(a.w.superblock);
+  return max(0, min(n_st, st_lo + a.sb_per_split) - st_lo);
+}
+
+// Producer (one warp): stage js of the weight's K (columns col0 ..) into
+// ring slot j % kGStages, the block's j-th stage.  Activation rows past M
+// are not copied (they only reach unwritten outputs); rows past K are
+// zeros, written before the barrier's arrival so that its completion
+// publishes them.
+template <int BITS>
+__device__ void grouped_issue(const GemvArgs& a, const GroupedRing& r,
+                              int col0, int js, int j, int lane, int parts) {
+  using F = GroupedForm<BITS>;
+  constexpr int P = F::rounds;
+  const int sb = a.w.superblock, gs = a.w.group_size, Np = a.w.Np;
+  const int M = a.op.M;
+  const bool swiglu = a.op.u != nullptr;
+  const int R = sb * BITS / 32;                    // word rows per superblock
+  const int Rg = grouped_round_rows(BITS, sb);     // ... of a round plane
+  const int spb = Rg / F::n;
+  const int cols = min(kGBN, Np - col0);           // a multiple of 8
+  const int sbi = js / spb, row0 = (js % spb) * F::n;
+  const int k0 = sbi * sb + 2 * row0;              // round 0's first row
+  unsigned char* st = ring_stage(r, j);
+  uint64_t* bar = ring_full(j);
+  if (parts & kIssueWeights) {
+    // 8-bit: a group's rows in one round (its whole superblock when the
+    // group spans rounds): the stage ending them carries the meta
+    const int span = min(gs / 2, R);
+    const bool meta = BITS != 8 || (row0 + kGSR) % span == 0;
+    if (j >= kGStages)
+      mbar_wait(ring_empty(j), (j / kGStages - 1) & 1);
+    if (lane == 0)
+      mbar_expect_tx(bar, F::wrows * cols * 4 +
+                              (meta ? 2 * r.slots * cols * r.es : 0));
+    __syncwarp();
+    for (int i = lane; i < F::wrows; i += 32) {
+      // 3-bit: 2-bit rows [row0, +n) and [Rg + row0, +n), then 1-bit
+      // rows [row0, +n) of the plane after the 2-bit plane's 2 Rg rows
+      const int pl = i / F::n, rr = row0 + i - pl * F::n;
+      const int src = BITS == 3 ? (pl == 2 ? 2 * Rg : pl * Rg) + rr
+                                : row0 + i;
+      bulk_g2s(st + i * kGWordStride * 4,
+               a.w.packed + (static_cast<size_t>(sbi) * R + src) * Np + col0,
+               cols * 4, bar);
+    }
+    if (meta && lane < 2 * r.slots) {   // row 2i scale, 2i + 1 zero of slot i
+      const int grp =
+          (k0 + (lane >> 1) * (P / r.slots) * 2 * Rg) / gs;
+      const unsigned char* base = static_cast<const unsigned char*>(
+          (lane & 1) ? a.w.zero : a.w.scale);
+      bulk_g2s(st + r.lay.meta_off + lane * kGBN * (BITS == 8 ? 4 : r.es),
+               base + (static_cast<size_t>(grp) * Np + col0) * r.es,
+               cols * r.es, bar);
+    }
+  }
+  if (parts & kIssueActs) {
+    const int nx = (swiglu ? 2 : 1) * M * P;        // activation rows
+    int xbytes = 0;
+    for (int p = 0; p < P; ++p)
+      xbytes += 2 * max(0, min(F::part, a.op.K - (k0 + p * 2 * Rg)));
+    for (int i = lane; i < nx; i += 32) {
+      const int which = i / (M * P), mp = i - which * M * P;
+      const int len = max(0, min(F::part, a.op.K - (k0 + (mp % P) * 2 * Rg)));
+      __nv_bfloat16* xdst = reinterpret_cast<__nv_bfloat16*>(
+          st + (which ? r.lay.u_off : r.lay.x_off)) + mp * F::xstride;
+      for (int c = len; c < F::part; ++c) xdst[c] = __float2bfloat16(0.f);
+    }
+    // this lane's generic writes to the ring come before the copies'
+    // (async proxy) writes
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncwarp();
+    if (lane == 0)
+      mbar_arrive_expect_tx(bar, (swiglu ? 2 : 1) * M * xbytes);
+    __syncwarp();
+    for (int i = lane; i < nx; i += 32) {
+      const int which = i / (M * P), mp = i - which * M * P;
+      const int m = mp / P, k = k0 + (mp - m * P) * 2 * Rg;
+      const int len = max(0, min(F::part, a.op.K - k));
+      if (len > 0)
+        bulk_g2s(st + (which ? r.lay.u_off : r.lay.x_off) +
+                     mp * F::xstride * 2,
+                 static_cast<const __nv_bfloat16*>(which ? a.op.u : a.op.x) +
+                     static_cast<size_t>(m) * a.op.ldx + k,
+                 len * 2, bar);
+    }
+  }
+}
+
+// Consumer warps: the S stages of the split from stage st_lo, the block's
+// stages `count` onwards (count advances past them), into tot.
+template <int BITS, bool PIPE>
+__device__ void grouped_consume(const GemvArgs& a, const GroupedRing& r,
+                                int st_lo, int S, int& count,
+                                float (&tot)[kGTiles][4]) {
+  using F = GroupedForm<BITS>;
+  constexpr int P = F::rounds;
+  const int sb = a.w.superblock, gs = a.w.group_size, M = a.op.M;
+  const bool swiglu = a.op.u != nullptr;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wcol = warp * 16 * kGTiles;
+#pragma unroll
+  for (int ct = 0; ct < kGTiles; ++ct)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) tot[ct][i] = 0.f;
+  if constexpr (BITS == 8) {
+    const int spb = grouped_spb<BITS>(sb);
+    const int span = min(gs / 2, sb * BITS / 32);
+    GroupedAcc<BITS> acc;
+    GroupedXAcc<BITS> xacc;
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        xacc[p][i] = 0.f;
+#pragma unroll
+        for (int ct = 0; ct < kGTiles; ++ct)
+#pragma unroll
+          for (int q = 0; q < F::planes; ++q) acc[ct][p][q][i] = 0.f;
+      }
+    for (int s = 0; s < S; ++s, ++count) {
+      mbar_wait(ring_full(count), (count / kGStages) & 1);
+      const unsigned char* st = ring_stage(r, count);
+      grouped_step<BITS>(
+          reinterpret_cast<const uint32_t*>(st),
+          reinterpret_cast<const __nv_bfloat16*>(st + r.lay.x_off),
+          swiglu ? reinterpret_cast<const __nv_bfloat16*>(st + r.lay.u_off)
+                 : nullptr,
+          wcol, lane, acc, xacc);
+      if ((((st_lo + s) % spb) * kGSR + kGSR) % span == 0)
+        grouped_correct<BITS>(st + r.lay.meta_off, a.w.meta_bf16, wcol, lane,
+                              acc, xacc, tot);
+      __syncwarp();                  // the warp is done with the slot
+      if (lane == 0) mbar_arrive(ring_empty(count));
+    }
+  } else {
+    const int lg_share = __ffs(P / r.slots) - 1;     // rounds per slot: 2^lg
+    // B rows past M read row M - 1 (their products reach no output)
+    const int xrow = min(lane >> 2, M - 1);
+    for (int s = 0; s < S; ++s, ++count) {
+      mbar_wait(ring_full(count), (count / kGStages) & 1);
+      unsigned char* st = ring_stage(r, count);
+      __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(st + r.lay.x_off);
+      if (swiglu) {
+        // silu(x) * u once per stage, in place, by all consumer threads
+        // (not per warp and fragment: each warp reads every activation),
+        // then a barrier of the consumer warps only
+        const __nv_bfloat16* us =
+            reinterpret_cast<const __nv_bfloat16*>(st + r.lay.u_off);
+        for (int i = tid; i < M * P * F::part / 2; i += kGWarps * 32) {
+          const int row = i / (F::part / 2);
+          const int o = row * F::xstride + 2 * (i - row * (F::part / 2));
+          uint32_t* xp = reinterpret_cast<uint32_t*>(xs + o);
+          *xp = swiglu_pair(*xp, *reinterpret_cast<const uint32_t*>(us + o));
+        }
+        // these generic writes come before the async-proxy copies that
+        // refill the slot
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync 1, %0;\n" ::"n"(kGWarps * 32) : "memory");
+      }
+      const uint32_t* ws = reinterpret_cast<const uint32_t*>(st);
+      const __nv_bfloat16* xr = xs + xrow * P * F::xstride;
+      if constexpr (PIPE)
+        grouped_stage_pipe<BITS>(ws, xr, st + r.lay.meta_off, r.es, lg_share,
+                                 wcol, lane, tot);
+      else
+        grouped_stage_low<BITS>(ws, xr, st + r.lay.meta_off, r.es, lg_share,
+                                wcol, lane, tot);
+      __syncwarp();                  // the warp is done with the slot
+      if (lane == 0) mbar_arrive(ring_empty(count));
+    }
+  }
+}
+
+// Consumer warps: tot into out [M, N] (split < 0) or into split's f32
+// partials [splits, M, N].
+__device__ __forceinline__ void grouped_store(const GemvArgs& a,
+                                              const float (&tot)[kGTiles][4],
+                                              int col0, int split) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wcol = warp * 16 * kGTiles;
+#pragma unroll
+  for (int ct = 0; ct < kGTiles; ++ct)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = 2 * t + (i & 1);
+      const int n = col0 + wcol + 16 * ct + 2 * g + (i >> 1);
+      if (m >= a.op.M || n >= a.N) continue;
+      if (split < 0) {
+        store_f(a.out, static_cast<size_t>(m) * a.N + n, tot[ct][i],
+                a.out_bf16);
+      } else {
+        a.partial[(static_cast<size_t>(split) * a.op.M + m) * a.N + n] =
+            tot[ct][i];
+      }
+    }
+}
+
+// The grouped GEMV: grid (ceil(N / kGBN), splits), each split a run of
+// `sb_per_split` ring stages (8-bit: whole superblocks, since it corrects
+// at group ends); PIPE takes the pipelined consumer (1/2/3/4-bit).
+template <int BITS, bool PIPE>
+__global__ void __launch_bounds__((kGWarps + 1) * 32, 2)
+    qmm_grouped_kernel(GemvArgs a) {
+  static_assert(!PIPE || BITS != 8, "the pipelined consumer is 1-4 bits");
+  const GroupedRing r = grouped_ring<BITS>(a, true);
+  const int col0 = blockIdx.x * kGBN;
+  const int st_lo = blockIdx.y * a.sb_per_split;
+  const int S = grouped_stages<BITS>(a, st_lo);
+  int count = 0;
+  if (threadIdx.x >> 5 == kGWarps) {
+    for (int j = 0; j < S; ++j)
+      grouped_issue<BITS>(a, r, col0, st_lo + j, count++, threadIdx.x & 31,
+                          kIssueAll);
+    return;
+  }
+  float tot[kGTiles][4];
+  grouped_consume<BITS, PIPE>(a, r, st_lo, S, count, tot);
+  grouped_store(a, tot, col0, gridDim.y == 1 ? -1 : blockIdx.y);
+}
+
+// Dynamic shared memory of one grouped block: barriers, then the ring.
+template <int BITS>
+size_t grouped_smem(int M, bool swiglu, int meta_bf16, int sb, int gs) {
+  return 128 + static_cast<size_t>(kGStages) *
+                   grouped_layout<BITS>(M, swiglu, meta_bf16 ? 2 : 4,
+                                        grouped_meta_slots(BITS, sb, gs))
+                       .stage;
+}
+
+// Let `kernel` take `smem` bytes of dynamic shared memory (raising the
+// attribute as larger calls come; `allowed` is the kernel's own record),
+// with the largest carveout, so that two blocks share an SM where their
+// rings fit.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem, size_t& allowed) {
+  if (smem <= allowed) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess) allowed = smem;
+  return e;
+}
+
+template <int BITS, bool PIPE>
+cudaError_t grouped_allow(size_t smem) {
+  static size_t allowed = 0;
+  return allow_smem(qmm_grouped_kernel<BITS, PIPE>, smem, allowed);
+}
+
+template <int BITS, bool PIPE>
+cudaError_t launch_grouped(const GemvArgs& a, int splits, cudaStream_t stream) {
+  const size_t smem = grouped_smem<BITS>(a.op.M, a.op.u != nullptr,
+                                         a.w.meta_bf16, a.w.superblock,
+                                         a.w.group_size);
+  cudaError_t e = grouped_allow<BITS, PIPE>(smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((a.N + kGBN - 1) / kGBN, splits);
+  qmm_grouped_kernel<BITS, PIPE><<<grid, (kGWarps + 1) * 32, smem, stream>>>(
+      a);
+  return cudaGetLastError();
+}
+
+inline bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
+
+// The calls the ring takes (the wrapper's _grouped_applies, at the default
+// ring shape): bf16 activations, 1 <= M <= 8, Np, K and the row stride of
+// x multiples of 8 and 16-byte aligned activations, words and meta
+// (16-byte bulk copies), a superblock of at most 1024 rows that holds
+// whole groups and whole ring stages, groups of a multiple of 2 * kGSR
+// rows (64: a stage's rows of one round lie in one group); 8-bit: rounds
+// that nest with the groups (the correction at group ends); 1/2/3/4-bit:
+// power-of-two groups and superblock (the meta slots a stage's rounds
+// share).  Whole stages: a superblock of a multiple of 128 rows at 8 bits,
+// 256 at 4, 512 at 3 and 2, 1024 at 1.
+inline bool grouped_takes(const void* x, const void* u, int x_bf16,
+                          const int32_t* packed, const void* scale,
+                          const void* zero, int M, int K, int ldx, int Kp,
+                          int Np, int nbits, int gs, int sb) {
+  if (nbits != 1 && nbits != 2 && nbits != 3 && nbits != 4 && nbits != 8)
+    return false;
+  const int n = nbits == 8   ? GroupedForm<8>::n
+                : nbits == 3 ? GroupedForm<3>::n
+                             : GroupedForm<1>::n;
+  return x_bf16 && M >= 1 && M <= 8 && gs > 0 && gs % (2 * kGSR) == 0 &&
+         sb % gs == 0 && Kp % sb == 0 && sb <= 1024 &&
+         grouped_round_rows(nbits, sb) % n == 0 && Np % 8 == 0 &&
+         K % 8 == 0 && ldx % 8 == 0 && aligned16(x) &&
+         (u == nullptr || aligned16(u)) && aligned16(packed) &&
+         aligned16(scale) && aligned16(zero) &&
+         (nbits == 8 ? rounds_nest_groups(nbits, sb, gs)
+                     : pow2(gs) && pow2(sb));
+}
+
+// Sum the K splits' partials into out (fixed order), after a split launch.
+inline int finish_splits(cudaError_t e, float* partial, void* out, int MN,
+                         int splits, int out_bf16, cudaStream_t s) {
+  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
+  reduce_splits_kernel<<<(MN + 255) / 256, 256, 0, s>>>(partial, out, MN,
+                                                        splits, out_bf16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace amq

@@ -1,12 +1,16 @@
-// The decode-GEMV arithmetic over pair-planar packed weights, and one GEMV
-// tile walked through a two-stage cp.async ring.
+// The decode-GEMV arithmetic over pair-planar packed weights: the CUDA-core
+// per-weight form, one GEMV tile of it walked through a two-stage cp.async
+// ring, and the steps of the grouped form on tensor cores.
 //
-// Shared by quant_matmul.cu (the decode GEMV, whose loads go straight from
-// device memory into registers), quant_matmul_pipe.cu (the pipelined decode
-// GEMV and its SwiGLU variant) and quant_matmul_mlp.cu (the one-launch
-// decode MLP).  All three take their extraction and fma order from
-// superblock_fma, their row-slice sum from sum_slices and their split-K sum
-// from reduce_splits_kernel, so they give the same bits.
+// The CUDA-core form serves quant_matmul.cu's decode GEMV (f32
+// activations, and the bf16 calls the grouped GEMV does not take; loads go
+// straight from device memory into registers) and the attribution probe
+// (gemv_attrib.cu, whose `pipe` body walks gemv_tile's ring).  Both take
+// their extraction and fma order from superblock_fma, their row-slice sum
+// from sum_slices and their split-K sum from reduce_splits_kernel, so they
+// give the same bits.  The grouped form's steps (grouped_step,
+// grouped_stage_low, grouped_stage_pipe) run in the ring of
+// qmm_grouped.cuh.
 //
 // A block of kBN columns x kKS row slices (512 threads) accumulates x[M, K]
 // @ dequant(W)[K, col0:col0+kBN].  In gemv_tile the packed words and the
@@ -409,6 +413,19 @@ __global__ void reduce_splits_kernel(const float* partial, void* out, int MN,
 // plane (zoff 128).  A 3-bit stage holds 1-bit rows [r0, r0+n) and 2-bit
 // rows [r0, r0+n) and [r0+sb/32, r0+sb/32+n), so every word crosses the
 // memory bus once.
+//
+// The pipelined consumer (grouped_stage_pipe, the JAX package's AMQ_PIPE
+// kernel, which extracts tile k into a code slab while the matrix unit
+// dots tile k-1) keeps the codes in registers: before it issues the MMAs
+// of one (round, step) it has already extracted the A fragments and loaded
+// the x fragment of the next one -- across the round's end too, where the
+// words first shift to the next round's fields -- so the tensor-core work
+// of a step sits under the integer work of the next.  It double-buffers
+// one step's fragments (kGTiles x 4 registers beside the stage's words:
+// the words of a whole round's fragments twice over would not fit the
+// launch bound's registers) and never stores codes to shared memory.  Its
+// products, sums and corrections are grouped_stage_low's, in the same
+// order, so the two give the same bits.
 
 // The ring's shape can be set at build time (-DAMQ_GTILES=...,
 // -DAMQ_GSR=..., -DAMQ_GSTAGES=...) for the ring-shape sweep
@@ -510,13 +527,20 @@ __device__ __forceinline__ uint32_t code_pair_bf16(uint32_t w, int shift) {
   return ((w >> shift) & GroupedForm<BITS>::pair_mask) | 0x43004300u;
 }
 
+// silu(g) * u in f32 (before its rounding to bf16): the SwiGLU of the
+// plain version, shared by the grouped GEMV's prologue and the one-launch
+// MLP so that the two give the same bits.
+__device__ __forceinline__ float silu_mul(float g, float u) {
+  return g / (1.f + expf(-g)) * u;
+}
+
 // silu(x) * u in f32, rounded to bf16: the SwiGLU prologue of the plain
 // version.
 __device__ __forceinline__ uint32_t swiglu_pair(uint32_t x, uint32_t u) {
   const float2 xf = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
   const float2 uf = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
-  __nv_bfloat162 r = __floats2bfloat162_rn(xf.x / (1.f + expf(-xf.x)) * uf.x,
-                                           xf.y / (1.f + expf(-xf.y)) * uf.y);
+  __nv_bfloat162 r = __floats2bfloat162_rn(silu_mul(xf.x, uf.x),
+                                           silu_mul(xf.y, uf.y));
   return *reinterpret_cast<uint32_t*>(&r);
 }
 
@@ -624,7 +648,7 @@ __device__ __forceinline__ void grouped_correct(const unsigned char* meta,
     for (int i = 0; i < 4; ++i) xacc[p][i] = 0.f;
 }
 
-// Round p's A register from word registers that low_round has shifted to
+// Round p's A register from word registers that low_shift has shifted to
 // the round's fields: 1/2/4-bit, the field at offset o of each half-word
 // (`mask` = the pair mask << o), read in place as exact bf16 128 + 2^o c;
 // 3-bit, the 2-bit word wh's field at bits 0..1 and the 1-bit word wl's at
@@ -638,48 +662,35 @@ __device__ __forceinline__ uint32_t low_pair(uint32_t w, uint32_t wl,
     return (w & mask) | 0x43004300u;
 }
 
-// One round p of a low-width stage (3-bit: p & 1 says which 2-bit rows
-// pair with the 1-bit rows): products of the warp's tiles (words in
-// registers) with x round p over the stage's steps, the xsum MMA beside
-// them, the correction with slot (p >> lg_share)'s meta; then the words
-// shift in place to the next round's fields (1/2/4-bit: once per
-// per_shift rounds; 3-bit: the 1-bit words every round, the 2-bit words
-// every second), so that no shifted copy is live beside them.
-template <int BITS, int S, int W>
-__device__ __forceinline__ void low_round(uint32_t (&w)[S][kGTiles][W][4],
-                                          int p, const __nv_bfloat16* xr,
-                                          const unsigned char* meta,
-                                          int meta_es, int lg_share, int c0,
-                                          float (&tot)[kGTiles][4]) {
-  using F = GroupedForm<BITS>;
-  constexpr uint32_t kOnes = 0x3F803F80u;        // bf16 (1, 1)
-  const int t = (threadIdx.x & 31) & 3;
-  // 1/2/4-bit: the field's offset o weighs it 2^o (3-bit: o = 0)
-  const int o = BITS == 3 ? 0 : p % F::per_shift * BITS;
+// Round p's field offset o in a half-word (1/2/4-bit: the shifts folded
+// into masks; 3-bit: 0).
+template <int BITS>
+__device__ __forceinline__ int low_offset(int p) {
+  return BITS == 3 ? 0 : p % GroupedForm<BITS>::per_shift * BITS;
+}
+
+// One tile's four A registers of round p at one step, from its words `v`
+// (3-bit: the 2-bit rows of p's parity beside the 1-bit rows).
+template <int BITS, int W>
+__device__ __forceinline__ void low_frag(const uint32_t (&v)[W][4], int p,
+                                         uint32_t (&a)[4]) {
+  const uint32_t mask = GroupedForm<BITS>::pair_mask << low_offset<BITS>(p);
   const bool odd = p & 1;
-  const uint32_t mask = F::pair_mask << o;
-  const float inv = __int_as_float((127 - o) << 23);   // 2^-o, exact
-  float acc[kGTiles][4], xa[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-  for (int ct = 0; ct < kGTiles; ++ct)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[ct][i] = 0.f;
-#pragma unroll
-  for (int st = 0; st < S; ++st) {
-    const uint2 b = *reinterpret_cast<const uint2*>(
-        xr + p * F::xstride + 16 * st + 4 * t);
-#pragma unroll
-    for (int ct = 0; ct < kGTiles; ++ct) {
-      const uint32_t(&v)[W][4] = w[st][ct];
-      uint32_t a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)       // 3-bit: 2-bit rows of p's parity
-        a[i] = low_pair<BITS>(BITS == 3 && odd ? v[W > 1][i] : v[0][i],
-                              v[W - 1][i], mask);
-      mma16816_bf16(acc[ct], a[0], a[1], a[2], a[3], b.x, b.y);
-    }
-    mma16816_bf16(xa, kOnes, kOnes, kOnes, kOnes, b.x, b.y);
-  }
+  for (int i = 0; i < 4; ++i)
+    a[i] = low_pair<BITS>(BITS == 3 && odd ? v[W > 1][i] : v[0][i],
+                          v[W - 1][i], mask);
+}
+
+// After round p, the words shift in place to round p + 1's fields
+// (1/2/4-bit: once per per_shift rounds; 3-bit: the 1-bit words every
+// round, the 2-bit words every second), so that no shifted copy is live
+// beside them.
+template <int BITS, int S, int W>
+__device__ __forceinline__ void low_shift(uint32_t (&w)[S][kGTiles][W][4],
+                                          int p) {
+  using F = GroupedForm<BITS>;
+  const bool odd = p & 1;
   const bool shift = BITS == 3 || (p + 1) % F::per_shift == 0;
 #pragma unroll
   for (int st = 0; st < S; ++st)
@@ -697,6 +708,18 @@ __device__ __forceinline__ void low_round(uint32_t (&w)[S][kGTiles][W][4],
           w[st][ct][0][i] >>= F::per_shift * BITS;
         }
       }
+}
+
+// The correction of round p's products `acc` and x sums `xa` with slot
+// (p >> lg_share)'s meta, into tot (the field at offset o weighs 2^o).
+template <int BITS>
+__device__ __forceinline__ void low_correct(const float (&acc)[kGTiles][4],
+                                            const float (&xa)[4], int p,
+                                            const unsigned char* meta,
+                                            int meta_es, int lg_share, int c0,
+                                            float (&tot)[kGTiles][4]) {
+  using F = GroupedForm<BITS>;
+  const float inv = __int_as_float((127 - low_offset<BITS>(p)) << 23);  // 2^-o
   const unsigned char* ms = meta + 2 * (p >> lg_share) * kGBN * meta_es;
   const unsigned char* mz = ms + kGBN * meta_es;
 #pragma unroll
@@ -726,6 +749,63 @@ __device__ __forceinline__ void low_round(uint32_t (&w)[S][kGTiles][W][4],
   }
 }
 
+// One round p of a low-width stage: products of the warp's tiles (words in
+// registers) with x round p over the stage's steps, the xsum MMA beside
+// them; then the words shift to the next round's fields and the round is
+// corrected.
+template <int BITS, int S, int W>
+__device__ __forceinline__ void low_round(uint32_t (&w)[S][kGTiles][W][4],
+                                          int p, const __nv_bfloat16* xr,
+                                          const unsigned char* meta,
+                                          int meta_es, int lg_share, int c0,
+                                          float (&tot)[kGTiles][4]) {
+  using F = GroupedForm<BITS>;
+  constexpr uint32_t kOnes = 0x3F803F80u;        // bf16 (1, 1)
+  const int t = (threadIdx.x & 31) & 3;
+  float acc[kGTiles][4], xa[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int ct = 0; ct < kGTiles; ++ct)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[ct][i] = 0.f;
+#pragma unroll
+  for (int st = 0; st < S; ++st) {
+    const uint2 b = *reinterpret_cast<const uint2*>(
+        xr + p * F::xstride + 16 * st + 4 * t);
+#pragma unroll
+    for (int ct = 0; ct < kGTiles; ++ct) {
+      uint32_t a[4];
+      low_frag<BITS>(w[st][ct], p, a);
+      mma16816_bf16(acc[ct], a[0], a[1], a[2], a[3], b.x, b.y);
+    }
+    mma16816_bf16(xa, kOnes, kOnes, kOnes, kOnes, b.x, b.y);
+  }
+  low_shift<BITS>(w, p);
+  low_correct<BITS>(acc, xa, p, meta, meta_es, lg_share, c0, tot);
+}
+
+// The stage's words of this lane in registers: per 8-row step, tile and
+// plane row (3-bit: two 2-bit rows and a 1-bit row) the four A words.
+template <int BITS, int S, int W>
+__device__ __forceinline__ void low_load(const uint32_t* ws, int wcol,
+                                         int lane,
+                                         uint32_t (&w)[S][kGTiles][W][4]) {
+  using F = GroupedForm<BITS>;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int st = 0; st < S; ++st)
+#pragma unroll
+    for (int ct = 0; ct < kGTiles; ++ct)
+#pragma unroll
+      for (int pl = 0; pl < W; ++pl) {
+        const uint32_t* wr = ws + (pl * F::n + st * 8 + 2 * t) * kGWordStride +
+                             wcol + 16 * ct + 2 * g;
+        const uint2 a = *reinterpret_cast<const uint2*>(wr);
+        const uint2 b = *reinterpret_cast<const uint2*>(wr + kGWordStride);
+        w[st][ct][pl][0] = a.x; w[st][ct][pl][1] = a.y;
+        w[st][ct][pl][2] = b.x; w[st][ct][pl][3] = b.y;
+      }
+}
+
 // One warp's share of a 1/2/3/4-bit stage: `ws` the stage's words
 // [wrows][kGWordStride], `xr` x row g's rounds [P][xstride] (silu(x) * u
 // already, under SwiGLU), `meta` the stage's slots (scale row 2i, zero row
@@ -741,22 +821,9 @@ __device__ __forceinline__ void grouped_stage_low(const uint32_t* ws,
   using F = GroupedForm<BITS>;
   constexpr int S = F::n / 8;                    // 8-row MMA steps
   constexpr int W = BITS == 3 ? 3 : 1;           // word rows per K row pair
-  const int g = lane >> 2, t = lane & 3;
   uint32_t w[S][kGTiles][W][4];
-#pragma unroll
-  for (int st = 0; st < S; ++st)
-#pragma unroll
-    for (int ct = 0; ct < kGTiles; ++ct)
-#pragma unroll
-      for (int pl = 0; pl < W; ++pl) {
-        const uint32_t* wr = ws + (pl * F::n + st * 8 + 2 * t) * kGWordStride +
-                             wcol + 16 * ct + 2 * g;
-        const uint2 a = *reinterpret_cast<const uint2*>(wr);
-        const uint2 b = *reinterpret_cast<const uint2*>(wr + kGWordStride);
-        w[st][ct][pl][0] = a.x; w[st][ct][pl][1] = a.y;
-        w[st][ct][pl][2] = b.x; w[st][ct][pl][3] = b.y;
-      }
-  const int c0 = wcol + 2 * g;
+  low_load<BITS>(ws, wcol, lane, w);
+  const int c0 = wcol + 2 * (lane >> 2);
   // 4-bit: four rounds, unrolled; below, rounds in a loop (unrolled, the
   // compiler interleaved rounds past the register budget and spilled)
   if constexpr (BITS == 4) {
@@ -767,6 +834,72 @@ __device__ __forceinline__ void grouped_stage_low(const uint32_t* ws,
 #pragma unroll 1
     for (int p = 0; p < F::rounds; ++p)
       low_round<BITS>(w, p, xr, meta, meta_es, lg_share, c0, tot);
+  }
+}
+
+// grouped_stage_low with the extraction one step ahead of the MMAs (the
+// pipelined consumer; see the top of this section).  Rounds run in a loop
+// at every width, so that the double buffer stays within the registers.
+template <int BITS>
+__device__ __forceinline__ void grouped_stage_pipe(const uint32_t* ws,
+                                                   const __nv_bfloat16* xr,
+                                                   const unsigned char* meta,
+                                                   int meta_es, int lg_share,
+                                                   int wcol, int lane,
+                                                   float (&tot)[kGTiles][4]) {
+  using F = GroupedForm<BITS>;
+  constexpr int S = F::n / 8;
+  constexpr int W = BITS == 3 ? 3 : 1;
+  constexpr uint32_t kOnes = 0x3F803F80u;        // bf16 (1, 1)
+  const int t = lane & 3;
+  uint32_t w[S][kGTiles][W][4];
+  low_load<BITS>(ws, wcol, lane, w);
+  const int c0 = wcol + 2 * (lane >> 2);
+  // the fragments of (round 0, step 0)
+  uint32_t cur[kGTiles][4];
+#pragma unroll
+  for (int ct = 0; ct < kGTiles; ++ct) low_frag<BITS>(w[0][ct], 0, cur[ct]);
+  uint2 b = *reinterpret_cast<const uint2*>(xr + 4 * t);
+#pragma unroll 1
+  for (int p = 0; p < F::rounds; ++p) {
+    float acc[kGTiles][4], xa[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ct = 0; ct < kGTiles; ++ct)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[ct][i] = 0.f;
+#pragma unroll
+    for (int st = 0; st < S; ++st) {
+      // the next (round, step)'s fragments first: step st + 1 of round p,
+      // or, after the last step, step 0 of round p + 1 (past the last
+      // round these are extracted and never used)
+      uint32_t nxt[kGTiles][4];
+      uint2 bn;
+      if (st + 1 < S) {
+#pragma unroll
+        for (int ct = 0; ct < kGTiles; ++ct)
+          low_frag<BITS>(w[st + 1][ct], p, nxt[ct]);
+        bn = *reinterpret_cast<const uint2*>(xr + p * F::xstride +
+                                             16 * (st + 1) + 4 * t);
+      } else {
+        low_shift<BITS>(w, p);
+#pragma unroll
+        for (int ct = 0; ct < kGTiles; ++ct)
+          low_frag<BITS>(w[0][ct], p + 1, nxt[ct]);
+        bn = *reinterpret_cast<const uint2*>(
+            xr + (p + 1 < F::rounds ? p + 1 : p) * F::xstride + 4 * t);
+      }
+#pragma unroll
+      for (int ct = 0; ct < kGTiles; ++ct)
+        mma16816_bf16(acc[ct], cur[ct][0], cur[ct][1], cur[ct][2], cur[ct][3],
+                      b.x, b.y);
+      mma16816_bf16(xa, kOnes, kOnes, kOnes, kOnes, b.x, b.y);
+#pragma unroll
+      for (int ct = 0; ct < kGTiles; ++ct)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) cur[ct][i] = nxt[ct][i];
+      b = bn;
+    }
+    low_correct<BITS>(acc, xa, p, meta, meta_es, lg_share, c0, tot);
   }
 }
 
@@ -796,8 +929,19 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+// The barrier's phase waits for `bytes` more of bulk copies; with `arrive`
+// this thread also arrives (the phase then completes once the bytes are
+// in), without it the phase still waits for the arrival.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(static_cast<unsigned>(__cvta_generic_to_shared(bar))),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::
                    "r"(static_cast<unsigned>(__cvta_generic_to_shared(bar))),
                "r"(bytes)
                : "memory");

@@ -40,37 +40,17 @@
 // codes, often only the LOP3; no I2F or FFMA per weight), products on
 // tensor cores (mma.sync.m16n8k16, f32 accumulation), the activation sums
 // from one more MMA against ones, one correction per group and round.
-// Bound: bytes.  Design: a block owns 256 columns (8 consumer warps of two
-// 16-column MMA tiles each, every warp over all of its split's K, so no
-// cross-warp sum; the tiles share the activation fragments and the xsum
-// MMA) and has one producer warp.  Words, meta and activations stream
-// through a ring of bulk copies (cp.async.bulk, the TMA without a tensor
-// map): the producer issues a stage as one copy per 1 KB word row, meta
-// row and activation row and round, completing on the slot's full
-// mbarrier; each consumer warp waits on it, computes, and releases the
-// slot on its empty mbarrier.  No barrier of the whole block sits in the
-// loop: with one per stage, copies and products took turns on the H100
-// (the time of both added up).  A stage is 32 word rows (48 at 3 bits: 16
-// of the 1-bit plane, 32 of the 2-bit one) and the ring two stages; among
-// the ring shapes tried at 8, 4 and 2 bits (one to four tiles per warp, 8
-// to 64 rows per stage, two to five stages; probes/grouped_ring.py) this
-// one ran fastest.  The 8-bit
-// consumer keeps per round and nibble plane an accumulator until its
-// group ends; below 8 bits a word holds up to 16 rounds, so the consumer
-// loads a stage's words into registers once, runs the rounds as the outer
-// loop and corrects every round at every stage (the meta of every group a
-// stage touches rides the stage); under SwiGLU the consumer warps apply
-// silu(x) * u to the stage's activations once, in place, behind a barrier
-// of their own.  K is split across blocks as far as the blocks one SM
-// holds (the occupancy of an M = 8 call, so every M splits alike and row m
-// has the same bits at any M) fill one wave: at whole superblocks at 8
-// bits, at any stage below; the splits are summed in fixed order by
-// reduce_splits_kernel, so two calls give the same bits.  (Summing them in
+// Bound: bytes.  Its ring (a producer warp, bulk copies, full / empty
+// mbarriers, 256 columns per block, K split over blocks at the occupancy
+// of an M = 8 call, the splits summed in fixed order by
+// reduce_splits_kernel) is set out at the top of qmm_grouped.cuh, which
+// the pipelined GEMV (quant_matmul_pipe.cu) and the one-launch MLP
+// (quant_matmul_mlp.cu) share.  (Summing the splits in
 // the tile's last block instead, behind a ticket counter, saved no time on
 // the H100: the last block's sum lengthened the kernel's tail by what the
 // second launch had cost.)
 
-#include "qmm_tile.cuh"
+#include "qmm_grouped.cuh"
 
 using namespace amq;
 
@@ -222,251 +202,15 @@ __global__ void __launch_bounds__(256) qmm_gemm_kernel(GemvArgs a) {
   }
 }
 
-// Grouped GEMV (see the top of this file): kGWarps consumer warps and one
-// producer warp; grid (ceil(N / kGBN), splits), each split a run of
-// `sb_per_split` ring stages (8-bit: whole superblocks, since it corrects
-// at group ends).  The producer fills ring slot j % kGStages with stage j
-// by bulk copies (one per word row, meta row and activation row and round)
-// that complete on the slot's full barrier, once every consumer warp has
-// released the slot's previous stage on its empty barrier; no barrier of
-// the whole block inside the loop.
-template <int BITS>
-__global__ void __launch_bounds__((kGWarps + 1) * 32, 2)
-    qmm_grouped_kernel(GemvArgs a) {
-  extern __shared__ __align__(16) unsigned char gsmem[];
-  using F = GroupedForm<BITS>;
-  constexpr int P = F::rounds;
-  const int sb = a.w.superblock, gs = a.w.group_size, Np = a.w.Np;
-  const bool swiglu = a.op.u != nullptr;
-  const int M = a.op.M;
-  const int es = a.w.meta_bf16 ? 2 : 4;
-  const int R = sb * BITS / 32;                    // word rows per superblock
-  const int Rg = grouped_round_rows(BITS, sb);     // ... of a round plane
-  const int spb = Rg / F::n;                       // stages per superblock
-  const int slots = grouped_meta_slots(BITS, sb, gs);
-  const int lg_share = __ffs(P / slots) - 1;       // rounds per slot: 2^lg
-  // 8-bit: a group's rows in one round (its whole superblock when the
-  // group spans rounds): the stage ending them carries the meta and
-  // corrects
-  const int span = min(gs / 2, R);
-  const GroupedLayout lay = grouped_layout<BITS>(M, swiglu, es, slots);
-  uint64_t* full = reinterpret_cast<uint64_t*>(gsmem);
-  uint64_t* empty = full + kGStages;
-  unsigned char* ring = gsmem + 128;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int col0 = blockIdx.x * kGBN;
-  const int cols = min(kGBN, Np - col0);           // a multiple of 8
-  const int n_st = a.Kp / sb * spb;
-  const int st_lo = blockIdx.y * a.sb_per_split;
-  const int S = max(0, min(n_st, st_lo + a.sb_per_split) - st_lo);
-
-  if (tid < kGStages) {
-    mbar_init(full + tid, 1);
-    mbar_init(empty + tid, kGWarps);
-  }
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  __syncthreads();
-
-  if (warp == kGWarps) {
-    // producer.  Activation rows past M are not copied (they only reach
-    // unwritten outputs); rows past K are zeros, written before the
-    // barrier's arrival so that its completion publishes them.
-    const int nx = (swiglu ? 2 : 1) * M * P;        // activation rows
-    for (int j = 0; j < S; ++j) {
-      if (j >= kGStages)
-        mbar_wait(empty + j % kGStages, (j / kGStages - 1) & 1);
-      const int js = st_lo + j;
-      const int sbi = js / spb, row0 = (js % spb) * F::n;
-      const bool meta = BITS != 8 || (row0 + kGSR) % span == 0;
-      unsigned char* st = ring + (j % kGStages) * lay.stage;
-      uint64_t* bar = full + j % kGStages;
-      const int k0 = sbi * sb + 2 * row0;           // round 0's first row
-      int xbytes = 0;
-      for (int p = 0; p < P; ++p)
-        xbytes += 2 * max(0, min(F::part, a.op.K - (k0 + p * 2 * Rg)));
-      for (int i = lane; i < nx; i += 32) {
-        const int which = i / (M * P), mp = i - which * M * P;
-        const int len = max(0, min(F::part, a.op.K - (k0 + (mp % P) * 2 * Rg)));
-        __nv_bfloat16* xdst = reinterpret_cast<__nv_bfloat16*>(
-            st + (which ? lay.u_off : lay.x_off)) + mp * F::xstride;
-        for (int c = len; c < F::part; ++c) xdst[c] = __float2bfloat16(0.f);
-      }
-      // this lane's generic writes to the ring come before the copies'
-      // (async proxy) writes
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      __syncwarp();
-      if (lane == 0)
-        mbar_expect_tx(bar, F::wrows * cols * 4 +
-                                (meta ? 2 * slots * cols * es : 0) +
-                                (swiglu ? 2 : 1) * M * xbytes);
-      __syncwarp();
-      for (int r = lane; r < F::wrows; r += 32) {
-        // 3-bit: 2-bit rows [row0, +n) and [Rg + row0, +n), then 1-bit
-        // rows [row0, +n) of the plane after the 2-bit plane's 2 Rg rows
-        const int pl = r / F::n, rr = row0 + r - pl * F::n;
-        const int src = BITS == 3 ? (pl == 2 ? 2 * Rg : pl * Rg) + rr
-                                  : row0 + r;
-        bulk_g2s(st + r * kGWordStride * 4,
-                 a.w.packed + (static_cast<size_t>(sbi) * R + src) * Np + col0,
-                 cols * 4, bar);
-      }
-      if (meta && lane < 2 * slots) {   // row 2i scale, 2i + 1 zero of slot i
-        const int grp =
-            (k0 + (lane >> 1) * (P / slots) * 2 * Rg) / gs;
-        const unsigned char* base = static_cast<const unsigned char*>(
-            (lane & 1) ? a.w.zero : a.w.scale);
-        bulk_g2s(st + lay.meta_off + lane * kGBN * (BITS == 8 ? 4 : es),
-                 base + (static_cast<size_t>(grp) * Np + col0) * es,
-                 cols * es, bar);
-      }
-      for (int i = lane; i < nx; i += 32) {
-        const int which = i / (M * P), mp = i - which * M * P;
-        const int m = mp / P, k = k0 + (mp - m * P) * 2 * Rg;
-        const int len = max(0, min(F::part, a.op.K - k));
-        if (len > 0)
-          bulk_g2s(st + (which ? lay.u_off : lay.x_off) +
-                       mp * F::xstride * 2,
-                   static_cast<const __nv_bfloat16*>(which ? a.op.u : a.op.x) +
-                       static_cast<size_t>(m) * a.op.ldx + k,
-                   len * 2, bar);
-      }
-    }
-    return;
-  }
-
-  // consumers
-  const int wcol = warp * 16 * kGTiles;
-  float tot[kGTiles][4];
-#pragma unroll
-  for (int ct = 0; ct < kGTiles; ++ct)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) tot[ct][i] = 0.f;
-  if constexpr (BITS == 8) {
-    GroupedAcc<BITS> acc;
-    GroupedXAcc<BITS> xacc;
-#pragma unroll
-    for (int p = 0; p < P; ++p)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        xacc[p][i] = 0.f;
-#pragma unroll
-        for (int ct = 0; ct < kGTiles; ++ct)
-#pragma unroll
-          for (int q = 0; q < F::planes; ++q) acc[ct][p][q][i] = 0.f;
-      }
-    for (int s = 0; s < S; ++s) {
-      mbar_wait(full + s % kGStages, (s / kGStages) & 1);
-      const unsigned char* st = ring + (s % kGStages) * lay.stage;
-      grouped_step<BITS>(
-          reinterpret_cast<const uint32_t*>(st),
-          reinterpret_cast<const __nv_bfloat16*>(st + lay.x_off),
-          swiglu ? reinterpret_cast<const __nv_bfloat16*>(st + lay.u_off)
-                 : nullptr,
-          wcol, lane, acc, xacc);
-      if ((((st_lo + s) % spb) * kGSR + kGSR) % span == 0)
-        grouped_correct<BITS>(st + lay.meta_off, a.w.meta_bf16, wcol, lane,
-                              acc, xacc, tot);
-      __syncwarp();                  // the warp is done with the slot
-      if (lane == 0) mbar_arrive(empty + s % kGStages);
-    }
-  } else {
-    // B rows past M read row M - 1 (their products reach no output)
-    const int xrow = min(lane >> 2, M - 1);
-    for (int s = 0; s < S; ++s) {
-      mbar_wait(full + s % kGStages, (s / kGStages) & 1);
-      unsigned char* st = ring + (s % kGStages) * lay.stage;
-      __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(st + lay.x_off);
-      if (swiglu) {
-        // silu(x) * u once per stage, in place, by all consumer threads
-        // (not per warp and fragment: each warp reads every activation),
-        // then a barrier of the consumer warps only
-        const __nv_bfloat16* us =
-            reinterpret_cast<const __nv_bfloat16*>(st + lay.u_off);
-        for (int i = tid; i < M * P * F::part / 2; i += kGWarps * 32) {
-          const int row = i / (F::part / 2);
-          const int o = row * F::xstride + 2 * (i - row * (F::part / 2));
-          uint32_t* xp = reinterpret_cast<uint32_t*>(xs + o);
-          *xp = swiglu_pair(*xp, *reinterpret_cast<const uint32_t*>(us + o));
-        }
-        // these generic writes come before the async-proxy copies that
-        // refill the slot
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        asm volatile("bar.sync 1, %0;\n" ::"n"(kGWarps * 32) : "memory");
-      }
-      grouped_stage_low<BITS>(
-          reinterpret_cast<const uint32_t*>(st), xs + xrow * P * F::xstride,
-          st + lay.meta_off, es, lg_share, wcol, lane, tot);
-      __syncwarp();                  // the warp is done with the slot
-      if (lane == 0) mbar_arrive(empty + s % kGStages);
-    }
-  }
-
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int ct = 0; ct < kGTiles; ++ct)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = 2 * t + (i & 1);
-      const int n = col0 + wcol + 16 * ct + 2 * g + (i >> 1);
-      if (m >= M || n >= a.N) continue;
-      if (gridDim.y == 1) {
-        store_f(a.out, static_cast<size_t>(m) * a.N + n, tot[ct][i],
-                a.out_bf16);
-      } else {
-        a.partial[(static_cast<size_t>(blockIdx.y) * M + m) * a.N + n] =
-            tot[ct][i];
-      }
-    }
-}
-
-// Dynamic shared memory of one grouped block: barriers, then the ring.
-template <int BITS>
-size_t grouped_smem(int M, bool swiglu, int meta_bf16, int sb, int gs) {
-  return 128 + static_cast<size_t>(kGStages) *
-                   grouped_layout<BITS>(M, swiglu, meta_bf16 ? 2 : 4,
-                                        grouped_meta_slots(BITS, sb, gs))
-                       .stage;
-}
-
-// Let the kernel take `smem` bytes of dynamic shared memory (raising the
-// attribute as larger calls come), with the largest carveout, so that two
-// blocks share an SM where their rings fit.
-template <int BITS>
-cudaError_t grouped_allow(size_t smem) {
-  static size_t allowed = 0;
-  if (smem <= allowed) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(
-      qmm_grouped_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(qmm_grouped_kernel<BITS>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (e == cudaSuccess) allowed = smem;
-  return e;
-}
-
-template <int BITS>
-cudaError_t launch_grouped(const GemvArgs& a, int splits, cudaStream_t stream) {
-  const size_t smem = grouped_smem<BITS>(a.op.M, a.op.u != nullptr,
-                                         a.w.meta_bf16, a.w.superblock,
-                                         a.w.group_size);
-  cudaError_t e = grouped_allow<BITS>(smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((a.N + kGBN - 1) / kGBN, splits);
-  qmm_grouped_kernel<BITS><<<grid, (kGWarps + 1) * 32, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
 // Blocks of the grouped kernel one SM holds at this call's shared memory
 // and the kernel's registers, or -1 on an error.
 template <int BITS>
 int grouped_blocks(int M, bool swiglu, int meta_bf16, int sb, int gs) {
   const size_t smem = grouped_smem<BITS>(M, swiglu, meta_bf16, sb, gs);
   int n = 0;
-  if (grouped_allow<BITS>(smem) != cudaSuccess ||
+  if (grouped_allow<BITS, false>(smem) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, qmm_grouped_kernel<BITS>, (kGWarps + 1) * 32, smem) !=
+          &n, qmm_grouped_kernel<BITS, false>, (kGWarps + 1) * 32, smem) !=
           cudaSuccess) {
     cudaGetLastError();       // not left for the next launch's check
     return -1;
@@ -510,15 +254,6 @@ cudaError_t launch_gemm(const GemvArgs& a, int splits, cudaStream_t stream) {
 
 }  // namespace
 
-// Sum the K splits' partials into out (fixed order), after a split launch.
-static int finish_splits(cudaError_t e, float* partial, void* out, int MN,
-                         int splits, int out_bf16, cudaStream_t s) {
-  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
-  reduce_splits_kernel<<<(MN + 255) / 256, 256, 0, s>>>(partial, out, MN,
-                                                        splits, out_bf16);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Returns 0 or a cudaError_t of the launch; -1 for arguments the kernels
 // do not take (the Python wrapper checks them first).
 extern "C" int amq_qmm(const void* x, const void* u, int x_bf16,
@@ -560,37 +295,6 @@ extern "C" int amq_qmm(const void* x, const void* u, int x_bf16,
   return finish_splits(e, partial, out, M * N, splits, out_bf16, s);
 }
 
-static bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
-
-// The calls the grouped GEMV takes (the wrapper's _grouped_applies, at the
-// default ring shape): bf16 activations, 1 <= M <= 8, Np, K and the row
-// stride of x multiples of 8 and 16-byte aligned activations, words and
-// meta (16-byte bulk copies), a superblock of at most 1024 rows that holds
-// whole groups and whole ring stages, groups of a multiple of 2 * kGSR
-// rows (64: a stage's rows of one round lie in one group); 8-bit: rounds
-// that nest with the groups (the correction at group ends); 1/2/3/4-bit:
-// power-of-two groups and superblock (the meta slots a stage's rounds
-// share).  Whole stages: a superblock of a multiple of 128 rows at 8 bits,
-// 256 at 4, 512 at 3 and 2, 1024 at 1.
-static bool grouped_takes(const void* x, const void* u, int x_bf16,
-                          const int32_t* packed, const void* scale,
-                          const void* zero, int M, int K, int ldx, int Kp,
-                          int Np, int nbits, int gs, int sb) {
-  if (nbits != 1 && nbits != 2 && nbits != 3 && nbits != 4 && nbits != 8)
-    return false;
-  const int n = nbits == 8   ? GroupedForm<8>::n
-                : nbits == 3 ? GroupedForm<3>::n
-                             : GroupedForm<1>::n;
-  return x_bf16 && M >= 1 && M <= 8 && gs > 0 && gs % (2 * kGSR) == 0 &&
-         sb % gs == 0 && Kp % sb == 0 && sb <= 1024 &&
-         grouped_round_rows(nbits, sb) % n == 0 && Np % 8 == 0 &&
-         K % 8 == 0 && ldx % 8 == 0 && aligned16(x) &&
-         (u == nullptr || aligned16(u)) && aligned16(packed) &&
-         aligned16(scale) && aligned16(zero) &&
-         (nbits == 8 ? rounds_nest_groups(nbits, sb, gs)
-                     : pow2(gs) && pow2(sb));
-}
-
 // The grouped tensor-core GEMV at 8, 4, 3, 2 and 1 bits, for the calls
 // grouped_takes accepts.  Same arguments as amq_qmm, but `sb_per_split`
 // counts ring stages (grouped_round_rows / GroupedForm::n of them per
@@ -616,11 +320,11 @@ extern "C" int amq_qmm_grouped(const void* x, const void* u, int x_bf16,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (nbits) {
-    case 1: e = launch_grouped<1>(a, splits, s); break;
-    case 2: e = launch_grouped<2>(a, splits, s); break;
-    case 3: e = launch_grouped<3>(a, splits, s); break;
-    case 4: e = launch_grouped<4>(a, splits, s); break;
-    default: e = launch_grouped<8>(a, splits, s); break;
+    case 1: e = launch_grouped<1, false>(a, splits, s); break;
+    case 2: e = launch_grouped<2, false>(a, splits, s); break;
+    case 3: e = launch_grouped<3, false>(a, splits, s); break;
+    case 4: e = launch_grouped<4, false>(a, splits, s); break;
+    default: e = launch_grouped<8, false>(a, splits, s); break;
   }
   return finish_splits(e, partial, out, M * N, splits, out_bf16, s);
 }

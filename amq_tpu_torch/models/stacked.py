@@ -398,8 +398,9 @@ def _apply_mlp_merged(model: StackedModel, i: int, h: torch.Tensor,
     gateup and down sites of equal width, group and superblock, and no MLP
     biases.  The JAX package's TPU layout limits (intermediate width a
     multiple of 128, its scratch covering down's padded K, at least 8
-    groups per superblock) do not bind the CUDA kernel; its own limit, a
-    padded N that is a multiple of 8 in both stacks, takes their place.
+    groups per superblock) do not bind the CUDA kernel; its own,
+    ``ops.quant_matmul._mlp_applies`` (layers the grouped ring takes),
+    take their place.
     """
     if bit_idx is None or compute_dtype != torch.bfloat16:
         return None
@@ -419,18 +420,21 @@ def _apply_mlp_merged(model: StackedModel, i: int, h: torch.Tensor,
     if (gu.nbits, gu.group_size, gu.superblock) != (dn.nbits, dn.group_size,
                                                      dn.superblock):
         return None
-    if gu.packed.shape[-1] % 8 or dn.packed.shape[-1] % 8:
-        return None
     lead = h.shape[:-1]
     M = h.numel() // h.shape[-1]
     if M > 8:
         return None
-    from ..ops.quant_matmul import quant_matmul_mlp_indexed
+    from ..ops.quant_matmul import _mlp_applies, quant_matmul_mlp_indexed
+    x = h.reshape(M, h.shape[-1]).contiguous()
+    j = _stack_index(model, i)
+    if not _mlp_applies(x, (gu.packed[j], gu.scale[j], gu.zero[j]),
+                        (dn.packed[j], dn.scale[j], dn.zero[j]), gu.nbits,
+                        gu.group_size, gu.superblock):
+        return None
     out = quant_matmul_mlp_indexed(
-        h.reshape(M, h.shape[-1]).contiguous(), gu.packed, gu.scale, gu.zero,
-        dn.packed, dn.scale, dn.zero, _stack_index(model, i), nbits=gu.nbits,
-        group_size=gu.group_size, gu_shape=gu.shape, d_shape=dn.shape,
-        superblock=gu.superblock, out_dtype=compute_dtype)
+        x, gu.packed, gu.scale, gu.zero, dn.packed, dn.scale, dn.zero, j,
+        nbits=gu.nbits, group_size=gu.group_size, gu_shape=gu.shape,
+        d_shape=dn.shape, superblock=gu.superblock, out_dtype=compute_dtype)
     return out.reshape(*lead, dn.shape[0])
 
 

@@ -18,11 +18,14 @@ Each public function here replaces one Pallas kernel of the JAX package's
 Under the JAX package's ``AMQ_PIPE`` switch (read once, at import, into
 ``_PIPE_DEFAULT``; default off) the decode GEMVs of
 ``quant_matmul_indexed`` and ``quant_matmul_swiglu_indexed`` take the
-software-pipelined kernel (``csrc/quant_matmul_pipe.cu``) under the JAX
-package's conditions, and count under their own names
+software-pipelined grouped GEMV (``csrc/quant_matmul_pipe.cu``) where
+:func:`_pipe_applies` says so, and count under their own names
 (``quant_matmul_indexed_pipe``, ``quant_matmul_swiglu_indexed_pipe``).
 ``quant_matmul_mlp_indexed`` is the one-launch decode MLP
-(``csrc/quant_matmul_mlp.cu``).
+(``csrc/quant_matmul_mlp.cu``) of the ``AMQ_MLP_KERNEL`` switch.  Both
+compute the grouped form on the grouped GEMV's ring
+(``csrc/qmm_grouped.cuh``), bit-identical to the grouped GEMV and its
+gateup -> SwiGLU-down chain.
 
 A CUDA tensor never reaches the plain version: the wrapper launches the
 kernel or raises.  The kernels read the JAX storage layout as is (see
@@ -57,7 +60,7 @@ _PIPE_DEFAULT = int(os.environ.get("AMQ_PIPE", "0"))
 @functools.lru_cache(maxsize=None)
 def _lib(entry: str = "amq_qmm"):
     """An entry point of ``csrc/quant_matmul.cu`` (``amq_qmm``, the grouped
-    ``amq_qmm_grouped``) or ``amq_qmm_pipe`` of
+    ``amq_qmm_grouped``) or the pipelined grouped ``amq_qmm_pipe`` of
     ``csrc/quant_matmul_pipe.cu``; all take the same arguments."""
     src = "quant_matmul_pipe" if entry == "amq_qmm_pipe" else "quant_matmul"
     fn = getattr(_cuda.library(src), entry)
@@ -199,16 +202,44 @@ def _grouped_plan(N: int, Kp: int, nbits: int, swiglu: bool, meta_bf16: int,
                            torch.device("cuda", index))
 
 
-def _pipe_applies(x: torch.Tensor, packed: torch.Tensor, nbits: int,
-                  group_size: int, superblock: int) -> bool:
-    """The JAX package's conditions for its pipelined decode GEMV: the
-    switch is on, M <= 8, bf16 activations, T = superblock / group >= 8
-    and a width other than 8; and the CUDA kernel's own, a padded N that
-    is a multiple of 8 (16-byte copies)."""
-    return (bool(_PIPE_DEFAULT) and x.shape[0] <= 8
-            and x.dtype == torch.bfloat16
-            and superblock // group_size >= 8 and nbits != 8
-            and packed.shape[-1] % 8 == 0)
+def _pipe_applies(x: torch.Tensor, packed: torch.Tensor,
+                  scale: torch.Tensor, zero: torch.Tensor, nbits: int,
+                  group_size: int, superblock: int, up=None) -> bool:
+    """Take the pipelined grouped GEMV?  The JAX package's conditions for
+    its pipelined decode GEMV -- the switch is on, M <= 8, bf16
+    activations, T = superblock / group >= 8 and a width other than 8 --
+    and the grouped ring's own (:func:`_grouped_applies`: its layouts,
+    strides and alignment).  The one predicate that routes: a call the
+    switch selects but the ring does not take goes where the wrapper sends
+    it without the switch."""
+    return (bool(_PIPE_DEFAULT) and nbits != 8
+            and superblock // group_size >= 8
+            and _grouped_applies(x, packed, scale, zero, nbits, group_size,
+                                 superblock, up))
+
+
+def _mlp_applies(x: torch.Tensor, gu, dn, nbits: int, group_size: int,
+                 superblock: int) -> bool:
+    """Does the one-launch MLP take this call?  Its gateup is a grouped
+    call on x and its down one on a bf16 [M, Kp_d] activation of its own,
+    so both stacks' layers (``(packed, scale, zero)``) must be ones the
+    grouped ring takes (:func:`_grouped_applies`, which also holds x to
+    bf16, M <= 8 and its strides and alignment); and, on a card, each
+    product's 256-column tiles must fit one wave of the grouped GEMV's
+    blocks (the kernel runs one block per item of the larger product, all
+    resident at once, and the grouped plan's splits then fit too)."""
+    if not (_grouped_applies(x, *gu, nbits, group_size, superblock)
+            and dn[0].shape[-1] % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in dn)):
+        return False
+    if x.device.type != "cuda":
+        return True
+    index = x.device.index or 0
+    meta_bf16 = int(gu[1].dtype == torch.bfloat16)
+    return all(-(-t[0].shape[-1] // _GROUPED_BN)
+               <= _sm_count(index) * _grouped_blocks(
+                   nbits, swiglu, meta_bf16, group_size, superblock, index)
+               for t, swiglu in ((gu, False), (dn, True)))
 
 
 # ---------------------------------------------------------------------------
@@ -266,20 +297,41 @@ def qmm_grouped_plain(x, packed, scale, zero, *, nbits, group_size, shape,
     return out[:, :N].to(out_dtype)
 
 
-def qmm_mlp_plain(x, gu_packed, gu_scale, gu_zero, d_packed, d_scale, d_zero,
-                  *, nbits, group_size, gu_shape, d_shape, superblock,
-                  out_dtype) -> torch.Tensor:
-    """``down(swiglu(gateup(x)))`` for one layer: the gateup product rounded
-    to bf16, ``silu(gate) * up`` rounded to bf16 (zero at or past the real
-    intermediate width: the down product reads only the first ``inter``
-    activations), then the down product."""
+def _mlp_chain(gemv, x, gu_packed, gu_scale, gu_zero, d_packed, d_scale,
+               d_zero, *, nbits, group_size, gu_shape, d_shape, superblock,
+               out_dtype) -> torch.Tensor:
+    """``down(swiglu(gateup(x)))`` with ``gemv`` for both products: gateup
+    rounded to bf16, ``silu(gate) * up`` rounded to bf16 (zero at or past
+    the real intermediate width: the down product reads only the first
+    ``inter`` activations), then down."""
     inter = gu_shape[0] // 2
     kw = dict(nbits=nbits, group_size=group_size, superblock=superblock)
-    gu = qmm_plain(x, gu_packed, gu_scale, gu_zero, shape=gu_shape,
-                   out_dtype=torch.bfloat16, **kw)
+    gu = gemv(x, gu_packed, gu_scale, gu_zero, shape=gu_shape,
+              out_dtype=torch.bfloat16, **kw)
     act = swiglu_plain(gu[:, :inter], gu[:, inter:2 * inter])
-    return qmm_plain(act[:, :d_shape[1]], d_packed, d_scale, d_zero,
-                     shape=d_shape, out_dtype=out_dtype, **kw)
+    return gemv(act[:, :d_shape[1]], d_packed, d_scale, d_zero, shape=d_shape,
+                out_dtype=out_dtype, **kw)
+
+
+def qmm_mlp_plain(x, gu_packed, gu_scale, gu_zero, d_packed, d_scale, d_zero,
+                  **static) -> torch.Tensor:
+    """``down(swiglu(gateup(x)))`` for one layer through :func:`qmm_plain`
+    (f32 dequantization and products; the CPU route of
+    :func:`quant_matmul_mlp_indexed`)."""
+    return _mlp_chain(qmm_plain, x, gu_packed, gu_scale, gu_zero, d_packed,
+                      d_scale, d_zero, **static)
+
+
+def qmm_mlp_grouped_plain(x, gu_packed, gu_scale, gu_zero, d_packed, d_scale,
+                          d_zero, **static) -> torch.Tensor:
+    """``down(swiglu(gateup(x)))`` for one layer in the grouped form, the
+    function of the JAX package's ``_qmm_kernel_mlp`` (``_gemv_blockdiag``
+    for both products, gateup kept in a bf16 scratch): gateup through
+    :func:`qmm_grouped_plain` rounded to bf16, :func:`swiglu_plain`, down
+    through :func:`qmm_grouped_plain`.  The one-launch MLP kernel's
+    reference."""
+    return _mlp_chain(qmm_grouped_plain, x, gu_packed, gu_scale, gu_zero,
+                      d_packed, d_scale, d_zero, **static)
 
 
 # ---------------------------------------------------------------------------
@@ -288,10 +340,11 @@ def qmm_mlp_plain(x, gu_packed, gu_scale, gu_zero, d_packed, d_scale, d_zero,
 def _qmm_cuda(x, up, packed, scale, zero, *, nbits, group_size, shape,
               superblock, out_dtype, pipe=False, cuda_core=False) -> tuple:
     """Launch the kernel; returns (out, whether the grouped GEMV ran).
-    ``cuda_core`` keeps a call that the grouped GEMV would take on the
-    CUDA-core GEMV (the probes' and tests' bit-identity pins: the pipelined
-    GEMV, the one-launch MLP and the attribution probe share its
-    arithmetic); no public switch reaches it."""
+    ``pipe`` takes the pipelined grouped GEMV (it counts on its own
+    wrapper, not as grouped); ``cuda_core`` keeps a call that the grouped
+    GEMV would take on the CUDA-core GEMV (the probes' and tests' pins:
+    the attribution probe shares its arithmetic); no public switch reaches
+    it."""
     N, K = shape
     M = x.shape[0]
     rows, Np = packed.shape
@@ -300,10 +353,6 @@ def _qmm_cuda(x, up, packed, scale, zero, *, nbits, group_size, shape,
             f"N={N}, K={K})")
     if nbits not in ((1, 2, 3, 4) if pipe else (1, 2, 3, 4, 8)):
         raise ValueError(f"{what}: no kernel for {nbits}-bit")
-    if pipe and (M > 8 or Np % 8 or any(t.data_ptr() % 16
-                                        for t in (packed, scale, zero))):
-        raise ValueError(f"{what}: the pipelined kernel takes M <= 8, Np a "
-                         f"multiple of 8 and 16-byte aligned weights")
     tensors = [x, packed, scale, zero] + ([up] if up is not None else [])
     if any(t.device != x.device for t in tensors):
         raise ValueError(f"{what}: tensors on different devices")
@@ -326,16 +375,20 @@ def _qmm_cuda(x, up, packed, scale, zero, *, nbits, group_size, shape,
         raise ValueError(f"{what}: packed {tuple(packed.shape)}, scale "
                          f"{tuple(scale.shape)}, superblock {superblock}, "
                          f"group {group_size} do not fit")
-    grouped = not (pipe or cuda_core) and _grouped_applies(
+    ring = not cuda_core and _grouped_applies(
         x, packed, scale, zero, nbits, group_size, superblock, up)
+    if pipe and not ring:
+        raise ValueError(f"{what}: the pipelined GEMV takes bf16 x, M <= 8 "
+                         f"and the grouped ring's layouts, strides and "
+                         f"alignment")
     meta_bf16 = _cuda.dtype_flag(scale, what)
-    if grouped:
-        entry = "amq_qmm_grouped"
+    if ring:
+        entry = "amq_qmm_pipe" if pipe else "amq_qmm_grouped"
         splits, per = _grouped_plan(N, Kp, nbits, up is not None, meta_bf16,
                                     group_size, superblock,
                                     x.device.index or 0)
     else:
-        entry = "amq_qmm_pipe" if pipe else "amq_qmm"
+        entry = "amq_qmm"
         splits, per = _splits(M, N, Kp // superblock, x.device)
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     partial = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
@@ -347,7 +400,7 @@ def _qmm_cuda(x, up, packed, scale, zero, *, nbits, group_size, shape,
                      M, K, x.stride(0), Kp, N, Np, nbits, group_size,
                      superblock, splits, per, _cuda.stream())
     _cuda.check(rc, what)
-    return out, grouped
+    return out, ring and not pipe
 
 
 def _qmm(x, up, packed, scale, zero, *, out_dtype, counter, pipe=False,
@@ -368,10 +421,10 @@ def _qmm(x, up, packed, scale, zero, *, out_dtype, counter, pipe=False,
 def _qmm_cuda_core(x, packed, scale, zero, *, out_dtype, up=None,
                   **static) -> torch.Tensor:
     """One layer's dequant-matmul on the CUDA-core GEMV, even where the
-    grouped GEMV would take the call: the route that the pipelined GEMV,
-    the one-launch MLP and the attribution probe's ``full`` give the same
-    bits as (their ``torch.equal`` pins).  The plain version on the CPU.
-    Counts no launch."""
+    grouped GEMV would take the call: the route that the attribution
+    probe's ``full`` (both bodies) gives the same bits as (its
+    ``torch.equal`` pin).  The plain version on the CPU.  Counts no
+    launch."""
     if x.device.type == "cpu":
         return qmm_plain(x, packed, scale, zero, out_dtype=out_dtype, up=up,
                          **static)
@@ -391,18 +444,21 @@ def quant_matmul_indexed(x: torch.Tensor, packed_stack: torch.Tensor,
     Replaces ``quant_matmul_indexed`` (kernel ``_qmm_kernel_stacked``) of
     the JAX package's ``ops/quant_matmul.py``.  ``layer`` is a host int
     (the layer loop runs in Python); ``packed_stack[layer]`` is a view.
-    Where the JAX package takes its pipelined branch, this goes to
+    Where the JAX package takes its pipelined branch and the grouped ring
+    takes the call (:func:`_pipe_applies`), this goes to
     :func:`quant_matmul_indexed_pipe`.
     """
-    if _pipe_applies(x, packed_stack, nbits, group_size, superblock):
+    packed, scale, zero = (packed_stack[layer], scale_stack[layer],
+                           zero_stack[layer])
+    if _pipe_applies(x, packed, scale, zero, nbits, group_size, superblock):
         return quant_matmul_indexed_pipe(
             x, packed_stack, scale_stack, zero_stack, layer, nbits=nbits,
             group_size=group_size, shape=shape, superblock=superblock,
             out_dtype=out_dtype)
-    return _qmm(x, None, packed_stack[layer], scale_stack[layer],
-                zero_stack[layer], nbits=nbits, group_size=group_size,
-                shape=tuple(shape), superblock=superblock,
-                out_dtype=out_dtype or x.dtype, counter=quant_matmul_indexed)
+    return _qmm(x, None, packed, scale, zero, nbits=nbits,
+                group_size=group_size, shape=tuple(shape),
+                superblock=superblock, out_dtype=out_dtype or x.dtype,
+                counter=quant_matmul_indexed)
 
 
 quant_matmul_indexed.launches = 0
@@ -415,12 +471,16 @@ def quant_matmul_indexed_pipe(x: torch.Tensor, packed_stack: torch.Tensor,
                               zero_stack: torch.Tensor, layer: int, *,
                               nbits: int, group_size: int, shape,
                               superblock: int, out_dtype=None) -> torch.Tensor:
-    """:func:`quant_matmul_indexed` through the software-pipelined decode
-    GEMV, whatever the switch says (M <= 8, widths 1-4).
+    """:func:`quant_matmul_indexed` through the software-pipelined grouped
+    GEMV, whatever the switch says (bf16 x, M <= 8, widths 1-4, a call
+    the grouped ring takes; others raise).
 
     Replaces the pipelined branch of ``quant_matmul_indexed`` (kernel
     ``_qmm_kernel_stacked_pipe``) of the JAX package's
-    ``ops/quant_matmul.py``.  The plain version is :func:`qmm_plain`.
+    ``ops/quant_matmul.py``.  On a CUDA tensor it computes the grouped
+    form (reference :func:`qmm_grouped_plain`; the grouped GEMV's bits);
+    on the CPU it takes :func:`qmm_plain`, as the JAX package's CPU
+    backend takes no kernel.
     """
     return _qmm(x, None, packed_stack[layer], scale_stack[layer],
                 zero_stack[layer], nbits=nbits, group_size=group_size,
@@ -443,18 +503,21 @@ def quant_matmul_swiglu_indexed(gate: torch.Tensor, up: torch.Tensor,
 
     Replaces ``quant_matmul_swiglu_indexed`` (kernel ``_qmm_kernel_swiglu``)
     of the JAX package's ``ops/quant_matmul.py``; where the JAX package
-    takes its pipelined branch, this goes to
+    takes its pipelined branch and the grouped ring takes the call
+    (:func:`_pipe_applies`), this goes to
     :func:`quant_matmul_swiglu_indexed_pipe`.
     """
-    if _pipe_applies(gate, packed_stack, nbits, group_size, superblock):
+    packed, scale, zero = (packed_stack[layer], scale_stack[layer],
+                           zero_stack[layer])
+    if _pipe_applies(gate, packed, scale, zero, nbits, group_size, superblock,
+                     up):
         return quant_matmul_swiglu_indexed_pipe(
             gate, up, packed_stack, scale_stack, zero_stack, layer,
             nbits=nbits, group_size=group_size, shape=shape,
             superblock=superblock, out_dtype=out_dtype)
-    return _qmm(gate, up, packed_stack[layer], scale_stack[layer],
-                zero_stack[layer], nbits=nbits, group_size=group_size,
-                shape=tuple(shape), superblock=superblock,
-                out_dtype=out_dtype or gate.dtype,
+    return _qmm(gate, up, packed, scale, zero, nbits=nbits,
+                group_size=group_size, shape=tuple(shape),
+                superblock=superblock, out_dtype=out_dtype or gate.dtype,
                 counter=quant_matmul_swiglu_indexed)
 
 
@@ -471,11 +534,13 @@ def quant_matmul_swiglu_indexed_pipe(gate: torch.Tensor, up: torch.Tensor,
                                      superblock: int,
                                      out_dtype=None) -> torch.Tensor:
     """:func:`quant_matmul_swiglu_indexed` through the software-pipelined
-    decode GEMV, whatever the switch says.
+    grouped GEMV, whatever the switch says (as
+    :func:`quant_matmul_indexed_pipe`).
 
     Replaces the pipelined branch of ``quant_matmul_swiglu_indexed``
     (kernel ``_qmm_kernel_swiglu_pipe``) of the JAX package's
-    ``ops/quant_matmul.py``.  The plain version is :func:`qmm_plain`.
+    ``ops/quant_matmul.py``.  Its reference on a CUDA tensor is
+    :func:`qmm_grouped_plain`; the CPU takes :func:`qmm_plain`.
     """
     return _qmm(gate, up, packed_stack[layer], scale_stack[layer],
                 zero_stack[layer], nbits=nbits, group_size=group_size,
@@ -499,9 +564,13 @@ def quant_matmul_mlp_indexed(x: torch.Tensor, gu_packed: torch.Tensor,
 
     Replaces ``quant_matmul_mlp_indexed`` (kernel ``_qmm_kernel_mlp``) of
     the JAX package's ``ops/quant_matmul.py``.  ``gu_shape`` is the logical
-    ``([gate; up], hidden)``, ``d_shape`` ``(hidden, inter)``.  The plain
-    version is :func:`qmm_mlp_plain`.  A refused cooperative launch raises;
-    nothing falls back to the separate kernels.
+    ``([gate; up], hidden)``, ``d_shape`` ``(hidden, inter)``.  On a CUDA
+    tensor it computes the grouped form (reference
+    :func:`qmm_mlp_grouped_plain`; the bits of the separate grouped
+    gateup -> SwiGLU-down chain) for the calls :func:`_mlp_applies` takes,
+    and raises on others; on the CPU it takes :func:`qmm_mlp_plain`.  A
+    refused cooperative launch raises; nothing falls back to the separate
+    kernels.
     """
     static = dict(nbits=nbits, group_size=group_size, gu_shape=tuple(gu_shape),
                   d_shape=tuple(d_shape), superblock=superblock,
@@ -550,25 +619,33 @@ def _mlp_cuda(x, gu, dn, *, nbits, group_size, gu_shape, d_shape, superblock,
     for (packed, scale, zero), Kp, Np, K, N in ((gu, Kp_gu, Np_gu, K_gu, N_gu),
                                                 (dn, Kp_d, Np_d, K_d, N_d)):
         if (Kp % superblock or superblock % 64 or superblock % group_size
-                or superblock > 1024 or K > Kp or N > Np or Np % 8
+                or superblock > 1024 or K > Kp or N > Np
                 or scale.shape != (Kp // group_size, Np)
-                or zero.shape != scale.shape
-                or any(t.data_ptr() % 16 for t in (packed, scale, zero))):
+                or zero.shape != scale.shape):
             raise ValueError(f"{what}: packed {tuple(packed.shape)}, scale "
                              f"{tuple(scale.shape)}, superblock {superblock}, "
                              f"group {group_size} do not fit")
-    # the separate kernels' K splits, so the sums run in their order
-    s_gu, per_gu = _splits(M, N_gu, Kp_gu // superblock, x.device)
-    s_d, per_d = _splits(M, N_d, Kp_d // superblock, x.device)
+    if not _mlp_applies(x, gu, dn, nbits, group_size, superblock):
+        raise ValueError(f"{what}: the one-launch MLP takes bf16 x and "
+                         f"layers the grouped ring takes")
+    meta_bf16 = _cuda.dtype_flag(gu[1], what)
+    index = x.device.index or 0
+    # the separate grouped calls' K splits (down's as the SwiGLU-down
+    # call), so the sums run in their order
+    s_gu, per_gu = _grouped_plan(N_gu, Kp_gu, nbits, False, meta_bf16,
+                                 group_size, superblock, index)
+    s_d, per_d = _grouped_plan(N_d, Kp_d, nbits, True, meta_bf16, group_size,
+                               superblock, index)
     dev = x.device
     gu_part = torch.empty((s_gu, M, N_gu), dtype=torch.float32, device=dev)
-    act = torch.empty((M, Kp_d), dtype=torch.float32, device=dev)
-    d_part = torch.empty((s_d, M, N_d), dtype=torch.float32, device=dev)
+    act = torch.empty((M, Kp_d), dtype=torch.bfloat16, device=dev)
+    d_part = (torch.empty((s_d, M, N_d), dtype=torch.float32, device=dev)
+              if s_d > 1 else None)
     out = torch.empty((M, N_d), dtype=out_dtype, device=dev)
     ptr = _cuda.ptr
     rc = _mlp_lib()(ptr(x), _cuda.dtype_flag(x, what), M, K_gu, x.stride(0),
                     ptr(gu[0]), ptr(gu[1]), ptr(gu[2]), ptr(dn[0]),
-                    ptr(dn[1]), ptr(dn[2]), _cuda.dtype_flag(gu[1], what),
+                    ptr(dn[1]), ptr(dn[2]), meta_bf16,
                     Np_gu, Np_d, N_gu, inter, Kp_gu, Kp_d, N_d, nbits,
                     group_size, superblock, s_gu, per_gu, s_d, per_d,
                     ptr(gu_part), ptr(act), ptr(d_part), ptr(out),

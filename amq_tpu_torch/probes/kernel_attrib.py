@@ -1,15 +1,16 @@
-"""Attribution of the decode GEMV: the production body with parts removed.
+"""Attribution of the CUDA-core decode GEMV: its body with parts removed.
 
     python -m amq_tpu_torch.probes.kernel_attrib [o|qkv|gu|down] [nbits...]
 
 The counterpart of the JAX package's ``scripts/kernel_attrib.py``.  For
 each width (2, 3 with the native 2+1 planes, 4; bf16 meta, M = 1) and
-each production body -- the GEMV of ``csrc/quant_matmul.cu`` (``gemv``)
-and the pipelined GEMV of ``csrc/quant_matmul_pipe.cu`` (``pipe``) -- it
+each body of the CUDA-core GEMV -- loads straight into registers as
+``csrc/quant_matmul.cu``'s ``qmm_gemv_kernel`` (``gemv``), or through the
+cp.async ring of ``csrc/qmm_tile.cuh``'s ``gemv_tile`` (``pipe``) -- it
 runs ``csrc/gemv_attrib.cu`` in four variants, chain-timed
 (``probes/chain.py``):
 
-  full       the production arithmetic; bit-identical to production
+  full       the CUDA-core arithmetic; bit-identical to the CUDA-core GEMV
   fma_only   no extraction (every code 129), full's FMA count
   ext_only   full's extraction, codes summed, no FMA against x
   load_only  words and meta loaded and XOR-folded per column
@@ -26,7 +27,8 @@ The stripped variants do not copy the TPU script's stripped outputs (its
 each is a deterministic function whose plain version is here, and the
 card holds each variant to it -- exactly for the XOR folds and the code
 sums, at the GEMV's bf16 tolerance for ``fma_only``.  ``main`` checks
-``full`` against production with ``torch.equal`` first.  On the CPU
+``full`` against the CUDA-core GEMV (``ops.quant_matmul._qmm_cuda_core``)
+with ``torch.equal`` first.  On the CPU
 (``device="cpu"``) the wrapper takes the plain versions and nothing is
 timed.
 """
@@ -332,7 +334,7 @@ def sass_counts() -> list:
 
 def _check(variant, got: AttribOut, want: AttribOut, prod) -> dict:
     """One variant against its plain version (and full against the
-    production GEMV): the numbers and whether they pass."""
+    CUDA-core GEMV): the numbers and whether they pass."""
     if variant == "full":
         rel = chain.rel_err(got.y, want.y)
         abs_err = (got.y.float() - want.y.float()).abs().max().item()
@@ -365,19 +367,12 @@ def attrib_case(site: str, nbits: int, device) -> list:
     up = (torch.randn((1, K), generator=gen, device=device).to(torch.bfloat16)
           if site == "down" else None)
     kw = dict(nbits=nbits, group_size=128, shape=(N, K), superblock=sb)
-    act = (x,) if up is None else (x, up)
-    # the production kernels whose bodies the probe carries: the CUDA-core
-    # GEMV (which the public wrapper leaves for the grouped GEMV at bf16,
-    # M <= 8) and the pipelined GEMV
-    pipe = (qm.quant_matmul_indexed_pipe if up is None
-            else qm.quant_matmul_swiglu_indexed_pipe)
-    production = {
-        "gemv": lambda: qm._qmm_cuda_core(x, packed[1], scale[1], zero[1],
-                                          up=up, out_dtype=x.dtype, **kw),
-        "pipe": lambda: pipe(*act, packed, scale, zero, 1, **kw)}
+    # the CUDA-core GEMV, whose arithmetic, splits and sums both bodies
+    # carry (the public wrappers take the grouped GEMV at bf16, M <= 8)
+    prod = qm._qmm_cuda_core(x, packed[1], scale[1], zero[1], up=up,
+                             out_dtype=x.dtype, **kw)
     recs = []
     for body in BODIES:
-        prod = production[body]()
         checks, us = {}, {}
         for variant in VARIANTS:
             got = gemv_attrib(x, packed[1], scale[1], zero[1], up=up,

@@ -8,11 +8,12 @@ Phases (any failed check exits non-zero before the last line):
    versions; TF32 off for float32 products, bf16 products reduced in f32.
 2. build: compile the port's CUDA sources (amq_tpu_torch/csrc) with nvcc,
    one process per source, all started together; REGS (registers and
-   spill bytes of the attention kernels, every width's grouped GEMV and
-   the dequantization kernel, from -Xptxas -v) and SASS (HGMMA / HMMA /
-   FFMA per flash kernel, and also LOP3 / SHF per grouped GEMV, from
-   cuobjdump -sass) lines; fails if the bf16 flash kernel holds no HGMMA,
-   a grouped GEMV no HMMA or HGMMA, or a redesigned kernel spills.
+   spill bytes of the attention kernels, every width's grouped GEMV, its
+   pipelined form and the one-launch MLP, and the dequantization kernel,
+   from -Xptxas -v) and SASS (HGMMA / HMMA / FFMA per flash kernel, and
+   also LOP3 / SHF per grouped ring kernel, from cuobjdump -sass) lines;
+   fails if the bf16 flash kernel holds no HGMMA, a grouped ring kernel no
+   HMMA or HGMMA, or a redesigned kernel spills.
 3. kernels vs their plain PyTorch versions at the Llama-2-7B shapes:
    the dequant-matmuls (qkv / o / gateup / down sites, head) at M = 1 and
    64, widths 2, 3 (native planes) and 4, 8 on the head, bf16 and f32
@@ -31,16 +32,18 @@ Phases (any failed check exits non-zero before the last line):
    (bytes over 3.35 TB/s or operations over the peak for the inputs' type)
    and, for flash, the share of that peak.
    The decode kernels of the JAX package's opt-in switches at the same
-   shapes: the pipelined decode GEMV (qkv / o / gateup, down with the
-   SwiGLU prologue; M 1, 4, 8; widths 2, 3, 4) against the plain version
-   and the CUDA-core GEMV (their shared arithmetic), and the one-launch
-   decode MLP (M 1, 4, 8; widths 2, 3, 4) against its plain version and
-   the CUDA-core kernel chain, two calls bit-identical (its gap to the
-   grouped chain reported).  DEQUANT lines: the dequantization
-   kernel at the 7B gateup shape for every packed width, and at the
-   evaluation's own sites (o, gate/up, down with its K tail) for widths
-   2, 3, 4, torch.equal to its plain version in bf16 and f32, its time
-   beside the byte bound.
+   shapes, both in the grouped form on the grouped GEMV's ring: the
+   pipelined grouped GEMV (qkv / o / gateup, down with the SwiGLU
+   prologue; M 1, 4, 8; widths 2, 3, 4) against its plain version and
+   torch.equal to the grouped GEMV, and the one-launch decode MLP (M 1,
+   4, 8; widths 2, 3, 4) against its plain version and torch.equal to the
+   grouped gateup -> SwiGLU-down chain, two calls bit-identical; each
+   timed beside the grouped route and the CUDA-core route (the switch
+   kernels' earlier arithmetic) in the same call.  DEQUANT lines: the
+   dequantization kernel at the 7B gateup shape for every packed width,
+   and at the evaluation's own sites (o, gate/up, down with its K tail)
+   for widths 2, 3, 4, torch.equal to its plain version in bf16 and f32,
+   its time beside the byte bound.
 3c. the decode-GEMV probes through their entry points
    (amq_tpu_torch.probes): kernel_attrib.main and pipelined_gemv.main at
    the qkv / o / gateup / down sites, widths 2, 3, 4 (ATTRIB lines: the
@@ -68,8 +71,10 @@ Phases (any failed check exits non-zero before the last line):
 4b. serving breadth on the same model at full width and depth: generate
    with AMQ_PIPE, then with AMQ_PIPE and AMQ_MLP_KERNEL (exact launch
    counts, grouped ones too; token agreement and logit gap to the default kernels
-   reported); continuous batching (benchmark_continuous, 4 slots, 16
-   requests; default kernels, then both switches; exact launch counts);
+   reported; SWITCHES_PROFILE: device ms per decode token of the default,
+   pipe and pipe+mlp settings in one call); continuous batching
+   (benchmark_continuous, 4 slots, 16 requests; default kernels, then
+   both switches; exact launch counts);
    a float32 SlotEngine run token-exact against each request's generate;
    speculative decoding with the target as its own draft (bf16 rate and
    acceptance, with two witnesses of what that acceptance measures: the
@@ -366,16 +371,20 @@ def check_dequant(nbits, gen, site="gateup"):
     return rec
 
 
-#: pipelined GEMV, bf16 outputs: against the plain version the JAX suite's
-#: normalized 2e-2 (tests/test_quant_matmul.py), against the non-pipelined
-#: GEMV (the same arithmetic) 1e-2
-PIPE_TOL, PIPE_VS_GEMV_TOL = 2e-2, 1e-2
+#: the decode-switch kernels against their plain versions (the grouped
+#: form): the JAX suite's normalized bf16 decode tolerance; against the
+#: grouped GEMV and its chain (the same splits, products and sums in the
+#: same order) they are held to torch.equal
+PIPE_TOL = MLP_TOL = 2e-2
 
 
 def check_pipe(site, nbits, Ms, gen):
-    """The pipelined decode GEMV at one 7B site and width, for each M:
-    against the plain version and the non-pipelined CUDA-core GEMV; its
-    time beside the CUDA-core GEMV's in the same call."""
+    """The pipelined grouped GEMV at one 7B site and width, for each M:
+    against its plain version (the grouped form), torch.equal to the
+    grouped GEMV (the public wrapper without the switch), two calls
+    bit-identical; its time beside the grouped GEMV's and the CUDA-core
+    GEMV's (the arithmetic of the pipelined route's earlier design) in the
+    same call."""
     from amq_tpu_torch.models.stacked import decode_switches
     from amq_tpu_torch.ops import quant_matmul as qm
     N, K, _ = SITES_7B[site]
@@ -383,10 +392,10 @@ def check_pipe(site, nbits, Ms, gen):
     kernel = ("quant_matmul_swiglu_indexed_pipe" if swiglu
               else "quant_matmul_indexed_pipe")
     pipe_fn = getattr(qm, kernel)
+    grouped_fn = (qm.quant_matmul_swiglu_indexed if swiglu
+                  else qm.quant_matmul_indexed)
 
     def gemv_fn(x, *rest, **kw):
-        # the CUDA-core GEMV, whose arithmetic the pipelined GEMV shares
-        # (the public wrapper takes the grouped GEMV at these calls)
         *u, packed, scale, zero, i = rest
         return qm._qmm_cuda_core(x, packed[i], scale[i], zero[i],
                                  up=u[0] if u else None, **kw)
@@ -400,21 +409,28 @@ def check_pipe(site, nbits, Ms, gen):
         act = (x, u) if swiglu else (x,)
         kw = dict(nbits=nbits, group_size=128, shape=(N, K), superblock=sb,
                   out_dtype=torch.bfloat16)
+
+        def plain():
+            return qm.qmm_grouped_plain(x, packed[1], scale[1], zero[1],
+                                        up=u if swiglu else None, **kw)
         with decode_switches(pipe=False, mlp=False):
+            before = pipe_fn.launches
             got = pipe_fn(*act, packed, scale, zero, 1, **kw)
-            ref = gemv_fn(*act, packed, scale, zero, 1, **kw)
-            want = qm.qmm_plain(x, packed[1], scale[1], zero[1],
-                                up=u if swiglu else None, **kw)
+            again = pipe_fn(*act, packed, scale, zero, 1, **kw)
+            launched = pipe_fn.launches - before == 2
+            grouped = grouped_fn(*act, packed, scale, zero, 1, **kw)
+            want = plain()
             torch.cuda.synchronize()
             rel, err = rel_err(got, want)
-            rel_gemv, _ = rel_err(got, ref)
+            equal_grouped = bool(torch.equal(got, grouped))
+            deterministic = bool(torch.equal(got, again))
             ms = time_ms([lambda i=i: pipe_fn(*act, packed, scale, zero, i,
                                               **kw) for i in range(L)])
+            grouped_ms = time_ms([lambda i=i: grouped_fn(
+                *act, packed, scale, zero, i, **kw) for i in range(L)])
             gemv_ms = time_ms([lambda i=i: gemv_fn(*act, packed, scale, zero,
                                                    i, **kw) for i in range(L)])
-            plain_ms = time_ms([lambda: qm.qmm_plain(
-                x, packed[1], scale[1], zero[1], up=u if swiglu else None,
-                **kw)], iters=3)
+            plain_ms = time_ms([plain], iters=3)
             wrapper_us = host_us(lambda: pipe_fn(*act, packed, scale, zero, 1,
                                                  **kw))
         xa = qm.swiglu_plain(x, u) if swiglu else x
@@ -423,32 +439,31 @@ def check_pipe(site, nbits, Ms, gen):
                   + len(act) * x.numel() * 2 + M * N * 2)
         b_ms, b_by = bound(nbytes, 2 * M * N * K)
         rec = dict(kernel=kernel, site=site, nbits=nbits, M=M, meta="bfloat16",
-                   max_abs_err=err, rel_err=rel, tol=PIPE_TOL,
-                   rel_err_vs_gemv=rel_gemv, tol_vs_gemv=PIPE_VS_GEMV_TOL,
-                   ms=ms, gemv_ms=gemv_ms, plain_ms=plain_ms,
-                   host_us=wrapper_us, library_ms=library_ms,
+                   route="pipe", max_abs_err=err, rel_err=rel, tol=PIPE_TOL,
+                   equal_grouped=equal_grouped, deterministic=deterministic,
+                   ms=ms, grouped_ms=grouped_ms, gemv_ms=gemv_ms,
+                   plain_ms=plain_ms, host_us=wrapper_us,
+                   library_ms=library_ms,
                    library="torch.matmul bf16 x dense dequantized weight "
                    "(different function)", bound_ms=b_ms, bound_by=b_by,
-                   ok=rel <= PIPE_TOL and rel_gemv <= PIPE_VS_GEMV_TOL)
+                   share_of_bound=b_ms / ms,
+                   ok=(rel <= PIPE_TOL and equal_grouped and deterministic
+                       and launched))
         print("CASE " + json.dumps(rec), flush=True)
         recs.append(rec)
     del wt, packed, scale, zero
     return recs
 
 
-#: one-launch MLP, float32 outputs: against the plain version the JAX
-#: suite's normalized 2e-2; against the separate kernel chain
-#: (tests/test_mlp_megakernel.py) 2e-3
-MLP_TOL, MLP_VS_CHAIN_TOL = 2e-2, 2e-3
 MLP_7B = ((22016, 4096), (4096, 11008))      # gateup, down (N, K)
 
 
 def check_mlp(nbits, Ms, gen):
     """The one-launch decode MLP at the 7B shapes for each M: against its
-    plain version and the separate gateup -> SwiGLU-down chain of the
-    CUDA-core GEMV (its arithmetic), two calls bit-identical; its time
-    beside that chain's, and (reported) its gap to and the time of the
-    public wrappers' chain, the grouped GEMVs."""
+    plain version (the grouped form), torch.equal to the public wrappers'
+    separate gateup -> SwiGLU-down chain (the grouped GEMVs), two calls
+    bit-identical; its time beside that chain's and the CUDA-core chain's
+    (the arithmetic of the kernel's earlier design) in the same call."""
     from amq_tpu_torch.models.stacked import decode_switches
     from amq_tpu_torch.ops import quant_matmul as qm
     (Ngu, H), (Nd, I) = MLP_7B
@@ -471,64 +486,64 @@ def check_mlp(nbits, Ms, gen):
                                                out_dtype=out_dtype, **kw)
 
         def chain(i, out_dtype=torch.bfloat16):
-            # the CUDA-core GEMV's chain: the MLP kernel's arithmetic
-            g = qm._qmm_cuda_core(x, *(t[i] for t in gu), nbits=nbits,
-                                  group_size=128, shape=(Ngu, H),
-                                  superblock=sb, out_dtype=torch.bfloat16)
-            return qm._qmm_cuda_core(
-                g[:, :I], *(t[i] for t in dn), up=g[:, I:], nbits=nbits,
-                group_size=128, shape=(Nd, I), superblock=sb,
-                out_dtype=out_dtype)
-
-        def grouped_chain(i, out_dtype=torch.bfloat16):
-            # the public wrappers' chain (the grouped GEMVs), reported
+            # the public wrappers' chain: the grouped GEMVs
             g = qm.quant_matmul_indexed(x, *gu, i, nbits=nbits, group_size=128,
                                         shape=(Ngu, H), superblock=sb)
             return qm.quant_matmul_swiglu_indexed(
                 g[:, :I], g[:, I:], *dn, i, nbits=nbits, group_size=128,
                 shape=(Nd, I), superblock=sb, out_dtype=out_dtype)
 
+        def core_chain(i):
+            # the CUDA-core GEMV's chain, the kernel's earlier arithmetic
+            g = qm._qmm_cuda_core(x, *(t[i] for t in gu), nbits=nbits,
+                                  group_size=128, shape=(Ngu, H),
+                                  superblock=sb, out_dtype=torch.bfloat16)
+            return qm._qmm_cuda_core(
+                g[:, :I], *(t[i] for t in dn), up=g[:, I:], nbits=nbits,
+                group_size=128, shape=(Nd, I), superblock=sb,
+                out_dtype=torch.bfloat16)
+
+        def plain(out_dtype=torch.bfloat16):
+            return qm.qmm_mlp_grouped_plain(
+                x, *(t[1] for t in gu), *(t[1] for t in dn),
+                out_dtype=out_dtype, **kw)
+
         def library():
             g = torch.matmul(x, w_gu)
             return torch.matmul(qm.swiglu_plain(g[:, :I], g[:, I:]), w_d)
 
         with decode_switches(pipe=False, mlp=False):
+            before = qm.quant_matmul_mlp_indexed.launches
             got = mlp(1, torch.float32)
             again = mlp(1, torch.float32)
+            launched = qm.quant_matmul_mlp_indexed.launches - before == 2
             sep = chain(1, torch.float32)
-            gsep = grouped_chain(1, torch.float32)
-            want = qm.qmm_mlp_plain(x, *(t[1] for t in gu), *(t[1] for t in dn),
-                                    out_dtype=torch.float32, **kw)
+            want = plain(torch.float32)
             torch.cuda.synchronize()
             rel, err = rel_err(got, want)
-            rel_chain, _ = rel_err(got, sep)
-            rel_grouped_chain, _ = rel_err(got, gsep)
+            equal_chain = bool(torch.equal(got, sep))
             identical = bool(torch.equal(got, again))
             ms = time_ms([lambda i=i: mlp(i) for i in range(L)])
             chain_ms = time_ms([lambda i=i: chain(i) for i in range(L)])
-            grouped_chain_ms = time_ms([lambda i=i: grouped_chain(i)
-                                        for i in range(L)])
-            plain_ms = time_ms([lambda: qm.qmm_mlp_plain(
-                x, *(t[1] for t in gu), *(t[1] for t in dn),
-                out_dtype=torch.bfloat16, **kw)], iters=2)
+            core_chain_ms = time_ms([lambda i=i: core_chain(i)
+                                     for i in range(L)])
+            plain_ms = time_ms([plain], iters=2)
             wrapper_us = host_us(lambda: mlp(1))
         library_ms = time_ms([library])
         nbytes = (weight_bytes(gu[0], gu[1], Ngu)
                   + weight_bytes(dn[0], dn[1], Nd) + M * (H + Nd) * 2)
         b_ms, b_by = bound(nbytes, 2 * M * (Ngu * H + Nd * I))
         rec = dict(kernel="quant_matmul_mlp_indexed", site="mlp", nbits=nbits,
-                   M=M, meta="bfloat16", max_abs_err=err, rel_err=rel,
-                   tol=MLP_TOL, rel_err_vs_chain=rel_chain,
-                   tol_vs_chain=MLP_VS_CHAIN_TOL, bit_identical=identical,
-                   rel_err_vs_grouped_chain=rel_grouped_chain,
-                   ms=ms, chain_ms=chain_ms, grouped_chain_ms=grouped_chain_ms,
-                   plain_ms=plain_ms,
+                   M=M, meta="bfloat16", route="mlp", max_abs_err=err,
+                   rel_err=rel, tol=MLP_TOL, equal_chain=equal_chain,
+                   bit_identical=identical, ms=ms, chain_ms=chain_ms,
+                   core_chain_ms=core_chain_ms, plain_ms=plain_ms,
                    host_us=wrapper_us, library_ms=library_ms,
                    library="bf16 torch.matmul -> silu*mul -> torch.matmul on "
                    "dense dequantized weights (different function)",
-                   bound_ms=b_ms, bound_by=b_by,
-                   ok=(rel <= MLP_TOL and rel_chain <= MLP_VS_CHAIN_TOL
-                       and identical))
+                   bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+                   ok=(rel <= MLP_TOL and equal_chain and identical
+                       and launched))
         print("CASE " + json.dumps(rec), flush=True)
         recs.append(rec)
     del w_gu, w_d, gu, dn
@@ -701,25 +716,34 @@ def check_flash(label, B, Hq, Hkv, S, T, d, offset, dtype, gen):
     return rec
 
 
-#: the bf16 flash kernel's symbol (tensor cores), the grouped GEMV's
-#: (tensor cores, every width), and the kernels whose registers and spills phase 2
-#: reports (library -> symbol pattern)
+#: the bf16 flash kernel's symbol (tensor cores), the grouped ring's
+#: kernels' (tensor cores, every width: the grouped GEMV, its pipelined
+#: form, the one-launch MLP), and the kernels whose registers and spills
+#: phase 2 reports (library -> symbol pattern)
 WGMMA_FLASH = "flash_kernel_wgmma"
 GROUPED_GEMV = "qmm_grouped_kernel"
+MLP_KERNEL = "qmm_mlp_kernel"
+RING_KERNELS = {"quant_matmul": GROUPED_GEMV, "quant_matmul_pipe":
+                GROUPED_GEMV, "quant_matmul_mlp": MLP_KERNEL}
+#: instantiations per ring library: widths 1/2/3/4/8, the pipelined form
+#: 1-4
+RING_COUNTS = {"quant_matmul": 5, "quant_matmul_pipe": 4,
+               "quant_matmul_mlp": 5}
 REPORT_KERNELS = {"flash_attention": "flash_kernel", "decode_attention":
-                  "decode_attn_kernel", "quant_matmul": GROUPED_GEMV,
+                  "decode_attn_kernel", **RING_KERNELS,
                   "dequant": "dequant_kernel"}
 
 
 def build_report():
     """Phase 2's report on the redesigned kernels: a REGS line (per kernel
-    instantiation of the attention kernels, the grouped GEMV and the
+    instantiation of the attention kernels, the grouped ring's kernels --
+    the grouped GEMV, its pipelined form, the one-launch MLP -- and the
     dequantization kernel its registers and local spill bytes, from nvcc's
-    -Xptxas -v) and a SASS line (per flash kernel and grouped GEMV its
-    HGMMA, HMMA and FFMA instructions, and the grouped GEMVs' LOP3 and SHF,
+    -Xptxas -v) and a SASS line (per flash kernel and ring kernel its
+    HGMMA, HMMA and FFMA instructions, and the ring kernels' LOP3 and SHF,
     from cuobjdump -sass).  Fails if the bf16 flash kernel holds no HGMMA
-    (warpgroup MMA), a grouped GEMV (any width) no HMMA or HGMMA, or if one
-    of these kernels spills."""
+    (warpgroup MMA), a ring kernel (any width) no HMMA or HGMMA, a ring
+    library lacks an instantiation, or one of these kernels spills."""
     from amq_tpu_torch.ops import _cuda
     from amq_tpu_torch.probes import kernel_attrib as ka
     regs = {}
@@ -733,23 +757,27 @@ def build_report():
         names = ka.kernel_names(usage)
         regs[name] = {names[sym]: use for sym, use in usage.items()}
     print("REGS " + json.dumps(regs), flush=True)
-    counts = {}
-    for lib, pattern, ops in (
-            ("flash_attention", "flash_kernel", ("HGMMA", "HMMA", "FFMA")),
-            # the grouped GEMV's extraction (LOP3, SHF) beside its MMAs
-            ("quant_matmul", GROUPED_GEMV,
-             ("HGMMA", "HMMA", "FFMA", "LOP3", "SHF"))):
-        counts.update(ka.count_ops(ka.sass_listing(lib), pattern, ops))
+    counts = ka.count_ops(ka.sass_listing("flash_attention"), "flash_kernel",
+                          ("HGMMA", "HMMA", "FFMA"))
+    ring = {}
+    for lib, pattern in RING_KERNELS.items():
+        # the ring kernels' extraction (LOP3, SHF) beside their MMAs
+        found = ka.count_ops(ka.sass_listing(lib), pattern,
+                             ("HGMMA", "HMMA", "FFMA", "LOP3", "SHF"))
+        ring[lib] = len(found)
+        counts.update(found)
     names = ka.kernel_names(counts)
     sass = {names[sym]: c for sym, c in counts.items()}
     print("SASS " + json.dumps(sass), flush=True)
     wgmma = {sym: c for sym, c in sass.items() if WGMMA_FLASH in sym}
     if len(wgmma) != 2 or not all(c["HGMMA"] > 0 for c in wgmma.values()):
         fail(f"the bf16 flash kernels hold no HGMMA: {sass}")
-    grouped = {sym: c for sym, c in sass.items() if GROUPED_GEMV in sym}
-    if not grouped or not all(c["HMMA"] + c["HGMMA"] > 0
-                              for c in grouped.values()):
-        fail(f"the grouped GEMV holds no HMMA or HGMMA: {sass}")
+    if ring != RING_COUNTS:
+        fail(f"ring kernel instantiations {ring} != {RING_COUNTS}")
+    tensor = {sym: c for sym, c in sass.items()
+              if GROUPED_GEMV in sym or MLP_KERNEL in sym}
+    if not all(c["HMMA"] + c["HGMMA"] > 0 for c in tensor.values()):
+        fail(f"a grouped ring kernel holds no HMMA or HGMMA: {sass}")
     spills = [sym for lib in regs.values() for sym, use in lib.items()
               if use["spill_stores"] + use["spill_loads"] > 0
               and not ("flash_kernel" in sym and WGMMA_FLASH not in sym)]
@@ -1058,15 +1086,16 @@ def device_profile(run, steps):
                 top_kernels_ms_per_token=dict(top))
 
 
-def profile_decode(eng, prompt, steps=8):
-    """Device time by kernel over ``steps`` decode steps of one stream."""
+def profile_decode(eng, prompt, steps=8, tag="PROFILE"):
+    """Device time by kernel over ``steps`` decode steps of one stream,
+    printed as a ``tag`` line."""
     model = eng.params
     cache = eng.new_cache()
     first, cache = eng._prefill_token(model, eng.tokens_to_device(prompt), cache)
     eng._decode_n(model, first, cache, n_steps=2)
     rec = device_profile(
         lambda: eng._decode_n(model, first, cache, n_steps=steps), steps)
-    print("PROFILE " + json.dumps(rec), flush=True)
+    print(f"{tag} " + json.dumps(rec), flush=True)
     return rec
 
 
@@ -1119,9 +1148,10 @@ def reckon_decode(L, prefills, prefill_rows, steps, pipe, mlp):
     ``steps`` decode steps of the fused, layer-uniform 7B model, reckoned
     from the code: per layer qkv, o and gateup GEMVs, the SwiGLU-down
     GEMV, decode attention; one head launch per forward.  Prefills take
-    the non-pipelined kernels (M > 8); under AMQ_PIPE the decode GEMVs
-    take the pipelined kernel; under AMQ_MLP_KERNEL too the gateup and
-    down GEMVs become one MLP launch."""
+    the non-pipelined kernels (M > 8); under AMQ_PIPE every decode GEMV
+    (M = 1, bf16, T = 8, a layout the grouped ring takes) takes the
+    pipelined grouped kernel; under AMQ_MLP_KERNEL too the gateup and down
+    GEMVs become one MLP launch."""
     from amq_tpu_torch import ops
     want = {n: 0 for n in ops.launch_counts()}
     assert 8 < prefill_rows < 256
@@ -1144,8 +1174,9 @@ def reckon_grouped(L, steps, pipe):
     """Launches that take the grouped GEMV over ``steps`` decode steps (M
     <= 8, bf16) of the fused 7B model, reckoned from the code: per layer
     the qkv, o and gateup GEMVs and the SwiGLU-down GEMV (unless AMQ_PIPE
-    sends them to the pipelined kernel), and the head.  Prefills (M =
-    64, their head too) take the CUDA-core GEMM."""
+    sends them all to the pipelined grouped kernel, which counts on its
+    own wrappers), and the head.  Prefills (M = 64, their head too) take
+    the CUDA-core GEMM."""
     return {"quant_matmul_indexed": 0 if pipe else 3 * L * steps,
             "quant_matmul_swiglu_indexed": 0 if pipe else L * steps,
             "quant_matmul": steps}
@@ -1163,10 +1194,11 @@ def first_step_logits(eng, model, prompt):
 
 def switches_phase(eng, model, cfg, prompt, default_toks):
     """(a), (b): one generate under AMQ_PIPE, then under both switches:
-    exact launch counts; tokens and first-step logits against the default
-    kernels (reported: bf16 sums in other orders).  Then decode ms/token
-    (benchmark_speed GEMV) of the three settings in turns, twice (ABCCBA),
-    so the comparison stays inside one call."""
+    exact launch counts; tokens and first-step logits equal to the default
+    kernels' (the switch kernels give the grouped GEMVs' bits).
+    Then, in one call, the device time by kernel per decode token of the
+    three settings (SWITCHES_PROFILE lines), and decode ms/token
+    (benchmark_speed GEMV) of the three in turns, twice (ABCCBA)."""
     from amq_tpu_torch import ops
     from amq_tpu_torch.models.stacked import decode_switches
     from amq_tpu_torch.serving.benchmark import benchmark_speed
@@ -1198,7 +1230,15 @@ def switches_phase(eng, model, cfg, prompt, default_toks):
         if toks.shape != (1, GEN) or not ((toks >= 0)
                                           & (toks < cfg.vocab_size)).all():
             fail(f"{label}: generated tokens out of range")
+        if rec["token_agreement"] != 1.0 or rec["max_logit_diff"] != 0.0:
+            fail(f"{label}: tokens or logits differ from the default "
+                 f"kernels': {rec}")
         recs[label] = rec
+    recs["profile"] = {}
+    for label in SWITCHES:
+        with decode_switches(*SWITCHES[label]):
+            recs["profile"][label] = profile_decode(
+                eng, prompt, tag=f"SWITCHES_PROFILE {label}")
     order = list(SWITCHES) + list(SWITCHES)[::-1]
     ms = {label: [] for label in SWITCHES}
     for label in order:

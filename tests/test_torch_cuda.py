@@ -48,10 +48,12 @@ def test_cuda_quant_matmul_matches_plain(nbits, M):
 @pytest.mark.parametrize("nbits", [1, 2, 3, 4])
 @pytest.mark.parametrize("M", [1, 4, 8])
 def test_cuda_pipelined_gemv_matches_plain_and_gemv(M, nbits, swiglu):
-    """The software-pipelined decode GEMV against the plain version and
-    against the non-pipelined CUDA-core GEMV (the same arithmetic, so the
-    same bits) on bf16 inputs, two layers of a stack, K over two
-    superblocks."""
+    """The pipelined grouped GEMV against its plain version, the grouped
+    form (f32 out within 1e-4 normalized: summation order only), and
+    against the grouped GEMV of the public wrapper without the switch
+    (the same splits, products and sums in the same order, so the same
+    bits), on bf16 inputs, two layers of a stack, K over two superblocks;
+    one launch per call on the pipelined counter."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     rng = np.random.default_rng(70 + nbits + M)
@@ -70,13 +72,12 @@ def test_cuda_pipelined_gemv_matches_plain_and_gemv(M, nbits, swiglu):
     for layer in range(L):
         if swiglu:
             got = tqm.quant_matmul_swiglu_indexed_pipe(x, u, *stack, layer, **kw)
+            ref = tqm.quant_matmul_swiglu_indexed(x, u, *stack, layer, **kw)
         else:
             got = tqm.quant_matmul_indexed_pipe(x, *stack, layer, **kw)
-        # the CUDA-core GEMV (the public wrapper takes the grouped GEMV here)
-        ref = tqm._qmm_cuda_core(x, *(s[layer] for s in stack),
-                                 up=u if swiglu else None, **kw)
-        want = tqm.qmm_plain(x, *(s[layer] for s in stack),
-                             up=u if swiglu else None, **kw)
+            ref = tqm.quant_matmul_indexed(x, *stack, layer, **kw)
+        want = tqm.qmm_grouped_plain(x, *(s[layer] for s in stack),
+                                     up=u if swiglu else None, **kw)
         torch.cuda.synchronize()
         _norm_close(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4)
         assert torch.equal(got, ref)
@@ -87,15 +88,50 @@ def test_cuda_pipelined_gemv_matches_plain_and_gemv(M, nbits, swiglu):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("swiglu", [False, True])
+@pytest.mark.parametrize("nbits", [1, 2, 3, 4])
+def test_cuda_pipelined_gemv_rows_independent_of_M(nbits, swiglu):
+    """Row m of an M = 5 call of the pipelined grouped GEMV has the bits of
+    the same activation row alone (M = 1), as the grouped GEMV's rows do:
+    the splits are the grouped GEMV's, reckoned at the largest M."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    rng = np.random.default_rng(140 + nbits + 10 * swiglu)
+    N, K = 4096, 4096
+    W = torch.from_numpy(rng.normal(size=(N, K)).astype(np.float32) * 0.02)
+    qt = tq.quantize(W.cuda(), nbits=nbits, meta_dtype=torch.bfloat16)
+    x, u = (torch.from_numpy(rng.normal(size=(5, K)).astype(np.float32)
+                             ).cuda().to(torch.bfloat16) for _ in range(2))
+    stack = (qt.packed[None], qt.scale[None], qt.zero[None], 0)
+    kw = dict(nbits=nbits, group_size=128, shape=(N, K),
+              superblock=qt.superblock, out_dtype=torch.bfloat16)
+
+    def call(rows):
+        if swiglu:
+            return tqm.quant_matmul_swiglu_indexed_pipe(x[rows], u[rows],
+                                                        *stack, **kw)
+        return tqm.quant_matmul_indexed_pipe(x[rows], *stack, **kw)
+
+    counter = (tqm.quant_matmul_swiglu_indexed_pipe if swiglu
+               else tqm.quant_matmul_indexed_pipe)
+    before = counter.launches
+    five = call(slice(0, 5))
+    for m in range(5):
+        assert torch.equal(call(slice(m, m + 1))[0], five[m]), m
+    assert counter.launches - before == 6
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("nbits", [2, 3, 4])
 @pytest.mark.parametrize("M", [1, 4, 8])
 def test_cuda_mlp_kernel_matches_plain_and_chain(M, nbits):
-    """The one-launch decode MLP against its plain version and against the
-    separate gateup -> SwiGLU-down chain of the CUDA-core GEMV (its
-    arithmetic; the public wrappers' grouped chain is held to the plain
-    version at the same tolerance); the intermediate width
-    (1920) pads to 2048, so the zeroing past it is exercised.  Two calls
-    give the same bits."""
+    """The one-launch decode MLP against its plain version, the grouped
+    form (normalized 2e-2, the suite's bf16 decode tolerance: gate, up and
+    the activation are rounded to bf16 on both sides), and against the
+    public wrappers' separate gateup -> SwiGLU-down chain of grouped GEMVs
+    (the same splits and sums in the same order, so the same bits); the
+    intermediate width (1920) pads to 2048, so the zeroing past it is
+    exercised.  Two calls give the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     rng = np.random.default_rng(80 + nbits + M)
@@ -119,24 +155,17 @@ def test_cuda_mlp_kernel_matches_plain_and_chain(M, nbits):
     for layer in range(L):
         got = tqm.quant_matmul_mlp_indexed(x, *gu, *dn, layer, **kw)
         again = tqm.quant_matmul_mlp_indexed(x, *gu, *dn, layer, **kw)
-        want = tqm.qmm_mlp_plain(x, *(s[layer] for s in gu),
-                                 *(s[layer] for s in dn), **kw)
+        want = tqm.qmm_mlp_grouped_plain(x, *(s[layer] for s in gu),
+                                         *(s[layer] for s in dn), **kw)
         gkw = dict(nbits=nbits, group_size=128, superblock=sb)
-        g = tqm._qmm_cuda_core(x, *(s[layer] for s in gu), shape=(2 * I, H),
-                               out_dtype=torch.bfloat16, **gkw)
-        chain = tqm._qmm_cuda_core(
-            g[:, :I], *(s[layer] for s in dn), up=g[:, I:], shape=(H, I),
-            out_dtype=torch.float32, **gkw)
-        # the public wrappers' chain: the grouped GEMVs
-        gg = tqm.quant_matmul_indexed(x, *gu, layer, shape=(2 * I, H), **gkw)
-        grouped = tqm.quant_matmul_swiglu_indexed(
-            gg[:, :I], gg[:, I:], *dn, layer, shape=(H, I),
+        g = tqm.quant_matmul_indexed(x, *gu, layer, shape=(2 * I, H), **gkw)
+        chain = tqm.quant_matmul_swiglu_indexed(
+            g[:, :I], g[:, I:], *dn, layer, shape=(H, I),
             out_dtype=torch.float32, **gkw)
         torch.cuda.synchronize()
         assert torch.equal(got, again)
+        assert torch.equal(got, chain)
         _norm_close(got.cpu().numpy(), want.cpu().numpy(), atol=2e-2)
-        _norm_close(got.cpu().numpy(), chain.cpu().numpy(), atol=2e-3)
-        _norm_close(grouped.cpu().numpy(), want.cpu().numpy(), atol=2e-2)
     assert tqm.quant_matmul_mlp_indexed.launches - before == 2 * L
 
 
@@ -517,11 +546,10 @@ def test_cuda_model_forward_flash_matches_einsum(with_cache):
 def test_cuda_gemv_attrib_variants_match_plain(nbits, swiglu, body):
     """The attribution kernel's four variants on layer 1 of a random stack
     (N 320: five column tiles, so K splits and their atomics run): full
-    equal to the production GEMV of its body with torch.equal (the
-    CUDA-core GEMV through the wrapper's private route; the pipelined
-    GEMV), each
-    stripped variant to its plain version (XOR folds and code sums
-    exactly, fma_only at the bf16 GEMV tolerance)."""
+    in both bodies equal to the CUDA-core GEMV (the wrapper's private
+    route, whose arithmetic, splits and sums both carry) with
+    torch.equal, each stripped variant to its plain version (XOR folds and
+    code sums exactly, fma_only at the bf16 GEMV tolerance)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     from amq_tpu_torch.probes import chain, kernel_attrib as ka
@@ -532,14 +560,9 @@ def test_cuda_gemv_attrib_variants_match_plain(nbits, swiglu, body):
         torch.bfloat16) for _ in range(2))
     up = u if swiglu else None
     kw = dict(nbits=nbits, group_size=128, shape=(N, K), superblock=sb)
-    if body == "gemv":      # the CUDA-core GEMV, not the public route
-        prod = tqm._qmm_cuda_core(x, packed[1], scale[1], zero[1], up=up,
-                                  out_dtype=x.dtype, **kw)
-    else:
-        prod_fn = (tqm.quant_matmul_swiglu_indexed_pipe if swiglu
-                   else tqm.quant_matmul_indexed_pipe)
-        prod = prod_fn(*((x, u) if swiglu else (x,)), packed, scale, zero, 1,
-                       **kw)
+    # the CUDA-core GEMV, not the public route (the grouped GEMV)
+    prod = tqm._qmm_cuda_core(x, packed[1], scale[1], zero[1], up=up,
+                              out_dtype=x.dtype, **kw)
     before = ka.gemv_attrib.launches
     for variant in ka.VARIANTS:
         got = ka.gemv_attrib(x, packed[1], scale[1], zero[1], up=up,

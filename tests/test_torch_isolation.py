@@ -246,11 +246,12 @@ def test_decode_switches_route_and_restore(monkeypatch):
     kw = dict(nbits=4, group_size=128, shape=(256, 1024), superblock=1024)
     with stacked.decode_switches(pipe=True, mlp=True):
         assert qm._PIPE_DEFAULT == 1
-        assert qm._pipe_applies(x, packed, 4, 128, 1024)
-        assert not qm._pipe_applies(x, packed, 4, 128, 128)      # T = 1
-        assert not qm._pipe_applies(x.float(), packed, 4, 128, 1024)
+        layer = (packed[0], packed[0], packed[0])
+        assert qm._pipe_applies(x, *layer, 4, 128, 1024)
+        assert not qm._pipe_applies(x, *layer, 4, 128, 128)      # T = 1
+        assert not qm._pipe_applies(x.float(), *layer, 4, 128, 1024)
         assert not qm._pipe_applies(torch.empty((9, 1024), dtype=torch.bfloat16),
-                                    packed, 4, 128, 1024)
+                                    *layer, 4, 128, 1024)
         qm.quant_matmul_indexed(x, packed, packed, packed, 0, **kw)
         qm.quant_matmul_swiglu_indexed(x, x, packed, packed, packed, 0, **kw)
         assert routed == ["quant_matmul_indexed_pipe",

@@ -79,7 +79,8 @@ def test_pipelined_gemv_plain_matches_jax_pipe_kernel(nbits, swiglu,
     u = jnp.asarray(rng.normal(size=(1, K)).astype(np.float32)).astype(jnp.bfloat16)
     kw = dict(nbits=nbits, group_size=128, shape=(N, K), superblock=1024)
     xt, ut = to_tensor(np.asarray(x)), to_tensor(np.asarray(u))
-    assert tqm._pipe_applies(xt, _t(stack)[0], 4, 128, 1024)
+    assert tqm._pipe_applies(xt, *(t[1] for t in _t(stack)), nbits, 128,
+                             1024)
     before = tqm.quant_matmul_indexed_pipe.launches
     with pltpu.force_tpu_interpret_mode():
         if swiglu:
