@@ -1,24 +1,17 @@
 // The decode-GEMV arithmetic over pair-planar packed weights: the CUDA-core
-// per-weight form, one GEMV tile of it walked through a two-stage cp.async
-// ring, and the steps of the grouped form on tensor cores.
+// per-weight form and the steps of the grouped form on tensor cores.
 //
 // The CUDA-core form serves quant_matmul.cu's decode GEMV (f32
 // activations, and the bf16 calls the grouped GEMV does not take; loads go
-// straight from device memory into registers) and the attribution probe
-// (gemv_attrib.cu, whose `pipe` body walks gemv_tile's ring).  Both take
-// their extraction and fma order from superblock_fma, their row-slice sum
-// from sum_slices and their split-K sum from reduce_splits_kernel, so they
-// give the same bits.  The grouped form's steps (grouped_step,
-// grouped_stage_low, grouped_stage_pipe) run in the ring of
-// qmm_grouped.cuh.
+// straight from device memory into registers) and the attribution probe's
+// `gemv` body (gemv_attrib.cu).  Both take their extraction and fma order
+// from superblock_fma, their row-slice sum from sum_slices and their
+// split-K sum from reduce_splits_kernel, so they give the same bits.  The
+// grouped form's steps (grouped_step, grouped_stage_low,
+// grouped_stage_pipe) run in the ring of qmm_grouped.cuh.
 //
 // A block of kBN columns x kKS row slices (512 threads) accumulates x[M, K]
-// @ dequant(W)[K, col0:col0+kBN].  In gemv_tile the packed words and the
-// scale/zero of superblock i+1 travel from device memory into one stage of a
-// shared-memory ring with 16-byte cp.async.cg copies (one commit group per
-// superblock) while the threads extract and accumulate superblock i from
-// the other stage: the Hopper counterpart of the TPU kernel's two code
-// slabs, where the extraction of tile k overlaps the dot of tile k-1.
+// @ dequant(W)[K, col0:col0+kBN].
 //
 // Storage is the JAX package's (see quant_matmul.cu): per superblock of sb
 // K-rows, R = sb*b/32 rows of 32-bit words [R, Np]; the code at block row
@@ -39,7 +32,6 @@ namespace amq {
 constexpr int kBN = 64;                // columns per block
 constexpr int kKS = 8;                 // row slices per block
 constexpr int kThreads = kBN * kKS;
-constexpr int kStages = 2;             // ring depth (superblocks in flight)
 
 // Activation operand: x [M, K] (row stride ldx), zero past M and K; with
 // `u` set, the SwiGLU prologue silu(x) * u.
@@ -169,156 +161,8 @@ __host__ __device__ inline bool rounds_nest_groups(int nbits, int sb, int gs) {
   return (a % gs == 0 || gs % a == 0) && (b % gs == 0 || gs % b == 0);
 }
 
-// Bytes of shared memory: one ring stage (words, then scale rows, then
-// zero rows, each row kBN wide), and the whole block (activation of one
-// superblock in f32, then the ring, which the final cross-slice sum reuses).
-__host__ __device__ inline int stage_bytes(int nbits, int sb, int gs,
-                                           int meta_bf16) {
-  return sb * nbits / 32 * kBN * 4 + 2 * (sb / gs) * kBN * (meta_bf16 ? 2 : 4);
-}
-
-__host__ __device__ inline int tile_smem_bytes(int nbits, int mt, int sb,
-                                               int gs, int meta_bf16) {
-  const int ring = kStages * stage_bytes(nbits, sb, gs, meta_bf16);
-  const int red = kKS * mt * kBN * 4;
-  return mt * sb * 4 + (ring > red ? ring : red);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = ok ? 16 : 0;   // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Start the copies of superblock `sbi` (columns col0..col0+kBN) into
-// `stage`.  Columns at or past Np arrive as zeros.  Every source address is
-// 16-byte aligned: the caller checks Np % 8 == 0 and the base pointers.
-template <int NB>
-__device__ __forceinline__ void issue_stage(const Weights& w, int col0, int sbi,
-                                            unsigned char* stage, int tid) {
-  const int sb = w.superblock, T = sb / w.group_size;
-  const int R = sb * NB / 32;
-  uint32_t* ws = reinterpret_cast<uint32_t*>(stage);
-  const uint32_t* src = w.packed + static_cast<size_t>(sbi) * R * w.Np;
-  constexpr int kWordChunks = kBN / 4;        // 16-byte chunks per word row
-  for (int c = tid; c < R * kWordChunks; c += kThreads) {
-    const int r = c / kWordChunks, q = c - r * kWordChunks;
-    const int col = col0 + q * 4;
-    const bool ok = col < w.Np;
-    cp_async16(ws + r * kBN + q * 4,
-               ok ? src + static_cast<size_t>(r) * w.Np + col : w.packed, ok);
-  }
-  const int es = w.meta_bf16 ? 2 : 4;
-  const int cpr = kBN * es / 16;              // chunks per meta row
-  const int epc = 16 / es;                    // values per chunk
-  unsigned char* ms = stage + R * kBN * 4;
-  for (int c = tid; c < 2 * T * cpr; c += kThreads) {
-    const int row = c / cpr, q = c - row * cpr;   // rows: T scale, T zero
-    const int which = row >= T, t = row - which * T;
-    const int col = col0 + q * epc;
-    const bool ok = col < w.Np;
-    const unsigned char* base =
-        static_cast<const unsigned char*>(which ? w.zero : w.scale);
-    cp_async16(ms + row * kBN * es + q * 16,
-               ok ? base + (static_cast<size_t>(sbi * T + t) * w.Np + col) * es
-                  : base,
-               ok);
-  }
-}
-
-__device__ __forceinline__ float meta_at(const unsigned char* ms, int row,
-                                         int tx, int bf16) {
-  return bf16 ? __bfloat162float(
-                    reinterpret_cast<const __nv_bfloat16*>(ms)[row * kBN + tx])
-              : reinterpret_cast<const float*>(ms)[row * kBN + tx];
-}
-
-// Superblocks [sb_lo, sb_hi) of the operand and the weight through the
-// ring, each handed to `step(word, meta, xs, acc)` once it is staged:
-// `word(r)` is this thread's column's word row r, `meta(g)` its {scale,
-// zero} of group g, xs the activation [MT][sb].  Every thread of the block
-// calls it; it ends with the block synchronised and the ring free.
-template <int NB, int MT, class Step>
-__device__ void gemv_tile(const Operand& op, const Weights& w, int col0,
-                          int sb_lo, int sb_hi, unsigned char* smem,
-                          float (&acc)[MT], Step step) {
-  const int sb = w.superblock, gs = w.group_size, T = sb / gs;
-  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * kBN + tx;
-  const int R = sb * NB / 32;
-  const int sbytes = stage_bytes(NB, sb, gs, w.meta_bf16);
-  const int meta_bf16 = w.meta_bf16;
-  float* xs = reinterpret_cast<float*>(smem);
-  unsigned char* ring = smem + MT * sb * 4;
-#pragma unroll
-  for (int m = 0; m < MT; ++m) acc[m] = 0.f;
-  const int n = sb_hi - sb_lo;
-  if (n <= 0) return;
-
-  issue_stage<NB>(w, col0, sb_lo, ring, tid);
-  cp_async_commit();
-  for (int i = 0; i < n; ++i) {
-    // superblock i+1 goes into the stage superblock i-1 used (every thread
-    // left it at the barrier that closed iteration i-1)
-    if (i + 1 < n)
-      issue_stage<NB>(w, col0, sb_lo + i + 1,
-                      ring + ((i + 1) % kStages) * sbytes, tid);
-    cp_async_commit();
-    const int sbi = sb_lo + i;
-    for (int j = tid; j < MT * sb; j += kThreads) {
-      const int m = j / sb;
-      xs[j] = act_at(op, m, sbi * sb + (j - m * sb));
-    }
-    cp_async_wait<1>();          // this thread's copies of superblock i
-    __syncthreads();             // everyone's copies, and the activation
-    const unsigned char* st = ring + (i % kStages) * sbytes;
-    const uint32_t* wcol = reinterpret_cast<const uint32_t*>(st) + tx;
-    const unsigned char* ms = st + R * kBN * 4;
-    step([=](int r) { return wcol[r * kBN]; },
-         [=](int g) {
-           return make_float2(meta_at(ms, g, tx, meta_bf16),
-                              meta_at(ms, T + g, tx, meta_bf16));
-         },
-         xs, acc);
-    __syncthreads();             // stage i and the activation are free
-  }
-}
-
-// acc[m] (per thread: its column, its row slice) over superblocks
-// [sb_lo, sb_hi) of the operand times the weight: gemv_tile with
-// superblock_fma as its step.
-template <int NB, int MT>
-__device__ void gemv_tile(const Operand& op, const Weights& w, int col0,
-                          int sb_lo, int sb_hi, unsigned char* smem,
-                          float (&acc)[MT]) {
-  const int sb = w.superblock, gs = w.group_size, ty = threadIdx.y;
-  gemv_tile<NB, MT>(
-      op, w, col0, sb_lo, sb_hi, smem, acc,
-      [=](auto word, auto meta, const float* xs, float (&a)[MT]) {
-        superblock_fma<NB, MT>(
-            word,
-            [=](int g) {
-              const float2 sz = meta(g);
-              return make_float2(sz.x, -sz.y * sz.x);
-            },
-            xs, sb, gs, ty, a);
-      });
-}
-
 // Sum the kKS row slices: afterwards the threads of slice 0 hold their
-// column's totals in acc.  `red` [kKS][MT][kBN] may alias the ring
-// (gemv_tile has released it).
+// column's totals in acc (`red`: [kKS][MT][kBN] floats of shared memory).
 template <int MT>
 __device__ __forceinline__ void sum_slices(float (&acc)[MT], float* red) {
   const int tx = threadIdx.x, ty = threadIdx.y;

@@ -1,19 +1,30 @@
-"""Attribution of the CUDA-core decode GEMV: its body with parts removed.
+"""Attribution of the decode GEMVs: their bodies with parts removed.
 
     python -m amq_tpu_torch.probes.kernel_attrib [o|qkv|gu|down] [nbits...]
 
 The counterpart of the JAX package's ``scripts/kernel_attrib.py``.  For
 each width (2, 3 with the native 2+1 planes, 4; bf16 meta, M = 1) and
-each body of the CUDA-core GEMV -- loads straight into registers as
-``csrc/quant_matmul.cu``'s ``qmm_gemv_kernel`` (``gemv``), or through the
-cp.async ring of ``csrc/qmm_tile.cuh``'s ``gemv_tile`` (``pipe``) -- it
-runs ``csrc/gemv_attrib.cu`` in four variants, chain-timed
-(``probes/chain.py``):
+each body -- the grouped GEMV every bf16 decode GEMV at M <= 8 runs
+(``grouped``: ``csrc/qmm_grouped.cuh``'s ring, producer warp, mbarriers,
+splits and launch bounds; the JAX script's ``_gemv_blockdiag`` body) and
+the CUDA-core GEMV that f32 activations and the layouts the ring refuses
+take (``gemv``: ``csrc/quant_matmul.cu``'s ``qmm_gemv_kernel``) -- it runs
+``csrc/gemv_attrib.cu`` in four variants, chain-timed
+(``probes/chain.py``).  Grouped body (the script's full / dot_only /
+ext_only / dma_only):
 
-  full       the CUDA-core arithmetic; bit-identical to the CUDA-core GEMV
-  fma_only   no extraction (every code 129), full's FMA count
-  ext_only   full's extraction, codes summed, no FMA against x
-  load_only  words and meta loaded and XOR-folded per column
+  full       the grouped consumer itself; bit-identical to the grouped
+             GEMV (``quant_matmul_indexed`` at M = 1, bf16)
+  mma_only   the same MMAs and corrections on constant codes (code 1 in
+             every field), the words XOR-folded
+  ext_only   the extraction into MMA fragments, each fragment XOR-folded
+             per column in place of the MMAs
+  load_only  wait on the stage, XOR-fold its words and each group's meta
+
+GEMV body: ``full`` (bit-identical to the CUDA-core GEMV,
+``ops.quant_matmul._qmm_cuda_core``), ``fma_only`` (no extraction, every
+code 129, full's FMA count), ``ext_only`` (full's extraction, codes
+summed, no FMA against x), ``load_only`` (words and meta XOR-folded).
 
 Every variant loads the same bytes, with as many blocks resident per SM
 as ``full`` (:func:`occupancy`; ``pinned`` in the record).
@@ -26,11 +37,10 @@ The stripped variants do not copy the TPU script's stripped outputs (its
 ``dma_only`` sums random words bitcast to bf16, which is not finite):
 each is a deterministic function whose plain version is here, and the
 card holds each variant to it -- exactly for the XOR folds and the code
-sums, at the GEMV's bf16 tolerance for ``fma_only``.  ``main`` checks
-``full`` against the CUDA-core GEMV (``ops.quant_matmul._qmm_cuda_core``)
-with ``torch.equal`` first.  On the CPU
-(``device="cpu"``) the wrapper takes the plain versions and nothing is
-timed.
+sums, at the GEMV's bf16 tolerance for ``fma_only`` / ``mma_only``.
+``main`` checks each body's ``full`` against the route whose bits it
+carries with ``torch.equal`` first.  On the CPU (``device="cpu"``) the
+wrapper takes the plain versions and nothing is timed.
 """
 
 from __future__ import annotations
@@ -46,26 +56,32 @@ from pathlib import Path
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
-from ..core.bitpack import unpack
+from ..core.bitpack import unpack, wrap_int32
 from ..core.device import resolve_device
 from ..ops import _cuda
 from ..ops import quant_matmul as qm
 from . import chain
 
-VARIANTS = ("full", "fma_only", "ext_only", "load_only")
-BODIES = ("gemv", "pipe")
-#: max |kernel - plain| / max |plain| of fma_only's bf16 output (one
-#: rounding on either side, f32 sums in another order)
+BODIES = ("gemv", "grouped")
+#: each body's variants, in the kernel's order
+VARIANTS = {"gemv": ("full", "fma_only", "ext_only", "load_only"),
+            "grouped": ("full", "mma_only", "ext_only", "load_only")}
+#: max |kernel - plain| / max |plain| of the full, fma_only and mma_only
+#: bf16 outputs against their plain versions (one rounding on either side,
+#: f32 sums in another order)
 FMA_TOL = 1e-2
 _c_int = ctypes.c_int
 _c_ptr = ctypes.c_void_p
 
 
 class AttribOut(NamedTuple):
-    """One variant's outputs: ``y`` [1, N] (full, fma_only), ``xr`` [N]
-    int32 XOR fold (fma_only: words; ext_only: meta; load_only: both),
-    ``cs`` [N] f32 code sums (ext_only); None where the variant has none."""
+    """One variant's outputs: ``y`` [1, N] (full, fma_only, mma_only),
+    ``xr`` [N] int32 XOR fold (fma_only, mma_only: words; GEMV body's
+    ext_only: meta; grouped ext_only: the MMA fragments; load_only: words
+    and meta), ``cs`` [N] f32 code sums (GEMV body's ext_only); None where
+    the variant has none."""
     y: Optional[torch.Tensor]
     xr: Optional[torch.Tensor]
     cs: Optional[torch.Tensor]
@@ -111,25 +127,63 @@ def fma_only_plain(x, packed, scale, zero, *, nbits, group_size, shape,
     return torch.matmul(x.float(), w[:K, :N]).to(x.dtype)
 
 
+def const_code_plain(x, scale, zero, *, group_size, shape,
+                     up=None) -> torch.Tensor:
+    """mma_only's y: the grouped form (``qmm_grouped_plain``) with every
+    code 1, ``sum_g s_g * (129 xsum_g) - s_g * (z_g + 128) * xsum_g`` over
+    the bf16 activations' f32 group sums, rounded to x's dtype."""
+    N, K = shape
+    if up is not None:
+        x = qm.swiglu_plain(x, up)
+    G = scale.shape[0]
+    xb = F.pad(x.to(torch.bfloat16).float(), (0, G * group_size - K))
+    xsum = xb.reshape(-1, G, group_size).sum(2)               # [M, G]
+    s, z = scale.float(), zero.float()
+    return (xsum @ (s * (129.0 - (z + 128.0))))[:, :N].to(x.dtype)
+
+
+def fragment_fold(packed, nbits, superblock, N) -> torch.Tensor:
+    """The grouped ext_only's fold: per column the XOR of every A fragment
+    the grouped consumer extracts, bf16 pairs ``0x4300 | c << o`` of the
+    column's codes at K rows 2j (low half) and 2j + 1 (high half), ``o``
+    the round's field offset (2-bit: ``2 * (p % 3)`` for round p, the
+    shifts folded into masks; 3/4-bit: 0; 3-bit codes recombined).  The
+    constant 0x4300 cancels over the even count of K row pairs."""
+    c = unpack(packed, nbits, superblock, dtype=torch.int32)[:, :N]
+    if nbits == 2:
+        k = torch.arange(c.shape[0], device=c.device)
+        c = c << (2 * ((k % superblock) // (superblock // 8) % 3))[:, None]
+    return wrap_int32(xor_fold(c[0::2]).long()
+                      | xor_fold(c[1::2]).long() << 16)
+
+
 def attrib_plain(variant, x, packed, scale, zero, *, nbits, group_size,
-                 shape, superblock, up=None) -> AttribOut:
-    """The plain version of one variant (see the module note)."""
+                 shape, superblock, up=None, body="grouped") -> AttribOut:
+    """The plain version of one variant of one body (see the module
+    note)."""
     N = shape[0]
     kw = dict(nbits=nbits, group_size=group_size, shape=tuple(shape),
               superblock=superblock)
+    grouped = body == "grouped"
     if variant == "full":
-        return AttribOut(qm.qmm_plain(x, packed, scale, zero, up=up,
-                                      out_dtype=x.dtype, **kw), None, None)
-    if variant == "fma_only":
-        return AttribOut(fma_only_plain(x, packed, scale, zero, up=up, **kw),
-                         xor_fold(packed[:, :N]), None)
+        plain = qm.qmm_grouped_plain if grouped else qm.qmm_plain
+        return AttribOut(plain(x, packed, scale, zero, up=up,
+                               out_dtype=x.dtype, **kw), None, None)
+    if variant == ("mma_only" if grouped else "fma_only"):
+        y = (const_code_plain(x, scale, zero, group_size=group_size,
+                              shape=shape, up=up) if grouped
+             else fma_only_plain(x, packed, scale, zero, up=up, **kw))
+        return AttribOut(y, xor_fold(packed[:, :N]), None)
     if variant == "ext_only":
+        if grouped:
+            return AttribOut(None, fragment_fold(packed, nbits, superblock,
+                                                 N), None)
         return AttribOut(None, meta_fold(scale, zero, N),
                          code_sums(packed, nbits, superblock, N))
     if variant == "load_only":
         return AttribOut(None, xor_fold(packed[:, :N])
                          ^ meta_fold(scale, zero, N), None)
-    raise ValueError(f"unknown variant {variant!r}")
+    raise ValueError(f"unknown variant {variant!r} of body {body!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -148,21 +202,24 @@ def _lib():
 @functools.lru_cache(maxsize=None)
 def _occupancy_fn():
     fn = _cuda.library("gemv_attrib").amq_gemv_attrib_occupancy
-    fn.argtypes = [_c_int] * 6 + [ctypes.POINTER(_c_int)]
+    fn.argtypes = [_c_int] * 7 + [ctypes.POINTER(_c_int)]
     fn.restype = _c_int
     return fn
 
 
 def occupancy(variant: str, body: str, *, nbits: int, superblock: int,
-              group_size: int = 128, meta_bf16: bool = True) -> dict:
+              group_size: int = 128, meta_bf16: bool = True,
+              swiglu: bool = False) -> dict:
     """How one variant launches at a layout on the current card: blocks
     per SM (a stripped variant is held to ``full``'s), registers and local
-    (spill) bytes per thread, dynamic shared memory bytes."""
+    (spill) bytes per thread, dynamic shared memory bytes (the grouped
+    body's ring grows with the SwiGLU operand)."""
     out = (_c_int * 4)()
     what = f"gemv_attrib occupancy ({body}, {variant}, {nbits}-bit)"
     _cuda.check(_occupancy_fn()(nbits, BODIES.index(body),
-                                VARIANTS.index(variant), superblock,
-                                group_size, int(meta_bf16), out), what)
+                                VARIANTS[body].index(variant), superblock,
+                                group_size, int(meta_bf16), int(swiglu), out),
+                what)
     return dict(zip(("blocks_per_sm", "registers", "local_bytes",
                      "smem_bytes"), out))
 
@@ -194,15 +251,22 @@ def _attrib_cuda(variant, body, x, up, packed, scale, zero, *, nbits,
             or zero.shape != scale.shape):
         raise ValueError(f"{what}: packed {tuple(packed.shape)}, scale "
                          f"{tuple(scale.shape)} do not fit")
-    if body == "pipe" and (Np % 8 or any(t.data_ptr() % 16
-                                         for t in (packed, scale, zero))):
-        raise ValueError(f"{what}: the pipelined body takes Np a multiple "
-                         f"of 8 and 16-byte aligned weights")
+    grouped = body == "grouped"
+    if grouped and not qm._grouped_applies(x, packed, scale, zero, nbits,
+                                           group_size, superblock, up):
+        raise ValueError(f"{what}: the grouped body takes the calls the "
+                         f"grouped ring takes (ops.quant_matmul."
+                         f"_grouped_applies)")
     xr, cs = acc if acc is not None else (
         torch.zeros(N, dtype=torch.int32, device=x.device),
         torch.zeros(N, dtype=torch.float32, device=x.device))
-    has_y = variant in ("full", "fma_only")
-    splits, per = qm._splits(1, N, Kp // superblock, x.device)
+    has_y = variant in ("full", "fma_only", "mma_only")
+    # each body's production splits (the grouped ones count ring stages)
+    splits, per = (qm._grouped_plan(N, Kp, nbits, up is not None,
+                                    _cuda.dtype_flag(scale, what),
+                                    group_size, superblock,
+                                    x.device.index or 0) if grouped
+                   else qm._splits(1, N, Kp // superblock, x.device))
     y = torch.empty((1, N), dtype=x.dtype, device=x.device)
     partial = (torch.empty((splits, 1, N), dtype=torch.float32,
                            device=x.device)
@@ -213,20 +277,20 @@ def _attrib_cuda(variant, body, x, up, packed, scale, zero, *, nbits,
                 _cuda.dtype_flag(y, what), _cuda.ptr(partial), _cuda.ptr(xr),
                 _cuda.ptr(cs), 1, K, x.stride(0), Kp, N, Np, nbits,
                 group_size, superblock, splits, per, BODIES.index(body),
-                VARIANTS.index(variant), 0, _cuda.stream())
+                VARIANTS[body].index(variant), 0, _cuda.stream())
     _cuda.check(rc, what)
     return AttribOut(y if has_y else None,
                      xr if variant != "full" else None,
-                     cs if variant == "ext_only" else None)
+                     cs if variant == "ext_only" and not grouped else None)
 
 
 def gemv_attrib(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                 zero: torch.Tensor, *, nbits: int, group_size: int, shape,
-                superblock: int, variant: str = "full", body: str = "gemv",
+                superblock: int, variant: str = "full", body: str = "grouped",
                 up: Optional[torch.Tensor] = None, acc=None) -> AttribOut:
-    """One variant of the attribution kernel on one layer: x [1, K] (with
-    ``up`` the SwiGLU activation silu(x) * up) against ``packed [Kp*b/32,
-    Np]``, ``scale`` / ``zero [Kp/g, Np]``.
+    """One variant of the attribution kernel's body on one layer: x [1, K]
+    (with ``up`` the SwiGLU activation silu(x) * up) against ``packed
+    [Kp*b/32, Np]``, ``scale`` / ``zero [Kp/g, Np]``.
 
     Replaces the Pallas kernel of ``scripts/kernel_attrib.py`` (``_kernel``).
     ``acc`` is an optional ``(xr, cs)`` pair the kernel folds into (XOR,
@@ -234,12 +298,13 @@ def gemv_attrib(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
     :func:`attrib_plain`; a CUDA tensor launches ``csrc/gemv_attrib.cu`` or
     raises.
     """
-    if variant not in VARIANTS or body not in BODIES:
+    if body not in BODIES or variant not in VARIANTS[body]:
         raise ValueError(f"variant {variant!r}, body {body!r}")
     kw = dict(nbits=nbits, group_size=group_size, shape=tuple(shape),
               superblock=superblock)
     if x.device.type == "cpu":
-        return attrib_plain(variant, x, packed, scale, zero, up=up, **kw)
+        return attrib_plain(variant, x, packed, scale, zero, up=up,
+                            body=body, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     out = _attrib_cuda(variant, body, x, up, packed, scale, zero, acc=acc,
@@ -252,10 +317,10 @@ gemv_attrib.launches = 0
 
 
 _SASS_FN = re.compile(
-    r"Function : \S*attrib_(gemv|pipe)_(?:kernel|pinned)ILi(\d)ELi1ELi(\d)E")
+    r"Function : \S*attrib_(gemv|grouped)_(?:kernel|pinned)ILi(\d)ELi(\d)E")
 _SASS_HEAD = re.compile(r"Function : (\S+)")
 _SASS_OP = re.compile(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)")
-SASS_OPS = ("FFMA", "I2F", "LDG", "LDGSTS")
+SASS_OPS = ("FFMA", "I2F", "LDG", "LDS", "HMMA", "LOP3", "SHF")
 
 
 def _functions(text: str):
@@ -267,8 +332,9 @@ def _functions(text: str):
 
 def count_sass(text: str) -> list:
     """Per attribution kernel in a ``cuobjdump -sass`` listing: its body,
-    width, variant and how many FFMA, I2F (int->float; also I2FP),
-    LDG and LDGSTS (cp.async) instructions it holds."""
+    width, variant and how many FFMA, I2F (int->float; also I2FP), LDG,
+    LDS, HMMA (the grouped body's tensor-core products), LOP3 and SHF
+    (extraction) instructions it holds."""
     recs = []
     for h, body in _functions(text):
         fn = _SASS_FN.match(h.group(0))
@@ -277,10 +343,10 @@ def count_sass(text: str) -> list:
         ops = [op[:3] if op.startswith("I2F") else op
                for op in _SASS_OP.findall(body)]
         recs.append(dict(body=fn.group(1), nbits=int(fn.group(2)),
-                         variant=VARIANTS[int(fn.group(3))],
+                         variant=VARIANTS[fn.group(1)][int(fn.group(3))],
                          **{op: ops.count(op) for op in SASS_OPS}))
-    return sorted(recs, key=lambda r: (r["body"], r["nbits"],
-                                       VARIANTS.index(r["variant"])))
+    return sorted(recs, key=lambda r: (
+        r["body"], r["nbits"], VARIANTS[r["body"]].index(r["variant"])))
 
 
 def count_ops(text: str, symbol: str, ops) -> dict:
@@ -333,8 +399,9 @@ def sass_counts() -> list:
 # the probe
 
 def _check(variant, got: AttribOut, want: AttribOut, prod) -> dict:
-    """One variant against its plain version (and full against the
-    CUDA-core GEMV): the numbers and whether they pass."""
+    """One variant against its plain version (and full against the route
+    whose bits it carries, ``prod``): the numbers and whether they
+    pass."""
     if variant == "full":
         rel = chain.rel_err(got.y, want.y)
         abs_err = (got.y.float() - want.y.float()).abs().max().item()
@@ -354,6 +421,25 @@ def _check(variant, got: AttribOut, want: AttribOut, prod) -> dict:
     return rec
 
 
+def production(body, x, up, packed, scale, zero, layer, **kw):
+    """The route whose bits a body's ``full`` carries, on ``layer`` of the
+    stack: the CUDA-core GEMV (``gemv``) or the public decode GEMV, which
+    takes the grouped GEMV at bf16 and M <= 8 (``grouped``; on the CPU the
+    grouped form's plain version, as the public wrappers there take the
+    per-weight one)."""
+    static = dict(out_dtype=x.dtype, **kw)
+    if body == "gemv":
+        return qm._qmm_cuda_core(x, packed[layer], scale[layer], zero[layer],
+                                 up=up, **static)
+    if x.device.type == "cpu":
+        return qm.qmm_grouped_plain(x, packed[layer], scale[layer],
+                                    zero[layer], up=up, **static)
+    if up is None:
+        return qm.quant_matmul_indexed(x, packed, scale, zero, layer, **static)
+    return qm.quant_matmul_swiglu_indexed(x, up, packed, scale, zero, layer,
+                                          **static)
+
+
 def attrib_case(site: str, nbits: int, device) -> list:
     """Both bodies' four variants at one site and width: checks on layer 1,
     then (on a card) chain times over a 40-layer stack.  Returns one
@@ -367,18 +453,15 @@ def attrib_case(site: str, nbits: int, device) -> list:
     up = (torch.randn((1, K), generator=gen, device=device).to(torch.bfloat16)
           if site == "down" else None)
     kw = dict(nbits=nbits, group_size=128, shape=(N, K), superblock=sb)
-    # the CUDA-core GEMV, whose arithmetic, splits and sums both bodies
-    # carry (the public wrappers take the grouped GEMV at bf16, M <= 8)
-    prod = qm._qmm_cuda_core(x, packed[1], scale[1], zero[1], up=up,
-                             out_dtype=x.dtype, **kw)
     recs = []
     for body in BODIES:
+        prod = production(body, x, up, packed, scale, zero, 1, **kw)
         checks, us = {}, {}
-        for variant in VARIANTS:
+        for variant in VARIANTS[body]:
             got = gemv_attrib(x, packed[1], scale[1], zero[1], up=up,
                               variant=variant, body=body, **kw)
             want = attrib_plain(variant, x, packed[1], scale[1], zero[1],
-                                up=up, **kw)
+                                up=up, body=body, **kw)
             checks[variant] = _check(variant, got, want, prod)
             if on_card:
                 acc = (torch.zeros(N, dtype=torch.int32, device=device),
@@ -391,8 +474,9 @@ def attrib_case(site: str, nbits: int, device) -> list:
                    bound_us=chain.bound_us(packed, scale, N), us=us or None,
                    checks=checks, ok=all(c["ok"] for c in checks.values()))
         if us:
-            occ = {v: occupancy(v, body, nbits=nbits, superblock=sb)
-                   for v in VARIANTS}
+            occ = {v: occupancy(v, body, nbits=nbits, superblock=sb,
+                                swiglu=up is not None)
+                   for v in VARIANTS[body]}
             blocks = occ["full"]["blocks_per_sm"]
             others = {v: t for v, t in us.items() if v != "full"}
             rec.update(

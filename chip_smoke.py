@@ -9,8 +9,9 @@ Phases (any failed check exits non-zero before the last line):
 2. build: compile the port's CUDA sources (amq_tpu_torch/csrc) with nvcc,
    one process per source, all started together; REGS (registers and
    spill bytes of the attention kernels, every width's grouped GEMV, its
-   pipelined form and the one-launch MLP, and the dequantization kernel,
-   from -Xptxas -v) and SASS (HGMMA / HMMA / FFMA per flash kernel, and
+   pipelined form and the one-launch MLP, the dequantization kernel, the
+   attribution probe's grouped body and the extract-ahead GEMV, from
+   -Xptxas -v) and SASS (HGMMA / HMMA / FFMA per flash kernel, and
    also LOP3 / SHF per grouped ring kernel, from cuobjdump -sass) lines;
    fails if the bf16 flash kernel holds no HGMMA, a grouped ring kernel no
    HMMA or HGMMA, or a redesigned kernel spills.
@@ -47,17 +48,20 @@ Phases (any failed check exits non-zero before the last line):
 3c. the decode-GEMV probes through their entry points
    (amq_tpu_torch.probes): kernel_attrib.main and pipelined_gemv.main at
    the qkv / o / gateup / down sites, widths 2, 3, 4 (ATTRIB lines: the
-   attribution kernel's four variants in both production bodies, full
-   bit-identical to production, each variant equal to its plain version,
-   chain-timed; PIPE_PROBE lines: the extract-ahead tensor-core GEMV
-   within 2e-2 of its plain version and of the reference, chain-timed
-   beside production; every variant at full's blocks per SM, else the
-   phase fails), kernel_roofline.main (ROOFLINE lines), a
-   torch.profiler trace of one attribution chain (chiprun_out/
-   probe_trace/), the phase's Tracer summary, the chain timer against
-   this script's time_ms (TIMER_CHECK lines, reported), the attribution
-   kernels' FFMA / I2F / LDG / LDGSTS counts in their SASS (ATTRIB_SASS
-   lines, reported) and exact launch counts of the two probe kernels.
+   attribution kernel's four variants in both bodies -- the grouped GEMV
+   the decode path runs, its full torch.equal to quant_matmul_indexed,
+   and the CUDA-core GEMV, its full torch.equal to that route -- each
+   variant equal to its plain version, chain-timed; PIPE_PROBE lines: the
+   extract-ahead GEMV on wgmma within 2e-2 of its plain version and of
+   the reference, chain-timed beside production; every variant at full's
+   blocks per SM, else the phase fails), kernel_roofline.main (ROOFLINE
+   lines), a torch.profiler trace of one grouped attribution chain
+   (chiprun_out/probe_trace/), the phase's Tracer summary, the chain
+   timer against this script's time_ms (TIMER_CHECK lines, reported), the
+   attribution kernels' FFMA / I2F / LDG / LDS / HMMA / LOP3 / SHF counts
+   and the extract-ahead kernel's HGMMA / LOP3 / SHF / STS / LDS counts in
+   their SASS (ATTRIB_SASS lines; fails if the extract-ahead kernel holds
+   no HGMMA) and exact launch counts of the two probe kernels.
 4. full-width Llama-2-7B decode (32 layers, random packed weights drawn
    on the card from a seeded generator, 2/3/4 bits per layer with 3-bit in
    4-bit containers, bf16 meta, 8-bit head) through Engine.generate and
@@ -731,15 +735,17 @@ RING_COUNTS = {"quant_matmul": 5, "quant_matmul_pipe": 4,
                "quant_matmul_mlp": 5}
 REPORT_KERNELS = {"flash_attention": "flash_kernel", "decode_attention":
                   "decode_attn_kernel", **RING_KERNELS,
-                  "dequant": "dequant_kernel"}
+                  "dequant": "dequant_kernel",
+                  "gemv_attrib": "attrib_grouped_kernel",
+                  "gemv_extract_ahead": "extract_ahead_kernel"}
 
 
 def build_report():
     """Phase 2's report on the redesigned kernels: a REGS line (per kernel
     instantiation of the attention kernels, the grouped ring's kernels --
-    the grouped GEMV, its pipelined form, the one-launch MLP -- and the
-    dequantization kernel its registers and local spill bytes, from nvcc's
-    -Xptxas -v) and a SASS line (per flash kernel and ring kernel its
+    the grouped GEMV, its pipelined form, the one-launch MLP -- the
+    dequantization kernel and the two probe kernels on the ring and on
+    wgmma, its registers and local spill bytes, from nvcc's -Xptxas -v) and a SASS line (per flash kernel and ring kernel its
     HGMMA, HMMA and FFMA instructions, and the ring kernels' LOP3 and SHF,
     from cuobjdump -sass).  Fails if the bf16 flash kernel holds no HGMMA
     (warpgroup MMA), a ring kernel (any width) no HMMA or HGMMA, a ring
@@ -797,13 +803,15 @@ TIMER_GAP = 0.10
 
 def reckon_probe_launches():
     """Launches of the two probe kernels over phase 3c, reckoned from the
-    code: per site and width, kernel_attrib runs both bodies' four
-    variants, each one checked call and one chain_us; pipelined_gemv one
-    parity call and one chain_us; then one warm-up and TRACE_CALLS traced
-    calls."""
+    code: per site and width, kernel_attrib runs both bodies' (grouped,
+    gemv) four variants, each one checked call and one chain_us;
+    pipelined_gemv one parity call and one chain_us; then one warm-up and
+    TRACE_CALLS traced calls of the grouped body."""
     from amq_tpu_torch.probes.chain import CHAIN_LAUNCHES
+    from amq_tpu_torch.probes.kernel_attrib import VARIANTS
     cases = len(PROBE_SITES) * len(PROBE_BITS)
-    return {"gemv_attrib": (cases * 2 * 4 * (1 + CHAIN_LAUNCHES)
+    variants = sum(len(v) for v in VARIANTS.values())
+    return {"gemv_attrib": (cases * variants * (1 + CHAIN_LAUNCHES)
                             + 1 + TRACE_CALLS),
             "gemv_extract_ahead": cases * (1 + CHAIN_LAUNCHES)}
 
@@ -845,20 +853,21 @@ def timer_check(rec):
 
 
 def trace_attrib_chain():
-    """TRACE_CALLS eager calls of the attribution kernel (full, GEMV body,
-    gateup 4-bit) under amq_tpu_torch.utils.profiling.device_trace; the
-    kernel's device µs per call as the trace counts it."""
+    """TRACE_CALLS eager calls of the attribution kernel (full, grouped
+    body, gateup 4-bit) under amq_tpu_torch.utils.profiling.device_trace;
+    the kernel's device µs per call as the trace counts it."""
     from amq_tpu_torch.probes import kernel_attrib
     from amq_tpu_torch.utils.profiling import device_trace
     packed, scale, zero, sb, x = probe_stack("gu", 4, TRACE_CALLS)
-    kw = dict(nbits=4, group_size=128, shape=(22016, 4096), superblock=sb)
+    kw = dict(nbits=4, group_size=128, shape=(22016, 4096), superblock=sb,
+              body="grouped")
     kernel_attrib.gemv_attrib(x, packed[0], scale[0], zero[0], **kw)  # warm
     logdir = os.path.join(OUT_DIR, "probe_trace")
     with device_trace(logdir) as prof:
         for i in range(TRACE_CALLS):
             kernel_attrib.gemv_attrib(x, packed[i], scale[i], zero[i], **kw)
     dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if "attrib_gemv_kernel" in e.key)
+                 if "attrib_grouped_kernel" in e.key)
     rec = dict(logdir=logdir, calls=TRACE_CALLS,
                trace_bytes=os.path.getsize(os.path.join(logdir, "trace.json")),
                device_us_per_call=dev_us / TRACE_CALLS)
@@ -867,11 +876,12 @@ def trace_attrib_chain():
 
 
 def probe_headline(kind, attrib, pipe):
-    """The kernels-line numbers of one probe kernel at gateup, 4-bit, M 1:
-    time_ms over a 40-layer stack (outside the counted phase), the plain
-    version's time, the library yardstick (bf16 torch.matmul on the dense
-    dequantized weight, a different function) and the bound (weights + x +
-    output over 3.35 TB/s)."""
+    """The kernels-line numbers of one probe kernel at gateup, 4-bit, M 1
+    (the attribution kernel: its grouped body's full): time_ms over a
+    40-layer stack (outside the counted phase), the plain version's time,
+    the library yardstick (bf16 torch.matmul on the dense dequantized
+    weight, a different function) and the bound (weights + x + output
+    over 3.35 TB/s)."""
     from amq_tpu_torch.probes import kernel_attrib as ka
     from amq_tpu_torch.probes import pipelined_gemv as pg
     from amq_tpu_torch.probes.chain import CHAIN_LENS
@@ -881,11 +891,12 @@ def probe_headline(kind, attrib, pipe):
     kw = dict(nbits=4, group_size=128, shape=(N, K), superblock=sb)
     if kind == "gemv_attrib":
         rec = next(r for r in attrib if r["site"] == "gu" and r["nbits"] == 4
-                   and r["body"] == "gemv")
+                   and r["body"] == "grouped")
         err = rec["checks"]["full"]["max_abs_err"]
-        fn = lambda i: ka.gemv_attrib(x, packed[i], scale[i], zero[i], **kw)
+        fn = lambda i: ka.gemv_attrib(x, packed[i], scale[i], zero[i],
+                                      body="grouped", **kw)
         plain = lambda: ka.attrib_plain("full", x, packed[1], scale[1],
-                                        zero[1], **kw)
+                                        zero[1], body="grouped", **kw)
     else:
         rec = next(r for r in pipe if r["site"] == "gu" and r["nbits"] == 4)
         err = rec["max_abs_err"]
@@ -932,7 +943,7 @@ def probes_phase():
         timers = [timer_check(r) for r in pipe]
     torch.cuda.empty_cache()
     with tracer.span("sass"):
-        sass = kernel_attrib.sass_counts()
+        sass = kernel_attrib.sass_counts() + pipelined_gemv.sass_counts()
     for r in sass:
         print("ATTRIB_SASS " + json.dumps(r), flush=True)
     print("PROBE_TRACER " + json.dumps(tracer.summary()), flush=True)
@@ -946,6 +957,10 @@ def probes_phase():
                 for r in attrib if not r["pinned"]]
     if unpinned:
         fail(f"attribution variants off full's blocks per SM: {unpinned}")
+    wgmma = [r for r in sass if "extract_ahead_kernel" in r.get("kernel", "")]
+    if len(wgmma) != len(PROBE_BITS) or not all(r["HGMMA"] > 0
+                                                for r in wgmma):
+        fail(f"the extract-ahead kernels hold no HGMMA: {wgmma}")
     heads = {k: probe_headline(k, attrib, pipe)
              for k in ("gemv_attrib", "gemv_extract_ahead")}
     for h in heads.values():

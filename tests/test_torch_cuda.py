@@ -540,16 +540,17 @@ def test_cuda_model_forward_flash_matches_einsum(with_cache):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("body", ["gemv", "pipe"])
+@pytest.mark.parametrize("body", ["gemv", "grouped"])
 @pytest.mark.parametrize("swiglu", [False, True])
 @pytest.mark.parametrize("nbits", [2, 3, 4])
 def test_cuda_gemv_attrib_variants_match_plain(nbits, swiglu, body):
     """The attribution kernel's four variants on layer 1 of a random stack
-    (N 320: five column tiles, so K splits and their atomics run): full
-    in both bodies equal to the CUDA-core GEMV (the wrapper's private
-    route, whose arithmetic, splits and sums both carry) with
-    torch.equal, each stripped variant to its plain version (XOR folds and
-    code sums exactly, fma_only at the bf16 GEMV tolerance)."""
+    (N 320: more than one column tile, so K splits and their atomics run):
+    full equal with torch.equal to the route whose bits it carries (the
+    grouped body: the public decode GEMV, which takes the grouped GEMV;
+    the GEMV body: the CUDA-core GEMV, the wrapper's private route), each
+    stripped variant to its plain version (XOR folds and code sums
+    exactly, fma_only / mma_only at the bf16 GEMV tolerance)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     from amq_tpu_torch.probes import chain, kernel_attrib as ka
@@ -560,44 +561,76 @@ def test_cuda_gemv_attrib_variants_match_plain(nbits, swiglu, body):
         torch.bfloat16) for _ in range(2))
     up = u if swiglu else None
     kw = dict(nbits=nbits, group_size=128, shape=(N, K), superblock=sb)
-    # the CUDA-core GEMV, not the public route (the grouped GEMV)
-    prod = tqm._qmm_cuda_core(x, packed[1], scale[1], zero[1], up=up,
-                              out_dtype=x.dtype, **kw)
+    prod = ka.production(body, x, up, packed, scale, zero, 1, **kw)
     before = ka.gemv_attrib.launches
-    for variant in ka.VARIANTS:
+    for variant in ka.VARIANTS[body]:
         got = ka.gemv_attrib(x, packed[1], scale[1], zero[1], up=up,
                              variant=variant, body=body, **kw)
         want = ka.attrib_plain(variant, x, packed[1], scale[1], zero[1],
-                               up=up, **kw)
+                               up=up, body=body, **kw)
         torch.cuda.synchronize()
         rec = ka._check(variant, got, want, prod)
         assert rec["ok"], (variant, rec)
-    assert ka.gemv_attrib.launches - before == len(ka.VARIANTS)
+    assert ka.gemv_attrib.launches - before == len(ka.VARIANTS[body])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("body", ["gemv", "pipe"])
+@pytest.mark.parametrize("nbits", [2, 3, 4])
+def test_cuda_gemv_attrib_grouped_full_equals_quant_matmul_indexed(nbits):
+    """The grouped body's full at the 7B gateup and down shapes (K splits
+    of the grouped plan) is torch.equal to quant_matmul_indexed /
+    quant_matmul_swiglu_indexed at M = 1, which took the grouped GEMV; two
+    calls give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from amq_tpu_torch.probes import chain, kernel_attrib as ka
+    for (N, K), swiglu in (((22016, 4096), False), ((4096, 11008), True)):
+        gen = torch.Generator(device="cuda").manual_seed(70 + nbits)
+        packed, scale, zero, sb = chain.random_stack(N, K, nbits, 2, gen,
+                                                     "cuda")
+        x, u = (torch.randn((1, K), generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        up = u if swiglu else None
+        kw = dict(nbits=nbits, group_size=128, shape=(N, K), superblock=sb)
+        wrapper = (tqm.quant_matmul_swiglu_indexed if swiglu
+                   else tqm.quant_matmul_indexed)
+        grouped = wrapper.grouped_launches
+        want = ka.production("grouped", x, up, packed, scale, zero, 1, **kw)
+        assert wrapper.grouped_launches == grouped + 1
+        got = [ka.gemv_attrib(x, packed[1], scale[1], zero[1], up=up,
+                              body="grouped", **kw).y for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want) and torch.equal(got[1], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["gemv", "grouped"])
 @pytest.mark.parametrize("nbits", [2, 3, 4])
 def test_cuda_gemv_attrib_variants_pinned_to_full(nbits, body):
     """Every variant of the attribution kernel launches with as many blocks
-    resident per SM as full, so their times compare at one occupancy."""
+    resident per SM as full (with and without the grouped ring's SwiGLU
+    operand), so their times compare at one occupancy."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     from amq_tpu_torch.probes import kernel_attrib as ka
-    occ = {v: ka.occupancy(v, body, nbits=nbits, superblock=1024)
-           for v in ka.VARIANTS}
-    assert occ["full"]["blocks_per_sm"] >= 1, occ
-    assert {o["blocks_per_sm"] for o in occ.values()} == {
-        occ["full"]["blocks_per_sm"]}, occ
+    for swiglu in (False, True):
+        occ = {v: ka.occupancy(v, body, nbits=nbits, superblock=1024,
+                               swiglu=swiglu)
+               for v in ka.VARIANTS[body]}
+        assert occ["full"]["blocks_per_sm"] >= 1, occ
+        assert {o["blocks_per_sm"] for o in occ.values()} == {
+            occ["full"]["blocks_per_sm"]}, occ
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [2048, 1920])
+@pytest.mark.parametrize("K", [1920, 4096, 11264])
 @pytest.mark.parametrize("nbits", [2, 3, 4])
 def test_cuda_extract_ahead_matches_plain(nbits, K):
-    """The extract-ahead tensor-core GEMV against its plain version and the
-    dequantize-then-matmul reference on quantized weights (K 1920 pads to
-    two superblocks, so x's zero tail and the pad rows run)."""
+    """The extract-ahead GEMV on wgmma against its plain version and the
+    dequantize-then-matmul reference on quantized weights (N 320: a ragged
+    second column tile; K 1920 pads to two superblocks, so x's zero tail
+    and the pad rows run; K 4096 and 11264 are the 7B sites' K, split
+    across blocks); two calls give the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     from amq_tpu_torch.probes import pipelined_gemv as pg
@@ -611,10 +644,12 @@ def test_cuda_extract_ahead_matches_plain(nbits, K):
               superblock=qt.superblock)
     before = pg.gemv_extract_ahead.launches
     got = pg.gemv_extract_ahead(x, qt.packed, qt.scale, qt.zero, **kw)
+    again = pg.gemv_extract_ahead(x, qt.packed, qt.scale, qt.zero, **kw)
     want = pg.extract_ahead_plain(x, qt.packed, qt.scale, qt.zero, **kw)
     ref = tqm.quant_matmul_reference(x, qt, out_dtype=torch.float32)
     torch.cuda.synchronize()
-    assert pg.gemv_extract_ahead.launches - before == 1
+    assert pg.gemv_extract_ahead.launches - before == 2
     assert got.shape == (1, N) and got.dtype == torch.bfloat16
+    assert torch.equal(got, again)
     _norm_close(got.float().cpu().numpy(), want.float().cpu().numpy(), 2e-2)
     _norm_close(got.float().cpu().numpy(), ref.cpu().numpy(), 2e-2)

@@ -7,8 +7,11 @@ built here with a 256-column block as ``check_parity`` builds them, at
 N 256, K 2048 (two superblocks), widths 2, 3, 4.  The scripts are
 imported by path; they ``setdefault`` a compilation-cache variable, so
 they are imported with ``os.environ`` restored afterwards.  The port's
-plain versions go against them at the scripts' 2e-2 normalized limit; the
-stripped variants' plain versions against numpy formulas; ``Tracer``
+plain versions go against them at the scripts' 2e-2 normalized limit
+(the limit ``tests/test_torch_ops.py`` holds the grouped form's plain
+version to against the JAX kernels); the stripped variants' plain
+versions against numpy formulas (the grouped ``ext_only`` against a numpy
+replay of the grouped consumer's fragment extraction); ``Tracer``
 against the JAX ``Tracer``.  The CUDA kernels themselves are held to
 these plain versions on a card (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -87,10 +90,13 @@ def _port(words, scale, zero, x):
             torch.from_numpy(zero).to(bf), torch.from_numpy(x).to(bf))
 
 
+@pytest.mark.parametrize("body", ["gemv", "grouped"])
 @pytest.mark.parametrize("nbits", [2, 3, 4])
-def test_attrib_full_plain_matches_jax_kernel(script, nbits):
-    """The port's full variant (on the CPU, its plain version) against
-    scripts/kernel_attrib.py's ``_kernel(variant="full")``, row 0."""
+def test_attrib_full_plain_matches_jax_kernel(script, nbits, body):
+    """The port's full variant of each body (on the CPU, its plain version:
+    the grouped form for ``grouped``, the per-weight form for ``gemv``)
+    against scripts/kernel_attrib.py's ``_kernel(variant="full")`` (the
+    production ``_gemv_blockdiag`` body), row 0, at the normalized 2e-2."""
     mod = script("kernel_attrib")
     words, scale, zero, x = _random_layer(nbits, 10 + nbits)
     rpt = SB * nbits // 32
@@ -111,7 +117,8 @@ def test_attrib_full_plain_matches_jax_kernel(script, nbits):
         )(x8, jnp.asarray(words), meta(scale), meta(zero))
     pk, sc, zr, xt = _port(words, scale, zero, x)
     got = ka.gemv_attrib(xt, pk, sc, zr, nbits=nbits, group_size=GROUP,
-                         shape=(N, K), superblock=SB, variant="full")
+                         shape=(N, K), superblock=SB, variant="full",
+                         body=body)
     assert got.y.shape == (1, N) and got.xr is None and got.cs is None
     assert _norm_err(got.y.float().numpy(), np.asarray(want[:1], np.float32)
                      ) < 2e-2
@@ -183,7 +190,8 @@ def test_stripped_variants_plain_match_numpy(nbits, variant):
     words, scale, zero, x = _random_layer(nbits, 30 + nbits)
     pk, sc, zr, xt = _port(words, scale, zero, x)
     got = ka.gemv_attrib(xt, pk, sc, zr, nbits=nbits, group_size=GROUP,
-                         shape=(N, K), superblock=SB, variant=variant)
+                         shape=(N, K), superblock=SB, variant=variant,
+                         body="gemv")
     words_xor = np.bitwise_xor.reduce(words, axis=0).view(np.int32)
     meta_xor = np.bitwise_xor.reduce(
         scale.view(np.uint32) ^ zero.view(np.uint32), axis=0).view(np.int32)
@@ -201,6 +209,69 @@ def test_stripped_variants_plain_match_numpy(nbits, variant):
                                       _np_fields_sum(words, nbits))
     else:
         assert got.y is None and got.cs is None
+        np.testing.assert_array_equal(got.xr.numpy(), words_xor ^ meta_xor)
+
+
+def _np_fragment_fold(words, nbits):
+    """The grouped consumer's A fragments replayed word by word in numpy
+    (qmm_tile.cuh's low_frag / low_shift): per superblock and extraction
+    round p, each word row shifted in place -- 1/2/4-bit by b * per_shift
+    every per_shift rounds, the round's field read at offset o under the
+    pair mask << o; 3-bit the 2-bit row of p's parity shifted by 2 every
+    odd round, the 1-bit row by 1 every round, read as 2 hi + lo -- OR
+    0x4300_4300, XOR-folded per column."""
+    w = words.astype(np.uint32)
+    rows = SB * nbits // 32
+    fold = np.zeros(N, np.uint32)
+    for s in range(K // SB):
+        blk = w[s * rows:(s + 1) * rows]
+        if nbits == 3:
+            hi, lo = blk[:64], blk[64:]             # 2-bit rows r, 32 + r
+            for p in range(16):
+                sel = (hi[32:] if p & 1 else hi[:32]) >> (2 * (p // 2))
+                a = (((sel << 1) & 0x00060006) | ((lo >> p) & 0x00010001)
+                     | 0x43004300)
+                fold ^= np.bitwise_xor.reduce(a.astype(np.uint32), axis=0)
+        else:
+            per_shift = (7 - nbits) // nbits + 1 if nbits < 4 else 1
+            mask = ((1 << nbits) - 1) * 0x00010001
+            for p in range(16 // nbits):
+                o = p % per_shift * nbits
+                shifted = blk >> (nbits * per_shift * (p // per_shift))
+                a = (shifted & (mask << o)) | 0x43004300
+                fold ^= np.bitwise_xor.reduce(a.astype(np.uint32), axis=0)
+    return fold.view(np.int32)
+
+
+@pytest.mark.parametrize("variant", ["mma_only", "ext_only", "load_only"])
+@pytest.mark.parametrize("nbits", [2, 3, 4])
+def test_grouped_stripped_variants_plain_match_numpy(nbits, variant):
+    """The grouped body's stripped variants (on the CPU, their plain
+    versions) against numpy: mma_only's y is the grouped form with every
+    code 1, sum_g s (129 - (z + 128)) xsum_g over the bf16 x's group sums
+    (normalized 1e-2, the kernel-vs-plain limit FMA_TOL), its xr the
+    words' XOR; ext_only's xr the fragments' XOR; load_only's the words'
+    and the meta's."""
+    words, scale, zero, x = _random_layer(nbits, 40 + nbits)
+    pk, sc, zr, xt = _port(words, scale, zero, x)
+    got = ka.gemv_attrib(xt, pk, sc, zr, nbits=nbits, group_size=GROUP,
+                         shape=(N, K), superblock=SB, variant=variant,
+                         body="grouped")
+    words_xor = np.bitwise_xor.reduce(words, axis=0).view(np.int32)
+    meta_xor = np.bitwise_xor.reduce(
+        scale.view(np.uint32) ^ zero.view(np.uint32), axis=0).view(np.int32)
+    assert got.cs is None
+    if variant == "mma_only":
+        xsum = x.astype(np.float64).reshape(K // GROUP, GROUP).sum(1)
+        want = (xsum[:, None] * scale * (1.0 - zero)).sum(0)[None]
+        assert _norm_err(got.y.float().numpy(), want) < ka.FMA_TOL
+        np.testing.assert_array_equal(got.xr.numpy(), words_xor)
+    elif variant == "ext_only":
+        assert got.y is None
+        np.testing.assert_array_equal(got.xr.numpy(),
+                                      _np_fragment_fold(words, nbits))
+    else:
+        assert got.y is None
         np.testing.assert_array_equal(got.xr.numpy(), words_xor ^ meta_xor)
 
 
@@ -251,7 +322,9 @@ def test_probe_entry_points_on_the_cpu(capsys, small_sites):
     recs = ka.main(["o", "2", "3", "4"], device="cpu")
     recs += ka.main(["down", "4"], device="cpu")      # the SwiGLU prologue
     assert [(r["nbits"], r["body"]) for r in recs] == [
-        (b, body) for b in (2, 3, 4, 4) for body in ("gemv", "pipe")]
+        (b, body) for b in (2, 3, 4, 4) for body in ("gemv", "grouped")]
+    assert all(list(r["checks"]) == list(ka.VARIANTS[r["body"]])
+               for r in recs)
     assert all(r["ok"] and r["us"] is None for r in recs)
     assert all(r["checks"]["full"]["equal_production"] for r in recs)
     pipe = pg.main(["o", "2", "3", "4"], device="cpu")
@@ -265,6 +338,14 @@ def test_probe_entry_points_on_the_cpu(capsys, small_sites):
     assert chain.CHAIN_LAUNCHES == 2 * (8 + 40)
     with pytest.raises(SystemExit):
         ka.main(["gu", "4"], device="cpu")
+    with pytest.raises(SystemExit, match="needs the card"):
+        pg.main(["o", "4", "--rings"], device="cpu")
+    src = (Path(__file__).resolve().parent.parent / "amq_tpu_torch" / "csrc"
+           / "gemv_extract_ahead.cu").read_text()
+    assert pg.RINGS[0] == tuple(      # the sweep starts at the shipped ring
+        int(re.search(rf"#define {name} (\d+)", src).group(1))
+        for name in ("AMQ_XBN", "AMQ_XCSLOTS", "AMQ_XWSLOTS"))
+    assert pg.ring_defines(pg.RINGS[0]) == ()
 
 
 def test_probe_entry_points_refuse_without_a_card(monkeypatch, small_sites):
@@ -322,25 +403,28 @@ def test_decode_ab_refuses_no_roots_and_a_failed_root(tmp_path):
 
 def test_count_sass_reads_each_attribution_kernel():
     """The SASS counter on a listing in cuobjdump's layout: per kernel its
-    body, width, variant and instruction counts (predicated ones too)."""
+    body, width, variant (by the body's own names) and instruction counts
+    (predicated ones too)."""
     def fn(body, nb, v, lines):
-        kind = "kernel" if v == 0 else "pinned"
-        name = (f"_ZN47_GLOBAL__N__x_{body}_attrib_{body}_{kind}ILi{nb}ELi1E"
+        kind = "pinned" if v and body == "gemv" else "kernel"
+        name = (f"_ZN47_GLOBAL__N__x_{body}_attrib_{body}_{kind}ILi{nb}E"
                 f"Li{v}EEEvN3amq8GemvArgsENS_5ProbeE")
         code = "".join(f"        /*{i * 16:04x}*/   {op} R1, R2 ;  /* 0x0 */\n"
                        f"                          /* 0x0 */\n"
                        for i, op in enumerate(lines))
         return f"\t\tFunction : {name}\n\t.headerflags ...\n{code}"
     listing = ("Fatbin elf code:\n"
-               + fn("pipe", 4, 1, ["FFMA", "@P0 LDGSTS.E.BYPASS.128", "LDG.E",
-                                   "FFMA", "BRA"])
+               + fn("grouped", 4, 1, ["HMMA.16816.F32.BF16", "LDS.64",
+                                      "@P0 HMMA.16816.F32.BF16", "LOP3.LUT",
+                                      "BRA"])
                + fn("gemv", 2, 0, ["I2FP.F32.U32", "I2F.U32", "@!P1 FFMA",
-                                   "LDG.E.CONSTANT", "LDS"]))
+                                   "LDG.E.CONSTANT", "SHF.R.U32.HI", "LDS"]))
+    zero = dict(FFMA=0, I2F=0, LDG=0, LDS=0, HMMA=0, LOP3=0, SHF=0)
     assert ka.count_sass(listing) == [
-        dict(body="gemv", nbits=2, variant="full", FFMA=1, I2F=2, LDG=1,
-             LDGSTS=0),
-        dict(body="pipe", nbits=4, variant="fma_only", FFMA=2, I2F=0, LDG=1,
-             LDGSTS=1)]
+        dict(zero, body="gemv", nbits=2, variant="full", FFMA=1, I2F=2,
+             LDG=1, LDS=1, SHF=1),
+        dict(zero, body="grouped", nbits=4, variant="mma_only", LDS=1,
+             HMMA=2, LOP3=1)]
 
 
 def test_count_ops_reads_each_matching_kernel():
