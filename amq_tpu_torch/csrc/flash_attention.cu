@@ -51,6 +51,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
+using namespace amq;
+
 namespace {
 
 constexpr int kBQ = 64;        // queries per block
@@ -263,45 +267,6 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
-// make generic-proxy writes to shared memory visible to wgmma's reads
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// pin registers an asynchronous wgmma reads or writes to this point, so
-// the compiler moves no use of them across a fence or a wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N, int M>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// A shared-memory matrix descriptor for the 128-byte swizzle: the tile is
-// stored as panels 64 bf16 (128 bytes) wide, rows 128 bytes apart, the
-// 16-byte chunk c of row r at chunk c ^ (r % 8) (1024-byte atoms of 8
-// rows).  lbo: bytes between panels along the MN dimension of an MN-major
-// operand; sbo: bytes between 8-row groups.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16 |
-         static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32 | 1ull << 62;
-}
 
 #define AMQ_F4(a, i) "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3])
 #define AMQ_F16(a, i) \
@@ -454,7 +419,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel_wgmma(
       wgmma_ss_n64(s, smem_desc(qa, 16, 1024), smem_desc(ka, 16, 1024), kk);
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(s);
 
     // scale, mask (tiles across the diagonal or T only), online softmax.
@@ -517,7 +482,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel_wgmma(
       WgmmaRsT<D>::run(o, pa[kk],
                        smem_desc(sV + kk * 16 * 128, kWgBK * 128, 1024));
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(o);
     fence_regs(pa);
   }

@@ -372,21 +372,21 @@ __device__ void probe_consume(const GemvArgs& a, const GroupedRing& r,
     unsigned char* st = ring_stage(r, s);
     const uint32_t* ws = reinterpret_cast<const uint32_t*>(st);
     const unsigned char* meta = st + r.lay.meta_off;
-    if constexpr (VARIANT == kLoadOnly) {
+    uint32_t w[SS][kGTiles][W][4];
+    low_load<BITS>(ws, wcol, lane, w);
+    if constexpr (VARIANT != kExtOnly) {
+      // the words as loaded, per column
 #pragma unroll
       for (int k = 0; k < SS; ++k)
 #pragma unroll
         for (int ct = 0; ct < kGTiles; ++ct)
 #pragma unroll
           for (int pl = 0; pl < W; ++pl) {
-            const uint32_t* wr =
-                ws + (pl * F::n + k * 8 + 2 * t) * kGWordStride + c0 +
-                16 * ct;
-            const uint2 u0 = *reinterpret_cast<const uint2*>(wr);
-            const uint2 u1 = *reinterpret_cast<const uint2*>(wr + kGWordStride);
-            xr[ct][0] ^= u0.x ^ u1.x;
-            xr[ct][1] ^= u0.y ^ u1.y;
+            xr[ct][0] ^= w[k][ct][pl][0] ^ w[k][ct][pl][2];
+            xr[ct][1] ^= w[k][ct][pl][1] ^ w[k][ct][pl][3];
           }
+    }
+    if constexpr (VARIANT == kLoadOnly) {
       // each group's meta once: in the stage where its rows begin (every
       // slot of a stage starts its group there or nowhere)
       if (2 * ((st_lo + s) % spb) * F::n % gs == 0) {
@@ -402,52 +402,39 @@ __device__ void probe_consume(const GemvArgs& a, const GroupedRing& r,
             }
         }
       }
-    } else {
-      uint32_t w[SS][kGTiles][W][4];
-      low_load<BITS>(ws, wcol, lane, w);
-      if constexpr (VARIANT == kMmaOnly) {
-        __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(st + r.lay.x_off);
-        if (swiglu) {          // grouped_consume's prologue, as is
-          const __nv_bfloat16* us =
-              reinterpret_cast<const __nv_bfloat16*>(st + r.lay.u_off);
-          for (int i = tid; i < M * P * F::part / 2; i += kGWarps * 32) {
-            const int row = i / (F::part / 2);
-            const int o = row * F::xstride + 2 * (i - row * (F::part / 2));
-            uint32_t* xp = reinterpret_cast<uint32_t*>(xs + o);
-            *xp = swiglu_pair(*xp, *reinterpret_cast<const uint32_t*>(us + o));
-          }
-          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-          asm volatile("bar.sync 1, %0;\n" ::"n"(kGWarps * 32) : "memory");
+    } else if constexpr (VARIANT == kMmaOnly) {
+      __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(st + r.lay.x_off);
+      if (swiglu) {          // grouped_consume's prologue, as is
+        const __nv_bfloat16* us =
+            reinterpret_cast<const __nv_bfloat16*>(st + r.lay.u_off);
+        for (int i = tid; i < M * P * F::part / 2; i += kGWarps * 32) {
+          const int row = i / (F::part / 2);
+          const int o = row * F::xstride + 2 * (i - row * (F::part / 2));
+          uint32_t* xp = reinterpret_cast<uint32_t*>(xs + o);
+          *xp = swiglu_pair(*xp, *reinterpret_cast<const uint32_t*>(us + o));
         }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync 1, %0;\n" ::"n"(kGWarps * 32) : "memory");
+      }
+      const __nv_bfloat16* xrw = xs + xrow * P * F::xstride;
+      if constexpr (BITS == 4) {
 #pragma unroll
-        for (int k = 0; k < SS; ++k)
-#pragma unroll
-          for (int ct = 0; ct < kGTiles; ++ct)
-#pragma unroll
-            for (int pl = 0; pl < W; ++pl) {
-              xr[ct][0] ^= w[k][ct][pl][0] ^ w[k][ct][pl][2];
-              xr[ct][1] ^= w[k][ct][pl][1] ^ w[k][ct][pl][3];
-            }
-        const __nv_bfloat16* xrw = xs + xrow * P * F::xstride;
-        if constexpr (BITS == 4) {
-#pragma unroll
-          for (int p = 0; p < P; ++p)
-            mma_round<BITS>(w, p, xrw, meta, r.es, lg_share, c0, pr.zmask,
-                            tot);
-        } else {
+        for (int p = 0; p < P; ++p)
+          mma_round<BITS>(w, p, xrw, meta, r.es, lg_share, c0, pr.zmask,
+                          tot);
+      } else {
 #pragma unroll 1
-          for (int p = 0; p < P; ++p)
-            mma_round<BITS>(w, p, xrw, meta, r.es, lg_share, c0, pr.zmask,
-                            tot);
-        }
-      } else {                 // kExtOnly
-        if constexpr (BITS == 4) {
+        for (int p = 0; p < P; ++p)
+          mma_round<BITS>(w, p, xrw, meta, r.es, lg_share, c0, pr.zmask,
+                          tot);
+      }
+    } else {                   // kExtOnly
+      if constexpr (BITS == 4) {
 #pragma unroll
-          for (int p = 0; p < P; ++p) ext_round<BITS>(w, p, xr);
-        } else {
+        for (int p = 0; p < P; ++p) ext_round<BITS>(w, p, xr);
+      } else {
 #pragma unroll 1
-          for (int p = 0; p < P; ++p) ext_round<BITS>(w, p, xr);
-        }
+        for (int p = 0; p < P; ++p) ext_round<BITS>(w, p, xr);
       }
     }
     __syncwarp();                  // the warp is done with the slot

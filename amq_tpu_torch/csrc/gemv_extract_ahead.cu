@@ -61,36 +61,20 @@
 // a fixed order by reduce_splits_kernel, so two calls give the same bits.
 
 #include "qmm_tile.cuh"
+#include "wgmma.cuh"
 
 using namespace amq;
 
 namespace {
 
-// The block's columns and the rings' depths can be set at build time
-// (-DAMQ_XBN=..., -DAMQ_XCSLOTS=..., -DAMQ_XWSLOTS=...) for the ring sweep
-// (probes/pipelined_gemv.py --rings); the defaults are the shipped
-// kernel's.
-#ifndef AMQ_XBN
-#define AMQ_XBN 256
-#endif
-#ifndef AMQ_XCSLOTS
-#define AMQ_XCSLOTS 2
-#endif
-#ifndef AMQ_XWSLOTS
-#define AMQ_XWSLOTS 2
-#endif
 constexpr int kSB = 1024;            // superblock rows
 constexpr int kG = 8;                // groups of 128 rows per superblock
-constexpr int kXBN = AMQ_XBN;        // columns per block
+constexpr int kXBN = 256;            // columns per block
 constexpr int kTiles = kXBN / 64;    // wgmma m64 tiles per block
 constexpr int kXK = 64;              // K rows per code stage
 constexpr int kSPB = kSB / kXK;      // code stages per superblock
 constexpr int kXThreads = 288;       // 4 extractor + 4 consumer + 1 producer warps
-constexpr int kCodeSlots = AMQ_XCSLOTS, kWordSlots = AMQ_XWSLOTS;
-constexpr int kSbSlots = 2;
-static_assert(kXBN % 128 == 0 && kXBN <= 256 && kCodeSlots >= 2 &&
-                  kCodeSlots <= 8 && kWordSlots >= 1 && kWordSlots <= 8,
-              "extract-ahead ring shape");
+constexpr int kCodeSlots = 2, kWordSlots = 2, kSbSlots = 2;
 
 // A code slot: [kTiles][64 rows][128 B] codes, the B slab [8][128 B],
 // the stage's x sums [8] f32; 1024-byte aligned (the 128-byte swizzle's
@@ -157,33 +141,6 @@ struct Smem {
 
 __device__ __forceinline__ uint32_t saddr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// A shared-memory matrix descriptor for the 128-byte swizzle (K-major:
-// rows 128 bytes apart, 8-row atoms 1024 bytes apart).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(16 >> 4) << 16 |
-         static_cast<uint64_t>(1024 >> 4) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// pin the accumulators to this point: the compiler moves no use of them
-// across a fence or a wait
-__device__ __forceinline__ void fence_acc(float (&d)[kTiles][4]) {
-#pragma unroll
-  for (int t = 0; t < kTiles; ++t)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(d[t][i])::"memory");
 }
 
 // d[64 x 8] += A[64 x 16] B[16 x 8], both K-major in shared memory
@@ -375,7 +332,7 @@ __global__ void __launch_bounds__(kXThreads, 2)
       __nv_bfloat16* xd = reinterpret_cast<__nv_bfloat16*>(sbs);
       for (int i = xlen + lane; i < kSB; i += 32) xd[i] = __float2bfloat16(0.f);
       // these generic writes come before the copies' (async proxy) writes
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      fence_proxy_async();
       __syncwarp();
       if (lane == 0)
         mbar_arrive_expect_tx(bars.sb_full(seg), xlen * 2 + 2 * kG * cols * 2);
@@ -423,7 +380,7 @@ __global__ void __launch_bounds__(kXThreads, 2)
         extract<NB>(sm.words(j), cs, tid);
         if (tid < 64) build_b<NB>(xs, cs, st % kSPB, tid);
         // the generic writes of the slot come before wgmma's reads
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        fence_proxy_async();
         __syncwarp();
         if (lane == 0) {
           mbar_arrive(bars.word_empty(j));
@@ -455,28 +412,29 @@ __global__ void __launch_bounds__(kXThreads, 2)
       __syncwarp();                  // converged for the aligned wgmma
       const unsigned char* cs = sm.code(j);
       const uint32_t ca = saddr(cs);
-      fence_acc(d);
+      fence_regs(d);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kXK / 16; ++kk) {
-        const uint64_t db = smem_desc(ca + kBOff + kk * 32);
+        const uint64_t db = smem_desc(ca + kBOff + kk * 32, 16, 1024);
 #pragma unroll
         for (int u = 0; u < kTiles; ++u)
-          wgmma_n8(d[u], smem_desc(ca + u * (64 * 128) + kk * 32), db);
+          wgmma_n8(d[u], smem_desc(ca + u * (64 * 128) + kk * 32, 16, 1024),
+                   db);
       }
       wgmma_commit();
       const float* xsum = reinterpret_cast<const float*>(cs + kXsumOff);
       xs0 += xsum[2 * t];
       xs1 += xsum[2 * t + 1];
       wgmma_wait<1>();               // stage j - 1's products are done
-      fence_acc(d);
+      fence_regs(d);
       if (st > first) {
         __syncwarp();
         if (lane == 0) mbar_arrive(bars.code_empty(j - 1));
       }
     }
     wgmma_wait<0>();
-    fence_acc(d);
+    fence_regs(d);
     __syncwarp();
     if (lane == 0) mbar_arrive(bars.code_empty(j - 1));
     // _correct with the superblock's meta

@@ -23,13 +23,6 @@ site shape, within the script's 2e-2 normalized limit, then chain-times
 it and the production ``quant_matmul_indexed`` (``probes/chain.py``) over
 a 40-layer random stack and prints both beside the byte bound.  On the
 CPU (``device="cpu"``) only the checks run, on the plain versions.
-
-    python -m amq_tpu_torch.probes.pipelined_gemv gu 2 3 4 --rings
-
-instead builds the kernel at every ring shape of :data:`RINGS` (columns
-per block, code and word slots: build-time constants; one nvcc each, all
-started together) and checks and times each (``XRING`` lines; card
-only).
 """
 
 from __future__ import annotations
@@ -38,7 +31,6 @@ import ctypes
 import functools
 import json
 import sys
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -74,37 +66,21 @@ def extract_ahead_plain(x, packed, scale, zero, *, nbits, group_size, shape,
 
 
 @functools.lru_cache(maxsize=None)
-def _lib(ring: tuple):
-    fn = _cuda.library("gemv_extract_ahead",
-                       ring_defines(ring)).amq_gemv_extract_ahead
+def _lib():
+    fn = _cuda.library("gemv_extract_ahead").amq_gemv_extract_ahead
     fn.argtypes = [_c_ptr] * 6 + [_c_int] * 9 + [_c_ptr]
     fn.restype = _c_int
     return fn
 
 
-#: K rows per code stage
+#: K rows per code stage and columns per block (the kernel's kXK, kXBN)
 STAGE_K = 64
-#: (columns per block, code slots, word slots) of the ring sweep
-#: (``--rings``); the first is the shipped kernel's (the source's
-#: defaults)
-RINGS = ((256, 2, 2), (256, 2, 4), (256, 3, 3), (256, 4, 4), (128, 2, 2),
-         (128, 2, 4), (128, 3, 3), (128, 4, 4))
+BLOCK_N = 256
 
 
-def ring_defines(ring: tuple) -> tuple:
-    """The build's defines of one ring shape (none for the shipped one,
-    which the wrapper's library is)."""
-    if ring == RINGS[0]:
-        return ()
-    bn, code_slots, word_slots = ring
-    return (f"AMQ_XBN={bn}", f"AMQ_XCSLOTS={code_slots}",
-            f"AMQ_XWSLOTS={word_slots}")
-
-
-def _blocks(nbits: int, index: int, ring: tuple = RINGS[0]) -> int:
-    """Blocks of the kernel (built at ``ring``) one SM holds."""
-    fn = _cuda.library("gemv_extract_ahead",
-                       ring_defines(ring)).amq_gemv_extract_ahead_blocks
+def _blocks(nbits: int, index: int) -> int:
+    """Blocks of the kernel one SM holds."""
+    fn = _cuda.library("gemv_extract_ahead").amq_gemv_extract_ahead_blocks
     fn.argtypes = [_c_int]
     fn.restype = _c_int
     with torch.cuda.device(index):
@@ -112,24 +88,23 @@ def _blocks(nbits: int, index: int, ring: tuple = RINGS[0]) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(N: int, Kp: int, nbits: int, index: int,
-          ring: tuple = RINGS[0]) -> tuple:
+def _plan(N: int, Kp: int, nbits: int, index: int) -> tuple:
     """(splits, code stages per split): as many K splits as fit one wave
     of the kernel's blocks on the card (the grouped GEMV's rule, at code
     stage granularity), once per shape and card."""
-    blocks = _blocks(nbits, index, ring)
+    blocks = _blocks(nbits, index)
     if blocks < 1:
         raise RuntimeError(f"gemv_extract_ahead ({nbits}-bit): no block "
                            f"fits an SM ({blocks})")
     stages = Kp // STAGE_K
     want = max(1, min(stages, blocks * qm._sm_count(index)
-                      // -(-N // ring[0])))
+                      // -(-N // BLOCK_N)))
     per = -(-stages // want)
     return -(-stages // per), per
 
 
 def _extract_ahead_cuda(x, packed, scale, zero, *, nbits, group_size, shape,
-                        superblock, ring: tuple = None) -> torch.Tensor:
+                        superblock) -> torch.Tensor:
     N, K = shape
     rows, Np = packed.shape
     Kp = rows * 32 // nbits
@@ -155,14 +130,13 @@ def _extract_ahead_cuda(x, packed, scale, zero, *, nbits, group_size, shape,
         raise ValueError(f"{what}: packed {tuple(packed.shape)}, scale "
                          f"{tuple(scale.shape)} do not fit (Np % 8, "
                          f"16-byte aligned operands)")
-    ring = ring or RINGS[0]
-    splits, per = _plan(N, Kp, nbits, x.device.index or 0, ring)
+    splits, per = _plan(N, Kp, nbits, x.device.index or 0)
     out = torch.empty((1, N), dtype=torch.bfloat16, device=x.device)
     partial = (torch.empty((splits, N), dtype=torch.float32, device=x.device)
                if splits > 1 else None)
-    rc = _lib(ring)(_cuda.ptr(x), _cuda.ptr(packed), _cuda.ptr(scale),
-                _cuda.ptr(zero), _cuda.ptr(out), _cuda.ptr(partial), K, Kp,
-                N, Np, nbits, group_size, superblock, splits, per,
+    rc = _lib()(_cuda.ptr(x), _cuda.ptr(packed), _cuda.ptr(scale),
+                _cuda.ptr(zero), _cuda.ptr(out), _cuda.ptr(partial), K, Kp, N,
+                Np, nbits, group_size, superblock, splits, per,
                 _cuda.stream())
     _cuda.check(rc, what)
     return out
@@ -259,62 +233,15 @@ def probe_case(site: str, nbits: int, device) -> dict:
     return rec
 
 
-def ring_sweep(site: str, nbits: int, device) -> list:
-    """Every ring depth of :data:`RINGS` that fits an SM (its own library,
-    K split at its own blocks per SM) at one site and width: within
-    :data:`TOL` of the plain version on layer 0 of a 40-layer random
-    stack, then chain-timed; prints an ``XRING`` line each."""
-    N, K = chain.SITES[site]
-    gen = torch.Generator(device=device).manual_seed(0)
-    packed, scale, zero, sb = chain.random_stack(N, K, nbits,
-                                                 max(chain.CHAIN_LENS), gen,
-                                                 device)
-    x = torch.randn((1, K), generator=gen, device=device).to(torch.bfloat16)
-    kw = dict(nbits=nbits, group_size=128, shape=(N, K), superblock=sb)
-    want = extract_ahead_plain(x, packed[0], scale[0], zero[0], **kw)
-    recs = []
-    for ring in RINGS:
-        rec = dict(site=site, nbits=nbits, columns=ring[0],
-                   code_slots=ring[1], word_slots=ring[2],
-                   blocks_per_sm=_blocks(nbits, device.index or 0, ring),
-                   bound_us=chain.bound_us(packed, scale, N))
-        if rec["blocks_per_sm"] >= 1:
-            call = lambda i, r=ring: _extract_ahead_cuda(
-                x, packed[i], scale[i], zero[i], ring=r, **kw)
-            rec["rel_err"] = chain.rel_err(call(0), want)
-            rec["us"] = chain.chain_us(call)
-            rec["ok"] = rec["rel_err"] <= TOL
-        else:
-            rec["ok"] = None          # does not fit one SM's shared memory
-        print("XRING " + json.dumps(rec), flush=True)
-        recs.append(rec)
-    del packed, scale, zero
-    torch.cuda.empty_cache()
-    return recs
-
-
 def main(argv=None, device=None) -> list:
-    """``[site] [nbits...] [--rings]`` (default ``o 2 4``, the script's);
-    returns the records.  Runs on the card unless ``device="cpu"`` is
-    asked for; ``--rings`` (card only) sweeps the ring depths instead."""
+    """``[site] [nbits...]`` (default ``o 2 4``, the script's); returns
+    the records.  Runs on the card unless ``device="cpu"`` is asked for."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    rings = "--rings" in argv
-    argv = [a for a in argv if a != "--rings"]
     site = argv[0] if argv else "o"
     bits = [int(b) for b in argv[1:]] or [2, 4]
     if site not in chain.SITES:
         raise SystemExit(f"site {site!r}: one of {sorted(chain.SITES)}")
-    dev = resolve_device(device)
-    if not rings:
-        return [probe_case(site, nb, dev) for nb in bits]
-    if dev.type != "cuda":
-        raise SystemExit("pipelined_gemv --rings: times kernels, so it "
-                         "needs the card")
-    with ThreadPoolExecutor(len(RINGS)) as pool:          # one nvcc each
-        list(pool.map(lambda r: _cuda.build(["gemv_extract_ahead"],
-                                            defines=ring_defines(r)),
-                      RINGS))
-    return [r for nb in bits for r in ring_sweep(site, nb, dev)]
+    return [probe_case(site, nb, resolve_device(device)) for nb in bits]
 
 
 if __name__ == "__main__":
