@@ -1,12 +1,14 @@
 """Shared CLI plumbing for the port's entry points: the common flags,
-``load_model`` (``--synthetic``), ``load_tokens`` and ``dump_json``."""
+``load_model`` (a local HF checkpoint directory with ``--model_path``,
+else random weights with ``--synthetic``), ``proxy_factories``
+(``--proxy_path``), ``load_tokens`` and ``dump_json``."""
 
 from __future__ import annotations
 
 import argparse
 import json
 import os
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -21,7 +23,7 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--model_name", type=str, default="tiny-llama",
                    help="registry name (e.g. Llama-2-7b-hf)")
     p.add_argument("--model_path", type=str, default="",
-                   help="local HF checkpoint dir (not yet ported)")
+                   help="local HF checkpoint dir (safetensors + config.json)")
     p.add_argument("--synthetic", action="store_true",
                    help="random weights drawn from --seed, synthetic tokens")
     p.add_argument("--dataset", type=str, default="wikitext2",
@@ -53,24 +55,42 @@ def compute_dtype(args) -> torch.dtype:
 
 
 def load_model(args) -> Tuple[Any, Dict[str, Any]]:
-    """(cfg, dense bf16 params).
+    """(cfg, dense bf16 params) on ``--device``: the checkpoint directory
+    ``--model_path``, else random weights drawn from a ``torch.Generator``
+    seeded with ``--seed`` (``--synthetic``).
 
     The JAX package keeps the dense params on the host because a 16 GB
-    TPU chip cannot hold them beside the proxies; the 80 GB card can, so
-    they are drawn directly on the device from a ``torch.Generator``
-    seeded with ``--seed``.
+    TPU chip cannot hold them beside the proxies; the 80 GB card can.
     """
-    if args.model_path:
-        raise NotImplementedError(
-            "--model_path (HF checkpoint loading, models/hf.py in the JAX "
-            "package) is not yet ported; use --synthetic")
+    device = resolve_device(args.device)
+    if args.model_path and os.path.isdir(args.model_path):
+        from ..models.hf import config_from_hf, load_hf_params
+        cfg = config_from_hf(args.model_path)
+        return cfg, load_hf_params(args.model_path, cfg, dtype=torch.bfloat16,
+                                   device=device)
     cfg = get_config(args.model_name)
     if not args.synthetic:
-        raise SystemExit("pass --synthetic to run with random weights")
-    device = resolve_device(args.device)
+        raise SystemExit(f"no checkpoint at {args.model_path!r}; pass "
+                         "--synthetic to run with random weights")
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     return cfg, init_params(cfg, gen, dtype=torch.bfloat16, device=device)
+
+
+def proxy_path(root: str, cfg, nbits: int, group_size: int) -> str:
+    """Where the proxy CLI writes the ``nbits`` proxy of ``cfg``."""
+    return os.path.join(root, f"{cfg.name}_{nbits}bit_{group_size}gs_1axis")
+
+
+def proxy_factories(args, cfg, bits_range=(2, 3, 4)) -> List[Callable]:
+    """Per-bit loaders of the proxies under ``--proxy_path`` (each read
+    straight to ``--device`` when called, so a consumer holds one at a
+    time)."""
+    from ..utils.checkpoint import load_quantized
+    device = resolve_device(args.device)
+    return [(lambda b=b: load_quantized(
+        proxy_path(args.proxy_path, cfg, b, args.group_size),
+        device=device)[0]) for b in bits_range]
 
 
 def load_tokens(args, cfg, train: bool = True) -> np.ndarray:
@@ -82,13 +102,12 @@ def load_tokens(args, cfg, train: bool = True) -> np.ndarray:
         return data_mod.synthetic_tokens(cfg.vocab_size,
                                          n_sample=args.n_sample,
                                          seqlen=args.seqlen, seed=args.seed)
+    from ..models.hf import load_tokenizer
     try:
-        from transformers import AutoTokenizer
+        tok = load_tokenizer(args.model_path or args.model_name)
     except ImportError as e:
         raise SystemExit("the `transformers` package is needed for a "
                          "tokenizer and is not installed; use --synthetic") from e
-    tok = AutoTokenizer.from_pretrained(args.model_path or args.model_name,
-                                        local_files_only=True)
     return data_mod.get_loader(args.dataset, tokenizer=tok,
                                n_sample=args.n_sample, train=train,
                                seed=args.seed, seqlen=args.seqlen)

@@ -15,7 +15,7 @@ import json
 import time
 
 from .common import (base_parser, compute_dtype, load_model, load_tokens,
-                     setup_torch)
+                     proxy_factories, setup_torch)
 
 
 def main(argv=None):
@@ -23,7 +23,8 @@ def main(argv=None):
     p.add_argument("--sensitivity_json", type=str, required=True)
     p.add_argument("--sensitivity_threshold", type=float, default=2.0)
     p.add_argument("--proxy_path", type=str, default="",
-                   help="dir with per-bit proxies (not yet ported)")
+                   help="dir with per-bit proxies (cli.proxy); else they "
+                        "are quantized in-process")
     p.add_argument("--predictor", type=str, default="rbf",
                    choices=["rbf", "mlp"])
     p.add_argument("--iterations", type=int, default=200)
@@ -38,9 +39,6 @@ def main(argv=None):
     p.add_argument("--save_path", type=str, default="search_out")
     p.add_argument("--resume_path", type=str, default="")
     args = p.parse_args(argv)
-    if args.proxy_path:
-        raise NotImplementedError("--proxy_path (checkpoint loading, "
-                                  "utils/checkpoint.py) is not yet ported")
     setup_torch()
 
     import numpy as np
@@ -56,7 +54,9 @@ def main(argv=None):
     t0 = time.perf_counter()
     cfg, params = load_model(args)
     tokens = load_tokens(args, cfg, train=True)
-    ev = Evaluator(cfg, dense_params=params, datasets={args.dataset: tokens},
+    proxies = proxy_factories(args, cfg) if args.proxy_path else None
+    ev = Evaluator(cfg, dense_params=params, proxies=proxies,
+                   datasets={args.dataset: tokens},
                    group_size=args.group_size, batch_size=args.batch_size,
                    compute_dtype=compute_dtype(args), device=args.device)
     del params            # the evaluator holds no reference to it

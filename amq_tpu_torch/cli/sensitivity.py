@@ -17,19 +17,16 @@ import os
 import time
 
 from .common import (base_parser, compute_dtype, dump_json, load_model,
-                     load_tokens, setup_torch)
+                     load_tokens, proxy_factories, setup_torch)
 
 
 def main(argv=None):
     p = base_parser(__doc__)
     p.add_argument("--proxy_path", type=str, default="",
-                   help="dir with per-bit proxies (not yet ported; the "
-                        "proxies are quantized in-process)")
+                   help="dir with per-bit proxies (cli.proxy); else they "
+                        "are quantized in-process")
     p.add_argument("--save_path", type=str, default="sensitivity")
     args = p.parse_args(argv)
-    if args.proxy_path:
-        raise NotImplementedError("--proxy_path (checkpoint loading, "
-                                  "utils/checkpoint.py) is not yet ported")
     setup_torch()
 
     from ..evaluation import Evaluator
@@ -37,7 +34,9 @@ def main(argv=None):
 
     cfg, params = load_model(args)
     tokens = load_tokens(args, cfg, train=True)
-    ev = Evaluator(cfg, dense_params=params, datasets={args.dataset: tokens},
+    proxies = proxy_factories(args, cfg) if args.proxy_path else None
+    ev = Evaluator(cfg, dense_params=params, proxies=proxies,
+                   datasets={args.dataset: tokens},
                    group_size=args.group_size, batch_size=args.batch_size,
                    compute_dtype=compute_dtype(args), device=args.device)
     del params            # the evaluator holds no reference to it

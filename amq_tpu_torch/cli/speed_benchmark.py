@@ -1,11 +1,16 @@
 """Stage 5 -- mixed-bit serving speed benchmark (PyTorch/CUDA port).
 
-Builds the per-bit HQQ proxies, stacks them for an architecture (or the
-cycled 2/3/4 default), merges equal-width containers and measures the TPS
-/ GEMV / GEMM / TTFT modes, the CONTINUOUS mode (``--n_requests`` streamed
-through ``--n_slots`` slot-batched decoding) and peak device memory on the
-card.  With ``--device cpu`` only CONTINUOUS runs: once, untimed, its
-counts and no rate.
+Builds the per-bit HQQ proxies (or reads them from ``--proxy_path``),
+stacks them for an architecture (or the cycled 2/3/4 default), merges
+equal-width containers and measures the TPS / GEMV / GEMM / TTFT modes,
+the CONTINUOUS mode (``--n_requests`` streamed through ``--n_slots``
+slot-batched decoding) and peak device memory on the card.  With
+``--device cpu`` only CONTINUOUS runs: once, untimed, its counts and no
+rate.  ``--method owq`` realizes the architecture with OWQ in packed
+serving form (``--target_bits`` sets the outlier budget; synthetic
+calibration under ``--synthetic``) and serves it through the per-layer
+forward, each linear a ``quant_matmul`` over its non-outlier columns plus
+a float outlier product (TPS / GEMV / GEMM / TTFT only).
 
     python -m amq_tpu_torch.cli.speed_benchmark --model_name Llama-2-7b-hf \
         --synthetic --modes TPS CONTINUOUS --n_slots 4 --n_requests 16
@@ -18,7 +23,8 @@ import time
 
 import torch
 
-from .common import base_parser, dump_json, load_model
+from .common import (base_parser, dump_json, load_model, proxy_factories,
+                     setup_torch)
 
 
 def main(argv=None):
@@ -26,7 +32,10 @@ def main(argv=None):
     p.add_argument("--arch_json", type=str, default="",
                    help="architecture dict JSON (else cycle 2/3/4)")
     p.add_argument("--method", type=str, default="hqq", choices=["hqq", "owq"])
-    p.add_argument("--proxy_path", type=str, default="")
+    p.add_argument("--target_bits", type=float, default=3.0,
+                   help="average bits of the OWQ outlier budget")
+    p.add_argument("--proxy_path", type=str, default="",
+                   help="dir with per-bit proxies (cli.proxy)")
     p.add_argument("--prompt_len", type=int, default=64)
     p.add_argument("--gen_len", type=int, default=128)
     p.add_argument("--modes", type=str, nargs="+",
@@ -44,12 +53,6 @@ def main(argv=None):
     p.set_defaults(batch_size=1)
     args = p.parse_args(argv)
 
-    if args.method == "owq":
-        raise NotImplementedError("--method owq is not yet ported")
-    if args.proxy_path:
-        raise NotImplementedError("--proxy_path (checkpoint loading) is not "
-                                  "yet ported")
-
     from ..models.config import cycled_arch
     from ..models.stacked import SERVE_CONTAINERS, merge_containers, stack_proxies
     from ..models.transform import quantize_model
@@ -61,14 +64,19 @@ def main(argv=None):
     t0 = time.perf_counter()
     cfg, params = load_model(args)
     bits_range = [2, 3, 4]
-    proxies = [(lambda b=b: quantize_model(params, cfg, b,
-                                           group_size=args.group_size))
-               for b in bits_range]
     if args.arch_json:
         with open(args.arch_json) as f:
             arch = json.load(f)
     else:
         arch = cycled_arch(cfg.num_layers, bits_range)
+    if args.method == "owq":
+        return _owq_speed(args, cfg, params, arch, t0)
+    if args.proxy_path:
+        proxies = proxy_factories(args, cfg, bits_range)
+    else:
+        proxies = [(lambda b=b: quantize_model(params, cfg, b,
+                                               group_size=args.group_size))
+                   for b in bits_range]
     model = stack_proxies(
         proxies, bits_range, arch,
         container_bits=None if args.native_pack else SERVE_CONTAINERS,
@@ -107,6 +115,45 @@ def main(argv=None):
     else:
         results["device"] = str(eng.device)
     dump_json(results, f"{args.save_path}/{cfg.name}_speed.json")
+    return results
+
+
+def _owq_speed(args, cfg, params, arch, t0):
+    """OWQ packed serving: realize ``arch`` with
+    ``owq_quantize_model(packed=True)`` and time the per-layer forward."""
+    from ..core.device import synchronize
+    from ..quantization import get_quantized_params
+    from ..serving.benchmark import PeakMemTracker, benchmark_speed
+    from ..serving.engine import Engine
+
+    if params["embed"].device.type != "cuda":
+        raise RuntimeError("OWQ serving speed needs the CUDA device; the "
+                           f"model is on {params['embed'].device}")
+    setup_torch()
+    qparams = get_quantized_params(
+        params, cfg, "owq", arch, avg_bits=args.target_bits,
+        group_size=args.group_size, synthetic_calib=args.synthetic,
+        n_samples=args.n_sample, packed=True)
+    del params
+    eng = Engine(qparams, cfg, batch_size=args.batch_size,
+                 max_len=args.prompt_len + args.gen_len + 8,
+                 compute_dtype=torch.bfloat16,
+                 use_kernels=not args.no_kernels, device=args.device)
+    synchronize(eng.device)
+    results = {"method": "owq", "target_bits": args.target_bits,
+               "setup_s": time.perf_counter() - t0}
+    print(f"setup: {results['setup_s']:.1f} s")
+    torch.cuda.empty_cache()
+    mem = PeakMemTracker(eng.device)
+    for mode in args.modes:
+        if mode == "CONTINUOUS":
+            continue                      # the stacked model's path only
+        results[mode] = benchmark_speed(eng, mode, prompt_len=args.prompt_len,
+                                        gen_len=args.gen_len)
+        print(f"{mode}: {results[mode]}")
+    results["peak_mem_gib"], results["peak_mem_kind"] = mem.result()
+    results["device"] = torch.cuda.get_device_name(eng.device)
+    dump_json(results, f"{args.save_path}/{cfg.name}_owq_speed.json")
     return results
 
 

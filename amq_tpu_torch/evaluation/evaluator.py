@@ -1,8 +1,8 @@
-"""Architecture evaluator, search mode: JSD of a proxy-stitched model
-against the dense model's cached logits.
+"""Architecture evaluator: JSD of a proxy-stitched model against the
+dense model's cached logits (search mode), or the perplexity of a real
+PTQ realization (final mode).
 
-The port of the search mode of the JAX package's
-``evaluation/evaluator.py``:
+The port of the JAX package's ``evaluation/evaluator.py``.  Search mode:
 
 * the dense model's logits over every dataset are computed once (the
   plain layer-by-layer ``llama.forward``, at batch <= 4), rounded through
@@ -22,39 +22,49 @@ Linears run dequantize-then-matmul (evaluation batches are far above the
 decode kernels' M), attention at S >= 128 on the card through the flash
 kernel unless ``use_kernels=False`` sends it through the einsum path.
 
-Not ported here: final mode (real PTQ + perplexity), the data-parallel
-mesh, the fp8 / device-resident / host-streamed cache modes and the
-layer-chunked dense pass (an 80 GB card holds the 13.5 GB bf16 dense
-model whole).
+Final mode (``search=False``): ``sample(arch, method)`` runs
+``quantize_fn(dense params, cfg, arch, method)`` (a real PTQ algorithm) and
+``eval`` reports each dataset's perplexity, ``exp`` of the mean per-sample
+shifted cross-entropy, through the plain ``llama.forward`` at batch <= 4
+(the ragged last batch padded as in search mode).  Packed HQQ linears are
+dequantized once per layer first (``models.linear.dequantize_weight``: the
+dequantization kernel on the card).
+
+Not ported here: the data-parallel mesh, the fp8 / device-resident /
+host-streamed cache modes and the layer-chunked dense pass, in both modes
+(an 80 GB card holds the 13.5 GB bf16 dense model whole).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 
 from ..core.device import resolve_device, synchronize
 from ..models import llama
-from ..models.config import ModelConfig
+from ..models.config import LINEAR_NAMES, ModelConfig
+from ..models.linear import DenseLinear, QuantLinear, dequantize_weight
 from ..models.stacked import forward_stacked, set_arch, stack_proxies
 from ..models.transform import Arch, quantize_model
 from . import metrics
 
 
 class Evaluator:
-    """``eval(arch) -> ({dataset: JSD loss}, bits usage)`` over proxies.
+    """``eval(arch) -> ({dataset: JSD loss}, bits usage)`` over proxies, or
+    with ``search=False``, ``eval(arch, method) -> ({dataset: perplexity},
+    bits usage)`` of ``quantize_fn``'s realization.
 
     ``dense_params`` (an ``init_params``-shaped dict on the evaluation
     device) gives the dense logits and, unless ``proxies`` is given, the
-    proxies.  ``proxies`` are per-bit ``quantize_model`` outputs or
-    zero-argument callables returning them.  ``device`` defaults to CUDA
-    and raises without a card; pass ``device="cpu"`` for the plain path.
+    proxies; in final mode it is what ``quantize_fn`` quantizes.
+    ``proxies`` are per-bit ``quantize_model`` outputs or zero-argument
+    callables returning them.  ``device`` defaults to CUDA and raises
+    without a card; pass ``device="cpu"`` for the plain path.
     """
-
-    search = True
 
     def __init__(self, cfg: ModelConfig,
                  dense_params: Optional[Dict[str, Any]] = None,
@@ -63,10 +73,11 @@ class Evaluator:
                  datasets: Optional[Dict[str, np.ndarray]] = None,
                  group_size: int = 128, batch_size: int = 8,
                  compute_dtype=torch.float32, use_kernels: bool = True,
-                 device=None):
+                 device=None, search: bool = True,
+                 quantize_fn: Optional[Callable] = None):
         self.device = resolve_device(device)
         if dense_params is None:
-            raise ValueError("the dense model is needed for its logits")
+            raise ValueError("the dense model is needed")
         self.cfg = cfg
         self.topology = cfg.topology()
         self.bits_range = list(bits_range)
@@ -75,6 +86,13 @@ class Evaluator:
         self.compute_dtype = compute_dtype
         self.use_kernels = use_kernels
         self.datasets = dict(datasets or {})
+        self.search = search
+        if not search:
+            if quantize_fn is None:
+                raise ValueError("final mode needs quantize_fn")
+            self.model_params = dense_params
+            self.quantize_fn = quantize_fn
+            return
 
         seqlen = max((int(t.shape[1]) for t in self.datasets.values()),
                      default=0)
@@ -181,7 +199,9 @@ class Evaluator:
 
     # -- reference API -----------------------------------------------------
 
-    def sample(self, arch: Arch):
+    def sample(self, arch: Arch, method: str = "hqq"):
+        if not self.search:
+            return self.quantize_fn(self.model_params, self.cfg, arch, method)
         self.switch_params = set_arch(self.switch_params, arch)
         return self.switch_params
 
@@ -201,6 +221,43 @@ class Evaluator:
                  metrics.get_bits_usage(a, self.topology, self.group_size))
                 for i, a in enumerate(archs)]
 
-    def eval(self, architecture: Arch) -> Tuple[Dict[str, float], float]:
-        """({dataset: loss}, bits usage)."""
-        return self.eval_many([architecture])[0]
+    def _dequantized(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """Packed linears dequantized once, layer by layer, to dense ones
+        in the compute dtype (the packed forward would dequantize them at
+        every use: the same numbers)."""
+        layers = []
+        for layer in params["layers"]:
+            layer = dict(layer)
+            for name in LINEAR_NAMES:
+                p = layer[name]
+                if isinstance(p, QuantLinear):
+                    wt = dequantize_weight(p.qt, self.compute_dtype)
+                    layer[name] = DenseLinear(weight=wt.T, bias=p.bias)
+            layers.append(layer)
+        return {**params, "layers": layers}
+
+    @torch.inference_mode()
+    def eval_ppl(self, params: Dict[str, Any], tokens: np.ndarray) -> float:
+        """``exp`` of the mean per-sample shifted cross-entropy."""
+        per_sample = []
+        with self.kernels():
+            params = self._dequantized(params)
+            for batch, n_valid in self._batches(tokens,
+                                                min(self.batch_size, 4)):
+                toks = self.tokens(batch)
+                logits, _ = llama.forward(params, self.cfg, toks,
+                                          compute_dtype=self.compute_dtype)
+                per_sample.append(metrics.cross_entropy_shifted_per_sample(
+                    logits, toks)[:n_valid])
+        return float(torch.exp(torch.cat(per_sample).mean()))
+
+    def eval(self, architecture: Arch, method: str = "hqq"
+             ) -> Tuple[Dict[str, float], float]:
+        """({dataset: loss or perplexity}, bits usage)."""
+        if self.search:
+            return self.eval_many([architecture])[0]
+        params = self.sample(architecture, method)
+        out = {name: self.eval_ppl(params, toks)
+               for name, toks in self.datasets.items()}
+        return out, metrics.get_bits_usage(architecture, self.topology,
+                                           self.group_size)

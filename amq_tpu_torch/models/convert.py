@@ -12,6 +12,9 @@ Dense ``init_params`` layout (:func:`params_from_flat`)::
     layers/<i>/<site>/weight, layers/<i>/<site>/bias (optional)
     layers/<i>/<site>/qt/{packed,scale,zero} for a quantized linear, with
     static["layers/<i>/<site>/qt"] = {nbits, group_size, shape, superblock}
+    layers/<i>/<site>/owq/qt/{packed,scale,zero}, .../owq/w_out for an OWQ
+    packed linear, with static[".../owq/qt"] as above and
+    static[".../owq"] = {segments, out_ids}
 
 MLP surrogate (:func:`mlp_from_flax`): the flax ``params`` of the JAX
 ``predictor.mlp._Net`` as numpy, ``{"Dense_<i>": {"kernel": [in, out],
@@ -36,7 +39,7 @@ import torch
 
 from ..core.quantize import QuantizedTensor
 from .config import LINEAR_NAMES
-from .linear import DenseLinear, QuantLinear
+from .linear import DenseLinear, OWQLinear, QuantLinear
 from .stacked import StackedModel, StackedQuant
 
 
@@ -67,7 +70,8 @@ def _qt(flat: Mapping[str, np.ndarray], static: Mapping[str, Any], key: str,
 def params_from_flat(flat: Mapping[str, np.ndarray],
                      static: Mapping[str, Any], num_layers: int,
                      device="cpu") -> Dict[str, Any]:
-    """An ``init_params``-shaped dict (dense or quantized linears)."""
+    """An ``init_params``-shaped dict (dense, quantized or OWQ-packed
+    linears)."""
     def opt(key):
         return to_tensor(flat[key], device) if key in flat else None
 
@@ -80,7 +84,15 @@ def params_from_flat(flat: Mapping[str, np.ndarray],
         }
         for name in LINEAR_NAMES:
             bias = opt(f"{pre}/{name}/bias")
-            if f"{pre}/{name}/qt" in static:
+            if f"{pre}/{name}/owq" in static:
+                from ..quantization.owq import OWQPacked
+                key = f"{pre}/{name}/owq"
+                layer[name] = OWQLinear(packed=OWQPacked.from_layout(
+                    _qt(flat, static, f"{key}/qt", device),
+                    to_tensor(flat[f"{key}/w_out"], device),
+                    [tuple(s) for s in static[key]["segments"]],
+                    static[key]["out_ids"]), bias=bias)
+            elif f"{pre}/{name}/qt" in static:
                 layer[name] = QuantLinear(
                     qt=_qt(flat, static, f"{pre}/{name}/qt", device), bias=bias)
             else:

@@ -4,7 +4,11 @@
 * :class:`QuantLinear` -- dequantize-then-matmul (the dequantization
   through :func:`dequantize_weight`), or the fused CUDA dequant-matmul
   (``ops.quant_matmul``) while :class:`kernel_linears` has installed a
-  kernel implementation.
+  kernel implementation,
+* :class:`OWQLinear` -- OWQ's packed serving form
+  (``quantization.owq.owq_matmul``: the dequant-matmul over the compacted
+  non-outlier columns, on the kernel while :class:`kernel_linears` is
+  active, plus the float outlier tail).
 """
 
 from __future__ import annotations
@@ -29,7 +33,15 @@ class QuantLinear:
     bias: Optional[torch.Tensor] = None
 
 
-LinearParams = Union[DenseLinear, QuantLinear]
+@dataclasses.dataclass
+class OWQLinear:
+    """One linear in OWQ packed serving form."""
+
+    packed: "object"        # quantization.owq.OWQPacked
+    bias: Optional[torch.Tensor] = None
+
+
+LinearParams = Union[DenseLinear, QuantLinear, OWQLinear]
 
 # Optional fused-kernel implementation for QuantLinear application,
 # installed by the serving engine for the duration of a forward.  None ->
@@ -118,4 +130,11 @@ def apply_linear(p: LinearParams, x: torch.Tensor,
             return _KERNEL_IMPL(p, x, compute_dtype)
         wt = dequantize_weight(p.qt, compute_dtype)     # [in, out]
         return matmul_f32(x, wt, p.bias, compute_dtype)
+    if isinstance(p, OWQLinear):
+        from ..quantization.owq import owq_matmul
+        y = owq_matmul(x, p.packed, out_dtype=compute_dtype,
+                       use_kernel=_KERNEL_IMPL is not None)
+        if p.bias is not None:
+            y = y + p.bias.to(y.dtype)
+        return y
     raise TypeError(f"unsupported linear params: {type(p)}")

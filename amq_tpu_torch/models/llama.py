@@ -248,9 +248,14 @@ def _causal_mask(S: int, T: int, offset: torch.Tensor,
 # ---------------------------------------------------------------------------
 # forward
 
-def _attn_block(layer, cfg, h, cos, sin, mask, compute_dtype, cache, idx,
-                offset):
+def attn_block(layer, cfg, h, cos, sin, mask, compute_dtype, cache=None,
+               idx=0, offset=None):
+    """Attention sub-block on the normed input ``h``; returns (o_proj
+    output, o_proj input).  Without a cache it attends over ``h``'s own
+    keys from position 0."""
     B, S, _ = h.shape
+    if offset is None:
+        offset = torch.zeros((), dtype=torch.int32, device=h.device)
     hd = cfg.head_dim_
     q = apply_linear(layer["self_attn.q_proj"], h, compute_dtype)
     k = apply_linear(layer["self_attn.k_proj"], h, compute_dtype)
@@ -271,14 +276,44 @@ def _attn_block(layer, cfg, h, cos, sin, mask, compute_dtype, cache, idx,
     T = k_att.shape[2]
     att = attention(q, k_att, v_att, mask, offset, S, T, cfg, compute_dtype)
     att = att.reshape(B, S, cfg.num_heads * hd)
-    return apply_linear(layer["self_attn.o_proj"], att, compute_dtype)
+    return apply_linear(layer["self_attn.o_proj"], att, compute_dtype), att
 
 
-def _mlp_block(layer, h, compute_dtype):
+def mlp_block(layer, h, compute_dtype):
+    """SwiGLU MLP on the normed input; returns (output, down_proj input)."""
     gate = apply_linear(layer["mlp.gate_proj"], h, compute_dtype)
     up = apply_linear(layer["mlp.up_proj"], h, compute_dtype)
     act = torch.nn.functional.silu(gate.float()).to(compute_dtype) * up
-    return apply_linear(layer["mlp.down_proj"], act, compute_dtype)
+    return apply_linear(layer["mlp.down_proj"], act, compute_dtype), act
+
+
+def decoder_layer(layer: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
+                  cos, sin, mask, compute_dtype,
+                  captures: Optional[Dict[str, torch.Tensor]] = None,
+                  cache: Optional[KVCache] = None, idx: int = 0,
+                  offset: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One decoder block.  If ``captures`` is a dict it is filled with the
+    input activations of each linear site (what GPTQ's Hessians and AWQ's
+    feature caches read).  Attention routes as in :func:`forward`: flash
+    at S >= 128 on the card."""
+    h = rms_norm(x, layer["input_norm"], cfg.rms_norm_eps)
+    if captures is not None:
+        for name in ("self_attn.q_proj", "self_attn.k_proj",
+                     "self_attn.v_proj"):
+            captures[name] = h
+    att, att_in = attn_block(layer, cfg, h, cos, sin, mask, compute_dtype,
+                             cache, idx, offset)
+    if captures is not None:
+        captures["self_attn.o_proj"] = att_in
+    x = x + att
+    h = rms_norm(x, layer["post_norm"], cfg.rms_norm_eps)
+    if captures is not None:
+        captures["mlp.gate_proj"] = h
+        captures["mlp.up_proj"] = h
+    out, act = mlp_block(layer, h, compute_dtype)
+    if captures is not None:
+        captures["mlp.down_proj"] = act
+    return x + out
 
 
 def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
@@ -304,11 +339,8 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
     mask = _causal_mask(S, T, offset, cfg.sliding_window)
 
     for idx, layer in enumerate(params["layers"]):
-        h = rms_norm(x, layer["input_norm"], cfg.rms_norm_eps)
-        x = x + _attn_block(layer, cfg, h, cos, sin, mask, compute_dtype,
-                            cache, idx, offset)
-        h = rms_norm(x, layer["post_norm"], cfg.rms_norm_eps)
-        x = x + _mlp_block(layer, h, compute_dtype)
+        x = decoder_layer(layer, cfg, x, cos, sin, mask, compute_dtype,
+                          cache=cache, idx=idx, offset=offset)
 
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     head = params.get("lm_head")

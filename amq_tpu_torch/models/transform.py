@@ -22,10 +22,11 @@ def uniform_arch(cfg: ModelConfig, bits: int) -> Arch:
 
 
 def quantize_model(params: Dict[str, Any], cfg: ModelConfig, arch_or_bits,
-                   group_size: int = 128,
-                   meta_dtype=torch.float32) -> Dict[str, Any]:
+                   group_size: int = 128, meta_dtype=torch.float32,
+                   optimize: bool = True) -> Dict[str, Any]:
     """Quantize every decoder linear; embeddings, norms and lm_head stay
-    dense.  Each weight is quantized on the device it lives on."""
+    dense.  Each weight is quantized on the device it lives on;
+    ``optimize=False`` skips the proximal zero-point solver."""
     arch = (uniform_arch(cfg, arch_or_bits)
             if isinstance(arch_or_bits, int) else arch_or_bits)
     out = dict(params)
@@ -36,7 +37,8 @@ def quantize_model(params: Dict[str, Any], cfg: ModelConfig, arch_or_bits,
             p = layer[name]
             assert isinstance(p, DenseLinear), (name, type(p))
             qt = qcore.quantize(p.weight, nbits=int(arch["linear"][name][i]),
-                                group_size=group_size, meta_dtype=meta_dtype)
+                                group_size=group_size, meta_dtype=meta_dtype,
+                                optimize=optimize)
             new_layer[name] = QuantLinear(qt=qt, bias=p.bias)
         out_layers.append(new_layer)
     out["layers"] = out_layers

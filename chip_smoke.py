@@ -101,6 +101,22 @@ Phases (any failed check exits non-zero before the last line):
    the float32 head's, no float32 GEMM left).
 7. the search CLI on that table with a small budget: the archive, finite
    losses and hypervolume.
+7b. PTQ realization at full Llama-2-7B width (REALIZE_CUTS names every
+   cut): a local HF checkpoint (2 layers, random bf16 weights) read with
+   --model_path; the proxy CLI's 2/3/4-bit proxies read back with
+   load_quantized torch.equal to quantize_model in memory (PROXY) and
+   served by the speed CLI with --proxy_path; the quantize CLI on phase
+   7's iter_2.stats with gptq, awq, hqq and fp16 at 32 layers and owq
+   at 16 (REALIZE: seconds per stage, perplexity, flash and dequantization
+   launches equal to the counts reckoned, GPTQ's and OWQ's Hessian-
+   weighted error tr((W-Q) H (W-Q)^T) below round-to-nearest's at layers
+   0 and L-1); an f32 HQQ realization's perplexity on the kernel path
+   within 1e-3 of the plain path (REALIZE_PARITY); OWQ packed serving
+   through the speed CLI's --method owq (TPS, ms/token) and in-process
+   (OWQ_SERVE: float32 greedy tokens on the kernel path equal to the
+   plain path's, the bf16 logit gap, exact quant_matmul launches per
+   token, grouped ones too).  The OWQ layouts of quant_matmul are CASE
+   lines of phase 3.
 8. the kernels line, the card line, and the last line
    {"ok": true, "device": {...}}.
 """
@@ -309,6 +325,62 @@ def check_matmul(site, nbits, M, meta_dtype, gen):
                "dequantized weight (different function)", bound_ms=b_ms,
                bound_by=b_by, share_of_bound=b_ms / ms,
                ok=rel <= tol and deterministic and took_grouped == grouped)
+    print("CASE " + json.dumps(rec), flush=True)
+    return rec
+
+
+#: OWQ's packed 7B layouts (N, Kp, superblock): q/k/v/o and gate/up keep
+#: Kp 4096 (superblock 1024); down's 10954 non-outlier columns pad to Kp
+#: 11008 (superblock 256)
+OWQ_SITES_7B = {"owq_attn": (4096, 4096, 1024), "owq_gate": (11008, 4096, 1024),
+                "owq_down": (4096, 11008, 256)}
+
+
+def check_owq_matmul(site, nbits, M, gen):
+    """``quant_matmul`` at an OWQ-packed layout (3-bit in native planes,
+    f32 scale/zero as ``owq_pack`` writes them, bf16 x and out) against
+    ``quant_matmul_reference``, the route (grouped or CUDA-core) by name
+    and held to ``_grouped_applies``."""
+    from amq_tpu_torch.core.quantize import QuantizedTensor, dequantize_kn
+    from amq_tpu_torch.ops import quant_matmul as qm
+    N, K, sb = OWQ_SITES_7B[site]
+    L = max(2, min(24, math.ceil(200e6 / (N * K * nbits / 8))))
+    packed = rand_words((L, K * nbits // 32, N), gen)
+    scale = torch.rand((L, K // 128, N), generator=gen, device="cuda") * 0.02
+    zero = (torch.rand((L, K // 128, N), generator=gen, device="cuda")
+            * (2**nbits - 1))
+    qts = [QuantizedTensor(packed[i], scale[i], zero[i], nbits, 128, (N, K),
+                           sb) for i in range(L)]
+    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    grouped = qm._grouped_applies(x, packed[1], scale[1], zero[1], nbits, 128,
+                                  sb)
+    before = (qm.quant_matmul.launches, qm.quant_matmul.grouped_launches)
+    got = qm.quant_matmul(x, qts[1])
+    again = qm.quant_matmul(x, qts[1])
+    launched = (qm.quant_matmul.launches - before[0],
+                qm.quant_matmul.grouped_launches - before[1])
+    want = qm.quant_matmul_reference(x, qts[1])
+    torch.cuda.synchronize()
+    rel, err = rel_err(got, want)
+    ms = time_ms([lambda i=i: qm.quant_matmul(x, qts[i]) for i in range(L)])
+    plain_ms = time_ms([lambda: qm.quant_matmul_reference(x, qts[1])], iters=3)
+    wt = dequantize_kn(qts[1], torch.float32).to(torch.bfloat16).contiguous()
+    library_ms = time_ms([lambda: torch.matmul(x, wt)])
+    del wt
+    b_ms, b_by = bound(weight_bytes(packed, scale, N) + x.numel() * 2
+                       + M * N * 2, 2 * M * N * K)
+    tol = MM_TOL[torch.bfloat16]
+    rec = dict(kernel="quant_matmul", site=site, nbits=nbits, M=M,
+               meta="float32", route="grouped" if grouped else (
+                   "gemv" if M <= 8 else "gemm"),
+               max_abs_err=err, rel_err=rel, tol=tol,
+               deterministic=bool(torch.equal(got, again)), ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               library="torch.matmul bf16 x dense dequantized weight "
+               "(different function)", bound_ms=b_ms, bound_by=b_by,
+               share_of_bound=b_ms / ms,
+               ok=(rel <= tol and bool(torch.equal(got, again))
+                   and launched == (2, 2 * int(grouped))))
     print("CASE " + json.dumps(rec), flush=True)
     return rec
 
@@ -1789,11 +1861,14 @@ def profile_eval_phase():
     return rec
 
 
+SEARCH_ITERS = 2
+
+
 def search_phase(sens_path):
     from amq_tpu_torch import ops
     from amq_tpu_torch.cli import search
     save = os.path.join(OUT_DIR, "search_out")
-    n_doe, n_iter, iters = 16, 8, 2
+    n_doe, n_iter, iters = 16, 8, SEARCH_ITERS
     ops.reset_launch_counts()
     out = search.main(EVAL_ARGS + [
         "--sensitivity_json", sens_path, "--iterations", str(iters),
@@ -1822,6 +1897,403 @@ def search_phase(sens_path):
         fail(f"search losses or hypervolume not finite: hv {blob['hv']}")
     torch.cuda.empty_cache()
     return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: PTQ realization at full Llama-2-7B width
+
+#: scratch directory of the phase (HF checkpoint, proxies), inside the
+#: checkout and ignored by git; removed when the phase ends
+REAL_DIR = "_realize"
+#: calibration and perplexity samples of 2048 tokens (the reference
+#: calibrates on 128)
+REAL_N, REAL_SEQ, REAL_BATCH = 2, 2048, 2
+#: depth of the local HF checkpoint behind the proxy round trip and OWQ
+#: serving (keeps the files small)
+HF_DEPTH = 2
+#: OWQ's depth in the quantize CLI: its MSE-grid refreshes take about 4.7
+#: s a layer at full width on an H100, so all 32 layers take the phase to
+#: about 280 s; 16 keep it near 200 s (GPTQ, AWQ, HQQ, fp16: all 32)
+OWQ_DEPTH = 16
+#: kernel-path vs plain-path perplexity in f32, relative
+PPL_TOL = 1e-3
+#: generated tokens of the OWQ serving checks
+OWQ_GEN = 32
+
+
+def cut_model(depth):
+    """Llama-2-7B at full width and ``depth`` layers, registered by name."""
+    import dataclasses
+    from amq_tpu_torch.models.config import get_config, register
+    return register(dataclasses.replace(
+        get_config(EVAL_MODEL), name=f"{EVAL_MODEL}-{depth}L",
+        num_layers=depth))
+
+
+def cut_archive(src, cfg, dst):
+    """A search archive with every arch cut to ``cfg``'s depth and its bits
+    usage taken again at that depth."""
+    from amq_tpu_torch.evaluation.metrics import get_bits_usage
+    with open(src) as f:
+        blob = json.load(f)
+    out = {}
+    for key in ("archive", "candidates"):
+        out[key] = []
+        for arch, metric, _ in blob[key]:
+            a = {"linear": {k: v[:cfg.num_layers]
+                            for k, v in arch["linear"].items()}}
+            out[key].append([a, metric, get_bits_usage(a, cfg.topology())])
+    with open(dst, "w") as f:
+        json.dump(out, f)
+    return dst
+
+
+def write_hf_dir(depth):
+    """A local HF checkpoint of random bf16 weights (seeded) at full
+    Llama-2-7B width and ``depth`` layers."""
+    from amq_tpu_torch.models.hf import save_hf_checkpoint
+    from amq_tpu_torch.models.llama import init_params
+    cfg = cut_model(depth)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    params = init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    path = os.path.join(REAL_DIR, cfg.name)
+    save_hf_checkpoint(params, cfg, path, dtype=torch.bfloat16)
+    del params
+    return path
+
+
+def tree_equal(got, want, path="params"):
+    """Every tensor and field of two parameter trees equal (dtype too)."""
+    if isinstance(want, torch.Tensor):
+        return (isinstance(got, torch.Tensor) and got.dtype == want.dtype
+                and torch.equal(got, want)) or [path]
+    if isinstance(want, dict):
+        bad = [] if set(got) == set(want) else [path + ": keys"]
+        for k in want:
+            if k in got:
+                r = tree_equal(got[k], want[k], f"{path}.{k}")
+                bad += [] if r is True else r
+        return bad or True
+    if isinstance(want, (list, tuple)):
+        bad = [] if len(got) == len(want) else [path + ": length"]
+        for i, (g, w) in enumerate(zip(got, want)):
+            r = tree_equal(g, w, f"{path}[{i}]")
+            bad += [] if r is True else r
+        return bad or True
+    if hasattr(want, "__dataclass_fields__"):
+        return tree_equal(vars(got), vars(want), path)
+    return got == want or [path]
+
+
+def proxy_round_trip(hf_path):
+    """The proxy CLI on the local checkpoint (--model_path); each proxy
+    read back with load_quantized equal to quantize_model in memory; the
+    speed CLI serving them (--proxy_path)."""
+    from amq_tpu_torch.cli import proxy, speed_benchmark
+    from amq_tpu_torch.cli.common import base_parser, load_model
+    from amq_tpu_torch.models.transform import quantize_model
+    from amq_tpu_torch.utils.checkpoint import load_quantized
+    px = os.path.join(REAL_DIR, "proxies")
+    t0 = time.perf_counter()
+    out = proxy.main(["--model_path", hf_path, "--save_path", px])
+    write_s = time.perf_counter() - t0
+    cfg, params = load_model(base_parser("p").parse_args(
+        ["--model_path", hf_path]))
+    equal, nbytes = {}, 0
+    for b, path in zip((2, 3, 4), out["paths"]):
+        got, _ = load_quantized(path, dtype=torch.bfloat16, device="cuda")
+        want = quantize_model(params, cfg, b, meta_dtype=torch.bfloat16)
+        equal[b] = tree_equal(got, want)
+        nbytes += sum(os.path.getsize(os.path.join(path, f))
+                      for f in os.listdir(path))
+        del got, want
+    del params
+    torch.cuda.empty_cache()
+    cli = speed_benchmark.main(["--model_path", hf_path, "--proxy_path", px,
+                                "--modes", "TPS", "--save_path", OUT_DIR])
+    rec = dict(model=cfg.name, depth=cfg.num_layers, write_s=write_s,
+               bytes=nbytes, equal={b: v is True for b, v in equal.items()},
+               tps=cli["TPS"]["tokens_per_s"],
+               setup_s=cli["setup_s"])
+    print("PROXY " + json.dumps(rec), flush=True)
+    bad = {b: v for b, v in equal.items() if v is not True}
+    if bad:
+        fail(f"proxies read back differ from quantize_model: {bad}")
+    if not rec["tps"] > 0:
+        fail("speed CLI on --proxy_path gave no rate")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def rtn_loss(W, H, bits):
+    """tr((W - Q) H (W - Q)^T) of round-to-nearest with per-group min/max
+    parameters (the baseline tests/test_ptq.py holds GPTQ and OWQ under)."""
+    from amq_tpu_torch.core.pseudo import find_params_minmax, quantize_affine
+    rows, cols = W.shape
+    Wg = W.float().reshape(rows * cols // 128, 128)
+    p = find_params_minmax(Wg, bits)
+    Q = quantize_affine(Wg, p.scale, p.zero, 2**bits - 1).reshape(rows, cols)
+    return hessian_loss(W, Q, H)
+
+
+def hessian_loss(W, Q, H):
+    D = W.double() - Q.double()
+    return float(((D @ H.double()) * D).sum())
+
+
+def hessian_probe(module, fn_name, last_layer,
+                  sites=("self_attn.q_proj", "mlp.down_proj")):
+    """(patch, records): while the patch is active, ``module.fn_name``'s
+    calls at layers 0 and ``last_layer`` (``sites``) record the Hessian
+    metric of their result and of round-to-nearest at the same bits."""
+    from unittest import mock
+    from amq_tpu_torch.models.config import LINEAR_NAMES
+    orig = getattr(module, fn_name)
+    calls, recs = [0], []
+
+    def wrapped(W, H, bits, *a, **k):
+        li, si = divmod(calls[0], len(LINEAR_NAMES))
+        calls[0] += 1
+        Q = orig(W, H, bits, *a, **k)
+        if li in (0, last_layer) and LINEAR_NAMES[si] in sites:
+            loss, rtn = hessian_loss(W, Q, H), rtn_loss(W, H, bits)
+            recs.append(dict(layer=li, site=LINEAR_NAMES[si], bits=bits,
+                             loss=loss, rtn=rtn, ok=loss < rtn))
+        return Q
+    return mock.patch.object(module, fn_name, wrapped), recs
+
+
+def reckon_realize(method, L):
+    """Flash and dequantization launches of one quantize-CLI run, reckoned
+    from the code: per layer one flash launch per calibration batch to
+    capture (GPTQ / OWQ also one to propagate through the quantized
+    block; AWQ propagates in the capture and runs the attention 1 + 20
+    times in its scale search), then one per layer and perplexity batch;
+    HQQ dequantizes each of its 7 L linears once before the pass."""
+    calib = math.ceil(REAL_N / 8)           # *_quantize_model's batch 8
+    ppl = math.ceil(REAL_N / min(REAL_BATCH, 4))
+    per_layer = {"gptq": 2 * calib, "owq": 2 * calib,
+                 "awq": calib + 1 + 20}.get(method, 0)
+    return {"flash_attention": L * (per_layer + ppl),
+            "dequantize_kn": 7 * L if method == "hqq" else 0}
+
+
+def realize_phase(stats_path):
+    """The quantize CLI on the search archive at full width: GPTQ, AWQ,
+    HQQ and fp16 at 32 layers, OWQ at OWQ_DEPTH; REALIZE
+    lines (seconds per stage, perplexity, launches against the reckoned
+    counts, the Hessian metric against round-to-nearest at two layers)."""
+    from amq_tpu_torch import ops
+    from amq_tpu_torch.cli import quantize
+    from contextlib import nullcontext
+    from amq_tpu_torch.models.config import get_config
+    from amq_tpu_torch.quantization import gptq, owq
+    card = smi_line()
+    owq_cfg = cut_model(OWQ_DEPTH)
+    owq_stats = cut_archive(stats_path, owq_cfg,
+                            os.path.join(REAL_DIR, "owq_cut.stats"))
+    recs = []
+    for method in ("gptq", "awq", "owq", "hqq", "fp16"):
+        cfg, stats = ((owq_cfg, owq_stats) if method == "owq"
+                      else (get_config(EVAL_MODEL), stats_path))
+        with open(stats) as f:
+            blob = json.load(f)
+        bits = sorted(b for _, _, b in blob["archive"] + blob["candidates"])
+        target = bits[len(bits) // 2] + (0.1 if method == "owq" else 0.0)
+        probe = {"gptq": (gptq, "gptq_quantize_weight"),
+                 "owq": (owq, "owq_quantize_weight")}.get(method)
+        patch, hrecs = (hessian_probe(*probe, cfg.num_layers - 1) if probe
+                        else (nullcontext(), []))
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        args = ["--model_name", cfg.name, "--synthetic", "--load", stats,
+                "--method", method, "--target_bits", str(target),
+                "--target_bits_offset", "0.5", "--eval_dataset", "synthetic",
+                "--n_sample", str(REAL_N), "--seqlen", str(REAL_SEQ),
+                "--batch_size", str(REAL_BATCH),
+                "--save_path", os.path.join(OUT_DIR, "quantize_out")]
+        with patch:
+            res = quantize.main(args)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        want = {k: 0 for k in counts}
+        want.update(reckon_realize(method, cfg.num_layers))
+        r = res[0]
+        rec = dict(method=method, model=cfg.name, depth=cfg.num_layers,
+                   bits=r["bits"], ppl=r["ppl"]["synthetic"],
+                   stage_s=r["stage_s"], wall_s=wall, launches=counts,
+                   reckoned=want, hessian=hrecs, card=card)
+        print("REALIZE " + json.dumps(rec), flush=True)
+        recs.append(rec)
+        torch.cuda.empty_cache()
+        if not math.isfinite(rec["ppl"]):
+            fail(f"{method} perplexity not finite: {rec['ppl']}")
+        if counts != want:
+            fail(f"{method} launches {counts} != reckoned {want}")
+        if probe and (len(hrecs) != 4 or not all(h["ok"] for h in hrecs)):
+            fail(f"{method} not below round-to-nearest on the Hessian "
+                 f"metric: {hrecs}")
+    return recs
+
+
+def realize_parity_phase():
+    """One f32 HQQ realization at full width and depth: its perplexity on
+    the kernel path (flash, the dequantization kernel) against the plain
+    path (einsum attention, plain dequantization), with exact launches."""
+    from amq_tpu_torch import ops
+    from amq_tpu_torch.cli.common import base_parser, load_model, load_tokens
+    from amq_tpu_torch.evaluation import Evaluator
+    from amq_tpu_torch.models.config import cycled_arch
+    from amq_tpu_torch.quantization import get_quantized_params
+    args = base_parser("realize parity").parse_args(
+        ["--model_name", "Llama-2-7b-hf", "--synthetic", "--n_sample",
+         str(REAL_N), "--seqlen", str(REAL_SEQ)])
+    cfg, params = load_model(args)
+    toks = load_tokens(args, cfg, train=False)
+    arch = cycled_arch(cfg.num_layers, (2, 3, 4))
+    qp = get_quantized_params(params, cfg, "hqq", arch)
+    ev = Evaluator(cfg, dense_params=params, datasets={"synthetic": toks},
+                   search=False, batch_size=REAL_BATCH,
+                   compute_dtype=torch.float32, quantize_fn=lambda *a: qp)
+    del params
+    got = {}
+    for use_kernels in (True, False):
+        ev.use_kernels = use_kernels
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got[use_kernels] = ev.eval_ppl(qp, toks)
+        got[f"s_{use_kernels}"] = time.perf_counter() - t0
+        got[f"launches_{use_kernels}"] = ops.launch_counts()
+    L = cfg.num_layers
+    want = {k: 0 for k in got["launches_True"]}
+    want_k = dict(want, flash_attention=L, dequantize_kn=7 * L)
+    rel = abs(got[True] - got[False]) / abs(got[False])
+    rec = dict(method="hqq", compute="float32", kernel_ppl=got[True],
+               plain_ppl=got[False], rel_err=rel, tol=PPL_TOL,
+               kernel_s=got["s_True"], plain_s=got["s_False"],
+               launches=got["launches_True"], reckoned=want_k,
+               plain_launches=got["launches_False"])
+    print("REALIZE_PARITY " + json.dumps(rec), flush=True)
+    del ev, qp
+    torch.cuda.empty_cache()
+    if not (rel <= PPL_TOL and math.isfinite(got[True])):
+        fail(f"f32 kernel-path perplexity differs from the plain path: {rec}")
+    if got["launches_True"] != want_k or got["launches_False"] != want:
+        fail(f"perplexity launches {rec['launches']} / "
+             f"{rec['plain_launches']} != {want_k} / {want}")
+    return rec
+
+
+def reckon_owq_grouped(arch, L, steps):
+    """Grouped GEMV launches of an OWQ-served bf16 generate, reckoned: per
+    decode token (M = 1) every site whose compacted layout the ring takes
+    -- q/k/v/o and gate/up (Kp 4096, superblock 1024) at every width, down
+    (Kp 11008, superblock 256) at 4 bits only (a 2- or 3-bit ring stage
+    holds 512 rows); the 64-token prefill runs none."""
+    per = sum(6 + (arch["linear"]["mlp.down_proj"][i] == 4) for i in range(L))
+    return per * steps
+
+
+def owq_serving_phase(hf_path):
+    """OWQ packed serving at full width: the speed CLI's --method owq
+    (TPS and ms/token); then the same realization in-process: float32
+    greedy tokens on the kernel path (quant_matmul) equal to the plain
+    path's (quant_matmul_reference), bf16 logit gap reported, exact
+    quant_matmul launches per token."""
+    from amq_tpu_torch import ops
+    from amq_tpu_torch.cli import speed_benchmark
+    from amq_tpu_torch.cli.common import base_parser, load_model
+    from amq_tpu_torch.models.config import cycled_arch
+    from amq_tpu_torch.quantization import get_quantized_params
+    from amq_tpu_torch.serving.engine import Engine
+    cli = speed_benchmark.main([
+        "--model_path", hf_path, "--synthetic", "--method", "owq", "--modes",
+        "TPS", "GEMV", "--n_sample", str(REAL_N), "--save_path", OUT_DIR])
+    cfg, params = load_model(base_parser("owq").parse_args(
+        ["--model_path", hf_path]))
+    L = cfg.num_layers
+    arch = cycled_arch(L)
+    t0 = time.perf_counter()
+    qp = get_quantized_params(params, cfg, "owq", arch, avg_bits=3.0,
+                              synthetic_calib=True, n_samples=REAL_N,
+                              packed=True)
+    realize_s = time.perf_counter() - t0
+    del params
+    prompt = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, PROMPT)).astype(np.int32)
+    toks, logits, counts = {}, {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        for use_kernels in (True, False):
+            eng = Engine(qp, cfg, batch_size=1, max_len=PROMPT + OWQ_GEN + 8,
+                         compute_dtype=dt, use_kernels=use_kernels)
+            ops.reset_launch_counts()
+            key = (str(dt).split(".")[-1], use_kernels)
+            toks[key] = eng.generate(prompt, max_new_tokens=OWQ_GEN)
+            torch.cuda.synchronize()
+            counts[key] = (ops.launch_counts(), ops.grouped_launch_counts())
+            logits[key] = eng._prefill(qp, eng.tokens_to_device(prompt),
+                                       eng.new_cache())[0].float()
+    zero = {k: 0 for k in counts[("float32", True)][0]}
+    want = dict(zero, quant_matmul=7 * L * OWQ_GEN)
+    want_grouped = reckon_owq_grouped(arch, L, OWQ_GEN - 1)
+    gap = (logits[("bfloat16", True)] - logits[("bfloat16", False)]).abs()
+    rec = dict(
+        model=cfg.name, depth=L, realize_s=realize_s,
+        tps=cli["TPS"]["tokens_per_s"],
+        ms_per_token=cli["GEMV"]["decode_token_ms"],
+        f32_tokens_equal=bool((toks[("float32", True)]
+                               == toks[("float32", False)]).all()),
+        bf16_token_agreement=float((toks[("bfloat16", True)]
+                                    == toks[("bfloat16", False)]).mean()),
+        bf16_logit_gap=gap.max().item(),
+        f32_logit_gap=(logits[("float32", True)]
+                       - logits[("float32", False)]).abs().max().item(),
+        launches={f"{k[0]}_{k[1]}": v[0] for k, v in counts.items()},
+        grouped={f"{k[0]}_{k[1]}": v[1]["quant_matmul"]
+                 for k, v in counts.items()},
+        want_launches=want, want_grouped_bf16=want_grouped,
+        quant_matmul_per_token=7 * L, card=smi_line())
+    print("OWQ_SERVE " + json.dumps(rec), flush=True)
+    del qp
+    torch.cuda.empty_cache()
+    if not (rec["tps"] > 0 and rec["ms_per_token"] > 0):
+        fail(f"OWQ speed CLI gave no rate: {cli}")
+    if not rec["f32_tokens_equal"]:
+        fail(f"OWQ f32 kernel-path tokens differ from the plain path: {rec}")
+    for key, (c, g) in counts.items():
+        w = want if key[1] else zero
+        if c != w:
+            fail(f"OWQ serving launches {key}: {c} != {w}")
+    if counts[("bfloat16", True)][1]["quant_matmul"] != want_grouped:
+        fail(f"OWQ grouped launches {rec['grouped']} != {want_grouped}")
+    return rec
+
+
+def realization_phases(stats_path):
+    """Phase 7b: its cuts on a line of their own, then the proxy round
+    trip, the quantize CLI per method, the f32 parity and OWQ serving."""
+    import shutil
+    t0 = time.perf_counter()
+    print("REALIZE_CUTS " + json.dumps(dict(
+        width="Llama-2-7b-hf (full)",
+        calibration=f"{REAL_N} synthetic samples (the reference: 128)",
+        perplexity=f"{REAL_N} x {REAL_SEQ} synthetic tokens",
+        depth={"gptq": 32, "awq": 32, "owq": OWQ_DEPTH, "hqq": 32,
+               "fp16": 32},
+        proxy_and_owq_serving_depth=HF_DEPTH)), flush=True)
+    os.makedirs(REAL_DIR, exist_ok=True)
+    try:
+        hf_path = write_hf_dir(HF_DEPTH)
+        proxy_rec = proxy_round_trip(hf_path)
+        recs = realize_phase(stats_path)
+        parity = realize_parity_phase()
+        serve = owq_serving_phase(hf_path)
+    finally:
+        shutil.rmtree(REAL_DIR, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    print(f"realization: {wall:.1f} s", flush=True)
+    return dict(proxy=proxy_rec, methods=recs, parity=parity, owq_serve=serve,
+                wall_s=wall)
 
 
 def main():
@@ -1909,6 +2381,11 @@ def main():
         for nbits in (2, 3, 4):
             cases.append(check_dequant(nbits, gen, site))
             torch.cuda.empty_cache()
+    for site in OWQ_SITES_7B:           # OWQ packed serving's layouts
+        for nbits in (2, 3, 4):
+            for M in (1, PROMPT):
+                cases.append(check_owq_matmul(site, nbits, M, gen))
+        torch.cuda.empty_cache()
     bad = [c for c in cases if not c["ok"]]
     if bad:
         fail(f"{len(bad)} kernel cases outside tolerance: {bad[:3]}")
@@ -2012,6 +2489,10 @@ def main():
     # -- phase 7: the search CLI ---------------------------------------------
     search_rec = search_phase(sens["path"])
 
+    # -- phase 7b: PTQ realization -------------------------------------------
+    realize = realization_phases(
+        os.path.join(OUT_DIR, "search_out", f"iter_{SEARCH_ITERS}.stats"))
+
     # -- phase 8: kernels line and last line ---------------------------------
     def pick(kernel, **match):
         return next(c for c in cases if c["kernel"] == kernel
@@ -2097,6 +2578,19 @@ def main():
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "case": {k: c[k] for k in ("site", "nbits", "M", "meta")},
             "cases_checked": checked})
+    # launches over phase 7b's realization runs, beside the main path's
+    real_counts = {
+        "flash_attention": sum(r["launches"]["flash_attention"]
+                               for r in realize["methods"]),
+        "dequantize_kn": sum(r["launches"]["dequantize_kn"]
+                             for r in realize["methods"]),
+        "quant_matmul": realize["owq_serve"]["launches"][
+            "bfloat16_True"]["quant_matmul"],
+        "decode_attention_indexed": realize["owq_serve"]["launches"][
+            "bfloat16_True"]["decode_attention_indexed"]}
+    for k in kernels:
+        if k["name"] in real_counts:
+            k["realize_launches"] = real_counts[k["name"]]
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "cases": cases, "speed": speed,
                    "logits": logit_recs, "launches": counts,
@@ -2108,6 +2602,7 @@ def main():
                                    if k != "table"},
                    "eval_parity": eval_recs, "eval_profile": eval_prof,
                    "search": search_rec, "probes": probes,
+                   "realize": realize,
                    "build_report": build_rec},
                   f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -653,3 +653,67 @@ def test_cuda_extract_ahead_matches_plain(nbits, K):
     assert torch.equal(got, again)
     _norm_close(got.float().cpu().numpy(), want.float().cpu().numpy(), 2e-2)
     _norm_close(got.float().cpu().numpy(), ref.cpu().numpy(), 2e-2)
+
+
+#: OWQ's compacted 7B layouts: (N, Kp, superblock) -- q/k/v/o and gate/up
+#: keep Kp 4096 (superblock 1024), down's 10954 non-outlier columns pad to
+#: Kp 11008 (superblock 256, not a power-of-two multiple of 1024)
+OWQ_LAYOUTS = {"attn": (4096, 4096, 1024), "down": (4096, 11008, 256)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", sorted(OWQ_LAYOUTS))
+@pytest.mark.parametrize("nbits", [2, 3, 4])
+@pytest.mark.parametrize("M", [1, 64])
+def test_cuda_quant_matmul_at_owq_layouts(site, nbits, M):
+    """``quant_matmul`` (the route ``owq_matmul`` takes on the card) at
+    OWQ's packed layouts, 3-bit in native planes, bf16 x, f32 meta (as
+    ``owq_pack`` writes it), against ``quant_matmul_reference``; the
+    grouped counter moves exactly where ``_grouped_applies`` routes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from amq_tpu_torch.core import bitpack
+    N, Kp, sb = OWQ_LAYOUTS[site]
+    assert bitpack.pick_superblock(Kp) == sb
+    g = torch.Generator(device="cuda").manual_seed(nbits * 10 + M)
+    codes = torch.randint(0, 2**nbits, (Kp, N), generator=g, device="cuda")
+    qt = tq.QuantizedTensor(
+        packed=bitpack.pack(codes, nbits, sb),
+        scale=torch.rand((Kp // 128, N), generator=g, device="cuda") * 0.02,
+        zero=torch.rand((Kp // 128, N), generator=g, device="cuda")
+        * (2**nbits - 1), nbits=nbits, group_size=128, shape=(N, Kp),
+        superblock=sb)
+    x = torch.randn((M, Kp), generator=g, device="cuda").to(torch.bfloat16)
+    grouped = tqm._grouped_applies(x, qt.packed, qt.scale, qt.zero, nbits,
+                                   128, sb)
+    assert grouped == (M == 1 and (site == "attn" or nbits == 4))
+    before = (tqm.quant_matmul.launches, tqm.quant_matmul.grouped_launches)
+    got = tqm.quant_matmul(x, qt)
+    want = tqm.quant_matmul_reference(x, qt)
+    torch.cuda.synchronize()
+    assert (tqm.quant_matmul.launches - before[0],
+            tqm.quant_matmul.grouped_launches - before[1]) == (1, int(grouped))
+    assert got.dtype == torch.bfloat16
+    _norm_close(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [3, 4])
+def test_cuda_gptq_matches_cpu(bits):
+    """GPTQ of one float32 layer on the card within 2e-5 of the CPU (TF32
+    off, as ``cli.common.setup_torch`` sets it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from amq_tpu_torch.cli.common import setup_torch
+    from amq_tpu_torch.quantization.gptq import gptq_quantize_weight
+    setup_torch()
+    rng = np.random.default_rng(bits)
+    W = rng.normal(size=(256, 512)).astype(np.float32)
+    X = rng.normal(size=(2048, 512)).astype(np.float32)
+    H = torch.from_numpy((2.0 / X.shape[0]) * X.T @ X)
+    want = gptq_quantize_weight(torch.from_numpy(W), H, bits)
+    got = gptq_quantize_weight(torch.from_numpy(W).cuda(), H.cuda(), bits)
+    off = (got.cpu() - want).abs() > 2e-5 + 2e-5 * want.abs()
+    # a one-ulp difference may flip a rounding (and its row's rest)
+    assert off.float().mean().item() <= 0.005, off.sum().item()

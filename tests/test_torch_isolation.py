@@ -22,7 +22,15 @@ _MODULES = ("amq_tpu_torch.serving.engine", "amq_tpu_torch.serving.benchmark",
             "amq_tpu_torch.utils.profiling", "amq_tpu_torch.probes.chain",
             "amq_tpu_torch.probes.kernel_attrib",
             "amq_tpu_torch.probes.pipelined_gemv",
-            "amq_tpu_torch.probes.kernel_roofline")
+            "amq_tpu_torch.probes.kernel_roofline",
+            "amq_tpu_torch.core.pseudo", "amq_tpu_torch.core.lora",
+            "amq_tpu_torch.utils.checkpoint", "amq_tpu_torch.models.hf",
+            "amq_tpu_torch.quantization", "amq_tpu_torch.quantization.calib",
+            "amq_tpu_torch.quantization.gptq",
+            "amq_tpu_torch.quantization.awq",
+            "amq_tpu_torch.quantization.owq",
+            "amq_tpu_torch.quantization.api", "amq_tpu_torch.cli.proxy",
+            "amq_tpu_torch.cli.quantize")
 
 
 def test_import_pulls_in_no_jax():
@@ -95,6 +103,19 @@ def test_entry_points_refuse_hidden_cpu(tmp_path):
     sens.write_text('{"loss": {"0.self_attn.q_proj": 0.5}}')
     with pytest.raises(RuntimeError, match="CUDA"):
         search.main(["--synthetic", "--sensitivity_json", str(sens)])
+
+    from amq_tpu_torch.cli import proxy, quantize
+    with pytest.raises(RuntimeError, match="CUDA"):
+        proxy.main(["--synthetic", "--save_path", str(tmp_path / "p")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Evaluator(get_config("tiny-llama"), dense_params={}, search=False,
+                  quantize_fn=lambda *a: a[0])
+    stats = tmp_path / "iter_1.stats"
+    stats.write_text('{"archive": [], "candidates": []}')
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quantize.main(["--synthetic", "--load", str(stats)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        speed_benchmark.main(["--synthetic", "--method", "owq"])
 
 
 def test_benchmark_refuses_cpu_engine():
