@@ -268,10 +268,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-#define AMQ_F4(a, i) "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3])
-#define AMQ_F16(a, i) \
-  AMQ_F4(a, i), AMQ_F4(a, i + 4), AMQ_F4(a, i + 8), AMQ_F4(a, i + 12)
-
 // d[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                              uint64_t db, int accumulate) {

@@ -1,10 +1,16 @@
 // Warpgroup MMA (wgmma) helpers shared by the kernels that run on it:
-// flash_attention.cu's flash_kernel_wgmma and gemv_extract_ahead.cu.
+// flash_attention.cu's flash_kernel_wgmma, gemv_extract_ahead.cu and
+// quant_matmul_tile.cu.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// the accumulator operands of an inline wgmma: 4 or 16 floats from a[i]
+#define AMQ_F4(a, i) "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3])
+#define AMQ_F16(a, i) \
+  AMQ_F4(a, i), AMQ_F4(a, i + 4), AMQ_F4(a, i + 8), AMQ_F4(a, i + 12)
 
 // A named namespace, as qmm_tile.cuh explains.
 namespace amq {

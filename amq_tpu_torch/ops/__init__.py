@@ -3,7 +3,9 @@
 ``KERNELS`` lists each kernel's wrapper; every wrapper carries a
 ``launches`` counter that counts its kernel launches (never a plain-version
 call).  ``GROUPED`` lists the wrappers whose decode calls may take the
-grouped tensor-core GEMV; their ``grouped_launches`` count those.
+grouped tensor-core GEMV; their ``grouped_launches`` count those, and
+their ``tile_launches`` the multi-row calls that took the tile kernel on
+wgmma.
 """
 
 from . import decode_attention as _attn
@@ -25,6 +27,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in GROUPED:
         fn.grouped_launches = 0
+        fn.tile_launches = 0
 
 
 def launch_counts() -> dict:
@@ -33,3 +36,7 @@ def launch_counts() -> dict:
 
 def grouped_launch_counts() -> dict:
     return {fn.__name__: fn.grouped_launches for fn in GROUPED}
+
+
+def tile_launch_counts() -> dict:
+    return {fn.__name__: fn.tile_launches for fn in GROUPED}

@@ -6,14 +6,20 @@ Each public function here replaces one Pallas kernel of the JAX package's
 * the CUDA kernel (``csrc/quant_matmul.cu``, one template over nbits in
   {1, 2, 3, 4, 8}: calls with bf16 activations and M <= 8 take the grouped
   tensor-core GEMV, the JAX package's serving form, where its conditions
-  hold (:func:`_grouped_applies`); other calls with M <= 8, f32
-  activations among them, the CUDA-core decode GEMV; a dequantize-tile
-  GEMM above), launched for CUDA tensors,
-* a plain PyTorch version of the same function (dequantize in float32,
-  then a float32 product), taken only for CPU tensors,
+  hold (:func:`_grouped_applies`); calls with bf16 activations and 8 < M
+  the tile kernel on wgmma (``csrc/quant_matmul_tile.cu``, the JAX
+  package's bf16 multi-row form: each weight tile dequantized once, in
+  bf16) where :func:`_tile_applies` says so; other calls, f32
+  activations among them, the CUDA-core decode GEMV (M <= 8) or the
+  CUDA-core GEMM (8 < M), the JAX package's f32 form), launched for CUDA
+  tensors,
+* a plain PyTorch version of the same function, taken only for CPU
+  tensors: :func:`qmm_tile_plain` for bf16 activations and 8 < M, else
+  :func:`qmm_plain` (dequantize in float32, then a float32 product),
 * a launch counter (``<function>.launches``), raised where the kernel is
-  launched and nowhere else; beside it ``<function>.grouped_launches``
-  counts the launches that took the grouped GEMV.
+  launched and nowhere else; beside it ``<function>.grouped_launches`` and
+  ``<function>.tile_launches`` count the launches that took the grouped
+  GEMV and the tile kernel.
 
 Under the JAX package's ``AMQ_PIPE`` switch (read once, at import, into
 ``_PIPE_DEFAULT``; default off) the decode GEMVs of
@@ -57,15 +63,27 @@ _c_ptr = ctypes.c_void_p
 _PIPE_DEFAULT = int(os.environ.get("AMQ_PIPE", "0"))
 
 
+_SOURCE = {"amq_qmm_pipe": "quant_matmul_pipe",
+           "amq_qmm_tile": "quant_matmul_tile"}
+
+
 @functools.lru_cache(maxsize=None)
 def _lib(entry: str = "amq_qmm"):
     """An entry point of ``csrc/quant_matmul.cu`` (``amq_qmm``, the grouped
-    ``amq_qmm_grouped``) or the pipelined grouped ``amq_qmm_pipe`` of
-    ``csrc/quant_matmul_pipe.cu``; all take the same arguments."""
-    src = "quant_matmul_pipe" if entry == "amq_qmm_pipe" else "quant_matmul"
-    fn = getattr(_cuda.library(src), entry)
+    ``amq_qmm_grouped``), the pipelined grouped ``amq_qmm_pipe`` of
+    ``csrc/quant_matmul_pipe.cu`` or the tile kernel's ``amq_qmm_tile``
+    of ``csrc/quant_matmul_tile.cu``; all take the same arguments."""
+    fn = getattr(_cuda.library(_SOURCE.get(entry, "quant_matmul")), entry)
     fn.argtypes = [_c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_int,
                    _c_ptr, _c_int, _c_ptr] + [_c_int] * 11 + [_c_ptr]
+    fn.restype = _c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _swiglu_lib():
+    fn = _cuda.library("quant_matmul_tile").amq_swiglu_bf16
+    fn.argtypes = [_c_ptr] * 3 + [_c_int] * 3 + [_c_ptr]
     fn.restype = _c_int
     return fn
 
@@ -242,6 +260,89 @@ def _mlp_applies(x: torch.Tensor, gu, dn, nbits: int, group_size: int,
                for t, swiglu in ((gu, False), (dn, True)))
 
 
+#: the tile kernel's shape (``csrc/quant_matmul_tile.cu``): a block's
+#: shared memory, its barriers and alignment, (M sub-tiles, columns) of
+#: its block shapes (M <= 64: three warpgroups, M <= 128: two, above:
+#: one), bytes of an x chunk per M sub-tile
+_TILE_SMEM, _TILE_HEAD = 232448, 2048
+_TILE_BLOCKS, _TILE_XSUB = ((1, 192), (2, 128), (4, 64)), 64 * 128
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_ns(nbits: int, group_size: int, superblock: int,
+             meta_bf16: int) -> int:
+    """Word rows per ring stage of the tile kernel at a weight layout, or
+    0 for a layout it does not take (``tile_ns`` in
+    ``csrc/quant_matmul_tile.cu``): widths 1/2/3/4/8, a superblock of a
+    multiple of 64 rows, at most 1024, holding whole groups of a multiple
+    of 16 rows; then the largest of 32, 16, 8 that divides the round
+    plane's word rows (every 16-row wgmma step in one extraction round:
+    1-bit and 3-bit superblocks of a multiple of 256 rows, 2-bit of 128),
+    whose chunks of 2 ns K rows lie in one group or hold whole ones, and
+    whose ring (two word stages with their meta, two x chunks) fits a
+    block's shared memory at every block shape."""
+    if (nbits not in (1, 2, 3, 4, 8) or superblock % 64 or superblock > 1024
+            or group_size < 16 or group_size % 16
+            or superblock % group_size):
+        return 0
+    R = superblock // 32 if nbits == 3 else superblock * nbits // 32
+    P = 16 if nbits == 3 else 16 // nbits
+    es = 2 if meta_bf16 else 4
+    for ns in (32, 16, 8):
+        if R % ns or not (group_size % (2 * ns) == 0
+                          or (2 * ns) % group_size == 0):
+            continue
+        Q = max(1, 2 * ns // group_size)
+        if all(_TILE_SMEM - _TILE_HEAD
+               - 2 * ((3 if nbits == 3 else 1) * ns * (bn + 8) * 4
+                      + P * Q * 2 * bn * es) >= 2 * sub * _TILE_XSUB
+               for sub, bn in _TILE_BLOCKS):
+            return ns
+    return 0
+
+
+def _tile_applies(x: torch.Tensor, packed: torch.Tensor,
+                  scale: torch.Tensor, zero: torch.Tensor, nbits: int,
+                  group_size: int, superblock: int, up=None) -> bool:
+    """Take the tile kernel on wgmma?  The JAX package dequantizes each
+    weight tile once, in bf16, for its multi-row calls with bf16
+    activations (8 < M, ``acc_dtype == bf16``); the port does too,
+    wherever the kernel's own conditions hold: a layout
+    :func:`_tile_ns` takes, a padded N, K and x's row stride that are
+    multiples of 8, and 16-byte aligned activations and weights (16-byte
+    copies).  Other calls with 8 < M take the CUDA-core GEMM; this is the
+    only predicate that routes them."""
+    return (x.shape[0] > 8 and x.dtype == torch.bfloat16
+            and _tile_ns(nbits, group_size, superblock,
+                         int(scale.dtype == torch.bfloat16)) > 0
+            and packed.shape[-1] % 8 == 0 and x.shape[-1] % 8 == 0
+            and x.stride(0) % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, packed, scale, zero)
+                    + ((up,) if up is not None else ())))
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_plan(N: int, Kp: int, nbits: int, group_size: int,
+               superblock: int, meta_bf16: int, index: int) -> tuple:
+    """(splits, ring stages per split) of a tile call.  The K splits are
+    reckoned for the M <= 64 block (192 columns, one an SM): of up to
+    three blocks an SM's worth of splits, the fewest whose waves of
+    blocks times stages per split is least (a split's blocks run in
+    parallel, its stages in turn).  They depend on the weight's shape and
+    layout and the card, never on M, so that row m of a call has the same
+    bits at any M."""
+    R = superblock // 32 if nbits == 3 else superblock * nbits // 32
+    units = Kp // superblock * (R // _tile_ns(nbits, group_size, superblock,
+                                              meta_bf16))
+    sms = _sm_count(index)
+    tiles = -(-N // _TILE_BLOCKS[0][1])
+    cap = max(1, min(units, -(-3 * sms // tiles)))
+    best = min(range(1, cap + 1),
+               key=lambda s: (-(-tiles * s // sms) * -(-units // s), s))
+    per = -(-units // best)
+    return -(-units // per), per
+
+
 # ---------------------------------------------------------------------------
 # plain versions (the CPU path; also the reference the kernels are held to)
 
@@ -260,6 +361,33 @@ def qmm_plain(x, packed, scale, zero, *, nbits, group_size, shape,
                          group_size=group_size, shape=tuple(shape),
                          superblock=superblock)
     return torch.matmul(x.float(), dequantize_kn(qt, torch.float32)).to(out_dtype)
+
+
+def qmm_tile_plain(x, packed, scale, zero, *, nbits, group_size, shape,
+                   superblock, out_dtype, up=None) -> torch.Tensor:
+    """The JAX package's bf16 multi-row form (``_dequant_tile`` at
+    ``acc_dtype = bf16``, then the dot): x rounded to bf16 (with ``up``,
+    ``silu(x) * up`` in f32, rounded to bf16); the weight dequantized as
+    the reference does -- widths 1-4 in bf16, rounding after each
+    operation, ``(c - z) * s`` with the meta rounded to bf16 first (3-bit
+    codes recombined exactly); 8 bits ``(c - z) * s`` in f32, rounded to
+    bf16 once -- then a float32 product, rounded once to ``out_dtype``.
+    The reference of the tile kernel, and the CPU route of bf16 calls
+    with 8 < M."""
+    if up is not None:
+        x = swiglu_plain(x, up)
+    N, K = shape
+    codes = bitpack.unpack(packed, nbits, superblock)        # [Kp, Np]
+    rep = functools.partial(torch.repeat_interleave, repeats=group_size,
+                            dim=0)
+    if nbits == 8:
+        w = ((codes.float() - rep(zero.float())) * rep(scale.float())
+             ).to(torch.bfloat16)
+    else:
+        w = ((codes.to(torch.bfloat16) - rep(zero.to(torch.bfloat16)))
+             * rep(scale.to(torch.bfloat16)))
+    return torch.matmul(x.to(torch.bfloat16).float(),
+                        w[:K, :N].float()).to(out_dtype)
 
 
 def qmm_grouped_plain(x, packed, scale, zero, *, nbits, group_size, shape,
@@ -339,12 +467,13 @@ def qmm_mlp_grouped_plain(x, gu_packed, gu_scale, gu_zero, d_packed, d_scale,
 
 def _qmm_cuda(x, up, packed, scale, zero, *, nbits, group_size, shape,
               superblock, out_dtype, pipe=False, cuda_core=False) -> tuple:
-    """Launch the kernel; returns (out, whether the grouped GEMV ran).
-    ``pipe`` takes the pipelined grouped GEMV (it counts on its own
-    wrapper, not as grouped); ``cuda_core`` keeps a call that the grouped
-    GEMV would take on the CUDA-core GEMV (the probes' and tests' pins:
-    the attribution probe shares its arithmetic); no public switch reaches
-    it."""
+    """Launch the kernel; returns (out, route): "grouped", "tile", "pipe"
+    or "cuda_core".  ``pipe`` takes the pipelined grouped GEMV (it counts
+    on its own wrapper, not as grouped); ``cuda_core`` keeps a call that
+    the grouped GEMV or the tile kernel would take on the CUDA-core GEMV
+    or GEMM (the probes', tests' and smoke run's pins: the attribution
+    probe shares the GEMV's arithmetic, the smoke run times the GEMM
+    beside the tile kernel); no public switch reaches it."""
     N, K = shape
     M = x.shape[0]
     rows, Np = packed.shape
@@ -377,16 +506,28 @@ def _qmm_cuda(x, up, packed, scale, zero, *, nbits, group_size, shape,
                          f"group {group_size} do not fit")
     ring = not cuda_core and _grouped_applies(
         x, packed, scale, zero, nbits, group_size, superblock, up)
+    tile = not (cuda_core or ring) and _tile_applies(
+        x, packed, scale, zero, nbits, group_size, superblock, up)
     if pipe and not ring:
         raise ValueError(f"{what}: the pipelined GEMV takes bf16 x, M <= 8 "
                          f"and the grouped ring's layouts, strides and "
                          f"alignment")
     meta_bf16 = _cuda.dtype_flag(scale, what)
+    index = x.device.index or 0
     if ring:
         entry = "amq_qmm_pipe" if pipe else "amq_qmm_grouped"
         splits, per = _grouped_plan(N, Kp, nbits, up is not None, meta_bf16,
-                                    group_size, superblock,
-                                    x.device.index or 0)
+                                    group_size, superblock, index)
+    elif tile:
+        entry = "amq_qmm_tile"
+        splits, per = _tile_plan(N, Kp, nbits, group_size, superblock,
+                                 meta_bf16, index)
+        if up is not None:    # the SwiGLU prologue, once per element
+            act = torch.empty((M, K), dtype=torch.bfloat16, device=x.device)
+            _cuda.check(_swiglu_lib()(_cuda.ptr(x), _cuda.ptr(up),
+                                      _cuda.ptr(act), M, K, x.stride(0),
+                                      _cuda.stream()), f"{what} (SwiGLU)")
+            x, up = act, None
     else:
         entry = "amq_qmm"
         splits, per = _splits(M, N, Kp // superblock, x.device)
@@ -400,31 +541,44 @@ def _qmm_cuda(x, up, packed, scale, zero, *, nbits, group_size, shape,
                      M, K, x.stride(0), Kp, N, Np, nbits, group_size,
                      superblock, splits, per, _cuda.stream())
     _cuda.check(rc, what)
-    return out, ring and not pipe
+    route = ("pipe" if pipe else "grouped") if ring else (
+        "tile" if tile else "cuda_core")
+    return out, route
+
+
+def _plain(x, packed, scale, zero, *, out_dtype, up=None, **static):
+    """The CPU route: the reference's bf16 multi-row form for bf16 x with
+    8 < M (:func:`qmm_tile_plain`), else :func:`qmm_plain`."""
+    fn = (qmm_tile_plain if x.dtype == torch.bfloat16 and x.shape[0] > 8
+          else qmm_plain)
+    return fn(x, packed, scale, zero, out_dtype=out_dtype, up=up, **static)
 
 
 def _qmm(x, up, packed, scale, zero, *, out_dtype, counter, pipe=False,
          **static):
     if x.device.type == "cpu":
-        return qmm_plain(x, packed, scale, zero, out_dtype=out_dtype, up=up,
-                         **static)
+        return _plain(x, packed, scale, zero, out_dtype=out_dtype, up=up,
+                      **static)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    out, grouped = _qmm_cuda(x, up, packed, scale, zero, out_dtype=out_dtype,
-                             pipe=pipe, **static)
+    out, route = _qmm_cuda(x, up, packed, scale, zero, out_dtype=out_dtype,
+                           pipe=pipe, **static)
     counter.launches += 1
-    if grouped:
+    if route == "grouped":
         counter.grouped_launches += 1
+    elif route == "tile":
+        counter.tile_launches += 1
     return out
 
 
 def _qmm_cuda_core(x, packed, scale, zero, *, out_dtype, up=None,
                   **static) -> torch.Tensor:
-    """One layer's dequant-matmul on the CUDA-core GEMV, even where the
-    grouped GEMV would take the call: the route that the attribution
-    probe's ``full`` (both bodies) gives the same bits as (its
-    ``torch.equal`` pin).  The plain version on the CPU.  Counts no
-    launch."""
+    """One layer's dequant-matmul on the CUDA-core GEMV (M <= 8) or GEMM
+    (8 < M), even where the grouped GEMV or the tile kernel would take the
+    call: the route that the attribution probe's ``full`` (both bodies)
+    gives the same bits as (its ``torch.equal`` pin), and the GEMM the
+    smoke run times beside the tile kernel.  :func:`qmm_plain` on the CPU
+    (the CUDA-core routes' f32 function).  Counts no launch."""
     if x.device.type == "cpu":
         return qmm_plain(x, packed, scale, zero, out_dtype=out_dtype, up=up,
                          **static)
@@ -464,6 +618,8 @@ def quant_matmul_indexed(x: torch.Tensor, packed_stack: torch.Tensor,
 quant_matmul_indexed.launches = 0
 #: launches that took the grouped tensor-core GEMV
 quant_matmul_indexed.grouped_launches = 0
+#: launches that took the tile kernel on wgmma (bf16 x, 8 < M)
+quant_matmul_indexed.tile_launches = 0
 
 
 def quant_matmul_indexed_pipe(x: torch.Tensor, packed_stack: torch.Tensor,
@@ -524,6 +680,8 @@ def quant_matmul_swiglu_indexed(gate: torch.Tensor, up: torch.Tensor,
 quant_matmul_swiglu_indexed.launches = 0
 #: launches that took the grouped tensor-core GEMV
 quant_matmul_swiglu_indexed.grouped_launches = 0
+#: launches that took the tile kernel on wgmma (bf16 x, 8 < M)
+quant_matmul_swiglu_indexed.tile_launches = 0
 
 
 def quant_matmul_swiglu_indexed_pipe(gate: torch.Tensor, up: torch.Tensor,
@@ -677,6 +835,8 @@ def quant_matmul(x: torch.Tensor, qt: QuantizedTensor,
 quant_matmul.launches = 0
 #: launches that took the grouped tensor-core GEMV
 quant_matmul.grouped_launches = 0
+#: launches that took the tile kernel on wgmma (bf16 x, 8 < M)
+quant_matmul.tile_launches = 0
 
 
 def quant_matmul_reference(x: torch.Tensor, qt: QuantizedTensor,

@@ -1,5 +1,6 @@
-"""Decode A/B across checkouts: the 7B decode loop's wall and device time
-and the host cost of one decode-GEMV call, per tree.
+"""Decode and prefill A/B across checkouts: the 7B decode loop's wall and
+device time, the host cost of one decode-GEMV call, and the 64-token
+prefill's time, device time and bf16 logit gap, per tree.
 
 Each ROOT is a checkout of the repo (this one, or an earlier commit
 unpacked beside it); each runs in a process of its own, in the order
@@ -16,7 +17,13 @@ tree's own package and ``chip_smoke.py`` helpers: the random 7B model of
   at the 7B gateup site (4-bit, M = 1, bf16 x and meta), whichever route
   the tree's wrapper takes; ``route`` says which; ``host_us_cuda_core``
   the same call forced onto the CUDA-core route, where the tree has that
-  private route.
+  private route;
+* the 64-token prefill: ``prefill_ms`` and ``ttft_ms`` (the medians of
+  :data:`REPEATS` runs of ``benchmark_speed``'s GEMM and TTFT modes),
+  ``prefill_device_ms`` and ``prefill_busy_share`` (one prefill under the
+  profiler, ``chip_smoke.device_profile``) and ``logit_gap_bf16``
+  (``chip_smoke.logits_check`` in bf16: the kernel path's last-position
+  prefill logits against the plain path's, normalized).
 
 One ``AB`` line per root:
 
@@ -41,6 +48,7 @@ import torch
 import chip_smoke as cs
 from amq_tpu_torch.models.config import get_config
 from amq_tpu_torch.ops import quant_matmul as qm
+from amq_tpu_torch.serving.benchmark import benchmark_speed
 from amq_tpu_torch.serving.engine import Engine
 
 steps, repeats = int(sys.argv[1]), int(sys.argv[2])
@@ -64,6 +72,14 @@ for _ in range(repeats):
     walls.append((time.perf_counter() - t0) * 1e3 / steps)
 prof = cs.profile_decode(eng, prompt)
 cont = cs.continuous_profile(model, cfg)["default"]
+prefill = {mode: statistics.median(
+    benchmark_speed(eng, mode, prompt_len=cs.PROMPT, gen_len=cs.GEN)[key]
+    for _ in range(repeats))
+    for mode, key in (("GEMM", "prefill_ms"), ("TTFT", "ttft_ms"))}
+toks = eng.tokens_to_device(prompt)
+pre_prof = cs.device_profile(
+    lambda: eng._prefill_token(model, toks, eng.new_cache()), 1)
+gap = cs.logits_check(model, cfg, prompt, torch.bfloat16)["rel_err"]
 del model, eng, cache
 torch.cuda.empty_cache()
 
@@ -87,7 +103,11 @@ print("AB " + json.dumps(dict(
     continuous_device_ms=cont["device_ms_per_token"],
     continuous_wall_ms=cont["wall_ms_per_token"],
     host_us=host, route="grouped" if grouped else "cuda-core",
-    host_us_cuda_core=host_core)), flush=True)
+    host_us_cuda_core=host_core, prefill_ms=prefill["GEMM"],
+    ttft_ms=prefill["TTFT"], prefill_device_ms=pre_prof["device_ms_per_token"],
+    prefill_busy_share=pre_prof["device_busy_share"],
+    prefill_top_kernels_ms=pre_prof["top_kernels_ms_per_token"],
+    logit_gap_bf16=gap)), flush=True)
 """
 
 

@@ -10,11 +10,13 @@ Phases (any failed check exits non-zero before the last line):
    one process per source, all started together; REGS (registers and
    spill bytes of the attention kernels, every width's grouped GEMV, its
    pipelined form and the one-launch MLP, the dequantization kernel, the
-   attribution probe's grouped body and the extract-ahead GEMV, from
-   -Xptxas -v) and SASS (HGMMA / HMMA / FFMA per flash kernel, and
-   also LOP3 / SHF per grouped ring kernel, from cuobjdump -sass) lines;
-   fails if the bf16 flash kernel holds no HGMMA, a grouped ring kernel no
-   HMMA or HGMMA, or a redesigned kernel spills.
+   attribution probe's grouped body, the extract-ahead GEMV and the
+   multi-row tile kernel, from -Xptxas -v), SASS (HGMMA / HMMA / FFMA per
+   flash kernel, and also LOP3 / SHF per grouped ring kernel and tile
+   kernel, from cuobjdump -sass) and TILE_PTXAS (ptxas's wgmma notes on
+   the tile kernel) lines; fails if the bf16 flash kernel holds no HGMMA,
+   a grouped ring kernel no HMMA or HGMMA, a tile kernel instantiation
+   no HGMMA, or a redesigned kernel spills.
 3. kernels vs their plain PyTorch versions at the Llama-2-7B shapes:
    the dequant-matmuls (qkv / o / gateup / down sites, head) at M = 1 and
    64, widths 2, 3 (native planes) and 4, 8 on the head, bf16 and f32
@@ -22,7 +24,10 @@ Phases (any failed check exits non-zero before the last line):
    and 8 (bf16 scale/zero); at M <= 8 the grouped tensor-core GEMV
    (route "grouped": held to the grouped form's plain version, its
    launches counted as grouped, its time beside the CUDA-core GEMV's in
-   the same case, gemv_ms); decode
+   the same case, gemv_ms); at M = 64 the tile kernel on wgmma (route
+   "tile": held to the bf16 multi-row form's plain version qmm_tile_plain,
+   rel_err_vs_f32_plain beside it, its launches counted as tile, its time
+   beside the CUDA-core GEMM's in the same case, gemm_ms); decode
    attention at the Llama-2-7B, GQA, hd-64 and sliding-window shapes;
    flash attention at the Llama-2-7B evaluation shape (bf16 and f32),
    prefill with a cache (unaligned T), the GQA Llama-3-8B shape and d 64;
@@ -68,8 +73,10 @@ Phases (any failed check exits non-zero before the last line):
    serving.benchmark.benchmark_speed (TPS / GEMV / GEMM / TTFT), with the
    kernels' launch counts checked over one generate (GROUPED_LAUNCHES:
    every decode GEMV of the layers, 96 + 32 per token, and the head took
-   the grouped GEMV), kernel-path vs
-   plain-path prefill logits, and one generate from a 512-token prompt
+   the grouped GEMV; TILE_LAUNCHES: the 64-token prefill's 96 + 32 + 1
+   products took the tile kernel), PREFILL (prefill ms and TTFT),
+   kernel-path vs plain-path prefill logits (float32 gated; the bf16 gap
+   reported), and one generate from a 512-token prompt
    whose prefill runs the flash kernel once per layer and dequantizes
    once per site.
 4b. serving breadth on the same model at full width and depth: generate
@@ -78,7 +85,7 @@ Phases (any failed check exits non-zero before the last line):
    reported; SWITCHES_PROFILE: device ms per decode token of the default,
    pipe and pipe+mlp settings in one call); continuous batching
    (benchmark_continuous, 4 slots, 16 requests; default kernels, then
-   both switches; exact launch counts);
+   both switches; exact launch counts, tile ones too);
    a float32 SlotEngine run token-exact against each request's generate;
    speculative decoding with the target as its own draft (bf16 rate and
    acceptance, with two witnesses of what that acceptance measures: the
@@ -116,8 +123,10 @@ Phases (any failed check exits non-zero before the last line):
    (OWQ_SERVE: float32 greedy tokens on the kernel path equal to the
    plain path's, the bf16 logit gap, exact quant_matmul launches per
    token, grouped ones too).  The OWQ layouts of quant_matmul are CASE
-   lines of phase 3.
-8. the kernels line, the card line, and the last line
+   lines of phase 3 (M = 1 and 64; at 64 the tile kernel, its time beside
+   the CUDA-core GEMM's).
+8. the kernels line (with an M = 64 entry per row 1, 2 and 4 for the
+   tile kernel, `<name>_tile`), the card line, and the last line
    {"ok": true, "device": {...}}.
 """
 
@@ -272,35 +281,41 @@ def check_matmul(site, nbits, M, meta_dtype, gen):
         return qm.quant_matmul(x, qt, out_dtype=out_dtype)
 
     # the kernel's plain version: the grouped form where the grouped
-    # tensor-core GEMV runs (bf16 x, M <= 8), else the f32 one
-    grouped = qm._grouped_applies(x, packed[1], scale[1], zero[1], nbits, 128,
-                                  sb)
-    plain_fn = qm.qmm_grouped_plain if grouped else qm.qmm_plain
+    # tensor-core GEMV runs (bf16 x, M <= 8), the bf16 multi-row form where
+    # the tile kernel runs (bf16 x, 8 < M), else the f32 one
     up = u if "swiglu" in kernel else None
+    grouped = qm._grouped_applies(x, packed[1], scale[1], zero[1], nbits, 128,
+                                  sb, up)
+    tile = qm._tile_applies(x, packed[1], scale[1], zero[1], nbits, 128, sb,
+                            up)
+    plain_fn = (qm.qmm_grouped_plain if grouped
+                else qm.qmm_tile_plain if tile else qm.qmm_plain)
 
     def plain_call(i, fn=plain_fn):
         return fn(x, packed[i], scale[i], zero[i], up=up, **kw)
 
     counter = getattr(qm, kernel)
-    before = counter.grouped_launches
+    before = (counter.grouped_launches, counter.tile_launches)
     got = kernel_call(1)
     again = kernel_call(1)
-    took_grouped = counter.grouped_launches - before == 2
+    took = (counter.grouped_launches - before[0],
+            counter.tile_launches - before[1])
     want = plain_call(1)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     rel = err / max(want.float().abs().max().item(), 1e-30)
     deterministic = bool(torch.equal(got, again))
     # against the f32 dequantize-then-multiply too (another rounding)
-    rel_f32 = (rel_err(got, plain_call(1, qm.qmm_plain))[0] if grouped
-               else rel)
+    rel_f32 = (rel_err(got, plain_call(1, qm.qmm_plain))[0]
+               if grouped or tile else rel)
     tol = MM_TOL[out_dtype]
     ms = time_ms([lambda i=i: kernel_call(i) for i in range(L)])
-    # the CUDA-core GEMV in the same case (the grouped route's earlier
-    # design, through the wrapper's private route)
-    gemv_ms = (time_ms([lambda i=i: qm._qmm_cuda_core(
+    # the CUDA-core GEMV (M <= 8) or GEMM (8 < M) in the same case (the
+    # earlier design of the grouped and tile routes, through the
+    # wrapper's private route)
+    core_ms = (time_ms([lambda i=i: qm._qmm_cuda_core(
         x, packed[i], scale[i], zero[i], up=up, **kw) for i in range(L)])
-        if grouped else None)
+        if grouped or tile else None)
     plain_ms = time_ms([lambda: plain_call(1)], iters=3)
     wrapper_us = host_us(lambda: kernel_call(1))
     # yardstick, a different function: a bf16 matmul against the
@@ -317,14 +332,18 @@ def check_matmul(site, nbits, M, meta_dtype, gen):
     b_ms, b_by = bound(nbytes, 2 * M * N * K)
     rec = dict(kernel=kernel, site=site, nbits=nbits, M=M,
                meta=str(meta_dtype).split(".")[-1],
-               route="grouped" if grouped else ("gemv" if M <= 8 else "gemm"),
+               route=("grouped" if grouped else "tile" if tile
+                      else "gemv" if M <= 8 else "gemm"),
                max_abs_err=err, rel_err=rel, rel_err_vs_f32_plain=rel_f32,
-               tol=tol, deterministic=deterministic, ms=ms, gemv_ms=gemv_ms,
+               tol=tol, deterministic=deterministic, ms=ms,
+               gemv_ms=core_ms if grouped else None,
+               gemm_ms=core_ms if tile else None,
                plain_ms=plain_ms, host_us=wrapper_us,
                library_ms=library_ms, library="torch.matmul bf16 x dense "
                "dequantized weight (different function)", bound_ms=b_ms,
                bound_by=b_by, share_of_bound=b_ms / ms,
-               ok=rel <= tol and deterministic and took_grouped == grouped)
+               ok=(rel <= tol and deterministic
+                   and took == (2 * grouped, 2 * tile)))
     print("CASE " + json.dumps(rec), flush=True)
     return rec
 
@@ -339,8 +358,10 @@ OWQ_SITES_7B = {"owq_attn": (4096, 4096, 1024), "owq_gate": (11008, 4096, 1024),
 def check_owq_matmul(site, nbits, M, gen):
     """``quant_matmul`` at an OWQ-packed layout (3-bit in native planes,
     f32 scale/zero as ``owq_pack`` writes them, bf16 x and out) against
-    ``quant_matmul_reference``, the route (grouped or CUDA-core) by name
-    and held to ``_grouped_applies``."""
+    its plain version (the tile form at 8 < M, where the tile kernel
+    runs) and ``quant_matmul_reference``, the route (grouped, tile or
+    CUDA-core) by name and held to ``_grouped_applies`` and
+    ``_tile_applies``; at M = 64 the CUDA-core GEMM's time beside it."""
     from amq_tpu_torch.core.quantize import QuantizedTensor, dequantize_kn
     from amq_tpu_torch.ops import quant_matmul as qm
     N, K, sb = OWQ_SITES_7B[site]
@@ -354,15 +375,27 @@ def check_owq_matmul(site, nbits, M, gen):
     x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
     grouped = qm._grouped_applies(x, packed[1], scale[1], zero[1], nbits, 128,
                                   sb)
-    before = (qm.quant_matmul.launches, qm.quant_matmul.grouped_launches)
+    tile = qm._tile_applies(x, packed[1], scale[1], zero[1], nbits, 128, sb)
+    before = (qm.quant_matmul.launches, qm.quant_matmul.grouped_launches,
+              qm.quant_matmul.tile_launches)
     got = qm.quant_matmul(x, qts[1])
     again = qm.quant_matmul(x, qts[1])
     launched = (qm.quant_matmul.launches - before[0],
-                qm.quant_matmul.grouped_launches - before[1])
-    want = qm.quant_matmul_reference(x, qts[1])
+                qm.quant_matmul.grouped_launches - before[1],
+                qm.quant_matmul.tile_launches - before[2])
+    reference = qm.quant_matmul_reference(x, qts[1])
+    want = (qm.qmm_tile_plain(x, packed[1], scale[1], zero[1], nbits=nbits,
+                              group_size=128, shape=(N, K), superblock=sb,
+                              out_dtype=torch.bfloat16)
+            if tile else reference)
     torch.cuda.synchronize()
     rel, err = rel_err(got, want)
+    rel_ref = rel_err(got, reference)[0]
     ms = time_ms([lambda i=i: qm.quant_matmul(x, qts[i]) for i in range(L)])
+    gemm_ms = (time_ms([lambda i=i: qm._qmm_cuda_core(
+        x, packed[i], scale[i], zero[i], nbits=nbits, group_size=128,
+        shape=(N, K), superblock=sb, out_dtype=torch.bfloat16)
+        for i in range(L)]) if tile else None)
     plain_ms = time_ms([lambda: qm.quant_matmul_reference(x, qts[1])], iters=3)
     wt = dequantize_kn(qts[1], torch.float32).to(torch.bfloat16).contiguous()
     library_ms = time_ms([lambda: torch.matmul(x, wt)])
@@ -371,16 +404,18 @@ def check_owq_matmul(site, nbits, M, gen):
                        + M * N * 2, 2 * M * N * K)
     tol = MM_TOL[torch.bfloat16]
     rec = dict(kernel="quant_matmul", site=site, nbits=nbits, M=M,
-               meta="float32", route="grouped" if grouped else (
-                   "gemv" if M <= 8 else "gemm"),
-               max_abs_err=err, rel_err=rel, tol=tol,
-               deterministic=bool(torch.equal(got, again)), ms=ms,
-               plain_ms=plain_ms, library_ms=library_ms,
+               meta="float32", route=("grouped" if grouped else "tile"
+                                      if tile else "gemv" if M <= 8
+                                      else "gemm"),
+               max_abs_err=err, rel_err=rel, rel_err_vs_reference=rel_ref,
+               tol=tol, deterministic=bool(torch.equal(got, again)), ms=ms,
+               gemm_ms=gemm_ms, plain_ms=plain_ms, library_ms=library_ms,
                library="torch.matmul bf16 x dense dequantized weight "
                "(different function)", bound_ms=b_ms, bound_by=b_by,
                share_of_bound=b_ms / ms,
-               ok=(rel <= tol and bool(torch.equal(got, again))
-                   and launched == (2, 2 * int(grouped))))
+               ok=(rel <= tol and rel_ref <= tol
+                   and bool(torch.equal(got, again))
+                   and launched == (2, 2 * int(grouped), 2 * int(tile))))
     print("CASE " + json.dumps(rec), flush=True)
     return rec
 
@@ -805,11 +840,16 @@ RING_KERNELS = {"quant_matmul": GROUPED_GEMV, "quant_matmul_pipe":
 #: 1-4
 RING_COUNTS = {"quant_matmul": 5, "quant_matmul_pipe": 4,
                "quant_matmul_mlp": 5}
+#: the tile kernel on wgmma (the multi-row branch of rows 1, 2 and 4):
+#: widths 1/2/3/4/8 times one, two or four 64-row M sub-tiles times stages
+#: of 8, 16 or 32 word rows
+TILE_KERNEL, TILE_COUNT = "qmm_tile_kernel", 45
 REPORT_KERNELS = {"flash_attention": "flash_kernel", "decode_attention":
                   "decode_attn_kernel", **RING_KERNELS,
                   "dequant": "dequant_kernel",
                   "gemv_attrib": "attrib_grouped_kernel",
-                  "gemv_extract_ahead": "extract_ahead_kernel"}
+                  "gemv_extract_ahead": "extract_ahead_kernel",
+                  "quant_matmul_tile": TILE_KERNEL}
 
 
 def build_report():
@@ -819,9 +859,12 @@ def build_report():
     dequantization kernel and the two probe kernels on the ring and on
     wgmma, its registers and local spill bytes, from nvcc's -Xptxas -v) and a SASS line (per flash kernel and ring kernel its
     HGMMA, HMMA and FFMA instructions, and the ring kernels' LOP3 and SHF,
-    from cuobjdump -sass).  Fails if the bf16 flash kernel holds no HGMMA
-    (warpgroup MMA), a ring kernel (any width) no HMMA or HGMMA, a ring
-    library lacks an instantiation, or one of these kernels spills."""
+    from cuobjdump -sass; the tile kernel's too, with its LDS, and
+    ptxas's wgmma notes on it, TILE_PTXAS).  Fails if the bf16 flash
+    kernel holds no HGMMA (warpgroup MMA), a ring kernel (any width) no
+    HMMA or HGMMA, a ring library lacks an instantiation, a tile kernel
+    instantiation is missing or holds no HGMMA, or one of these kernels
+    spills."""
     from amq_tpu_torch.ops import _cuda
     from amq_tpu_torch.probes import kernel_attrib as ka
     regs = {}
@@ -844,9 +887,22 @@ def build_report():
                              ("HGMMA", "HMMA", "FFMA", "LOP3", "SHF"))
         ring[lib] = len(found)
         counts.update(found)
+    tile = ka.count_ops(ka.sass_listing("quant_matmul_tile"), TILE_KERNEL,
+                        ("HGMMA", "HMMA", "FFMA", "LOP3", "SHF", "LDS"))
+    counts.update(tile)
     names = ka.kernel_names(counts)
     sass = {names[sym]: c for sym, c in counts.items()}
     print("SASS " + json.dumps(sass), flush=True)
+    # ptxas's notes on the tile kernel's wgmma pipeline (a serialized
+    # wgmma waits for each product before the next extraction)
+    notes = sorted({line.strip() for line in
+                    _cuda.LOGS["quant_matmul_tile"].splitlines()
+                    if "wgmma" in line.lower()})
+    print("TILE_PTXAS " + json.dumps(notes), flush=True)
+    if len(tile) != TILE_COUNT or not all(c["HGMMA"] > 0
+                                          for c in tile.values()):
+        fail(f"tile kernel instantiations {len(tile)} (want {TILE_COUNT}) "
+             f"or one without HGMMA: {tile}")
     wgmma = {sym: c for sym, c in sass.items() if WGMMA_FLASH in sym}
     if len(wgmma) != 2 or not all(c["HGMMA"] > 0 for c in wgmma.values()):
         fail(f"the bf16 flash kernels hold no HGMMA: {sass}")
@@ -1121,8 +1177,9 @@ LOGIT_TOL = 1e-3
 def logits_check(model, cfg, prompt, compute_dtype):
     """Kernel path vs plain path (dequantize, library matmul, split
     attention) on the same model and prompt.  Gated in float32; in
-    bfloat16 the plain path dequantizes in bf16 and the kernels in f32, so
-    the gap there is reported, not gated."""
+    bfloat16 both round the weights to bf16 (the plain path once, from
+    f32; the tile kernel op by op, as the JAX package's multi-row
+    kernels), and the gap there is reported, not gated."""
     from amq_tpu_torch.serving.engine import Engine
     outs = []
     for use_kernels in (True, False):
@@ -1257,13 +1314,24 @@ def reckon_decode(L, prefills, prefill_rows, steps, pipe, mlp):
     return want
 
 
+def reckon_tile(L, prefills):
+    """Launches that take the tile kernel on wgmma over ``prefills``
+    bf16 prefills of 8 < M < 256 rows (reckon_decode's): per layer the
+    qkv, o and gateup products and the SwiGLU-down product, and the head
+    -- 96 + 32 + 1 per prefill of the 32-layer model.  Decode steps (M
+    <= 8) take the grouped GEMV."""
+    return {"quant_matmul_indexed": 3 * L * prefills,
+            "quant_matmul_swiglu_indexed": L * prefills,
+            "quant_matmul": prefills}
+
+
 def reckon_grouped(L, steps, pipe):
     """Launches that take the grouped GEMV over ``steps`` decode steps (M
     <= 8, bf16) of the fused 7B model, reckoned from the code: per layer
     the qkv, o and gateup GEMVs and the SwiGLU-down GEMV (unless AMQ_PIPE
     sends them all to the pipelined grouped kernel, which counts on its
     own wrappers), and the head.  Prefills (M = 64, their head too) take
-    the CUDA-core GEMM."""
+    the tile kernel (reckon_tile)."""
     return {"quant_matmul_indexed": 0 if pipe else 3 * L * steps,
             "quant_matmul_swiglu_indexed": 0 if pipe else L * steps,
             "quant_matmul": steps}
@@ -1301,11 +1369,13 @@ def switches_phase(eng, model, cfg, prompt, default_toks):
             torch.cuda.synchronize()
             counts = ops.launch_counts()
             grouped = ops.grouped_launch_counts()
+            tiles = ops.tile_launch_counts()
             logits = first_step_logits(eng, model, prompt)
         want = reckon_decode(L, 1, PROMPT, GEN - 1, pipe, mlp)
         want_grouped = reckon_grouped(L, GEN - 1, pipe)
         rec = dict(switches=label, launches=counts, want=want,
                    grouped_launches=grouped, want_grouped=want_grouped,
+                   tile_launches=tiles,
                    token_agreement=float((toks == default_toks).mean()),
                    max_logit_diff=(logits - base).abs().max().item(),
                    logit_scale=base.abs().max().item())
@@ -1314,6 +1384,8 @@ def switches_phase(eng, model, cfg, prompt, default_toks):
             fail(f"{label}: launch counts {counts} != {want}")
         if grouped != want_grouped:
             fail(f"{label}: grouped launches {grouped} != {want_grouped}")
+        if tiles != reckon_tile(L, 1):
+            fail(f"{label}: tile launches {tiles} != {reckon_tile(L, 1)}")
         if toks.shape != (1, GEN) or not ((toks >= 0)
                                           & (toks < cfg.vocab_size)).all():
             fail(f"{label}: generated tokens out of range")
@@ -1386,16 +1458,21 @@ def continuous_phase(model, cfg):
                 chunk_steps=CHUNK)
             counts = ops.launch_counts()
             grouped = ops.grouped_launch_counts()
+            tiles = ops.tile_launch_counts()
         per_run = reckon_decode(L, REQUESTS, PROMPT, steps, pipe, mlp)
         want = {k: 2 * v for k, v in per_run.items()}
         want_grouped = {k: 2 * v for k, v in
                         reckon_grouped(L, steps, pipe).items()}
         rec = dict(switches=label, **res, launches_per_run={
             k: v / 2 for k, v in counts.items()}, want_per_run=per_run,
-            grouped_per_run={k: v / 2 for k, v in grouped.items()})
+            grouped_per_run={k: v / 2 for k, v in grouped.items()},
+            tile_per_run={k: v / 2 for k, v in tiles.items()})
         print("CONTINUOUS " + json.dumps(rec), flush=True)
         if counts != want:
             fail(f"continuous {label}: launch counts {counts} != {want}")
+        want_tile = {k: 2 * v for k, v in reckon_tile(L, REQUESTS).items()}
+        if tiles != want_tile:
+            fail(f"continuous {label}: tile launches {tiles} != {want_tile}")
         if grouped != want_grouped:
             fail(f"continuous {label}: grouped launches {grouped} != "
                  f"{want_grouped}")
@@ -2418,9 +2495,11 @@ def main():
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     grouped_counts = ops.grouped_launch_counts()
+    tile_counts = ops.tile_launch_counts()
     L = cfg.num_layers
     want = reckon_decode(L, 1, PROMPT, GEN - 1, pipe=False, mlp=False)
     want_grouped = reckon_grouped(L, GEN - 1, pipe=False)
+    want_tile = reckon_tile(L, 1)
     print(f"launches over one generate: {counts} (want {want})", flush=True)
     # every decode GEMV of rows 1 and 2 (96 + 32 per token) and the head
     # took the grouped GEMV: no condition sent one back to the CUDA cores
@@ -2432,6 +2511,13 @@ def main():
         fail(f"launch counts {counts} != {want}")
     if grouped_counts != want_grouped:
         fail(f"grouped launches {grouped_counts} != {want_grouped}")
+    # every prefill product of the layers (96 + 32) and the head took the
+    # tile kernel
+    print("TILE_LAUNCHES " + json.dumps(dict(launches=tile_counts,
+                                             want=want_tile, prefills=1)),
+          flush=True)
+    if tile_counts != want_tile:
+        fail(f"tile launches {tile_counts} != {want_tile}")
     if toks.shape != (1, GEN) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
         fail(f"generated tokens out of range: {toks.shape}")
 
@@ -2442,6 +2528,11 @@ def main():
     speed["peak_mem_gib"] = peak
     speed["byte_bound_ms_per_token"] = b_ms
     print("SPEED " + json.dumps(speed), flush=True)
+    # the prefill of the 64-token prompt (the tile kernel's main path)
+    print("PREFILL " + json.dumps(dict(
+        prompt=PROMPT, prefill_ms=speed["GEMM"]["prefill_ms"],
+        ttft_ms=speed["TTFT"]["ttft_ms"], tile_launches=tile_counts)),
+        flush=True)
     for mode in ("TPS", "GEMV"):
         if not speed[mode]["tokens_per_s"] > 0:
             fail(f"{mode} gave no rate")
@@ -2533,6 +2624,22 @@ def main():
             pick("quant_matmul_mlp_indexed", nbits=4, M=1),
             "amq_tpu_torch/csrc/quant_matmul_mlp.cu",
             "amq_tpu/ops/quant_matmul.py:1112"),
+        # the multi-row (prefill) branch of rows 1, 2 and 4: the tile
+        # kernel on wgmma
+        "quant_matmul_indexed_tile": (
+            pick("quant_matmul_indexed", site="gateup", nbits=4, M=PROMPT,
+                 meta="bfloat16"),
+            "amq_tpu_torch/csrc/quant_matmul_tile.cu",
+            "amq_tpu/ops/quant_matmul.py:730"),
+        "quant_matmul_swiglu_indexed_tile": (
+            pick("quant_matmul_swiglu_indexed", site="down", nbits=4,
+                 M=PROMPT, meta="bfloat16"),
+            "amq_tpu_torch/csrc/quant_matmul_tile.cu",
+            "amq_tpu/ops/quant_matmul.py:927"),
+        "quant_matmul_tile": (pick("quant_matmul", site="head", M=PROMPT,
+                                   meta="bfloat16"),
+                              "amq_tpu_torch/csrc/quant_matmul_tile.cu",
+                              "amq_tpu/ops/quant_matmul.py:458"),
         # no Pallas kernel: the JAX package's XLA dequantization
         "dequantize_kn": (pick("dequantize_kn", site="gate", nbits=4),
                           "amq_tpu_torch/csrc/dequant.cu",
@@ -2551,7 +2658,8 @@ def main():
                        pipe_counts["quant_matmul_swiglu_indexed_pipe"],
                    "quant_matmul_mlp_indexed": switch_recs["pipe+mlp"][
                        "launches"]["quant_matmul_mlp_indexed"],
-                   "dequantize_kn": sens["launches"]["dequantize_kn"]}
+                   "dequantize_kn": sens["launches"]["dequantize_kn"],
+                   **{f"{k}_tile": v for k, v in tile_counts.items()}}
     kernels = []
     for name, (c, src, rep) in headline.items():
         kernels.append({
@@ -2562,7 +2670,9 @@ def main():
             "library_ms": c["library_ms"],
             "case": {k: c[k] for k in ("site", "nbits", "M", "meta", "case")
                      if k in c},
-            "cases_checked": sum(1 for x in cases if x["kernel"] == name)})
+            "cases_checked": sum(1 for x in cases if x["kernel"] == name
+                                 or f"{x['kernel']}_tile" == name
+                                 and x.get("route") == "tile")})
     # the probe kernels: launches over phase 3c, numbers of its gateup case
     for name, src, rep, checked in (
             ("gemv_attrib", "amq_tpu_torch/csrc/gemv_attrib.cu",
@@ -2594,7 +2704,8 @@ def main():
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "cases": cases, "speed": speed,
                    "logits": logit_recs, "launches": counts,
-                   "grouped_launches": grouped_counts, "profile": prof,
+                   "grouped_launches": grouped_counts,
+                   "tile_launches": tile_counts, "profile": prof,
                    "long_prompt": long_rec, "switches": switch_recs,
                    "continuous": cont_recs, "slot_f32": slot_rec,
                    "speculative": spec_recs, "cli": cli, "build_s": build_s,

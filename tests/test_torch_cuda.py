@@ -333,6 +333,124 @@ def test_cuda_grouped_gemv_routes_every_layout(nbits, group, superblock):
         _norm_close(out.cpu().numpy(), want.cpu().numpy(), 1e-4)
 
 
+def _tile_inputs(nbits, M, meta, superblock, seed, N=320, K=None):
+    """A one-layer stack [1, ...] quantized from numpy normals (K two
+    superblocks), bf16 x and SwiGLU operand [M, K] on the card."""
+    rng = np.random.default_rng(seed)
+    K = K or 2 * superblock
+    W = torch.from_numpy(rng.normal(size=(N, K)).astype(np.float32) * 0.02)
+    qt = tq.quantize(W.cuda(), nbits=nbits, meta_dtype=meta,
+                     superblock=superblock)
+    x, u = (torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)
+                             ).cuda().to(torch.bfloat16) for _ in range(2))
+    stack = (qt.packed[None], qt.scale[None], qt.zero[None])
+    kw = dict(nbits=nbits, group_size=128, shape=(N, K),
+              superblock=superblock, out_dtype=torch.float32)
+    return qt, stack, x, u, kw
+
+
+def _tile_call(stack, x, u, swiglu, kw):
+    if swiglu:
+        return tqm.quant_matmul_swiglu_indexed(x, u, *stack, 0, **kw)
+    return tqm.quant_matmul_indexed(x, *stack, 0, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("meta", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("swiglu", [False, True])
+@pytest.mark.parametrize("nbits", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("M", [9, 16, 64, 100, 255])
+def test_cuda_tile_kernel_matches_tile_plain(M, nbits, swiglu, meta):
+    """The tile kernel on wgmma against its plain version (the JAX
+    package's bf16 multi-row form: the same bf16 weights, f32 out within
+    1e-4 normalized, summation order only) at every M tile shape, width
+    and meta type, superblock 1024; the call takes the tile route (its
+    counter moves, the grouped one does not) and two calls are equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    qt, stack, x, u, kw = _tile_inputs(nbits, M, meta, 1024,
+                                       seed=400 + 10 * nbits + M)
+    counter = (tqm.quant_matmul_swiglu_indexed if swiglu
+               else tqm.quant_matmul_indexed)
+    before = (counter.launches, counter.tile_launches,
+              counter.grouped_launches)
+    got = _tile_call(stack, x, u, swiglu, kw)
+    again = _tile_call(stack, x, u, swiglu, kw)
+    want = tqm.qmm_tile_plain(x, qt.packed, qt.scale, qt.zero,
+                              up=u if swiglu else None, **kw)
+    torch.cuda.synchronize()
+    assert (counter.launches - before[0], counter.tile_launches - before[1],
+            counter.grouped_launches - before[2]) == (2, 2, 0)
+    assert got.shape == (M, kw["shape"][0]) and torch.equal(got, again)
+    _norm_close(got.cpu().numpy(), want.cpu().numpy(), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("superblock", [256, 512, 1024])
+@pytest.mark.parametrize("nbits", [1, 2, 3, 4, 8])
+def test_cuda_tile_kernel_superblocks(nbits, superblock):
+    """quant_matmul at M = 64 on the tile route with superblocks of 256,
+    512 and 1024 rows (round planes of 8 to 256 word rows, so stages of 8,
+    16 and 32 rows; 3-bit in native planes), K over three superblocks,
+    bf16 out, held to the tile plain version (1e-2 normalized: one bf16
+    rounding either side)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    qt, _, x, _, kw = _tile_inputs(nbits, 64, torch.bfloat16, superblock,
+                                   seed=500 + nbits + superblock,
+                                   K=3 * superblock)
+    assert tqm._tile_applies(x, qt.packed, qt.scale, qt.zero, nbits, 128,
+                             superblock)
+    before = tqm.quant_matmul.tile_launches
+    got = tqm.quant_matmul(x, qt)
+    want = tqm.qmm_tile_plain(x, qt.packed, qt.scale, qt.zero,
+                              **{**kw, "out_dtype": torch.bfloat16})
+    torch.cuda.synchronize()
+    assert tqm.quant_matmul.tile_launches - before == 1
+    assert got.dtype == torch.bfloat16
+    _norm_close(got.float().cpu().numpy(), want.float().cpu().numpy(), 1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("swiglu", [False, True])
+@pytest.mark.parametrize("nbits", [1, 2, 3, 4, 8])
+def test_cuda_tile_rows_independent_of_M(nbits, swiglu):
+    """Row m of a tile call has the same bits at any M (the K splits
+    depend on the weight only, every M sub-tile is the same n64 product):
+    the first M rows of a 255-row call equal the M-row call, at M 9, 16,
+    64, 100 and 300 (two M tiles) -- what continuous batching needs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    _, stack, x, u, kw = _tile_inputs(nbits, 300, torch.bfloat16, 1024,
+                                      seed=600 + nbits)
+    full = _tile_call(stack, x[:255], u[:255], swiglu, kw)
+    for M in (9, 16, 64, 100, 300):
+        got = _tile_call(stack, x[:M], u[:M], swiglu, kw)
+        n = min(M, 255)
+        assert torch.equal(got[:n], full[:n]), M
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbits", [1, 2, 3, 4, 8])
+def test_cuda_tile_layout_agrees_with_library(nbits):
+    """_tile_ns (the wrapper's predicate and split plan) and the library's
+    own tile_ns agree on every weight layout -- the layouts taken and the
+    ring stages per superblock -- over groups of 8 to 1024 rows,
+    superblocks of 64 to 1024 and both meta types."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    fn = tqm._cuda.library("quant_matmul_tile").amq_qmm_tile_stages
+    fn.argtypes = [tqm._c_int] * 4
+    fn.restype = tqm._c_int
+    for sb in range(64, 1025, 64):
+        R = sb // 32 if nbits == 3 else sb * nbits // 32
+        for gs in (8, 16, 32, 48, 64, 128, 192, 256, 512, 1024):
+            for mb in (0, 1):
+                ns = tqm._tile_ns(nbits, gs, sb, mb)
+                assert fn(nbits, gs, sb, mb) == (R // ns if ns else 0), (
+                    nbits, gs, sb, mb)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("N", [320, 90])
 @pytest.mark.parametrize("nbits", [1, 2, 3, 4, 5, 6, 8])
@@ -669,7 +787,8 @@ def test_cuda_quant_matmul_at_owq_layouts(site, nbits, M):
     """``quant_matmul`` (the route ``owq_matmul`` takes on the card) at
     OWQ's packed layouts, 3-bit in native planes, bf16 x, f32 meta (as
     ``owq_pack`` writes it), against ``quant_matmul_reference``; the
-    grouped counter moves exactly where ``_grouped_applies`` routes."""
+    grouped counter moves exactly where ``_grouped_applies`` routes, the
+    tile counter at M = 64 (the tile kernel takes every OWQ layout)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     from amq_tpu_torch.core import bitpack
@@ -687,12 +806,17 @@ def test_cuda_quant_matmul_at_owq_layouts(site, nbits, M):
     grouped = tqm._grouped_applies(x, qt.packed, qt.scale, qt.zero, nbits,
                                    128, sb)
     assert grouped == (M == 1 and (site == "attn" or nbits == 4))
-    before = (tqm.quant_matmul.launches, tqm.quant_matmul.grouped_launches)
+    tile = tqm._tile_applies(x, qt.packed, qt.scale, qt.zero, nbits, 128, sb)
+    assert tile == (M == 64)
+    before = (tqm.quant_matmul.launches, tqm.quant_matmul.grouped_launches,
+              tqm.quant_matmul.tile_launches)
     got = tqm.quant_matmul(x, qt)
     want = tqm.quant_matmul_reference(x, qt)
     torch.cuda.synchronize()
     assert (tqm.quant_matmul.launches - before[0],
-            tqm.quant_matmul.grouped_launches - before[1]) == (1, int(grouped))
+            tqm.quant_matmul.grouped_launches - before[1],
+            tqm.quant_matmul.tile_launches - before[2]) == (
+                1, int(grouped), int(tile))
     assert got.dtype == torch.bfloat16
     _norm_close(got.float().cpu().numpy(), want.float().cpu().numpy(),
                 atol=2e-2)

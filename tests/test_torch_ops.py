@@ -271,6 +271,153 @@ def test_indexed_bf16_decode(nbits, swiglu):
     _norm_close(got.numpy(), np.asarray(want))
 
 
+def _tile_case(kernel, nbits, M, meta, seed):
+    """(port arguments, JAX output) of one bf16 multi-row call: N 256, K
+    512 (superblock 512), bf16 x (and SwiGLU operand), f32 out, the JAX
+    kernel in interpret mode (its bf16 multi-row branch, _dequant_tile at
+    acc_dtype = bf16)."""
+    rng = np.random.default_rng(seed)
+    N, K = 256, 512
+    qt = jq.quantize(jnp.asarray(rng.normal(size=(N, K)).astype(np.float32)
+                                 * 0.02), nbits=nbits, meta_dtype=meta)
+    x, u = (jnp.asarray(rng.normal(size=(M, K)).astype(np.float32)).astype(
+        jnp.bfloat16) for _ in range(2))
+    kw = dict(nbits=nbits, group_size=128, shape=(N, K),
+              superblock=qt.superblock)
+    packed, scale, zero = _stack([qt])
+    with pltpu.force_tpu_interpret_mode():
+        if kernel == "quant_matmul":
+            want = jqm.quant_matmul(x, qt, out_dtype=jnp.float32)
+        elif kernel == "quant_matmul_indexed":
+            want = jqm.quant_matmul_indexed(
+                x, packed, scale, zero, jnp.int32(0), acc_dtype=jnp.bfloat16,
+                out_dtype=jnp.float32, **kw)
+        else:
+            want = jqm.quant_matmul_swiglu_indexed(
+                x, u, packed, scale, zero, jnp.int32(0),
+                acc_dtype=jnp.bfloat16, out_dtype=jnp.float32, **kw)
+    pq = _port_qt(qt)
+    args = dict(x=to_tensor(np.asarray(x)), packed=pq.packed, scale=pq.scale,
+                zero=pq.zero, out_dtype=torch.float32,
+                up=(to_tensor(np.asarray(u))
+                    if kernel == "quant_matmul_swiglu_indexed" else None),
+                **kw)
+    return args, np.asarray(want)
+
+
+def _jax_swiglu(args):
+    """The SwiGLU activation as the JAX kernel forms it (silu(g) * u in
+    f32, rounded to bf16), from the port arguments' g and u."""
+    g, u = (jnp.asarray(t.float().numpy()) for t in (args["x"], args["up"]))
+    return to_tensor(np.asarray((jax.nn.silu(g) * u).astype(jnp.bfloat16)))
+
+
+@pytest.mark.parametrize("meta", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("M", [16, 64])
+@pytest.mark.parametrize("nbits", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("kernel", ["quant_matmul", "quant_matmul_indexed",
+                                    "quant_matmul_swiglu_indexed"])
+def test_tile_plain_matches_jax_multi_row(kernel, nbits, M, meta):
+    """The tile kernel's plain version against the JAX package's bf16
+    multi-row kernels (_qmm_kernel, _qmm_kernel_stacked,
+    _qmm_kernel_swiglu in interpret mode): the same bf16 weights (widths
+    1-4 dequantized in bf16 op by op, 8 bits in f32 rounded once, f32 meta
+    rounded to bf16 first), the same bf16 x, so only the f32 summation
+    order differs (normalized atol 1e-5; measured about 3e-7).  Under
+    SwiGLU the two frameworks' f32 silu part by an ulp on a few
+    activations, which can flip their bf16 rounding: the product is held
+    at 1e-5 on JAX's activation, the whole function (the port's own
+    SwiGLU) at the suite's f32 2e-4."""
+    args, want = _tile_case(kernel, nbits, M, meta,
+                            seed=300 + 10 * nbits + M + (meta == jnp.float32))
+    got = tqm.qmm_tile_plain(**args)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    if args["up"] is None:
+        _norm_close(got.numpy(), want, atol=1e-5)
+        return
+    _norm_close(got.numpy(), want, atol=2e-4)
+    on_jax_act = tqm.qmm_tile_plain(**{**args, "x": _jax_swiglu(args),
+                                       "up": None})
+    _norm_close(on_jax_act.numpy(), want, atol=1e-5)
+
+
+@pytest.mark.parametrize("meta", [jnp.float32, jnp.bfloat16])
+def test_f32_multi_row_route_differs_from_jax_bf16(meta):
+    """The fault the tile form repairs: the f32 dequantization
+    (qmm_plain, the CUDA-core GEMM's function) is not the JAX package's
+    bf16 multi-row function -- at 2 bits it is more than 1e-3 off
+    (normalized) where the tile plain version agrees within 1e-5."""
+    args, want = _tile_case("quant_matmul_indexed", 2, 32, meta, seed=290)
+    scale = float(np.abs(want).max())
+    old = tqm.qmm_plain(**args).numpy()
+    new = tqm.qmm_tile_plain(**args).numpy()
+    assert np.abs(old - want).max() / scale > 1e-3
+    assert np.abs(new - want).max() / scale <= 1e-5
+
+
+@pytest.mark.parametrize("kernel", ["quant_matmul", "quant_matmul_indexed",
+                                    "quant_matmul_swiglu_indexed"])
+def test_cpu_multi_row_route(kernel):
+    """The port's wrappers on the CPU: bf16 x with M = 64 takes the tile
+    plain version (the reference's bf16 multi-row function), f32 x the
+    f32 plain version (the reference's acc_dtype = f32 function); bf16 x
+    with M <= 8 keeps qmm_plain."""
+    args, _ = _tile_case(kernel, 4, 64, jnp.bfloat16, seed=280)
+    kw = {k: args[k] for k in ("nbits", "group_size", "shape", "superblock",
+                               "out_dtype")}
+    w = (args["packed"], args["scale"], args["zero"])
+
+    def port(x, up):
+        if kernel == "quant_matmul":
+            qt = tq.QuantizedTensor(*w, kw["nbits"], kw["group_size"],
+                                    kw["shape"], kw["superblock"])
+            return tqm.quant_matmul(x, qt, out_dtype=torch.float32)
+        stack = tuple(t[None] for t in w)
+        if up is None:
+            return tqm.quant_matmul_indexed(x, *stack, 0, **kw)
+        return tqm.quant_matmul_swiglu_indexed(x, up, *stack, 0, **kw)
+
+    x, up = args["x"], args["up"]
+    assert torch.equal(port(x, up), tqm.qmm_tile_plain(x, *w, up=up, **kw))
+    xf, uf = x.float(), (up.float() if up is not None else None)
+    assert torch.equal(port(xf, uf), tqm.qmm_plain(xf, *w, up=uf, **kw))
+    x8, u8 = x[:8], (up[:8] if up is not None else None)
+    assert torch.equal(port(x8, u8), tqm.qmm_plain(x8, *w, up=u8, **kw))
+
+
+@pytest.mark.parametrize("nbits", [1, 2, 3, 4, 8])
+def test_tile_routing_conditions(nbits):
+    """bf16 activations, 8 < M, Np, K and x's row stride multiples of 8,
+    16-byte aligned operands and a layout the tile kernel takes (a
+    superblock of whole 16-row groups whose round plane holds whole
+    16-row steps: 1-bit and 3-bit superblocks of a multiple of 256 rows,
+    2-bit of 128; a ring that fits): the tile kernel; anything else keeps
+    the CUDA-core GEMM."""
+    x = torch.zeros((64, 1024), dtype=torch.bfloat16)
+    meta = torch.zeros((8, 128), dtype=torch.bfloat16)
+
+    def ok(x=x, group=128, superblock=1024, cols=128, meta=meta):
+        packed = torch.zeros((superblock * nbits // 32, 128),
+                             dtype=torch.int32)[:, :cols]
+        return tqm._tile_applies(x, packed, meta, meta, nbits, group,
+                                 superblock)
+
+    assert ok()
+    assert ok(meta=meta.float())
+    assert ok(x=x[:9])
+    assert ok(x=torch.zeros((300, 1024), dtype=torch.bfloat16))
+    assert ok(group=64, superblock=256)
+    assert not ok(x=x[:8])
+    assert not ok(x=x.float())
+    assert not ok(cols=124)
+    assert not ok(x=x[:, 1:1021])                   # K, alignment
+    assert not ok(group=8, superblock=256)
+    assert ok(superblock=512) and ok(group=256, superblock=256)
+    # the round plane of a 128-row superblock: 4 word rows at 1 and 3
+    # bits, 8 at 2
+    assert ok(superblock=128) == (nbits not in (1, 3))
+
+
 def _attn_case(B, Hkv, G, hd, T, offsets, window=None, seed=0, L=3,
                cache_dtype=np.float32):
     rng = np.random.default_rng(seed)
