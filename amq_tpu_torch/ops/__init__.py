@@ -5,7 +5,10 @@
 call).  ``GROUPED`` lists the wrappers whose decode calls may take the
 grouped tensor-core GEMV; their ``grouped_launches`` count those, and
 their ``tile_launches`` the multi-row calls that took the tile kernel on
-wgmma.
+wgmma.  A captured CUDA graph launches its kernels on every replay without
+calling a wrapper: ``serving.graphs`` adds a replay's launches with
+:func:`add_launch_counts` (and takes back those of its warm-up and
+capture, which run the wrappers but are undone or launch nothing).
 """
 
 from . import decode_attention as _attn
@@ -40,3 +43,23 @@ def grouped_launch_counts() -> dict:
 
 def tile_launch_counts() -> dict:
     return {fn.__name__: fn.tile_launches for fn in GROUPED}
+
+
+def counter_state() -> dict:
+    """Every counter above: ``{(wrapper, attribute): count}``."""
+    state = {(fn, "launches"): fn.launches for fn in KERNELS}
+    for fn in GROUPED:
+        state[(fn, "grouped_launches")] = fn.grouped_launches
+        state[(fn, "tile_launches")] = fn.tile_launches
+    return state
+
+
+def count_delta(after: dict, before: dict) -> dict:
+    """The counters' rise from ``before`` to ``after`` (non-zero only)."""
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def add_launch_counts(delta: dict, times: int = 1) -> None:
+    """Add ``times`` x ``delta`` (a :func:`count_delta`) to the counters."""
+    for (fn, attr), n in delta.items():
+        setattr(fn, attr, getattr(fn, attr) + n * times)

@@ -9,7 +9,9 @@ tree's own package and ``chip_smoke.py`` helpers: the random 7B model of
 ``chip_smoke.py``'s phase 4 (layers at 2, 3 and 4 bits in turn), then
 
 * ``decode_wall_ms``: wall ms per decode token of one stream, unprofiled,
-  the median of :data:`REPEATS` runs of :data:`STEPS` steps;
+  the median of :data:`REPEATS` runs of :data:`STEPS` steps, each from
+  the prompt's cache length (the tree's engine, captured CUDA graphs
+  where it has them);
 * ``profile_*``: ``chip_smoke.profile_decode`` (device and wall ms per
   token under the profiler) and ``continuous_profile``'s default (per
   4-slot step);
@@ -62,9 +64,13 @@ prompt = np.random.default_rng(0).integers(
 eng.generate(prompt, max_new_tokens=4)
 cache = eng.new_cache()
 first, cache = eng._prefill_token(model, eng.tokens_to_device(prompt), cache)
+# a tree whose decode advances the cache length in place decodes every
+# timed run from the prompt's length (elsewhere the copy changes nothing)
+start = cache.length.clone()
 eng._decode_n(model, first, cache, n_steps=2)
 walls = []
 for _ in range(repeats):
+    cache.length.copy_(start)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng._decode_n(model, first, cache, n_steps=steps)

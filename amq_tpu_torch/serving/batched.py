@@ -7,17 +7,26 @@ The port of the JAX package's ``serving/batched.py``:
 * :func:`prefill_slot` -- run one right-padded prompt (batch 1) and copy
   its KV into a slot,
 * :func:`prefill_chunk` -- advance one slot's prefill by a chunk,
+* :func:`prefill_window` -- the body of both: slot, offset and true
+  length are device tensors (the JAX functions trace them), the window is
+  gathered with ``index_select`` and written back with ``index_copy_``,
 * :func:`decode_step` -- one token for all slots: per-slot rope positions
   and attention through ``models.stacked.scan_layers`` with a per-row
   ``[B]`` offset (the JAX package writes the layer body a second time),
   then one per-slot append of the new keys at each slot's own length
   (a scatter with device-tensor indices: no host sync, no loop over
   slots); idle slots are masked no-ops,
-* :func:`decode_chunk` -- ``n_steps`` of those,
+* :func:`decode_chunk` -- ``n_steps`` of those, each through
+  :func:`slot_decode_step`, the in-place body that reads and writes a
+  static token buffer,
 * :class:`SlotEngine` -- ties them to ``ContinuousBatcher``.
 
-The JAX ``jit``s become eager calls; the cache is updated in place (the
-JAX functions donate it).  While kernels are active, S = 1 decode
+The JAX ``jit``s become captured CUDA graphs on the card
+(``serving.graphs``): one decode step, replayed ``n_steps`` times per
+chunk, and one slot prefill per (bucket or chunk length, window), with
+the slot and lengths in static device buffers; the cache is one
+persistent object updated in place (the JAX functions donate it).  On the
+CPU the same bodies run eagerly.  While kernels are active, S = 1 decode
 attention takes the decode-attention kernel (the JAX package only at
 T >= 1024 on its accelerator), and the decode step's linears and MLP take
 whatever ``scan_layers`` routes them to (the pipelined GEMVs and the
@@ -44,6 +53,7 @@ from ..models.config import ModelConfig
 from ..models.linear import kernel_linears
 from ..models.stacked import (StackedModel, apply_head, forward_stacked,
                               scan_layers)
+from .graphs import GraphRunner
 
 
 @dataclasses.dataclass
@@ -79,50 +89,85 @@ def _model_forward(model, cfg, tokens, cache, compute_dtype):
                          compute_dtype=compute_dtype)
 
 
-def _run_window(model, cfg, tokens, cache: SlotCache, slot: int, offset: int,
-                win: int, compute_dtype, impl):
-    """Run ``tokens`` [1, C] against the window ``[0, win)`` of ``slot``
-    as an append-only cache at ``offset``, and copy the C new positions
-    back into the slot.  Returns the logits [1, C, V]."""
-    C = tokens.shape[1]
-    tmp = llama.KVCache(
-        k=cache.k[:, slot:slot + 1, :, :win].clone(),
-        v=cache.v[:, slot:slot + 1, :, :win].clone(),
-        length=torch.tensor(offset, dtype=torch.int32, device=cache.k.device))
+def _fill(buf: torch.Tensor, x) -> None:
+    """Write ``x`` (a host int or a tensor) into the static [1] ``buf``."""
+    if isinstance(x, torch.Tensor):
+        buf.copy_(x.reshape(1))
+    else:
+        buf.fill_(x)
+
+
+def prefill_window(model, cfg: ModelConfig, tokens: torch.Tensor,
+                   cache: SlotCache, slot: torch.Tensor, offset: torch.Tensor,
+                   n_new: torch.Tensor, win: int, compute_dtype, impl):
+    """The slot prefills' body.  ``tokens`` [1, C] (right-padded, ``n_new``
+    real tokens) run against the window ``[0, win)`` of ``slot`` as an
+    append-only cache at ``offset``; the window goes back into the slot
+    and the slot's length becomes ``offset + n_new``.  ``slot``,
+    ``offset`` and ``n_new`` are [1] device tensors, so one capture serves
+    every slot and length.  Returns the next token [1] int32, read at
+    chunk position ``n_new - 1``."""
+    slot = slot.long()
+    tmp = llama.KVCache(k=cache.k[:, :, :, :win].index_select(1, slot),
+                        v=cache.v[:, :, :, :win].index_select(1, slot),
+                        length=offset.reshape(()).to(torch.int32))
     with _kernels(impl):
         logits, _ = _model_forward(model, cfg, tokens, tmp, compute_dtype)
-    new = slice(offset, offset + C)
-    cache.k[:, slot:slot + 1, :, new] = tmp.k[:, :, :, new]
-    cache.v[:, slot:slot + 1, :, new] = tmp.v[:, :, :, new]
-    return logits
+    # the forward wrote only the C new positions of the window; the rest
+    # goes back unchanged (the JAX functions paste the whole window too)
+    cache.k[:, :, :, :win].index_copy_(1, slot, tmp.k)
+    cache.v[:, :, :, :win].index_copy_(1, slot, tmp.v)
+    cache.lengths.index_copy_(0, slot, (offset + n_new).to(torch.int32))
+    row = logits[0].index_select(0, (n_new - 1).long())
+    return torch.argmax(row, dim=-1).to(torch.int32)
+
+
+def _slot_prefill(model, cfg, tokens, cache, slot, offset, n_new, win,
+                  compute_dtype, impl, runner):
+    runner = runner or GraphRunner(cache.k.device, enabled=False)
+    C = tokens.shape[1]
+    buf = runner.buffers(("slot_prefill", C), tokens=((1, C), torch.int64),
+                         slot=((1,), torch.int64),
+                         offset=((1,), torch.int32),
+                         n_new=((1,), torch.int32), nxt=((1,), torch.int32))
+    buf.tokens.copy_(tokens)
+    for name, x in (("slot", slot), ("offset", offset), ("n_new", n_new)):
+        _fill(getattr(buf, name), x)
+    runner.run(("slot_prefill", C, win, compute_dtype, impl is not None),
+               lambda: buf.nxt.copy_(prefill_window(
+                   model, cfg, buf.tokens, cache, buf.slot, buf.offset,
+                   buf.n_new, win, compute_dtype, impl)),
+               state=(cache.lengths, buf.nxt))
+    return buf.nxt.clone(), cache
 
 
 @torch.inference_mode()
 def prefill_slot(model, cfg: ModelConfig, tokens: torch.Tensor,
-                 true_len: int, cache: SlotCache, slot: int,
-                 compute_dtype=torch.bfloat16, impl=None):
+                 true_len, cache: SlotCache, slot,
+                 compute_dtype=torch.bfloat16, impl=None,
+                 runner: Optional[GraphRunner] = None):
     """Prefill one slot from a right-padded prompt ``tokens`` [1, S].
 
     Causality makes right-padding exact: real positions never attend the
     pad tail, the next token is read at ``true_len - 1``, and the slot
-    length masks the pad KV entries out of later decode steps.  Returns
-    (next token [1] int32 on the device, cache).
+    length masks the pad KV entries out of later decode steps.
+    ``true_len`` and ``slot`` are host ints or device tensors; with a
+    ``runner`` the call is its graph per S.  Returns (next token [1]
+    int32 on the device, cache).
     """
     S = tokens.shape[1]
     if S > cache.k.shape[3]:
         raise ValueError(f"prompt bucket {S} exceeds the cache's "
                          f"{cache.k.shape[3]} positions")
-    logits = _run_window(model, cfg, tokens, cache, slot, 0, S,
-                         compute_dtype, impl)
-    cache.lengths[slot] = true_len
-    nxt = torch.argmax(logits[0, true_len - 1], dim=-1).to(torch.int32)
-    return nxt[None], cache
+    return _slot_prefill(model, cfg, tokens, cache, slot, 0, true_len, S,
+                         compute_dtype, impl, runner)
 
 
 @torch.inference_mode()
 def prefill_chunk(model, cfg: ModelConfig, tokens: torch.Tensor,
-                  true_new: int, offset: int, cache: SlotCache, slot: int,
-                  win_len: int, compute_dtype=torch.bfloat16, impl=None):
+                  true_new, offset, cache: SlotCache, slot,
+                  win_len: int, compute_dtype=torch.bfloat16, impl=None,
+                  runner: Optional[GraphRunner] = None):
     """Advance one slot's prefill by a chunk ``tokens`` [1, C] (right-
     padded; ``true_new`` >= 1 real tokens) at ``offset``, the slot's
     length so far.
@@ -130,22 +175,23 @@ def prefill_chunk(model, cfg: ModelConfig, tokens: torch.Tensor,
     Chunked prefill: long prompts go in fixed-size chunks so the serving
     loop decodes the other slots between chunks.  The chunk attends the
     slot's window ``[0, win_len)``, which must hold the C positions the
-    padded chunk writes (``offset + C <= win_len``; the JAX package sizes
-    it from ``offset + true_new`` and its clamped write then overwrites
-    earlier keys).  Pad positions past the new length are masked by the
-    slot length and overwritten by the next chunk.
+    padded chunk writes (``offset + C <= win_len``, checked for a host
+    ``offset``; the JAX package sizes it from ``offset + true_new`` and
+    its clamped write then overwrites earlier keys).  Pad positions past
+    the new length are masked by the slot length and overwritten by the
+    next chunk.  ``true_new``, ``offset`` and ``slot`` are host ints or
+    device tensors; with a ``runner`` the call is its graph per (C,
+    ``win_len``).
 
     Returns (next token [1], meaningful only on the final chunk; cache).
     """
     C = tokens.shape[1]
-    if offset + C > win_len or win_len > cache.k.shape[3]:
+    if ((not isinstance(offset, torch.Tensor) and offset + C > win_len)
+            or win_len > cache.k.shape[3]):
         raise ValueError(f"chunk [{offset}, {offset + C}) does not fit the "
                          f"window {win_len} of a {cache.k.shape[3]}-long cache")
-    logits = _run_window(model, cfg, tokens, cache, slot, offset, win_len,
-                         compute_dtype, impl)
-    cache.lengths[slot] = offset + true_new
-    nxt = torch.argmax(logits[0, true_new - 1], dim=-1).to(torch.int32)
-    return nxt[None], cache
+    return _slot_prefill(model, cfg, tokens, cache, slot, offset, true_new,
+                         win_len, compute_dtype, impl, runner)
 
 
 @torch.inference_mode()
@@ -174,20 +220,48 @@ def decode_step(model: StackedModel, cfg: ModelConfig, tokens: torch.Tensor,
     return nxt, cache
 
 
+def slot_decode_step(model: StackedModel, cfg: ModelConfig,
+                     tokens: torch.Tensor, active: torch.Tensor,
+                     cache: SlotCache, toks: torch.Tensor,
+                     step: torch.Tensor, compute_dtype, impl) -> None:
+    """The body :func:`decode_chunk` replays: one :func:`decode_step`
+    reading ``tokens`` [B] int32, its tokens written back into ``tokens``
+    and into ``toks[:, step]``; ``step`` [1] advances."""
+    nxt, _ = decode_step(model, cfg, tokens, active, cache, compute_dtype,
+                         impl)
+    toks.index_copy_(1, step, nxt[:, None])
+    tokens.copy_(nxt)
+    step.add_(1)
+
+
 @torch.inference_mode()
 def decode_chunk(model: StackedModel, cfg: ModelConfig, tokens: torch.Tensor,
                  active: torch.Tensor, cache: SlotCache, n_steps: int,
-                 compute_dtype=torch.bfloat16, impl=None):
-    """``n_steps`` decode tokens per slot with no host read in between.
-    Returns (tokens [B, n_steps] int32, cache)."""
-    toks = torch.empty((tokens.shape[0], n_steps), dtype=torch.int32,
-                       device=tokens.device)
-    tok = tokens
-    for s in range(n_steps):
-        tok, cache = decode_step(model, cfg, tok, active, cache,
-                                 compute_dtype, impl)
-        toks[:, s] = tok
-    return toks, cache
+                 compute_dtype=torch.bfloat16, impl=None,
+                 runner: Optional[GraphRunner] = None):
+    """``n_steps`` decode tokens per slot with no host read in between:
+    ``n_steps`` calls of :func:`slot_decode_step` (with a ``runner``,
+    replays of its one graph).  Returns (tokens [B, n_steps] int32,
+    cache)."""
+    B, T = tokens.shape[0], cache.k.shape[3]
+    if n_steps > T:
+        raise ValueError(f"{n_steps} decode steps exceed the cache's {T} "
+                         "positions")
+    runner = runner or GraphRunner(tokens.device, enabled=False)
+    buf = runner.buffers(
+        ("slot_decode", B, T), tokens=((B,), torch.int32),
+        active=((B,), torch.bool), toks=((B, T), torch.int32),
+        step=((1,), torch.int64))
+    buf.tokens.copy_(tokens)
+    buf.active.copy_(active)
+    buf.step.zero_()
+    runner.run(("slot_decode", B, T, compute_dtype, impl is not None),
+               lambda: slot_decode_step(model, cfg, buf.tokens, buf.active,
+                                        cache, buf.toks, buf.step,
+                                        compute_dtype, impl),
+               state=(cache.lengths, buf.tokens, buf.toks, buf.step),
+               times=n_steps)
+    return buf.toks[:, :n_steps].clone(), cache
 
 
 class SlotEngine:
@@ -195,7 +269,9 @@ class SlotEngine:
 
     ``device`` defaults to CUDA and raises without a card; pass
     ``device="cpu"`` for the plain PyTorch path.  ``use_kernels=False``
-    takes the dequantize-then-matmul path and the einsum attention.
+    takes the dequantize-then-matmul path and the einsum attention.  The
+    scheduler's bookkeeping stays on the host; each prefill and decode
+    chunk reads its tokens back once.
     """
 
     def __init__(self, model, cfg: ModelConfig, n_slots: int = 4,
@@ -204,9 +280,12 @@ class SlotEngine:
                  prefill_buckets=(32, 64, 128, 256, 512, 1024, 2048),
                  chunk_steps: int = 1,
                  prefill_chunk_len: Optional[int] = None,
-                 device=None):
+                 device=None, graphs: bool = True):
         from .engine import kernel_linear_impl
         self.device = resolve_device(device)
+        #: on the card the decode step and the slot prefills are captured
+        #: CUDA graphs; ``graphs=False`` runs them eagerly there
+        self.runner = GraphRunner(self.device, enabled=graphs)
         self.model = model
         self.cfg = cfg
         self.n_slots = n_slots
@@ -243,7 +322,8 @@ class SlotEngine:
         padded[:S] = prompt          # right-pad (exact under causal masking)
         nxt, self.cache = prefill_slot(
             self.model, self.cfg, self._tokens(padded)[None], S, self.cache,
-            slot, compute_dtype=self.compute_dtype, impl=self.impl)
+            slot, compute_dtype=self.compute_dtype, impl=self.impl,
+            runner=self.runner)
         self.next_token[slot] = int(nxt[0])
 
     def start_prefill(self, slot: int, prompt: np.ndarray) -> bool:
@@ -283,7 +363,8 @@ class SlotEngine:
             nxt, self.cache = prefill_chunk(
                 self.model, self.cfg, self._tokens(chunk)[None], n_new, off,
                 self.cache, slot, win_len=off + c_len,
-                compute_dtype=self.compute_dtype, impl=self.impl)
+                compute_dtype=self.compute_dtype, impl=self.impl,
+                runner=self.runner)
             off += n_new
             if off >= S:
                 self.next_token[slot] = int(nxt[0])
@@ -299,17 +380,13 @@ class SlotEngine:
                 torch.as_tensor(active_mask, device=self.device))
 
     def step(self, active_mask: np.ndarray) -> np.ndarray:
-        nxt, self.cache = decode_step(
-            self.model, self.cfg, *self._step_inputs(active_mask), self.cache,
-            compute_dtype=self.compute_dtype, impl=self.impl)
-        out = nxt.cpu().numpy()
-        self.next_token = np.where(active_mask, out, self.next_token)
-        return out
+        return self.step_chunk(active_mask, 1)[:, 0]
 
     def step_chunk(self, active_mask: np.ndarray, n_steps: int) -> np.ndarray:
         toks, self.cache = decode_chunk(
             self.model, self.cfg, *self._step_inputs(active_mask), self.cache,
-            n_steps=n_steps, compute_dtype=self.compute_dtype, impl=self.impl)
+            n_steps=n_steps, compute_dtype=self.compute_dtype, impl=self.impl,
+            runner=self.runner)
         out = toks.cpu().numpy()                                # [B, n_steps]
         self.next_token = np.where(active_mask, out[:, -1], self.next_token)
         return out

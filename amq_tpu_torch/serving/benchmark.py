@@ -11,6 +11,9 @@ any other device these functions raise.
 * GEMM -- prefill forward latency over ``iters`` runs,
 * TTFT -- prompt to first greedy token,
 
+on the engine's captured CUDA graphs unless it was made with
+``graphs=False`` (the eager loop);
+
 and ``benchmark_continuous``: aggregate generated tokens/s of requests
 streamed through a slot-batched engine (prefills and slot churn
 included).  ``serve_continuous`` is the same serving run once, untimed:
@@ -68,8 +71,10 @@ def benchmark_speed(engine: Engine, mode: str = "TPS", prompt_len: int = 64,
         return {"tokens_per_s": gen_len * engine.batch_size / dt,
                 "total_s": dt}
 
+    # every timed call starts from an emptied (TTFT, GEMM) or restored
+    # (GEMV) cache, and each mode's warm-up makes its graphs: on the card
+    # the engine's cache is one static buffer, its length advanced in place
     if mode == "TTFT":
-        # the cache is allocated outside the timed region
         tok, _ = engine._prefill_token(engine.params, toks, engine.new_cache())
         tok.cpu()
         cache = engine.new_cache()
@@ -81,11 +86,12 @@ def benchmark_speed(engine: Engine, mode: str = "TPS", prompt_len: int = 64,
         return {"ttft_ms": ms}
 
     if mode == "GEMM":
-        engine._prefill(engine.params, toks, engine.new_cache())
-        caches = [engine.new_cache() for _ in range(iters)]
+        cache = engine.new_cache()
+        engine._prefill(engine.params, toks, cache)
         sync()
         t0 = time.perf_counter()
-        for cache in caches:
+        for _ in range(iters):
+            cache.length.zero_()
             engine._prefill(engine.params, toks, cache)
         sync()
         ms = (time.perf_counter() - t0) / iters * 1e3
@@ -93,12 +99,11 @@ def benchmark_speed(engine: Engine, mode: str = "TPS", prompt_len: int = 64,
 
     if mode == "GEMV":
         cache = engine.new_cache()
-        last, cache = engine._prefill(engine.params, toks, cache)
-        first = torch.argmax(last, dim=-1).to(torch.int32)
+        first, cache = engine._prefill_token(engine.params, toks, cache)
+        start = cache.length.clone()
         engine._decode_n(engine.params, first, cache, n_steps=gen_len)
+        cache.length.copy_(start)
         sync()
-        # decode appends past the live length only, so the warm-up left
-        # `cache` (length = prompt) valid for a replay
         t0 = time.perf_counter()
         engine._decode_n(engine.params, first, cache, n_steps=gen_len)
         sync()
@@ -110,12 +115,12 @@ def benchmark_speed(engine: Engine, mode: str = "TPS", prompt_len: int = 64,
 
 
 def _continuous_engine(model, cfg, n_slots, prompt_len, max_len, use_kernels,
-                       compute_dtype, chunk_steps, device):
+                       compute_dtype, chunk_steps, device, graphs=True):
     from .batched import SlotEngine
     return SlotEngine(model, cfg, n_slots=n_slots, max_len=max_len,
                       compute_dtype=compute_dtype or torch.bfloat16,
                       use_kernels=use_kernels, prefill_buckets=(prompt_len,),
-                      chunk_steps=chunk_steps, device=device)
+                      chunk_steps=chunk_steps, device=device, graphs=graphs)
 
 
 def _serve(eng, cfg, rng, n_requests, prompt_len, gen_len):
@@ -134,16 +139,19 @@ def benchmark_continuous(model, cfg, n_slots: int = 4, n_requests: int = 16,
                          prompt_len: int = 64, gen_len: int = 64,
                          max_len: int = 2048, use_kernels: bool = True,
                          compute_dtype=None, seed: int = 0,
-                         chunk_steps: int = 8, device=None) -> Dict[str, float]:
+                         chunk_steps: int = 8, device=None,
+                         graphs: bool = True) -> Dict[str, float]:
     """Continuous-batching throughput: ``n_requests`` streamed through
-    ``n_slots`` (native scheduler), one warm-up run, then a timed run;
-    aggregate generated tokens/s of wall time, prefills and slot churn
-    included.  Needs the card: a CPU device raises."""
+    ``n_slots`` (native scheduler), one warm-up run (which makes the
+    slot engine's graphs; ``graphs=False``: the eager loop), then a timed
+    run; aggregate generated tokens/s of wall time, prefills and slot
+    churn included.  Needs the card: a CPU device raises."""
     device = resolve_device(device)
     _require_cuda(device)
     rng = np.random.default_rng(seed)
     eng = _continuous_engine(model, cfg, n_slots, prompt_len, max_len,
-                             use_kernels, compute_dtype, chunk_steps, device)
+                             use_kernels, compute_dtype, chunk_steps, device,
+                             graphs)
     _serve(eng, cfg, rng, n_requests, prompt_len, gen_len)      # warm-up
     synchronize(device)
     t0 = time.perf_counter()
@@ -154,7 +162,7 @@ def benchmark_continuous(model, cfg, n_slots: int = 4, n_requests: int = 16,
     return {"requests": n_requests, "slots": n_slots,
             "chunk_steps": chunk_steps,
             "total_tokens": total, "total_s": dt,
-            "tokens_per_s": total / dt}
+            "tokens_per_s": total / dt, "graphs": eng.runner.stats()}
 
 
 def serve_continuous(model, cfg, n_slots: int = 4, n_requests: int = 16,

@@ -1,12 +1,18 @@
 """Serving engine: prefill and greedy decode over a packed mixed-bit model.
 
 The port of ``Engine`` from the JAX package's ``serving/engine.py``.  The
-JAX engine runs decode as an on-device ``lax.scan``; here it is a Python
-loop over steps in which nothing is read back to the host until the loop
-ends: the argmax stays on the card, and the cache length (and the per-row
-offsets derived from it) are device tensors.  The KV cache is read-only
-inside the layer loop; each step's keys and values are appended once,
-after all layers, in place into the cache's buffers (``forward_stacked``).
+JAX engine runs prefill as one jitted call and decode as an on-device
+``lax.scan``; here, on the card, the prefill is one captured CUDA graph
+per (B, S) and decode replays one captured decode step ``n_steps`` times
+with no host work in between (``serving.graphs``).  The step is in place:
+it reads a static token buffer, writes its argmax back into it and into
+the output row at a device step counter, and advances the cache length
+in place.  The engine owns one static cache per (batch, ``max_len``):
+``new_cache()`` returns it emptied.  On the CPU (``device="cpu"``) and
+on the card's eager loop (``graphs=False``) the same bodies run as one
+eager call per step.  The KV cache is read-only inside the layer loop;
+each step's keys and values are appended once, after all layers, in
+place into the cache's buffers (``forward_stacked``).
 
 Continuous batching: :class:`Request` and :class:`ContinuousBatcher`, the
 host-side slot scheduler (native C++ core or pure Python) that
@@ -28,6 +34,7 @@ from ..models.config import ModelConfig
 from ..models.linear import QuantLinear, kernel_linears
 from ..models.stacked import StackedModel, forward_stacked
 from ..ops.quant_matmul import quant_matmul
+from .graphs import GraphRunner
 
 
 def kernel_linear_impl(p: QuantLinear, x: torch.Tensor, compute_dtype):
@@ -45,7 +52,11 @@ class Engine:
     ``device`` defaults to CUDA and raises without a card; pass
     ``device="cpu"`` to run the plain PyTorch path.  ``use_kernels=False``
     takes the dequantize-then-matmul path and the einsum attention
-    everywhere.
+    everywhere.  On the card the prefill and the decode step are captured
+    CUDA graphs; ``graphs=False`` runs the same bodies eagerly there (the
+    eager loop beside the graph, for comparisons).  A graph captures this
+    engine's ``params`` and its static cache: the serving methods take no
+    others on the card.
     """
 
     params: Any
@@ -56,14 +67,48 @@ class Engine:
     use_kernels: bool = True
     cache_dtype: Any = torch.bfloat16
     device: Optional[Any] = None
+    graphs: bool = True
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self._impl = kernel_linear_impl if self.use_kernels else None
+        self.runner = GraphRunner(self.device, enabled=self.graphs)
+        self._caches: Dict[Tuple[int, int], llama.KVCache] = {}
 
     def new_cache(self) -> llama.KVCache:
-        return llama.KVCache.create(self.cfg, self.batch_size, self.max_len,
-                                    dtype=self.cache_dtype, device=self.device)
+        """An empty cache: on the card's graphs the engine's own static
+        cache with its length zeroed in place (positions past the length
+        are masked, so the buffers are not cleared); else a new one."""
+        if not self.runner.graphed:
+            return llama.KVCache.create(self.cfg, self.batch_size,
+                                        self.max_len, dtype=self.cache_dtype,
+                                        device=self.device)
+        key = (self.batch_size, self.max_len)
+        cache = self._caches.get(key)
+        if cache is None:
+            with torch.inference_mode(False):
+                cache = self._caches[key] = llama.KVCache.create(
+                    self.cfg, self.batch_size, self.max_len,
+                    dtype=self.cache_dtype, device=self.device)
+        cache.length.zero_()
+        return cache
+
+    def _own(self, params, cache: llama.KVCache) -> llama.KVCache:
+        """The static cache a graph replays on, holding ``cache``'s
+        length (a graph captures this engine's params and buffers)."""
+        if not self.runner.graphed:
+            return cache
+        own = self._caches.get((self.batch_size, self.max_len))
+        if params is not self.params or own is None or cache.k is not own.k:
+            raise ValueError("on the card the engine serves its own params "
+                             "and its own cache (new_cache())")
+        if cache.length is not own.length:
+            own.length.copy_(cache.length)
+        return own
+
+    def _key(self, *key) -> tuple:
+        return key + (self.max_len, self.compute_dtype, self.cache_dtype,
+                      self.use_kernels)
 
     def _forward(self, params, tokens, cache):
         with kernel_linears(self._impl), \
@@ -74,31 +119,79 @@ class Engine:
             return llama.forward(params, self.cfg, tokens, cache=cache,
                                  compute_dtype=self.compute_dtype)
 
-    @torch.inference_mode()
-    def _prefill(self, params, tokens: torch.Tensor, cache: llama.KVCache):
-        """Last-position logits [B, V] and the filled cache."""
-        logits, cache = self._forward(params, tokens, cache)
-        return logits[:, -1, :], cache
+    def prefill_step(self, params, tokens: torch.Tensor,
+                     cache: llama.KVCache, last: torch.Tensor,
+                     tok: torch.Tensor) -> None:
+        """The prefill body: ``tokens`` [B, S] into ``cache`` (its length
+        advanced in place), the last position's logits into ``last`` [B, V]
+        and their argmax into ``tok`` [B]."""
+        logits, new = self._forward(params, tokens, cache)
+        cache.length.copy_(new.length)
+        last.copy_(logits[:, -1, :])
+        tok.copy_(torch.argmax(last, dim=-1))
+
+    def decode_step(self, params, cache: llama.KVCache, tok: torch.Tensor,
+                    toks: torch.Tensor, step: torch.Tensor) -> None:
+        """The decode body, in place: reads ``tok`` [B] (int32), writes its
+        greedy successor back into ``tok`` and into ``toks[:, step]``,
+        advances ``step`` [1] and the cache length."""
+        logits, new = self._forward(params, tok[:, None], cache)
+        cache.length.copy_(new.length)
+        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        toks.index_copy_(1, step, nxt[:, None])
+        tok.copy_(nxt)
+        step.add_(1)
 
     @torch.inference_mode()
+    def _prefill_both(self, params, tokens: torch.Tensor,
+                      cache: llama.KVCache):
+        cache = self._own(params, cache)
+        B, S = tokens.shape
+        buf = self.runner.buffers(
+            ("prefill", B, S), tokens=((B, S), torch.int64),
+            last=((B, self.cfg.vocab_size), torch.float32),
+            tok=((B,), torch.int32))
+        buf.tokens.copy_(tokens)
+        self.runner.run(
+            self._key("prefill", B, S),
+            lambda: self.prefill_step(params, buf.tokens, cache, buf.last,
+                                      buf.tok),
+            state=(cache.length, buf.last, buf.tok))
+        return buf.last.clone(), buf.tok.clone(), cache
+
+    def _prefill(self, params, tokens: torch.Tensor, cache: llama.KVCache):
+        """Last-position logits [B, V] and the filled cache."""
+        last, _, cache = self._prefill_both(params, tokens, cache)
+        return last, cache
+
     def _prefill_token(self, params, tokens: torch.Tensor,
                        cache: llama.KVCache):
         """Prefill and greedy first token [B] (int32, on the device)."""
-        last, cache = self._prefill(params, tokens, cache)
-        return torch.argmax(last, dim=-1).to(torch.int32), cache
+        _, tok, cache = self._prefill_both(params, tokens, cache)
+        return tok, cache
 
     @torch.inference_mode()
     def _decode_n(self, params, first_token: torch.Tensor,
                   cache: llama.KVCache, n_steps: int):
-        """Greedy-decode ``n_steps`` tokens -> ([B, n_steps] int32, cache)."""
+        """Greedy-decode ``n_steps`` tokens -> ([B, n_steps] int32, cache):
+        ``n_steps`` replays of one decode step (eager calls off the
+        graphs); the cache length advances in place."""
+        cache = self._own(params, cache)
         B = first_token.shape[0]
-        toks = torch.empty((B, n_steps), dtype=torch.int32, device=self.device)
-        tok = first_token
-        for s in range(n_steps):
-            logits, cache = self._forward(params, tok[:, None], cache)
-            tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
-            toks[:, s] = tok
-        return toks, cache
+        if n_steps > self.max_len:
+            raise ValueError(f"{n_steps} decode steps exceed the cache's "
+                             f"{self.max_len} positions")
+        buf = self.runner.buffers(
+            ("decode", B, self.max_len), tok=((B,), torch.int32),
+            toks=((B, self.max_len), torch.int32), step=((1,), torch.int64))
+        buf.tok.copy_(first_token)
+        buf.step.zero_()
+        self.runner.run(
+            self._key("decode", B),
+            lambda: self.decode_step(params, cache, buf.tok, buf.toks,
+                                     buf.step),
+            state=(cache.length, buf.tok, buf.toks, buf.step), times=n_steps)
+        return buf.toks[:, :n_steps].clone(), cache
 
     def tokens_to_device(self, prompt_tokens: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(prompt_tokens), dtype=torch.int64,

@@ -96,6 +96,24 @@ Phases (any failed check exits non-zero before the last line):
    kernel path's gap exceeds the plain path's by more than one bf16
    rounding), and the acceptance on the plain path; float32 tokens equal
    to generate's).
+   Every serving loop of phases 4-7b runs as captured CUDA graphs
+   (amq_tpu_torch/serving/graphs.py: the prefill per (B, S), one decode
+   step replayed per token, the slot decode step and slot prefills, the
+   speculative round), the launch counts adding each replay's launches.
+4c. GRAPHS: the same model's serving loops as captured CUDA graphs
+   against the eager loop (graphs=False) in one call.  Gates: float32
+   generate, slot-batched decoding (decode chunks of 8, whole and chunked
+   slot prefills) and speculative decoding (tokens, rounds, accepted)
+   token-exact, graph against eager (GRAPH_F32); the bf16 first decode
+   step's forward replayed against the same forward run eagerly, within
+   the bf16 kernel tolerance (GRAPH_STEP_LOGITS, torch.equal reported);
+   exact launch counts of one generate on each loop, replays included
+   (GRAPH_LAUNCHES).  Reported: GRAPH_AB (TPS, GEMV ms/token, GEMM
+   prefill ms and TTFT in turns eager, graph, graph, eager; decode and
+   prefill busy share from the profiler and from the eager loop's device
+   time over the graph's wall; CONTINUOUS and SPECULATIVE tok/s and
+   acceptance), GRAPH_PROFILE lines, GRAPH_CAPTURE (captures, replays,
+   capture seconds, pool and reserved MB, peak memory).
 5. the speed CLI (HQQ proxies -> stack_proxies -> Engine) at full width:
    TPS and CONTINUOUS (4 slots, 16 requests).
 6. the sensitivity CLI at full Llama-2-7B width and depth (2 samples of
@@ -1733,6 +1751,247 @@ def speculative_phase(model, cfg, prompt):
     return recs
 
 
+# ---------------------------------------------------------------------------
+# phase 4c: the serving loops as captured CUDA graphs against the eager loop
+
+GRAPH_SLOT_LENS, GRAPH_SLOT_NEW, GRAPH_PREFILL_CHUNK = (64, 23, 40, 57), 16, 32
+
+
+def graph_slot_run(model, cfg, graphs):
+    """float32 SlotEngine.run (2 slots, phase 4b's four staggered prompts
+    of 16 tokens each, decode chunks of 8, prompts over 32 tokens
+    prefilled in chunks of 32): the results and the runner's counts."""
+    from amq_tpu_torch.serving.batched import SlotEngine
+    from amq_tpu_torch.serving.engine import ContinuousBatcher, Request
+    max_len = max(GRAPH_SLOT_LENS) + GRAPH_SLOT_NEW + 8
+    rng = np.random.default_rng(2)
+    se = SlotEngine(model, cfg, n_slots=2, max_len=max_len,
+                    compute_dtype=torch.float32,
+                    prefill_buckets=GRAPH_SLOT_LENS, chunk_steps=CHUNK,
+                    prefill_chunk_len=GRAPH_PREFILL_CHUNK, graphs=graphs)
+    batcher = ContinuousBatcher(n_slots=2, max_len=max_len)
+    for u, n in enumerate(GRAPH_SLOT_LENS):
+        batcher.submit(Request(uid=u, prompt=rng.integers(
+            0, cfg.vocab_size, n).astype(np.int32),
+            max_new_tokens=GRAPH_SLOT_NEW))
+    got = se.run(batcher)
+    return got, se.runner.stats()
+
+
+def graph_f32_gates(model, cfg, prompt):
+    """float32, kernels on, each graph against the eager loop of the same
+    setting: Engine.generate (64 tokens), the slot-batched run with its
+    decode chunks and slot prefills (whole and chunked), and speculative
+    decoding with the target as its own draft (64 tokens: tokens, rounds
+    and accepted)."""
+    from amq_tpu_torch.serving.engine import Engine
+    from amq_tpu_torch.serving.speculative import SpeculativeEngine
+    f32 = dict(compute_dtype=torch.float32, cache_dtype=torch.float32)
+    gen, spec, slot, stats = {}, {}, {}, {}
+    for label, graphs in (("eager", False), ("graph", True)):
+        eng = Engine(model, cfg, batch_size=1, max_len=PROMPT + SPEC_NEW + 8,
+                     graphs=graphs, **f32)
+        gen[label] = eng.generate(prompt, max_new_tokens=SPEC_NEW)
+        sp = SpeculativeEngine(eng, draft_params=model, gamma=SPEC_GAMMA)
+        toks, st = sp.generate(prompt, max_new_tokens=SPEC_NEW)
+        spec[label] = dict(tokens=toks, rounds=st.rounds,
+                           accepted=st.accepted)
+        slot[label], slot_stats = graph_slot_run(model, cfg, graphs)
+        stats[label] = dict(engine=eng.runner.stats(),
+                            speculative=sp.runner.stats(), slot=slot_stats)
+        del sp, eng
+        torch.cuda.empty_cache()
+    rec = dict(
+        compute="float32", generate_tokens=SPEC_NEW,
+        generate_equal=bool((gen["eager"] == gen["graph"]).all()),
+        slot_requests=len(GRAPH_SLOT_LENS), slot_new=GRAPH_SLOT_NEW,
+        slot_equal=slot["eager"] == slot["graph"],
+        speculative_equal=bool((spec["eager"]["tokens"]
+                                == spec["graph"]["tokens"]).all()),
+        speculative_rounds={k: v["rounds"] for k, v in spec.items()},
+        speculative_accepted={k: v["accepted"] for k, v in spec.items()},
+        runners=stats)
+    rec["ok"] = (rec["generate_equal"] and rec["slot_equal"]
+                 and rec["speculative_equal"]
+                 and spec["eager"]["rounds"] == spec["graph"]["rounds"]
+                 and spec["eager"]["accepted"] == spec["graph"]["accepted"])
+    print("GRAPH_F32 " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        fail(f"float32 graphs differ from the eager loop: {rec}")
+    return rec
+
+
+def graph_step_logits(eng, model, prompt):
+    """bf16: after one prefill, the first decode step's forward replayed
+    from its graph against the same forward run eagerly from the same
+    cache state (the forward leaves the length as it found it): the
+    largest gap normalized by the largest eager logit, within the bf16
+    tolerance of the kernel cases, and whether the two are equal."""
+    cache = eng.new_cache()
+    first, cache = eng._prefill_token(model, eng.tokens_to_device(prompt),
+                                      cache)
+    with torch.inference_mode():
+        want = eng._forward(model, first[:, None], cache)[0][0, -1].float()
+    buf = eng.runner.buffers(("step_logits",), tok=((1,), torch.int32),
+                             logits=((eng.cfg.vocab_size,), torch.float32))
+    buf.tok.copy_(first)
+
+    def body():
+        logits, _ = eng._forward(model, buf.tok[:, None], cache)
+        buf.logits.copy_(logits[0, -1])
+
+    with torch.inference_mode():
+        eng.runner.run(eng._key("step_logits", 1), body,
+                       state=(cache.length,))
+    got = buf.logits.clone()
+    torch.cuda.synchronize()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    tol = MM_TOL[torch.bfloat16]
+    rec = dict(compute="bfloat16", rel_err=rel, tol=tol,
+               equal=bool(torch.equal(got, want)),
+               top1_agree=bool(got.argmax() == want.argmax()),
+               ok=rel <= tol and bool(torch.isfinite(got).all()))
+    print("GRAPH_STEP_LOGITS " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        fail(f"bf16 replayed step logits off the eager step's: {rec}")
+    return rec
+
+
+def graph_counts(eng, cfg, prompt, label):
+    """Exact launch counts of one bf16 generate (graph replays included)
+    against the counts reckoned from the code, and the runner's replays
+    over it (one prefill, GEN - 1 decode steps)."""
+    from amq_tpu_torch import ops
+    L = cfg.num_layers
+    before = eng.runner.replays
+    ops.reset_launch_counts()
+    toks = eng.generate(prompt, max_new_tokens=GEN)
+    torch.cuda.synchronize()
+    got = (ops.launch_counts(), ops.grouped_launch_counts(),
+           ops.tile_launch_counts())
+    want = (reckon_decode(L, 1, PROMPT, GEN - 1, False, False),
+            reckon_grouped(L, GEN - 1, False), reckon_tile(L, 1))
+    replays = eng.runner.replays - before
+    rec = dict(loop=label, launches=got[0], grouped=got[1], tile=got[2],
+               replays=replays,
+               ok=got == want and replays == (GEN if eng.graphs else 0))
+    print("GRAPH_LAUNCHES " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        fail(f"{label} launch counts {got} != {want} or replays {replays}")
+    return toks
+
+
+def graphs_phase(model, cfg, prompt):
+    """Phase 4c: the gates (float32 graph against eager token-exact for
+    generate, slot-batched decoding with slot prefills and speculative
+    decoding; the bf16 replayed step's logits; exact launch counts with
+    replays), then eager and graph side by side in one call (GRAPH_AB):
+    the SPEED modes in turns (eager, graph, graph, eager), the busy share
+    of decode and of the prefill (torch.profiler; beside it the eager
+    loop's device ms over the graph's wall ms), CONTINUOUS and
+    SPECULATIVE; GRAPH_CAPTURE: the graph engines' captures, replays,
+    capture seconds and pool memory beside peak memory."""
+    from amq_tpu_torch.serving.benchmark import (PeakMemTracker,
+                                                 benchmark_continuous,
+                                                 benchmark_speed)
+    from amq_tpu_torch.serving.engine import Engine
+    from amq_tpu_torch.serving.speculative import SpeculativeEngine
+    t0 = time.perf_counter()
+    f32 = graph_f32_gates(model, cfg, prompt)
+    engs = {label: Engine(model, cfg, batch_size=1, max_len=PROMPT + GEN + 8,
+                          graphs=label == "graph")
+            for label in ("eager", "graph")}
+    toks = {label: graph_counts(eng, cfg, prompt, label)
+            for label, eng in engs.items()}
+    token_agreement = float((toks["eager"] == toks["graph"]).mean())
+    step = graph_step_logits(engs["graph"], model, prompt)
+    modes = (("TPS", "tokens_per_s"), ("GEMV", "decode_token_ms"),
+             ("GEMM", "prefill_ms"), ("TTFT", "ttft_ms"))
+    speed = {label: {m: [] for m, _ in modes} for label in engs}
+    mem = PeakMemTracker("cuda")
+    for label in ("eager", "graph", "graph", "eager"):
+        for mode, key in modes:
+            speed[label][mode].append(benchmark_speed(
+                engs[label], mode, prompt_len=PROMPT, gen_len=GEN)[key])
+    peak_gib, _ = mem.result()
+    prof, pre = {}, {}
+    for label, eng in engs.items():
+        prof[label] = profile_decode(eng, prompt, tag=f"GRAPH_PROFILE {label}")
+        toks_dev = eng.tokens_to_device(prompt)
+        eng._prefill_token(model, toks_dev, eng.new_cache())
+        pre[label] = device_profile(
+            lambda: eng._prefill_token(model, toks_dev, eng.new_cache()), 1)
+    cont, spec = {}, {}
+    for label in engs:
+        cont[label] = benchmark_continuous(
+            model, cfg, n_slots=SLOTS, n_requests=REQUESTS, prompt_len=PROMPT,
+            gen_len=GEN, max_len=PROMPT + GEN + 8, chunk_steps=CHUNK,
+            graphs=label == "graph")
+        eng = Engine(model, cfg, batch_size=1, max_len=PROMPT + SPEC_NEW + 8,
+                     graphs=label == "graph")
+        sp = SpeculativeEngine(eng, draft_params=model, gamma=SPEC_GAMMA)
+        sp.generate(prompt, max_new_tokens=8)                    # warm-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, st = sp.generate(prompt, max_new_tokens=SPEC_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        spec[label] = dict(tokens_per_s=SPEC_NEW / wall, rounds=st.rounds,
+                           accepted=st.accepted,
+                           acceptance_rate=st.acceptance_rate,
+                           runner=sp.runner.stats())
+        del sp, eng
+        torch.cuda.empty_cache()
+
+    def mean(xs):
+        return sum(xs) / len(xs)
+
+    ab = {}
+    for label in engs:
+        gemv = speed[label]["GEMV"]
+        ab[label] = dict(
+            tps=speed[label]["TPS"], gemv_ms_per_token=gemv,
+            ttft_ms=speed[label]["TTFT"], gemm_prefill_ms=speed[label]["GEMM"],
+            decode_busy_share=prof[label]["device_busy_share"],
+            decode_device_ms_per_token=prof[label]["device_ms_per_token"],
+            decode_profile_wall_ms=prof[label]["wall_ms_per_token"],
+            # the eager loop's device time over this loop's unprofiled wall
+            decode_busy_from_eager_device=(
+                prof["eager"]["device_ms_per_token"] / mean(gemv)),
+            prefill_busy_share=pre[label]["device_busy_share"],
+            prefill_device_ms=pre[label]["device_ms_per_token"],
+            prefill_busy_from_eager_device=(
+                pre["eager"]["device_ms_per_token"]
+                / mean(speed[label]["GEMM"])),
+            continuous_tokens_per_s=cont[label]["tokens_per_s"],
+            speculative_tokens_per_s=spec[label]["tokens_per_s"],
+            speculative_acceptance=spec[label]["acceptance_rate"],
+            speculative_rounds=spec[label]["rounds"])
+    ab["order"] = "eager, graph, graph, eager (SPEED modes)"
+    ab["generate_token_agreement"] = token_agreement
+    ab["card"] = smi_line()
+    print("GRAPH_AB " + json.dumps(ab), flush=True)
+    graph_runners = dict(engine=engs["graph"].runner.stats(),
+                         continuous=cont["graph"]["graphs"],
+                         speculative=spec["graph"]["runner"])
+    capture = dict(
+        captures=sum(r["captures"] for r in graph_runners.values()),
+        replays=sum(r["replays"] for r in graph_runners.values()),
+        capture_s=sum(r["capture_s"] for r in graph_runners.values()),
+        pool_mb=sum(r["pool_mb"] for r in graph_runners.values()),
+        reserved_mb=sum(r["reserved_mb"] for r in graph_runners.values()),
+        peak_mem_gib_speed_modes=peak_gib, runners=graph_runners)
+    print("GRAPH_CAPTURE " + json.dumps(capture), flush=True)
+    for label in engs:
+        if not (mean(speed[label]["TPS"]) > 0
+                and cont[label]["total_tokens"] == REQUESTS * GEN):
+            fail(f"GRAPH_AB {label}: no rate or a short continuous run")
+    del engs
+    torch.cuda.empty_cache()
+    print(f"graphs phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(f32=f32, step_logits=step, ab=ab, capture=capture)
+
+
 EVAL_MODEL, SENS_N, SENS_SEQ, SENS_BATCH = "Llama-2-7b-hf", 2, 2048, 2
 EVAL_ARGS = ["--model_name", EVAL_MODEL, "--synthetic",
              "--n_sample", str(SENS_N), "--seqlen", str(SENS_SEQ),
@@ -2550,6 +2809,9 @@ def main():
     cont_recs["profile"] = continuous_profile(model, cfg)
     slot_rec = slot_f32_check(model, cfg)
     spec_recs = speculative_phase(model, cfg, prompt)
+
+    # -- phase 4c: the serving loops as captured CUDA graphs -----------------
+    graph_recs = graphs_phase(model, cfg, prompt)
     del eng, model
     torch.cuda.empty_cache()
 
@@ -2708,7 +2970,8 @@ def main():
                    "tile_launches": tile_counts, "profile": prof,
                    "long_prompt": long_rec, "switches": switch_recs,
                    "continuous": cont_recs, "slot_f32": slot_rec,
-                   "speculative": spec_recs, "cli": cli, "build_s": build_s,
+                   "speculative": spec_recs, "graphs": graph_recs,
+                   "cli": cli, "build_s": build_s,
                    "sensitivity": {k: v for k, v in sens.items()
                                    if k != "table"},
                    "eval_parity": eval_recs, "eval_profile": eval_prof,

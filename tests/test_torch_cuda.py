@@ -841,3 +841,149 @@ def test_cuda_gptq_matches_cpu(bits):
     off = (got.cpu() - want).abs() > 2e-5 + 2e-5 * want.abs()
     # a one-ulp difference may flip a rounding (and its row's rest)
     assert off.float().mean().item() <= 0.005, off.sum().item()
+
+
+# ---------------------------------------------------------------------------
+# the serving loops as captured CUDA graphs
+
+@pytest.fixture(scope="module")
+def tiny_serving():
+    """A three-layer stacked model at a width the decode kernels take
+    (hidden 1024, head dim 128), 2/3/4 bits per layer, fused sites, bf16
+    meta, 8-bit head, built on the card from a seed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import dataclasses
+    from amq_tpu_torch.models import llama as tllama
+    from amq_tpu_torch.models.config import LINEAR_NAMES, get_config
+    from amq_tpu_torch.models.stacked import (SERVE_CONTAINERS,
+                                              merge_containers, stack_proxies)
+    from amq_tpu_torch.models.transform import quantize_model
+    cfg = dataclasses.replace(get_config("tiny-llama"), hidden_size=1024,
+                              intermediate_size=2048, num_heads=8,
+                              num_kv_heads=8, num_layers=3, vocab_size=1024)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tllama.init_params(cfg, gen, device="cuda")
+    bits = (2, 3, 4)
+    arch = {"linear": {n: [bits[i % 3] for i in range(cfg.num_layers)]
+                       for n in LINEAR_NAMES}}
+    proxies = [quantize_model(params, cfg, b, meta_dtype=torch.bfloat16)
+               for b in bits]
+    model = merge_containers(stack_proxies(
+        proxies, bits, arch, container_bits=SERVE_CONTAINERS, head_bits=8))
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, 12)).astype(np.int32)
+    return cfg, model, prompt
+
+
+def _slot_run(cfg, model, graphs):
+    from amq_tpu_torch.serving.batched import SlotEngine
+    from amq_tpu_torch.serving.engine import ContinuousBatcher, Request
+    se = SlotEngine(model, cfg, n_slots=2, max_len=48,
+                    compute_dtype=torch.float32, prefill_buckets=(8, 16),
+                    chunk_steps=3, prefill_chunk_len=8, graphs=graphs)
+    batcher = ContinuousBatcher(n_slots=2, max_len=48)
+    rng = np.random.default_rng(1)
+    for u, n in enumerate((12, 5, 9, 7)):
+        batcher.submit(Request(uid=u, prompt=rng.integers(
+            0, cfg.vocab_size, n).astype(np.int32), max_new_tokens=6))
+    return se.run(batcher), se.runner
+
+
+@pytest.mark.cuda
+def test_cuda_graphs_equal_the_eager_loop_f32(tiny_serving):
+    """float32: generate, speculative decoding (tokens, rounds, accepted)
+    and the slot engine (decode chunks, whole and chunked slot prefills)
+    on captured graphs token-exact against the eager loop; the eager
+    runners capture nothing."""
+    from amq_tpu_torch.serving.engine import Engine
+    from amq_tpu_torch.serving.speculative import SpeculativeEngine
+    cfg, model, prompt = tiny_serving
+    out = {}
+    for graphs in (False, True):
+        eng = Engine(model, cfg, max_len=48, compute_dtype=torch.float32,
+                     cache_dtype=torch.float32, graphs=graphs)
+        toks = eng.generate(prompt, max_new_tokens=20)
+        sp = SpeculativeEngine(eng, draft_params=model, gamma=3)
+        spec, stats = sp.generate(prompt, max_new_tokens=18)
+        slot, runner = _slot_run(cfg, model, graphs)
+        out[graphs] = (toks, spec, (stats.rounds, stats.accepted), slot)
+        for r in (eng.runner, sp.runner, runner):
+            assert r.graphed == graphs
+            assert (r.captures > 0) == graphs and (r.replays > 0) == graphs
+    np.testing.assert_array_equal(out[True][0], out[False][0])
+    np.testing.assert_array_equal(out[True][1], out[False][1])
+    assert out[True][2] == out[False][2]
+    assert out[True][3] == out[False][3]
+
+
+@pytest.mark.cuda
+def test_cuda_graph_step_logits_bf16(tiny_serving):
+    """bf16: the first decode step's forward replayed from its graph
+    against the same forward run eagerly from the same cache state,
+    within 1e-2 of the largest logit (the bf16 kernel tolerance)."""
+    from amq_tpu_torch.serving.engine import Engine
+    cfg, model, prompt = tiny_serving
+    eng = Engine(model, cfg, max_len=48)
+    cache = eng.new_cache()
+    first, cache = eng._prefill_token(model, eng.tokens_to_device(prompt),
+                                      cache)
+    with torch.inference_mode():
+        want = eng._forward(model, first[:, None], cache)[0][0, -1].float()
+    buf = eng.runner.buffers(("step_logits",), tok=((1,), torch.int32),
+                             logits=((cfg.vocab_size,), torch.float32))
+    buf.tok.copy_(first)
+
+    def body():
+        logits, _ = eng._forward(model, buf.tok[:, None], cache)
+        buf.logits.copy_(logits[0, -1])
+
+    with torch.inference_mode():
+        eng.runner.run(("step_logits",), body, state=(cache.length,))
+    torch.cuda.synchronize()
+    assert int(cache.length) == prompt.shape[1]
+    _norm_close(buf.logits.cpu().numpy(), want.cpu().numpy(), atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_graph_counts_replays(tiny_serving):
+    """bf16 generate: the launch counts of the graph loop (its first call
+    captures) equal the eager loop's, call after call; the runner counts
+    one prefill and n - 1 decode replays a generate."""
+    from amq_tpu_torch import ops
+    from amq_tpu_torch.serving.engine import Engine
+    cfg, model, prompt = tiny_serving
+    engines = {g: Engine(model, cfg, max_len=48, graphs=g)
+               for g in (False, True)}
+    runs = []
+    for graphs in (False, True, True):
+        eng = engines[graphs]
+        ops.reset_launch_counts()
+        before = eng.runner.replays
+        eng.generate(prompt, max_new_tokens=10)
+        torch.cuda.synchronize()
+        runs.append((ops.launch_counts(), ops.grouped_launch_counts(),
+                     ops.tile_launch_counts()))
+        assert eng.runner.replays - before == (10 if graphs else 0)
+    assert runs[0][0]["decode_attention_indexed"] == 9 * cfg.num_layers
+    assert runs[1] == runs[0] and runs[2] == runs[0]
+    assert engines[True].runner.captures == 2
+    ops.reset_launch_counts()
+
+
+@pytest.mark.cuda
+def test_cuda_failed_capture_raises(tiny_serving):
+    """A step that reads back to the host cannot be captured: the runner
+    raises (no eager fallback) and keeps no graph.  Last in this file: a
+    failed capture may leave its stream's state behind."""
+    from amq_tpu_torch.serving.graphs import GraphRunner
+    runner = GraphRunner("cuda")
+    x = torch.ones(4, device="cuda")
+
+    def body():
+        x.add_(1)
+        float(x.sum())
+
+    with pytest.raises(RuntimeError, match="no eager fallback"):
+        runner.run(("host_read",), body, state=(x,))
+    assert runner.captures == 0 and runner.replays == 0
