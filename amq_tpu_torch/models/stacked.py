@@ -406,7 +406,7 @@ def _apply_mlp_merged(model: StackedModel, i: int, h: torch.Tensor,
         return None
     if not linear_mod.kernels_active() or h.device.type == "cpu":
         return None
-    if os.environ.get("AMQ_MLP_KERNEL", "0") != "1":
+    if not _mlp_kernel_on():
         return None
     if "mlp.gateup_proj" not in model.sites or "mlp.down_proj" not in model.sites:
         return None
@@ -457,6 +457,18 @@ def decode_switches(pipe: bool, mlp: bool):
             os.environ.pop("AMQ_MLP_KERNEL", None)
         else:
             os.environ["AMQ_MLP_KERNEL"] = old_mlp
+
+
+def _mlp_kernel_on() -> bool:
+    return os.environ.get("AMQ_MLP_KERNEL", "0") == "1"
+
+
+def routing_key() -> Tuple[int, bool]:
+    """The two decode switches as the wrappers read them now (``AMQ_PIPE``,
+    ``AMQ_MLP_KERNEL``): what a captured step's route depends on beyond
+    its shapes and dtypes, so ``serving.graphs`` keys its graphs on it."""
+    from ..ops import quant_matmul as qm
+    return int(qm._PIPE_DEFAULT), _mlp_kernel_on()
 
 
 def scan_layers(model: StackedModel, cfg: ModelConfig, x: torch.Tensor,

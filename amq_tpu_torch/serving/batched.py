@@ -137,7 +137,7 @@ def _slot_prefill(model, cfg, tokens, cache, slot, offset, n_new, win,
                lambda: buf.nxt.copy_(prefill_window(
                    model, cfg, buf.tokens, cache, buf.slot, buf.offset,
                    buf.n_new, win, compute_dtype, impl)),
-               state=(cache.lengths, buf.nxt))
+               state=(cache.lengths, buf.nxt), binds=(model, cache))
     return buf.nxt.clone(), cache
 
 
@@ -260,7 +260,7 @@ def decode_chunk(model: StackedModel, cfg: ModelConfig, tokens: torch.Tensor,
                                         cache, buf.toks, buf.step,
                                         compute_dtype, impl),
                state=(cache.lengths, buf.tokens, buf.toks, buf.step),
-               times=n_steps)
+               times=n_steps, binds=(model, cache))
     return buf.toks[:, :n_steps].clone(), cache
 
 

@@ -72,8 +72,8 @@ def benchmark_speed(engine: Engine, mode: str = "TPS", prompt_len: int = 64,
                 "total_s": dt}
 
     # every timed call starts from an emptied (TTFT, GEMM) or restored
-    # (GEMV) cache, and each mode's warm-up makes its graphs: on the card
-    # the engine's cache is one static buffer, its length advanced in place
+    # (GEMV) cache, and each mode's warm-up makes its graphs: the engine's
+    # cache is one static buffer, its length advanced in place
     if mode == "TTFT":
         tok, _ = engine._prefill_token(engine.params, toks, engine.new_cache())
         tok.cpu()

@@ -7,7 +7,7 @@ per (B, S) and decode replays one captured decode step ``n_steps`` times
 with no host work in between (``serving.graphs``).  The step is in place:
 it reads a static token buffer, writes its argmax back into it and into
 the output row at a device step counter, and advances the cache length
-in place.  The engine owns one static cache per (batch, ``max_len``):
+in place.  The engine owns one static cache, on every device:
 ``new_cache()`` returns it emptied.  On the CPU (``device="cpu"``) and
 on the card's eager loop (``graphs=False``) the same bodies run as one
 eager call per step.  The KV cache is read-only inside the layer loop;
@@ -55,8 +55,8 @@ class Engine:
     everywhere.  On the card the prefill and the decode step are captured
     CUDA graphs; ``graphs=False`` runs the same bodies eagerly there (the
     eager loop beside the graph, for comparisons).  A graph captures this
-    engine's ``params`` and its static cache: the serving methods take no
-    others on the card.
+    engine's ``params`` and its one cache (``new_cache()``): the serving
+    methods take no others, on any device.
     """
 
     params: Any
@@ -73,38 +73,26 @@ class Engine:
         self.device = resolve_device(self.device)
         self._impl = kernel_linear_impl if self.use_kernels else None
         self.runner = GraphRunner(self.device, enabled=self.graphs)
-        self._caches: Dict[Tuple[int, int], llama.KVCache] = {}
+        self._cache: Optional[llama.KVCache] = None
 
     def new_cache(self) -> llama.KVCache:
-        """An empty cache: on the card's graphs the engine's own static
-        cache with its length zeroed in place (positions past the length
-        are masked, so the buffers are not cleared); else a new one."""
-        if not self.runner.graphed:
-            return llama.KVCache.create(self.cfg, self.batch_size,
-                                        self.max_len, dtype=self.cache_dtype,
-                                        device=self.device)
-        key = (self.batch_size, self.max_len)
-        cache = self._caches.get(key)
-        if cache is None:
+        """The engine's one cache, emptied: its length zeroed in place
+        (positions past the length are masked, so the buffers are not
+        cleared)."""
+        if self._cache is None:
             with torch.inference_mode(False):
-                cache = self._caches[key] = llama.KVCache.create(
+                self._cache = llama.KVCache.create(
                     self.cfg, self.batch_size, self.max_len,
                     dtype=self.cache_dtype, device=self.device)
-        cache.length.zero_()
-        return cache
+        self._cache.length.zero_()
+        return self._cache
 
-    def _own(self, params, cache: llama.KVCache) -> llama.KVCache:
-        """The static cache a graph replays on, holding ``cache``'s
-        length (a graph captures this engine's params and buffers)."""
-        if not self.runner.graphed:
-            return cache
-        own = self._caches.get((self.batch_size, self.max_len))
-        if params is not self.params or own is None or cache.k is not own.k:
-            raise ValueError("on the card the engine serves its own params "
-                             "and its own cache (new_cache())")
-        if cache.length is not own.length:
-            own.length.copy_(cache.length)
-        return own
+    def _own(self, params, cache: llama.KVCache) -> None:
+        """Refuse params or a cache other than the engine's own (a graph
+        replays on the ones it captured)."""
+        if params is not self.params or cache is not self._cache:
+            raise ValueError("the engine serves its own params and its own "
+                             "cache (new_cache())")
 
     def _key(self, *key) -> tuple:
         return key + (self.max_len, self.compute_dtype, self.cache_dtype,
@@ -145,7 +133,7 @@ class Engine:
     @torch.inference_mode()
     def _prefill_both(self, params, tokens: torch.Tensor,
                       cache: llama.KVCache):
-        cache = self._own(params, cache)
+        self._own(params, cache)
         B, S = tokens.shape
         buf = self.runner.buffers(
             ("prefill", B, S), tokens=((B, S), torch.int64),
@@ -176,7 +164,7 @@ class Engine:
         """Greedy-decode ``n_steps`` tokens -> ([B, n_steps] int32, cache):
         ``n_steps`` replays of one decode step (eager calls off the
         graphs); the cache length advances in place."""
-        cache = self._own(params, cache)
+        self._own(params, cache)
         B = first_token.shape[0]
         if n_steps > self.max_len:
             raise ValueError(f"{n_steps} decode steps exceed the cache's "

@@ -11,13 +11,14 @@ step.
 
 A body reads and writes only tensors of fixed address (the engine's
 static cache and the buffers of :meth:`GraphRunner.buffers`); it computes
-everything else on the device, so a replay needs no host input.
+everything else on the device, so a replay needs no host input.  A graph
+holds the model and cache it was captured on (``binds``): a later call
+of the same key with others raises instead of replaying on the old ones.
 
 :class:`GraphRunner` keys each graph on what routing reads at capture
 time: the caller's key (step kind, batch, S or bucket, window, compute
-dtype, ``use_kernels``) and the JAX package's two decode switches as set
-now (``AMQ_PIPE``, ``ops.quant_matmul._PIPE_DEFAULT``; ``AMQ_MLP_KERNEL``,
-read per call by ``models.stacked``), which ``decode_switches`` toggles
+dtype, ``use_kernels``) and the decode switches as set now
+(``models.stacked.routing_key``), which ``decode_switches`` toggles
 inside one process.
 
 Launch counters: the warm-up and the capture run the wrappers (which
@@ -28,7 +29,6 @@ the step's launches on every replay (``ops.add_launch_counts``).
 
 from __future__ import annotations
 
-import os
 import time
 import types
 from typing import Callable, Dict, Sequence, Tuple
@@ -36,13 +36,7 @@ from typing import Callable, Dict, Sequence, Tuple
 import torch
 
 from .. import ops
-
-
-def routing_key() -> Tuple[int, bool]:
-    """The decode switches as the wrappers would read them now."""
-    from ..ops import quant_matmul as qm
-    return (int(qm._PIPE_DEFAULT),
-            os.environ.get("AMQ_MLP_KERNEL", "0") == "1")
+from ..models.stacked import routing_key
 
 
 class GraphRunner:
@@ -81,12 +75,15 @@ class GraphRunner:
         return buf
 
     def run(self, key: tuple, body: Callable[[], None],
-            state: Sequence[torch.Tensor] = (), times: int = 1) -> None:
+            state: Sequence[torch.Tensor] = (), times: int = 1,
+            binds: Sequence[object] = ()) -> None:
         """Run ``body()`` ``times`` times: eagerly, or as replays of its
         graph for ``key`` (captured at the first call).  ``state`` lists
         every small tensor the body advances (lengths, tokens, counters):
         the warm-up restores them, so the first replay sees what the
-        caller gave."""
+        caller gave.  ``binds`` lists the objects the body reaches by
+        address (the model, the caches): the graph replays only on the
+        ones it was captured on, and other ones raise ``ValueError``."""
         if times == 0:
             return
         if not self.graphed:
@@ -96,8 +93,13 @@ class GraphRunner:
         full = tuple(key) + routing_key()
         entry = self._graphs.get(full)
         if entry is None:
-            entry = self._graphs[full] = self._capture(full, body, state)
-        graph, delta = entry
+            entry = self._graphs[full] = (self._capture(full, body, state)
+                                          + (tuple(binds),))
+        graph, delta, bound = entry
+        if len(bound) != len(binds) or any(
+                a is not b for a, b in zip(bound, binds)):
+            raise ValueError(f"the graph of {key} replays on the model and "
+                             "caches it was captured on, not on others")
         for _ in range(times):
             graph.replay()
         ops.add_launch_counts(delta, times)

@@ -136,7 +136,8 @@ def speculative_decode(t_params, d_params, t_cfg: ModelConfig,
                        t_params, d_params, t_cfg, d_cfg, t_cache, d_cache, st,
                        gamma, compute_dtype, impl),
                    state=(t_cache.length, d_cache.length, st.tok, st.out,
-                          st.n_out, st.rounds, st.accepted, st.go))
+                          st.n_out, st.rounds, st.accepted, st.go),
+                   binds=(t_params, d_params, t_cache, d_cache))
         go = bool(st.go)            # the while_loop's cond: 4 bytes a round
     return (st.out[:, :max_new].clone(), int(st.rounds[0]),
             int(st.accepted[0]))
@@ -157,22 +158,18 @@ class SpeculativeEngine:
         self.gamma = gamma
         self.runner = GraphRunner(target_engine.device,
                                   enabled=target_engine.graphs)
-        self._d_cache = None
+        self._d_cache: Optional[llama.KVCache] = None
 
     def _draft_cache(self) -> llama.KVCache:
-        """An empty draft cache: static on the card's graphs, else new."""
+        """The one draft cache, emptied (its length zeroed in place)."""
         eng = self.t
-        if self.runner.graphed and self._d_cache is not None \
-                and self._d_cache.k.shape[3] == eng.max_len:
-            self._d_cache.length.zero_()
-            return self._d_cache
-        with torch.inference_mode(False):
-            cache = llama.KVCache.create(self.d_cfg, 1, eng.max_len,
-                                         dtype=eng.cache_dtype,
-                                         device=eng.device)
-        if self.runner.graphed:
-            self._d_cache = cache
-        return cache
+        if self._d_cache is None:
+            with torch.inference_mode(False):
+                self._d_cache = llama.KVCache.create(
+                    self.d_cfg, 1, eng.max_len, dtype=eng.cache_dtype,
+                    device=eng.device)
+        self._d_cache.length.zero_()
+        return self._d_cache
 
     @torch.inference_mode()
     def _draft_prefill(self, tokens: torch.Tensor, d_cache: llama.KVCache):
@@ -191,7 +188,8 @@ class SpeculativeEngine:
             d_cache.length.copy_(new.length)
 
         self.runner.run(("draft_prefill", S, eng.max_len, eng.compute_dtype,
-                         eng.use_kernels), body, state=(d_cache.length,))
+                         eng.use_kernels), body, state=(d_cache.length,),
+                        binds=(self.d_params, d_cache))
 
     def generate(self, prompt: np.ndarray, max_new_tokens: int = 128
                  ) -> Tuple[np.ndarray, SpecStats]:

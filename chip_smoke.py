@@ -105,10 +105,12 @@ Phases (any failed check exits non-zero before the last line):
    generate, slot-batched decoding (decode chunks of 8, whole and chunked
    slot prefills) and speculative decoding (tokens, rounds, accepted)
    token-exact, graph against eager (GRAPH_F32); the bf16 first decode
-   step's forward replayed against the same forward run eagerly, within
-   the bf16 kernel tolerance (GRAPH_STEP_LOGITS, torch.equal reported);
-   exact launch counts of one generate on each loop, replays included
-   (GRAPH_LAUNCHES).  Reported: GRAPH_AB (TPS, GEMV ms/token, GEMM
+   step's forward replayed, torch.equal to the same forward run eagerly
+   (GRAPH_STEP_LOGITS, the gap beside the bf16 kernel tolerance
+   reported); exact launch counts of one generate on each loop, replays
+   included, and of a second one the grouped GEMV, tile and
+   decode-attention kernels the profiler saw the card run, against the
+   same reckoning (GRAPH_LAUNCHES).  Reported: GRAPH_AB (TPS, GEMV ms/token, GEMM
    prefill ms and TTFT in turns eager, graph, graph, eager; decode and
    prefill busy share from the profiler and from the eager loop's device
    time over the graph's wall; CONTINUOUS and SPECULATIVE tok/s and
@@ -1824,9 +1826,11 @@ def graph_f32_gates(model, cfg, prompt):
 def graph_step_logits(eng, model, prompt):
     """bf16: after one prefill, the first decode step's forward replayed
     from its graph against the same forward run eagerly from the same
-    cache state (the forward leaves the length as it found it): the
-    largest gap normalized by the largest eager logit, within the bf16
-    tolerance of the kernel cases, and whether the two are equal."""
+    cache state (the forward leaves the length as it found it).  The same
+    kernels on the same inputs give the same bits, so the gate is
+    equality (a replay of another route would differ by rounding); the
+    largest gap normalized by the largest eager logit is reported beside
+    the bf16 tolerance of the kernel cases."""
     cache = eng.new_cache()
     first, cache = eng._prefill_token(model, eng.tokens_to_device(prompt),
                                       cache)
@@ -1842,25 +1846,86 @@ def graph_step_logits(eng, model, prompt):
 
     with torch.inference_mode():
         eng.runner.run(eng._key("step_logits", 1), body,
-                       state=(cache.length,))
+                       state=(cache.length,), binds=(model, cache))
     got = buf.logits.clone()
     torch.cuda.synchronize()
     rel = ((got - want).abs().max() / want.abs().max()).item()
     tol = MM_TOL[torch.bfloat16]
-    rec = dict(compute="bfloat16", rel_err=rel, tol=tol,
-               equal=bool(torch.equal(got, want)),
+    equal = bool(torch.equal(got, want))
+    rec = dict(compute="bfloat16", rel_err=rel, tol=tol, equal=equal,
                top1_agree=bool(got.argmax() == want.argmax()),
-               ok=rel <= tol and bool(torch.isfinite(got).all()))
+               ok=equal and bool(torch.isfinite(got).all()))
     print("GRAPH_STEP_LOGITS " + json.dumps(rec), flush=True)
     if not rec["ok"]:
         fail(f"bf16 replayed step logits off the eager step's: {rec}")
     return rec
 
 
+#: the name each kernel family carries on the card, as the profiler lists it
+PROFILED_KERNELS = {"grouped": "qmm_grouped_kernel<", "tile": "qmm_tile_kernel<",
+                    "decode_attention": "decode_attn_kernel<"}
+
+
+def profiled_kernel_counts(run):
+    """Kernels the profiler saw on the card over ``run()``, by family
+    (PROFILED_KERNELS): counted from the device's own records, so graph
+    replays count what they ran, not what the wrappers were credited."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    counts = {fam: 0 for fam in PROFILED_KERNELS}
+    for ev in prof.key_averages():
+        if ev.self_device_time_total <= 0:
+            continue
+        for fam, tag in PROFILED_KERNELS.items():
+            if tag in ev.key:
+                counts[fam] += ev.count
+    return counts
+
+
+PROFILE_CHUNK = 16
+
+
+def profiled_generate(eng, prompt, n_new):
+    """One greedy generate through the calls ``Engine.generate`` makes
+    (the prefill, then ``_decode_n``, here in chunks of PROFILE_CHUNK
+    steps), each call under a profiler session of its own: the kernels
+    the card ran, by family, summed over the sessions, and the tokens.
+    (Short sessions: over one 127-step run of back-to-back replays the
+    profiler once lost a run of records.)"""
+    model, cache = eng.params, eng.new_cache()
+    counts = {fam: 0 for fam in PROFILED_KERNELS}
+    out = {}
+
+    def prefill():
+        out["new"], _ = eng._prefill_token(
+            model, eng.tokens_to_device(prompt), cache)
+
+    def decode(tok, n):
+        out["new"], _ = eng._decode_n(model, tok, cache, n_steps=n)
+
+    toks, left = [], n_new
+    for call in [prefill] + [None] * ((n_new - 2) // PROFILE_CHUNK + 1):
+        n = min(PROFILE_CHUNK, left)
+        run = call or (lambda tok=toks[-1][:, -1], n=n: decode(tok, n))
+        for fam, c in profiled_kernel_counts(run).items():
+            counts[fam] += c
+        new = out["new"]
+        toks.append(new if new.dim() == 2 else new[:, None])
+        left -= toks[-1].shape[1]
+    return torch.cat(toks, dim=1).cpu().numpy(), counts
+
+
 def graph_counts(eng, cfg, prompt, label):
     """Exact launch counts of one bf16 generate (graph replays included)
     against the counts reckoned from the code, and the runner's replays
-    over it (one prefill, GEN - 1 decode steps)."""
+    over it (one prefill, GEN - 1 decode steps).  Then a second generate
+    under the profiler (profiled_generate): the grouped GEMV, tile and
+    decode-attention kernels the card ran, counted from its records,
+    against the same reckoning (one per wrapper launch), and its tokens
+    equal to the first's."""
     from amq_tpu_torch import ops
     L = cfg.num_layers
     before = eng.runner.replays
@@ -1872,12 +1937,19 @@ def graph_counts(eng, cfg, prompt, label):
     want = (reckon_decode(L, 1, PROMPT, GEN - 1, False, False),
             reckon_grouped(L, GEN - 1, False), reckon_tile(L, 1))
     replays = eng.runner.replays - before
+    again, seen = profiled_generate(eng, prompt, GEN)
+    want_seen = dict(grouped=sum(want[1].values()), tile=sum(want[2].values()),
+                     decode_attention=want[0]["decode_attention_indexed"])
+    same = bool((again == toks).all())
     rec = dict(loop=label, launches=got[0], grouped=got[1], tile=got[2],
-               replays=replays,
-               ok=got == want and replays == (GEN if eng.graphs else 0))
+               replays=replays, profiled=seen, profiled_want=want_seen,
+               profiled_tokens_equal=same,
+               ok=(got == want and seen == want_seen and same
+                   and replays == (GEN if eng.graphs else 0)))
     print("GRAPH_LAUNCHES " + json.dumps(rec), flush=True)
     if not rec["ok"]:
-        fail(f"{label} launch counts {got} != {want} or replays {replays}")
+        fail(f"{label} launch counts {got} != {want}, profiled {seen} != "
+             f"{want_seen} or replays {replays}")
     return toks
 
 

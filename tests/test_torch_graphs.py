@@ -10,7 +10,9 @@ the CPU, where they run eagerly, one call per step:
 (d) the speculative round, looped on its device flag, against
     ``speculative_decode``'s ``while_loop``;
 (e) the graph runner's launch accounting and (f) its warm-up's restore,
-    with the card's three capture steps replaced by CPU stand-ins.
+    with the card's three capture steps replaced by CPU stand-ins; its
+    refusal to replay on another model or cache, and the engines' one
+    cache.
 
 Tolerances: float32 caches 2e-4 (``tests/test_decode_attention.py``);
 tokens exact.
@@ -33,7 +35,8 @@ from amq_tpu.serving.speculative import SpeculativeEngine as JSpec
 from amq_tpu_torch import ops
 from amq_tpu_torch.models import convert
 from amq_tpu_torch.models.config import get_config as t_get_config
-from amq_tpu_torch.models.stacked import decode_switches
+from amq_tpu_torch.models import llama as tllama
+from amq_tpu_torch.models.stacked import decode_switches, routing_key
 from amq_tpu_torch.ops import decode_attention as tda
 from amq_tpu_torch.ops import quant_matmul as tqm
 from amq_tpu_torch.serving import batched as tb
@@ -401,3 +404,53 @@ def test_cpu_engines_run_their_bodies_eagerly(models):
     for runner in (eng.runner, se.runner, spec.runner):
         assert not runner.graphed
         assert (runner.captures, runner.replays) == (0, 0)
+
+
+def test_runner_replays_only_on_what_it_captured():
+    """A graph holds the objects its body reaches by address: the same
+    key with the same ones replays, with another model or cache raises
+    instead of replaying on the old buffers.  Another switch setting
+    (``routing_key``) is another graph."""
+    runner = _CpuCard()
+    state = [torch.zeros(1, dtype=torch.int64), torch.ones(2)]
+    runner.watch = state
+    model, cache, other = object(), object(), object()
+    body = _launching_body(state)
+    runner.run(("step", 5), body, state=state, binds=(model, cache))
+    runner.run(("step", 5), body, state=state, times=2, binds=(model, cache))
+    assert (runner.captures, runner.replays) == (1, 3)
+    for binds in ((model, other), (other, cache), (model,)):
+        with pytest.raises(ValueError, match="captured on"):
+            runner.run(("step", 5), body, state=state, binds=binds)
+    assert routing_key() == (0, False)
+    with decode_switches(pipe=True, mlp=True):
+        assert routing_key() == (1, True)
+        runner.run(("step", 5), body, state=state, binds=(model, other))
+    assert (runner.captures, runner.replays) == (2, 4)
+    ops.reset_launch_counts()
+
+
+def test_engines_keep_one_cache_and_refuse_others(models):
+    """On every device the engine serves its one cache: ``new_cache()``
+    returns the same object emptied, the serving methods refuse another
+    cache or other params, and the speculative engine's draft cache is
+    one object across generates."""
+    _, tcfg, _, tm = models
+    eng = Engine(tm, tcfg, batch_size=1, max_len=32,
+                 compute_dtype=torch.float32, cache_dtype=torch.float32,
+                 device="cpu")
+    prompt = np.arange(5, dtype=np.int32)[None]
+    cache = eng.new_cache()
+    first, got = eng._prefill_token(tm, eng.tokens_to_device(prompt), cache)
+    assert got is cache and int(cache.length) == 5
+    assert eng.new_cache() is cache and int(cache.length) == 0
+    foreign = tllama.KVCache.create(tcfg, 1, 32, dtype=torch.float32)
+    with pytest.raises(ValueError, match="its own cache"):
+        eng._prefill_token(tm, eng.tokens_to_device(prompt), foreign)
+    with pytest.raises(ValueError, match="its own"):
+        eng._decode_n(object(), first, cache, n_steps=2)
+    spec = SpeculativeEngine(eng, draft_params=tm, gamma=2)
+    spec.generate(prompt, max_new_tokens=4)
+    d_cache = spec._d_cache
+    spec.generate(prompt, max_new_tokens=4)
+    assert spec._d_cache is d_cache and d_cache is not cache
