@@ -39,7 +39,48 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a card) or cpu for "
                         "the plain PyTorch path")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="split evaluation samples over the ranks of the "
+                        "process group (this process is one rank; started "
+                        "by a launcher such as torchrun, which sets RANK, "
+                        "WORLD_SIZE, MASTER_ADDR and MASTER_PORT)")
+    p.add_argument("--dist_backend", type=str, default="",
+                   choices=("", "nccl", "gloo"),
+                   help="the process group's backend, needed with "
+                        "--data_parallel unless the group is already up")
     return p
+
+
+def data_group(args):
+    """The process group evaluation splits its samples over
+    (``--data_parallel``), or None.  Joins the group from the launcher's
+    environment when it is not up yet; the backend is ``--dist_backend``,
+    never picked here."""
+    if not getattr(args, "data_parallel", False):
+        return None
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        if not args.dist_backend:
+            raise SystemExit("--data_parallel needs --dist_backend (nccl or "
+                             "gloo) to join the process group")
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        if world == 1:
+            return None                   # one process: nothing to split
+        from ..parallel import multihost
+        multihost.initialize(num_processes=world,
+                             process_id=int(os.environ["RANK"]),
+                             backend=args.dist_backend, init_method="env://")
+    return dist.group.WORLD
+
+
+def is_writer(args) -> bool:
+    """Whether this process writes the CLI's files: always, except the
+    ranks other than 0 of a data-parallel run (they compute the same
+    numbers)."""
+    if not getattr(args, "data_parallel", False):
+        return True
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def setup_torch() -> None:

@@ -14,8 +14,8 @@ from __future__ import annotations
 import json
 import time
 
-from .common import (base_parser, compute_dtype, load_model, load_tokens,
-                     proxy_factories, setup_torch)
+from .common import (base_parser, compute_dtype, data_group, is_writer,
+                     load_model, load_tokens, proxy_factories, setup_torch)
 
 
 def main(argv=None):
@@ -58,7 +58,8 @@ def main(argv=None):
     ev = Evaluator(cfg, dense_params=params, proxies=proxies,
                    datasets={args.dataset: tokens},
                    group_size=args.group_size, batch_size=args.batch_size,
-                   compute_dtype=compute_dtype(args), device=args.device)
+                   compute_dtype=compute_dtype(args), device=args.device,
+                   data_group=data_group(args))
     del params            # the evaluator holds no reference to it
     setup_s = time.perf_counter() - t0
     space = SearchSpace(cfg.topology(), group_size=args.group_size,
@@ -70,7 +71,8 @@ def main(argv=None):
         predictor=args.predictor, ga_pop_size=args.ga_pop_size,
         subset_pop_size=args.subset_pop_size,
         crossover_prob=args.crossover_prob, mut_prob=args.mut_prob,
-        max_value=args.max_value, save_path=args.save_path,
+        max_value=args.max_value,
+        save_path=args.save_path if is_writer(args) else None,
         resume_path=args.resume_path or None, seed=args.seed)
     t1 = time.perf_counter()
     archive = search.search()

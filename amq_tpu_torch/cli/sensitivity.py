@@ -16,8 +16,9 @@ from __future__ import annotations
 import os
 import time
 
-from .common import (base_parser, compute_dtype, dump_json, load_model,
-                     load_tokens, proxy_factories, setup_torch)
+from .common import (base_parser, compute_dtype, data_group, dump_json,
+                     is_writer, load_model, load_tokens, proxy_factories,
+                     setup_torch)
 
 
 def main(argv=None):
@@ -38,7 +39,8 @@ def main(argv=None):
     ev = Evaluator(cfg, dense_params=params, proxies=proxies,
                    datasets={args.dataset: tokens},
                    group_size=args.group_size, batch_size=args.batch_size,
-                   compute_dtype=compute_dtype(args), device=args.device)
+                   compute_dtype=compute_dtype(args), device=args.device,
+                   data_group=data_group(args))
     del params            # the evaluator holds no reference to it
     print(f"evaluator: dense logits {ev.setup_s['dense_logits']:.1f} s, "
           f"proxies {ev.setup_s['proxies']:.1f} s", flush=True)
@@ -52,7 +54,8 @@ def main(argv=None):
         args.save_path,
         f"{cfg.name}_dataset_{ds_tag}_n_sample_{args.n_sample}"
         f"_seqlen_{args.seqlen}.json")
-    dump_json(table, out)
+    if is_writer(args):
+        dump_json(table, out)
     return {"path": out, "table": table, "probes_s": probes_s, **ev.setup_s}
 
 

@@ -30,9 +30,17 @@ shifted cross-entropy, through the plain ``llama.forward`` at batch <= 4
 dequantized once per layer first (``models.linear.dequantize_weight``: the
 dequantization kernel on the card).
 
-Not ported here: the data-parallel mesh, the fp8 / device-resident /
-host-streamed cache modes and the layer-chunked dense pass, in both modes
-(an 80 GB card holds the 13.5 GB bf16 dense model whole).
+Data parallelism (``data_group``, the JAX package's 'data' mesh and the
+reference's Accelerate data-parallel evaluation): every dataset's samples
+are split over the group's ranks in contiguous blocks, each rank computes
+the dense logits and the per-sample losses of its own block, and the
+per-sample values are gathered back in sample order before the mean, so
+a loss is the same mean over the same per-sample values as in one
+process.  Every rank calls the same methods with the same archs.
+
+Not ported here: the fp8 / device-resident / host-streamed cache modes and
+the layer-chunked dense pass, in both modes (an 80 GB card holds the
+13.5 GB bf16 dense model whole).
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.device import resolve_device, synchronize
 from ..models import llama
@@ -50,6 +59,7 @@ from ..models.config import LINEAR_NAMES, ModelConfig
 from ..models.linear import DenseLinear, QuantLinear, dequantize_weight
 from ..models.stacked import forward_stacked, set_arch, stack_proxies
 from ..models.transform import Arch, quantize_model
+from ..parallel import comm
 from . import metrics
 
 
@@ -64,6 +74,7 @@ class Evaluator:
     ``proxies`` are per-bit ``quantize_model`` outputs or zero-argument
     callables returning them.  ``device`` defaults to CUDA and raises
     without a card; pass ``device="cpu"`` for the plain path.
+    ``data_group`` splits the samples over that process group's ranks.
     """
 
     def __init__(self, cfg: ModelConfig,
@@ -74,7 +85,8 @@ class Evaluator:
                  group_size: int = 128, batch_size: int = 8,
                  compute_dtype=torch.float32, use_kernels: bool = True,
                  device=None, search: bool = True,
-                 quantize_fn: Optional[Callable] = None):
+                 quantize_fn: Optional[Callable] = None,
+                 data_group=None):
         self.device = resolve_device(device)
         if dense_params is None:
             raise ValueError("the dense model is needed")
@@ -87,6 +99,10 @@ class Evaluator:
         self.use_kernels = use_kernels
         self.datasets = dict(datasets or {})
         self.search = search
+        self.data_group = data_group
+        #: this rank's rows of every dataset (all of them without a group)
+        self.local = {name: toks[self._rows(len(toks))]
+                      for name, toks in self.datasets.items()}
         if not search:
             if quantize_fn is None:
                 raise ValueError("final mode needs quantize_fn")
@@ -104,9 +120,10 @@ class Evaluator:
                             if big else batch_size)
 
         t0 = time.perf_counter()
+        #: dense logits of this rank's rows (``self.local``)
         self.dense_logits: Dict[str, torch.Tensor] = {
             name: self._dense_pass(dense_params, toks)
-            for name, toks in self.datasets.items()}
+            for name, toks in self.local.items()}
         synchronize(self.device)
         t1 = time.perf_counter()
         if proxies is None:
@@ -127,6 +144,38 @@ class Evaluator:
         evaluator's forwards."""
         return llama.forward_kernels(self.use_kernels)
 
+    def _rows(self, n: int) -> slice:
+        """This rank's block of ``n`` samples: contiguous, sizes differing
+        by at most one, lower ranks first."""
+        if self.data_group is None:
+            return slice(0, n)
+        r = dist.get_rank(self.data_group)
+        w = dist.get_world_size(self.data_group)
+        base, rem = divmod(n, w)
+        lo = r * base + min(r, rem)
+        return slice(lo, lo + base + (r < rem))
+
+    def gather_samples(self, local: torch.Tensor, n: int) -> torch.Tensor:
+        """Per-sample values of every rank's block, in sample order
+        (``local``: this rank's ``[rows]``; ``n`` samples in all)."""
+        if self.data_group is None:
+            return local
+        w = dist.get_world_size(self.data_group)
+        width = -(-n // w)
+        buf = torch.zeros(width, dtype=local.dtype, device=local.device)
+        buf[:local.shape[0]] = local
+        parts = comm.all_gather(buf, self.data_group)
+        sizes = [n // w + (r < n % w) for r in range(w)]
+        return torch.cat([p[:k] for p, k in zip(parts, sizes)])
+
+    def reduce_sum(self, x: np.ndarray) -> np.ndarray:
+        """``x`` summed over the data group's ranks (float64; ``x`` itself
+        without a group)."""
+        if self.data_group is None:
+            return x
+        t = torch.as_tensor(np.asarray(x, np.float64), device=self.device)
+        return comm.all_reduce_(t, self.data_group).cpu().numpy()
+
     def tokens(self, batch: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(batch, dtype=torch.int64, device=self.device)
 
@@ -144,9 +193,11 @@ class Evaluator:
             yield batch, n_valid
 
     def loss_batches(self, name: str) -> List[Tuple[np.ndarray, int, int]]:
-        """``(batch, n_valid, first row)`` of one dataset at the loss batch."""
+        """``(batch, n_valid, first row)`` of this rank's rows of one
+        dataset at the loss batch (rows of ``self.local``, whose dense
+        logits ``self.dense_logits`` holds)."""
         out, start = [], 0
-        for batch, n_valid in self._batches(self.datasets[name],
+        for batch, n_valid in self._batches(self.local[name],
                                             self._loss_batch):
             out.append((batch, n_valid, start))
             start += n_valid
@@ -182,20 +233,20 @@ class Evaluator:
                                               dense, chunk=self._jsd_chunk)
 
     @torch.inference_mode()
-    def _loss(self, params, tokens: np.ndarray,
-              dense_logits: torch.Tensor) -> torch.Tensor:
-        """Mean per-sample JSD as a 0-d device tensor (no host sync)."""
-        per_sample, start = [], 0
+    def _loss(self, params, name: str) -> torch.Tensor:
+        """Mean per-sample JSD over dataset ``name`` as a 0-d device
+        tensor (no host sync without a data group)."""
+        per_sample = [torch.zeros(0, device=self.device)]
         with self.kernels():
-            for batch, n_valid in self._batches(tokens, self._loss_batch):
-                dense = self.dense_batch(dense_logits, start, n_valid,
-                                         batch.shape[0])
+            for batch, n_valid, start in self.loss_batches(name):
+                dense = self.dense_batch(self.dense_logits[name], start,
+                                         n_valid, batch.shape[0])
                 logits, _ = forward_stacked(params, self.cfg,
                                             self.tokens(batch),
                                             compute_dtype=self.compute_dtype)
                 per_sample.append(self.loss_of_logits(logits, dense)[:n_valid])
-                start += n_valid
-        return torch.cat(per_sample).mean()
+        return self.gather_samples(torch.cat(per_sample),
+                                   len(self.datasets[name])).mean()
 
     # -- reference API -----------------------------------------------------
 
@@ -205,18 +256,17 @@ class Evaluator:
         self.switch_params = set_arch(self.switch_params, arch)
         return self.switch_params
 
-    def eval_loss(self, params, tokens: np.ndarray,
-                  dense_logits: torch.Tensor) -> float:
-        return float(self._loss(params, tokens, dense_logits))
+    def eval_loss(self, params, name: str) -> float:
+        """Mean per-sample JSD of ``params`` over dataset ``name``."""
+        return float(self._loss(params, name))
 
     def eval_many(self, archs: Sequence[Arch]) -> List[tuple]:
         """``[({dataset: loss}, bits), ...]``, the same numbers as ``eval``
         per arch, read back from the device once."""
         archs = list(archs)
         names = list(self.datasets)
-        losses = torch.stack([
-            self._loss(self.sample(a), self.datasets[n], self.dense_logits[n])
-            for a in archs for n in names]).tolist()
+        losses = torch.stack([self._loss(self.sample(a), n)
+                              for a in archs for n in names]).tolist()
         return [({n: losses[i * len(names) + j] for j, n in enumerate(names)},
                  metrics.get_bits_usage(a, self.topology, self.group_size))
                 for i, a in enumerate(archs)]
@@ -238,8 +288,11 @@ class Evaluator:
 
     @torch.inference_mode()
     def eval_ppl(self, params: Dict[str, Any], tokens: np.ndarray) -> float:
-        """``exp`` of the mean per-sample shifted cross-entropy."""
-        per_sample = []
+        """``exp`` of the mean per-sample shifted cross-entropy over
+        ``tokens`` (this rank's block of them under a data group)."""
+        n = len(tokens)
+        tokens = tokens[self._rows(n)]
+        per_sample = [torch.zeros(0, device=self.device)]
         with self.kernels():
             params = self._dequantized(params)
             for batch, n_valid in self._batches(tokens,
@@ -249,7 +302,8 @@ class Evaluator:
                                           compute_dtype=self.compute_dtype)
                 per_sample.append(metrics.cross_entropy_shifted_per_sample(
                     logits, toks)[:n_valid])
-        return float(torch.exp(torch.cat(per_sample).mean()))
+        return float(torch.exp(self.gather_samples(torch.cat(per_sample),
+                                                   n).mean()))
 
     def eval(self, architecture: Arch, method: str = "hqq"
              ) -> Tuple[Dict[str, float], float]:

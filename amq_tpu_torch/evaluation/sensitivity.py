@@ -15,6 +15,9 @@ Two strategies:
   and runs blocks ``b..L`` only (``stacked.forward_stacked_suffix``),
   about half the block computations of the naive stage at 32 layers;
 * naive: a full forward per probe through ``Evaluator.eval_many``.
+
+Under a data-parallel evaluator each rank runs its own samples and the
+per-probe sums are added over the ranks.
 """
 
 from __future__ import annotations
@@ -58,8 +61,9 @@ def _suffix_losses(ev: Evaluator, dataset: str, keys, probes, base,
                 sums[b] += torch.stack(vals).double().cpu().numpy()
             if progress:
                 print(f"sensitivity batch {bi + 1}/{len(batches)} "
-                      f"({start + n_valid}/{len(ev.datasets[dataset])} "
+                      f"({start + n_valid}/{len(ev.local[dataset])} "
                       f"samples)", flush=True)
+    sums = ev.reduce_sum(sums)          # every rank's samples
     total = len(ev.datasets[dataset])
     return {keys[b * P + j]: float(sums[b, j] / total)
             for b in range(n_block) for j in range(P)}
@@ -84,6 +88,7 @@ def make_suffix_arch_eval(ev: Evaluator, dataset: str):
                 x = m.embed[ev.tokens(batch)].to(cd)
                 logits = forward_stacked_suffix(m, cfg, x, 0, compute_dtype=cd)
                 s += float(ev.loss_of_logits(logits, dense)[:n_valid].sum())
+        s = float(ev.reduce_sum(np.array([s]))[0])
         bits = metrics.get_bits_usage(arch, ev.topology, ev.group_size)
         return {dataset: s / total}, bits
 

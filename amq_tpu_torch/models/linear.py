@@ -5,6 +5,8 @@
   through :func:`dequantize_weight`), or the fused CUDA dequant-matmul
   (``ops.quant_matmul``) while :class:`kernel_linears` has installed a
   kernel implementation,
+* :class:`ProxySwitch` -- per-bit proxies of one linear and the index of
+  the one applied,
 * :class:`OWQLinear` -- OWQ's packed serving form
   (``quantization.owq.owq_matmul``: the dequant-matmul over the compacted
   non-outlier columns, on the kernel while :class:`kernel_linears` is
@@ -14,7 +16,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -41,7 +43,17 @@ class OWQLinear:
     bias: Optional[torch.Tensor] = None
 
 
-LinearParams = Union[DenseLinear, QuantLinear, OWQLinear]
+@dataclasses.dataclass
+class ProxySwitch:
+    """Per-bit proxy quantizations of one linear and the index of the one
+    applied (the JAX package's switch leaf; ``select`` indexes
+    ``proxies``, ordered by bits_range)."""
+
+    proxies: Sequence[QuantLinear]
+    select: int = 0
+
+
+LinearParams = Union[DenseLinear, QuantLinear, OWQLinear, ProxySwitch]
 
 # Optional fused-kernel implementation for QuantLinear application,
 # installed by the serving engine for the duration of a forward.  None ->
@@ -130,6 +142,8 @@ def apply_linear(p: LinearParams, x: torch.Tensor,
             return _KERNEL_IMPL(p, x, compute_dtype)
         wt = dequantize_weight(p.qt, compute_dtype)     # [in, out]
         return matmul_f32(x, wt, p.bias, compute_dtype)
+    if isinstance(p, ProxySwitch):
+        return apply_linear(p.proxies[int(p.select)], x, compute_dtype)
     if isinstance(p, OWQLinear):
         from ..quantization.owq import owq_matmul
         y = owq_matmul(x, p.packed, out_dtype=compute_dtype,

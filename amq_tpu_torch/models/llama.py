@@ -25,6 +25,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ..parallel import comm
 from . import linear as _linear
 from .config import LINEAR_NAMES, ModelConfig
 from .linear import DenseLinear, apply_linear, matmul_out_f32
@@ -291,11 +292,17 @@ def decoder_layer(layer: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
                   cos, sin, mask, compute_dtype,
                   captures: Optional[Dict[str, torch.Tensor]] = None,
                   cache: Optional[KVCache] = None, idx: int = 0,
-                  offset: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  offset: Optional[torch.Tensor] = None,
+                  tp_group=None) -> torch.Tensor:
     """One decoder block.  If ``captures`` is a dict it is filled with the
     input activations of each linear site (what GPTQ's Hessians and AWQ's
     feature caches read).  Attention routes as in :func:`forward`: flash
-    at S >= 128 on the card."""
+    at S >= 128 on the card.
+
+    ``tp_group`` is Megatron-style tensor parallelism (``parallel.tp``):
+    q/k/v/gate/up hold this rank's heads and intermediate slice, o/down
+    its rows, and their partial outputs are summed over the group in
+    place (the JAX ``psum`` over ``tp_axis``)."""
     h = rms_norm(x, layer["input_norm"], cfg.rms_norm_eps)
     if captures is not None:
         for name in ("self_attn.q_proj", "self_attn.k_proj",
@@ -305,6 +312,8 @@ def decoder_layer(layer: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
                              cache, idx, offset)
     if captures is not None:
         captures["self_attn.o_proj"] = att_in
+    if tp_group is not None:
+        comm.all_reduce_(att, tp_group)
     x = x + att
     h = rms_norm(x, layer["post_norm"], cfg.rms_norm_eps)
     if captures is not None:
@@ -313,17 +322,21 @@ def decoder_layer(layer: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     out, act = mlp_block(layer, h, compute_dtype)
     if captures is not None:
         captures["mlp.down_proj"] = act
+    if tp_group is not None:
+        comm.all_reduce_(out, tp_group)
     return x + out
 
 
 def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
             cache: Optional[KVCache] = None,
-            compute_dtype=torch.float32) -> Tuple[torch.Tensor, Optional[KVCache]]:
+            compute_dtype=torch.float32,
+            tp_group=None) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Layer-by-layer forward over ``init_params``-shaped parameters.
 
     Returns (logits [B, S, vocab] float32, cache).  With a cache, this
     step's keys are written into it in place and the returned cache
-    shares its buffers, with the length advanced by S.
+    shares its buffers, with the length advanced by S.  ``tp_group``: see
+    :func:`decoder_layer` (``cfg`` is then the rank's local config).
     """
     B, S = tokens.shape
     x = params["embed"][tokens].to(compute_dtype)
@@ -340,7 +353,8 @@ def forward(params: Dict[str, Any], cfg: ModelConfig, tokens: torch.Tensor,
 
     for idx, layer in enumerate(params["layers"]):
         x = decoder_layer(layer, cfg, x, cos, sin, mask, compute_dtype,
-                          cache=cache, idx=idx, offset=offset)
+                          cache=cache, idx=idx, offset=offset,
+                          tp_group=tp_group)
 
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     head = params.get("lm_head")

@@ -24,9 +24,11 @@ import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..core.quantize import QuantizedTensor, quantize, to_container
+from ..parallel import comm
 from .config import LINEAR_NAMES, ModelConfig
 from . import linear as linear_mod
 from . import llama
@@ -474,7 +476,7 @@ def routing_key() -> Tuple[int, bool]:
 def scan_layers(model: StackedModel, cfg: ModelConfig, x: torch.Tensor,
                 cache_kv=None, offset: Optional[torch.Tensor] = None,
                 compute_dtype=torch.bfloat16, start_layer: int = 0,
-                stop_layer: Optional[int] = None):
+                stop_layer: Optional[int] = None, tp_group=None):
     """The decoder-layer loop (no embed / final norm / head).
 
     ``offset`` is the cache length: a 0-d tensor, or one per row ``[B]``
@@ -487,6 +489,11 @@ def scan_layers(model: StackedModel, cfg: ModelConfig, x: torch.Tensor,
     Only layers ``[start_layer, stop_layer)`` run (no-cache path only): the
     sensitivity stage resumes a probe from the baseline's cached input of
     its first differing block.
+
+    ``tp_group``: the model is one rank's tensor-parallel shard
+    (``parallel.tp_stacked``, ``cfg`` its local config); the o output and
+    the MLP output, whichever route computed it (the one-launch MLP or
+    gateup -> SwiGLU-down), are summed over the group in place.
     """
     stop_layer = model.num_layers if stop_layer is None else stop_layer
     if cache_kv is not None and (start_layer,
@@ -552,8 +559,11 @@ def scan_layers(model: StackedModel, cfg: ModelConfig, x: torch.Tensor,
             att = llama.attention(q, k, v, mask, offset, S, S, cfg,
                                   compute_dtype)
         att = att.reshape(B, S, cfg.num_heads * hd)
-        x = x + _apply_site(model, "self_attn.o_proj", i, att, compute_dtype,
-                            bit_idx)
+        o = _apply_site(model, "self_attn.o_proj", i, att, compute_dtype,
+                        bit_idx)
+        if tp_group is not None:
+            comm.all_reduce_(o, tp_group)
+        x = x + o
 
         h = llama.rms_norm(x, model.post_norm[i], cfg.rms_norm_eps)
         down = (_apply_mlp_merged(model, i, h, compute_dtype, bit_idx)
@@ -571,6 +581,8 @@ def scan_layers(model: StackedModel, cfg: ModelConfig, x: torch.Tensor,
                                  bit_idx)
             down = _apply_down_swiglu(model, i, gate, up, compute_dtype,
                                       bit_idx)
+        if tp_group is not None:
+            comm.all_reduce_(down, tp_group)
         x = x + down
         if has_cache:
             cd = cache_kv[0].dtype
@@ -598,12 +610,18 @@ def forward_stacked_suffix(model: StackedModel, cfg: ModelConfig,
 def forward_stacked(model: StackedModel, cfg: ModelConfig,
                     tokens: torch.Tensor,
                     cache: Optional[llama.KVCache] = None,
-                    compute_dtype=torch.bfloat16):
+                    compute_dtype=torch.bfloat16, tp_group=None):
     """Full forward -> (logits [B, S, vocab] float32, cache).
 
     With a cache, this step's keys and values are appended once, after
     all layers, in place into the cache's buffers (the returned cache
     shares them, with the length advanced by S).
+
+    ``tp_group``: ``model`` is one rank's tensor-parallel shard and
+    ``cfg`` its local config (``parallel.tp_stacked``); the layers sum
+    their o and MLP outputs over the group, and a packed head, which a
+    TP model holds vocab-sharded (``ceil(V / tp)`` lanes per rank), has
+    its logits gathered from every rank (the JAX ``all_gather``).
     """
     B, S = tokens.shape
     x = model.embed[tokens].to(compute_dtype)
@@ -612,9 +630,14 @@ def forward_stacked(model: StackedModel, cfg: ModelConfig,
     x, kv_app = scan_layers(
         model, cfg, x,
         cache_kv=(cache.k, cache.v) if cache is not None else None,
-        offset=offset, compute_dtype=compute_dtype)
+        offset=offset, compute_dtype=compute_dtype, tp_group=tp_group)
     x = llama.rms_norm(x, model.final_norm, cfg.rms_norm_eps)
     logits = apply_head(model, x, compute_dtype)
+    if (tp_group is not None and model.lm_head_qt is not None
+            and dist.get_world_size(tp_group) > 1):
+        v_loc = -(-cfg.vocab_size // dist.get_world_size(tp_group))
+        parts = comm.all_gather(logits[..., :v_loc].contiguous(), tp_group)
+        logits = torch.cat(parts, dim=-1)[..., :cfg.vocab_size]
     new_cache = None
     if cache is not None:
         pos = offset + torch.arange(S, device=x.device)

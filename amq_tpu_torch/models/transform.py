@@ -6,7 +6,7 @@ stacks; :func:`uniform_arch` is the all-one-width architecture.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -23,10 +23,12 @@ def uniform_arch(cfg: ModelConfig, bits: int) -> Arch:
 
 def quantize_model(params: Dict[str, Any], cfg: ModelConfig, arch_or_bits,
                    group_size: int = 128, meta_dtype=torch.float32,
-                   optimize: bool = True) -> Dict[str, Any]:
+                   optimize: bool = True,
+                   superblock: Optional[int] = None) -> Dict[str, Any]:
     """Quantize every decoder linear; embeddings, norms and lm_head stay
     dense.  Each weight is quantized on the device it lives on;
-    ``optimize=False`` skips the proximal zero-point solver."""
+    ``optimize=False`` skips the proximal zero-point solver;
+    ``superblock`` fixes the packing block (default: the padded pick)."""
     arch = (uniform_arch(cfg, arch_or_bits)
             if isinstance(arch_or_bits, int) else arch_or_bits)
     out = dict(params)
@@ -38,7 +40,7 @@ def quantize_model(params: Dict[str, Any], cfg: ModelConfig, arch_or_bits,
             assert isinstance(p, DenseLinear), (name, type(p))
             qt = qcore.quantize(p.weight, nbits=int(arch["linear"][name][i]),
                                 group_size=group_size, meta_dtype=meta_dtype,
-                                optimize=optimize)
+                                optimize=optimize, superblock=superblock)
             new_layer[name] = QuantLinear(qt=qt, bias=p.bias)
         out_layers.append(new_layer)
     out["layers"] = out_layers

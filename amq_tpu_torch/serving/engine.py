@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +34,7 @@ from ..models.config import ModelConfig
 from ..models.linear import QuantLinear, kernel_linears
 from ..models.stacked import StackedModel, forward_stacked
 from ..ops.quant_matmul import quant_matmul
+from ..parallel import comm
 from .graphs import GraphRunner
 
 
@@ -57,6 +58,15 @@ class Engine:
     eager loop beside the graph, for comparisons).  A graph captures this
     engine's ``params`` and its one cache (``new_cache()``): the serving
     methods take no others, on any device.
+
+    ``forward_fn`` ``(params, tokens, cache) -> (logits, cache)`` replaces
+    the forward and ``cache_factory`` makes the one cache (the JAX
+    package's two overrides): the tensor-parallel engine
+    (``parallel.tp_stacked.make_tp_engine``) runs its sharded forward on a
+    rank-local cache through the same prefill and decode bodies.
+    ``group`` is the process group that forward's collectives use: a
+    captured graph can hold NCCL collectives only, so ``graphs=True`` on
+    a group of another backend raises (pass ``graphs=False``).
     """
 
     params: Any
@@ -68,8 +78,17 @@ class Engine:
     cache_dtype: Any = torch.bfloat16
     device: Optional[Any] = None
     graphs: bool = True
+    forward_fn: Optional[Callable] = None
+    cache_factory: Optional[Callable[[], llama.KVCache]] = None
+    group: Optional[Any] = None
 
     def __post_init__(self):
+        if self.group is not None and self.graphs and \
+                comm.backend(self.group) != "nccl":
+            raise ValueError(
+                f"a captured CUDA graph cannot hold {comm.backend(self.group)}"
+                " collectives: pass graphs=False (the eager loop) or use an "
+                "NCCL group")
         self.device = resolve_device(self.device)
         self._impl = kernel_linear_impl if self.use_kernels else None
         self.runner = GraphRunner(self.device, enabled=self.graphs)
@@ -81,9 +100,11 @@ class Engine:
         cleared)."""
         if self._cache is None:
             with torch.inference_mode(False):
-                self._cache = llama.KVCache.create(
-                    self.cfg, self.batch_size, self.max_len,
-                    dtype=self.cache_dtype, device=self.device)
+                self._cache = (
+                    self.cache_factory() if self.cache_factory is not None
+                    else llama.KVCache.create(
+                        self.cfg, self.batch_size, self.max_len,
+                        dtype=self.cache_dtype, device=self.device))
         self._cache.length.zero_()
         return self._cache
 
@@ -101,6 +122,8 @@ class Engine:
     def _forward(self, params, tokens, cache):
         with kernel_linears(self._impl), \
                 llama.forward_kernels(self.use_kernels):
+            if self.forward_fn is not None:
+                return self.forward_fn(params, tokens, cache)
             if isinstance(params, StackedModel):
                 return forward_stacked(params, self.cfg, tokens, cache=cache,
                                        compute_dtype=self.compute_dtype)

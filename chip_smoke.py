@@ -145,11 +145,33 @@ Phases (any failed check exits non-zero before the last line):
    token, grouped ones too).  The OWQ layouts of quant_matmul are CASE
    lines of phase 3 (M = 1 and 64; at 64 the tile kernel, its time beside
    the CUDA-core GEMM's).
-8. the kernels line (with an M = 64 entry per row 1, 2 and 4 for the
+8. PARALLEL: the parallel forms (amq_tpu_torch/parallel, serving/dp.py)
+   as torch.distributed ranks spawned on the one card (they run after
+   phase 2's builds, which they load).  (a) tp 2 at full Llama-2-7B width
+   and depth, two ranks over gloo (named: NCCL refuses two ranks on one
+   device), phase 4's layout from random seeded proxies cut with
+   shard_proxy and stacked per rank, the 8-bit head vocab-sharded, on the
+   TP engine (eager), against the single-card Engine on the unsharded
+   stack: float32 greedy tokens equal and prefill logits within
+   rtol = atol = 2e-4, the bf16 first divergence reported, every decode
+   GEMV on the grouped route and the prefill on the tile kernel (wrapper
+   counts and the profiler's kernels against phase 4's reckoning, per
+   rank), decode ms/token (two ranks on one card: no scaling claim)
+   (PARALLEL_TP2); (b) CASE lines at one tp-2 rank's shapes (qkv, o,
+   gateup, down at 2/3/4 bits, the 16000-lane head at M 1 and 64, decode
+   attention at 16 heads); (c) tp 1 on an NCCL group with captured graphs
+   holding the all-reduces, tokens equal to the plain Engine's
+   (PARALLEL_NCCL); (d) at 4 layers, two gloo ranks: the pipeline (2
+   stages x 2 microbatches, float32) within 2e-4 of one process's
+   forward, the data-parallel slots' tokens and the data-parallel
+   evaluation's losses equal to one process's (PARALLEL_SMALL).  The
+   PARALLEL line sums them up with the phase's seconds.
+9. the kernels line (with an M = 64 entry per row 1, 2 and 4 for the
    tile kernel, `<name>_tile`), the card line, and the last line
    {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import importlib.metadata
 import json
 import math
@@ -269,6 +291,14 @@ SITES_7B = {  # name -> (N, K, kernel)
     "gateup": (22016, 4096, "quant_matmul_indexed"),
     "down": (4096, 11008, "quant_matmul_swiglu_indexed"),
     "head": (32000, 4096, "quant_matmul"),
+    # one rank's shard at tp 2 (phase 8): head-cut qkv, row-cut o, the
+    # 43-group intermediate (gate/up lanes, down's K 5504 in superblocks
+    # of 512), the 16000-lane vocab shard of the head
+    "qkv_tp2": (6144, 4096, "quant_matmul_indexed"),
+    "o_tp2": (4096, 2048, "quant_matmul_indexed"),
+    "gateup_tp2": (11008, 4096, "quant_matmul_indexed"),
+    "down_tp2": (4096, 5504, "quant_matmul_swiglu_indexed"),
+    "head_tp2": (16000, 4096, "quant_matmul"),
 }
 #: max |kernel - plain| / max |plain|, by output dtype: a bf16 output
 #: carries one rounding (2^-8 relative) on either side, an f32 output
@@ -281,7 +311,7 @@ def check_matmul(site, nbits, M, meta_dtype, gen):
     from amq_tpu_torch.core.quantize import QuantizedTensor, dequantize_kn
     from amq_tpu_torch.ops import quant_matmul as qm
     N, K, kernel = SITES_7B[site]
-    out_dtype = torch.float32 if site == "head" else torch.bfloat16
+    out_dtype = torch.float32 if site.startswith("head") else torch.bfloat16
     # enough layers that cycling through them overflows the L2
     L = max(2, min(24, math.ceil(200e6 / (N * K * nbits / 8))))
     packed, scale, zero, sb = rand_site(N, K, nbits, L, meta_dtype, gen)
@@ -2704,6 +2734,516 @@ def realization_phases(stats_path):
                 wall_s=wall)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: parallel forms as torch.distributed ranks on the one card
+
+PAR_PROMPT, PAR_GEN, PAR_SEED = 64, 32, 7
+#: depth of the pipeline, data-parallel slot and evaluation paths (8d)
+PAR_SMALL_LAYERS = 4
+#: the JAX suite's TP tolerances (tests/test_tp_stacked.py: prefill,
+#: decode chain), set on 4-layer models and gated here at that depth (8d)
+TP_TOL, TP_CHAIN_TOL = 2e-4, 3e-4
+
+
+def numerics():
+    """Phase 1's settings, in a rank process: float32 products in full
+    float32, bf16 products reduced in float32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def par_config(layers):
+    import dataclasses
+    from amq_tpu_torch.models.config import get_config
+    cfg = get_config("Llama-2-7b-hf")
+    return cfg if layers == cfg.num_layers else dataclasses.replace(
+        cfg, num_layers=layers)
+
+
+def par_arch(cfg):
+    """Every site of layer i at BITS[i % 3] (phase 4's layout)."""
+    from amq_tpu_torch.models.config import LINEAR_NAMES
+    return {"linear": {n: [BITS[i % 3] for i in range(cfg.num_layers)]
+                       for n in LINEAR_NAMES}}
+
+
+def random_proxy(cfg, nbits):
+    """A ``quantize_model``-layout proxy of ``cfg`` at ``nbits`` with random
+    packed codes, bf16 scale/zero (zero in the K pad groups, as quantize
+    leaves them) and random bf16 dense parts, drawn on the card from
+    generators seeded with PAR_SEED: every rank and the reference draw
+    the same tensors."""
+    from amq_tpu_torch.core.bitpack import pick_superblock_padded
+    from amq_tpu_torch.core.quantize import QuantizedTensor
+    from amq_tpu_torch.models.config import LINEAR_NAMES
+    from amq_tpu_torch.models.linear import DenseLinear, QuantLinear
+    gen = torch.Generator(device="cuda").manual_seed(PAR_SEED * 16 + nbits)
+    H, V = cfg.hidden_size, cfg.vocab_size
+    ones = torch.ones(H, dtype=torch.bfloat16, device="cuda")
+    layers = []
+    for _ in range(cfg.num_layers):
+        layer = {"input_norm": ones, "post_norm": ones}
+        for name in LINEAR_NAMES:
+            N, K = cfg.linear_shape(name)
+            sb, k_pad = pick_superblock_padded(K)
+            G, Gp = K // 128, (K + k_pad) // 128
+            meta = torch.zeros((2, Gp, N), dtype=torch.bfloat16,
+                               device="cuda")
+            meta[0, :G] = (torch.rand((G, N), generator=gen, device="cuda")
+                           * 0.02).to(torch.bfloat16)
+            meta[1, :G] = (torch.rand((G, N), generator=gen, device="cuda")
+                           * (2**nbits - 1)).to(torch.bfloat16)
+            layer[name] = QuantLinear(qt=QuantizedTensor(
+                packed=rand_words(((K + k_pad) * nbits // 32, N), gen),
+                scale=meta[0], zero=meta[1], nbits=nbits, group_size=128,
+                shape=(N, K), superblock=sb))
+        layers.append(layer)
+    dense = torch.Generator(device="cuda").manual_seed(PAR_SEED)
+    embed, head = ((torch.randn((V, H), generator=dense, device="cuda")
+                    * 0.02).to(torch.bfloat16) for _ in range(2))
+    return {"embed": embed, "final_norm": ones, "layers": layers,
+            "lm_head": DenseLinear(weight=head)}
+
+
+def par_proxies(cfg):
+    return [lambda b=b: random_proxy(cfg, b) for b in BITS]
+
+
+def tp_stack_kw(cfg):
+    """Phase 4's layout: fused qkv / gateup (layer-uniform widths), 3-bit
+    in 4-bit containers, merged stacks; the 8-bit head vocab-sharded."""
+    from amq_tpu_torch.models.stacked import SERVE_CONTAINERS
+    return dict(arch=par_arch(cfg), container_bits=SERVE_CONTAINERS,
+                merge=True, head_bits=8)
+
+
+def tp_model(cfg, tp, rank):
+    """Shard ``rank`` of the tp-way serving model (tp_stack_kw)."""
+    from amq_tpu_torch.parallel import tp_stacked as tps
+    return tps.stack_proxies_tp(par_proxies(cfg), BITS, cfg, tp, rank,
+                                **tp_stack_kw(cfg))
+
+
+def tp_reference_model(cfg, tp):
+    """The unsharded stack of the same proxies, its 8-bit head the ``tp``
+    vocab shards' quantizations side by side (HQQ's zero refinement stops
+    on a whole-tensor error, so quantizing the whole head at once could
+    stop elsewhere: the reference holds the forward, not the quantizer)."""
+    import torch.nn.functional as F
+    from amq_tpu_torch.models.stacked import (SERVE_CONTAINERS,
+                                              merge_containers, quantize_head,
+                                              stack_proxies)
+    m = merge_containers(stack_proxies(par_proxies(cfg), BITS,
+                                       arch=par_arch(cfg),
+                                       container_bits=SERVE_CONTAINERS))
+    V, v_loc = cfg.vocab_size, -(-cfg.vocab_size // tp)
+    shards = []
+    for s in range(tp):
+        rows = m.lm_head[s * v_loc:(s + 1) * v_loc]
+        shards.append(quantize_head(F.pad(rows, (0, 0, 0, v_loc - len(rows))),
+                                    nbits=8))
+
+    def lanes(f):
+        x = torch.cat([getattr(q, f)[:, :v_loc] for q in shards], dim=1)[:, :V]
+        return F.pad(x, (0, -V % 2048))
+
+    head = dataclasses.replace(shards[0], packed=lanes("packed"),
+                               scale=lanes("scale"), zero=lanes("zero"),
+                               shape=(V, cfg.hidden_size))
+    return dataclasses.replace(m, lm_head=None, lm_head_qt=head)
+
+
+def tp_rank(rank, world, prompt):
+    """Phase 8a on one rank: the tp-way model at full width and depth on
+    the TP engine (eager, the rank's gloo group): float32 prefill logits
+    and greedy tokens, bf16 tokens; rank 0 also the launch counts of one
+    bf16 generate, the kernels the profiler saw on the card over another,
+    and decode ms/token."""
+    import torch.distributed as dist
+    from amq_tpu_torch import ops
+    from amq_tpu_torch.parallel import comm
+    from amq_tpu_torch.parallel import tp_stacked as tps
+    numerics()
+    cfg = par_config(32)
+    t0 = time.perf_counter()
+    model = tp_model(cfg, world, rank)
+    torch.cuda.synchronize()
+    out = dict(build_s=time.perf_counter() - t0,
+               backend=comm.backend(dist.group.WORLD),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    for dt in (torch.float32, torch.bfloat16):
+        eng = tps.make_tp_engine(cfg, dist.group.WORLD, world, model,
+                                 batch_size=1,
+                                 max_len=PAR_PROMPT + PAR_GEN + 8,
+                                 compute_dtype=dt, cache_dtype=dt,
+                                 graphs=False)
+        last, _ = eng._prefill(model, eng.tokens_to_device(prompt),
+                               eng.new_cache())
+        toks = eng.generate(prompt, max_new_tokens=PAR_GEN)
+        out[str(dt).split(".")[-1]] = dict(logits=last.float().cpu().numpy(),
+                                           tokens=toks)
+    # eng: the bf16 engine.  Launch counts over one generate, every rank
+    ops.reset_launch_counts()
+    eng.generate(prompt, max_new_tokens=PAR_GEN)
+    torch.cuda.synchronize()
+    out["launches"] = (ops.launch_counts(), ops.grouped_launch_counts(),
+                       ops.tile_launch_counts())
+    # the kernels rank 0's card ran over another (rank 1 runs it alike)
+    if rank == 0:
+        out["profiled"] = profiled_kernel_counts(
+            lambda: eng.generate(prompt, max_new_tokens=PAR_GEN))
+    else:
+        eng.generate(prompt, max_new_tokens=PAR_GEN)
+    cache = eng.new_cache()
+    first, cache = eng._prefill_token(model, eng.tokens_to_device(prompt),
+                                      cache)
+    length = cache.length.clone()
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    eng._decode_n(model, first, cache, n_steps=PAR_GEN)
+    torch.cuda.synchronize()
+    out["decode_ms_per_token"] = (time.perf_counter() - t0) * 1e3 / PAR_GEN
+    # where a token's time goes: the card's time by kernel over 8 steps
+    # (rank 0's profiler), and one rank's host-staged all-reduce of a
+    # decode step's [1, 1, H] bf16 partial sum, alone
+    cache.length.copy_(length)
+    dist.barrier()
+    if rank == 0:
+        out["decode_profile"] = device_profile(
+            lambda: eng._decode_n(model, first, cache, n_steps=8), 8)
+    else:
+        eng._decode_n(model, first, cache, n_steps=8)
+    x = torch.ones((1, 1, cfg.hidden_size), dtype=torch.bfloat16,
+                   device="cuda")
+    n = 2 * cfg.num_layers
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        comm.all_reduce_(x, dist.group.WORLD)
+    torch.cuda.synchronize()
+    out["all_reduce_us"] = (time.perf_counter() - t0) * 1e6 / n
+    return out
+
+
+def nccl_rank(rank, world, prompt):
+    """Phase 8c: the tp = 1 engine on an NCCL group with captured graphs
+    (the all-reduces inside them) against the plain Engine on the same
+    model, bf16, at PAR_SMALL_LAYERS layers."""
+    import torch.distributed as dist
+    from amq_tpu_torch.parallel import comm
+    from amq_tpu_torch.parallel import tp_stacked as tps
+    from amq_tpu_torch.serving.engine import Engine
+    numerics()
+    cfg = par_config(PAR_SMALL_LAYERS)
+    model = tp_model(cfg, 1, 0)
+    max_len = PAR_PROMPT + PAR_GEN + 8
+    eng = tps.make_tp_engine(cfg, dist.group.WORLD, 1, model, batch_size=1,
+                             max_len=max_len)
+    got = eng.generate(prompt, max_new_tokens=PAR_GEN)
+    want = Engine(model, cfg, batch_size=1, max_len=max_len).generate(
+        prompt, max_new_tokens=PAR_GEN)
+    # what the card ran over 8 replayed decode steps: NCCL kernels too
+    cache = eng.new_cache()
+    first, cache = eng._prefill_token(model, eng.tokens_to_device(prompt),
+                                      cache)
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng._decode_n(model, first, cache, n_steps=8)
+        torch.cuda.synchronize()
+    nccl = sum(ev.count for ev in prof.key_averages()
+               if "nccl" in ev.key.lower() and ev.self_device_time_total > 0)
+    return dict(backend=comm.backend(dist.group.WORLD),
+                tokens_equal=bool((got == want).all()),
+                runner=eng.runner.stats(), nccl_kernels_8_steps=nccl,
+                all_reduces_8_steps=2 * cfg.num_layers * 8)
+
+
+def small_model(cfg):
+    from amq_tpu_torch.models.stacked import stack_proxies
+    return stack_proxies(par_proxies(cfg), BITS, arch=par_arch(cfg))
+
+
+def small_inputs(cfg):
+    rng = np.random.default_rng(PAR_SEED)
+    return dict(
+        prompt=rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int64),
+        steps=rng.integers(0, cfg.vocab_size, (2, 4, 1)).astype(np.int64),
+        requests=[rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                  for n in (12, 30, 7, 21)],
+        eval=rng.integers(0, cfg.vocab_size, (3, 512)).astype(np.int32),
+        tp_prompt=rng.integers(0, cfg.vocab_size, (1, PAR_PROMPT)).astype(
+            np.int64))
+
+
+def eval_setup(cfg):
+    from amq_tpu_torch.models.llama import init_params
+    gen = torch.Generator(device="cuda").manual_seed(PAR_SEED)
+    params = init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+    return params, [par_arch(cfg), {"linear": {
+        n: [4] * cfg.num_layers for n in par_arch(cfg)["linear"]}}]
+
+
+def small_rank(rank, world):
+    """Phase 8d on one rank, PAR_SMALL_LAYERS layers at full width: the
+    pipeline (2 stages, 2 microbatches, batch 4, float32, kernels on), the
+    data-parallel slots (one each, float32, captured graphs) and the
+    data-parallel evaluation (JSD of two archs, bf16, samples 2 + 1)."""
+    from amq_tpu_torch.parallel import launch
+    numerics()
+    cfg = par_config(PAR_SMALL_LAYERS)
+    model, inp = small_model(cfg), small_inputs(cfg)
+    pp = launch.pp_run(rank, world, model, cfg, inp["prompt"], inp["steps"],
+                       n_micro=2, max_len=64, device="cuda", use_kernels=True)
+    dp = launch.dp_serving_run(rank, world, model, cfg, inp["requests"], 16,
+                               chunk_steps=4, prefill_buckets=(16, 32),
+                               max_len=64, device="cuda", use_kernels=True)
+    params, archs = eval_setup(cfg)
+    ev = launch.dp_eval_run(rank, world, cfg, params, {"s": inp["eval"]},
+                            archs, compute_dtype=torch.bfloat16,
+                            device="cuda")
+    del model, params
+    torch.cuda.empty_cache()
+    # tp 2 at this depth, float32, with the kernels: the JAX suite's
+    # tolerance was set on models this deep
+    tp = launch.tp_stacked_run(
+        rank, world, par_proxies(cfg), BITS, cfg, inp["tp_prompt"], steps=4,
+        stack_kw=tp_stack_kw(cfg), max_len=PAR_PROMPT + 8, device="cuda",
+        use_kernels=True)
+    return dict(pp=pp, dp=dp, eval=ev, tp=tp[2])
+
+
+def small_references():
+    """One process's answers to small_rank's three paths."""
+    from amq_tpu_torch.evaluation.evaluator import Evaluator
+    from amq_tpu_torch.models import linear as linear_mod
+    from amq_tpu_torch.models import llama
+    from amq_tpu_torch.models.stacked import forward_stacked
+    from amq_tpu_torch.serving.batched import SlotEngine
+    from amq_tpu_torch.serving.engine import (ContinuousBatcher, Request,
+                                              kernel_linear_impl)
+    cfg = par_config(PAR_SMALL_LAYERS)
+    model, inp = small_model(cfg), small_inputs(cfg)
+    cache = llama.KVCache.create(cfg, 4, 64, dtype=torch.float32,
+                                 device="cuda")
+    pp = []
+    with torch.inference_mode(), linear_mod.kernel_linears(
+            kernel_linear_impl), llama.forward_kernels(True):
+        for t in [inp["prompt"], *inp["steps"]]:
+            logits, cache = forward_stacked(
+                model, cfg, torch.as_tensor(t, device="cuda"), cache=cache,
+                compute_dtype=torch.float32)
+            pp.append(logits[:, -1].cpu().numpy())
+    se = SlotEngine(model, cfg, n_slots=2, max_len=64,
+                    compute_dtype=torch.float32, prefill_buckets=(16, 32),
+                    chunk_steps=4)
+    batcher = ContinuousBatcher(n_slots=2, max_len=64)
+    for i, p in enumerate(inp["requests"]):
+        batcher.submit(Request(uid=i, prompt=p, max_new_tokens=16))
+    dp = se.run(batcher)
+    del se, model
+    params, archs = eval_setup(cfg)
+    ev = Evaluator(cfg, dense_params=params, datasets={"s": inp["eval"]},
+                   batch_size=2, compute_dtype=torch.bfloat16)
+    evals = [ev.eval(a) for a in archs]
+    del ev, params
+    ref = tp_reference_model(cfg, 2)
+    cache = llama.KVCache.create(cfg, 1, PAR_PROMPT + 8, dtype=torch.float32,
+                                 device="cuda")
+    tp = []
+    with torch.inference_mode(), linear_mod.kernel_linears(
+            kernel_linear_impl), llama.forward_kernels(True):
+        logits, cache = forward_stacked(
+            ref, cfg, torch.as_tensor(inp["tp_prompt"], device="cuda"),
+            cache=cache, compute_dtype=torch.float32)
+        tp.append(logits.cpu().numpy())
+        for _ in range(4):
+            nxt = torch.argmax(logits[:, -1], dim=-1)
+            logits, cache = forward_stacked(ref, cfg, nxt[:, None],
+                                            cache=cache,
+                                            compute_dtype=torch.float32)
+            tp.append(logits.cpu().numpy())
+    return dict(pp=pp, dp=dp, eval=evals, tp=tp)
+
+
+def first_divergence(a, b):
+    diff = np.nonzero(np.ravel(a) != np.ravel(b))[0]
+    return int(diff[0]) if diff.size else None
+
+
+def parallel_phase(cases, gen):
+    """Phase 8: PARALLEL.  (a) tp 2 at full Llama-2-7B width and depth, two
+    ranks on the one card over gloo (NCCL refuses two ranks on one
+    device), against the single-card Engine on the unsharded stack;
+    (b) the kernels at one tp-2 rank's shapes (CASE lines, into
+    ``cases``); (c) tp 1 on an NCCL group with captured graphs; (d) the
+    pipeline, the data-parallel slots and the data-parallel evaluation
+    on two gloo ranks at PAR_SMALL_LAYERS layers against one process.
+    Fails unless every gate holds."""
+    from amq_tpu_torch.parallel import launch
+    from amq_tpu_torch.serving.engine import Engine
+    t_start = time.perf_counter()
+    rec = {"card": smi_line(), "note": "ranks share one card: times say "
+           "nothing about scaling across cards"}
+    cfg = par_config(32)
+    L = cfg.num_layers
+    prompt = np.random.default_rng(PAR_SEED).integers(
+        0, cfg.vocab_size, (1, PAR_PROMPT)).astype(np.int32)
+
+    # (a)
+    t0 = time.perf_counter()
+    ranks = launch.spawn(tp_rank, 2, prompt, backend="gloo", timeout=600)
+    tp_s = time.perf_counter() - t0
+    ref_model = tp_reference_model(cfg, 2)
+    ref, control = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        key = str(dt).split(".")[-1]
+        for use_kernels in (True, False):
+            eng = Engine(ref_model, cfg, batch_size=1,
+                         max_len=PAR_PROMPT + PAR_GEN + 8, compute_dtype=dt,
+                         cache_dtype=dt, use_kernels=use_kernels)
+            last, _ = eng._prefill(ref_model, eng.tokens_to_device(prompt),
+                                   eng.new_cache())
+            last = last.float().cpu().numpy()
+            if use_kernels:
+                ref[key] = dict(logits=last, tokens=eng.generate(
+                    prompt, max_new_tokens=PAR_GEN))
+            else:
+                # the same model on one card by another summation order
+                # (dequantize, library matmul): the size of a gap that is
+                # rounding alone at this depth
+                control[key] = float(np.abs(last - ref[key]["logits"]).max()
+                                     / np.abs(ref[key]["logits"]).max())
+            del eng
+    del ref_model
+    torch.cuda.empty_cache()
+    r0 = ranks[0]
+    f32_logits, f32_ref = r0["float32"]["logits"], ref["float32"]["logits"]
+    bf_logits, bf_ref = r0["bfloat16"]["logits"], ref["bfloat16"]["logits"]
+    want = (reckon_decode(L, 1, PAR_PROMPT, PAR_GEN - 1, False, False),
+            reckon_grouped(L, PAR_GEN - 1, False), reckon_tile(L, 1))
+    want_seen = dict(grouped=sum(want[1].values()), tile=sum(want[2].values()),
+                     decode_attention=want[0]["decode_attention_indexed"])
+    a = dict(
+        tp=2, backend=r0["backend"], layers=L, prompt=PAR_PROMPT,
+        gen=PAR_GEN, build_s=[r["build_s"] for r in ranks],
+        rank_peak_gib=[r["peak_gib"] for r in ranks], spawn_s=tp_s,
+        ranks_agree=all(np.array_equal(r["float32"]["tokens"],
+                                       r0["float32"]["tokens"])
+                        and np.array_equal(r["bfloat16"]["tokens"],
+                                           r0["bfloat16"]["tokens"])
+                        for r in ranks),
+        f32_tokens_equal=bool(np.array_equal(r0["float32"]["tokens"],
+                                             ref["float32"]["tokens"])),
+        f32_logits_jax_tol=bool(np.allclose(f32_logits, f32_ref, rtol=TP_TOL,
+                                            atol=TP_TOL)),
+        f32_logits_max_abs=float(np.abs(f32_logits - f32_ref).max()),
+        f32_logits_rel=float(np.abs(f32_logits - f32_ref).max()
+                             / np.abs(f32_ref).max()),
+        f32_ref_logit_max=float(np.abs(f32_ref).max()), tol=LOGIT_TOL,
+        f32_control_rel=control["float32"],
+        bf16_control_rel=control["bfloat16"],
+        bf16_first_divergence=first_divergence(r0["bfloat16"]["tokens"],
+                                               ref["bfloat16"]["tokens"]),
+        bf16_logits_rel=float(np.abs(bf_logits - bf_ref).max()
+                              / np.abs(bf_ref).max()),
+        bf16_top1_agree=bool(bf_logits.argmax() == bf_ref.argmax()),
+        launches=[r["launches"] for r in ranks], launches_want=want,
+        profiled_rank0=r0["profiled"], profiled_want=want_seen,
+        decode_ms_per_token=[r["decode_ms_per_token"] for r in ranks],
+        all_reduce_us=[r["all_reduce_us"] for r in ranks],
+        decode_profile_rank0=r0["decode_profile"])
+    a["routes_ok"] = (all(tuple(r["launches"]) == want for r in ranks)
+                      and r0["profiled"] == want_seen)
+    a["ok"] = (a["ranks_agree"] and a["f32_tokens_equal"]
+               and a["f32_logits_rel"] <= LOGIT_TOL and a["routes_ok"]
+               and a["backend"] == "gloo")
+    rec["tp2"] = a
+    print("PARALLEL_TP2 " + json.dumps({k: v for k, v in a.items()
+                                        if k not in ("launches",
+                                                     "launches_want")}),
+          flush=True)
+
+    # (b)
+    n0 = len(cases)
+    for site in ("qkv_tp2", "o_tp2", "gateup_tp2", "down_tp2"):
+        for nbits in (2, 3, 4):
+            cases.append(check_matmul(site, nbits, 1, torch.bfloat16, gen))
+    for M in (1, PAR_PROMPT):
+        cases.append(check_matmul("head_tp2", 8, M, torch.bfloat16, gen))
+    cases.append(check_attention("tp2-decode", 1, 16, 1, 128, 200, (128,),
+                                 gen))
+    torch.cuda.empty_cache()
+    shard = cases[n0:]
+    rec["shard_cases"] = dict(
+        n=len(shard), ok=all(c["ok"] for c in shard),
+        routes={f"{c.get('site', c.get('case'))}/{c.get('nbits', '')}/"
+                f"{c.get('M', '')}": c.get("route", "attention")
+                for c in shard})
+
+    # (c)
+    t0 = time.perf_counter()
+    c = launch.spawn(nccl_rank, 1, prompt, backend="nccl", timeout=300)[0]
+    c["spawn_s"] = time.perf_counter() - t0
+    c["ok"] = (c["tokens_equal"] and c["backend"] == "nccl"
+               and c["runner"]["captures"] >= 2
+               and c["runner"]["replays"] >= PAR_GEN)
+    rec["nccl_graphs"] = c
+    print("PARALLEL_NCCL " + json.dumps(c), flush=True)
+
+    # (d)
+    t0 = time.perf_counter()
+    got = launch.spawn(small_rank, 2, backend="gloo", timeout=600)
+    d_s = time.perf_counter() - t0
+    want = small_references()
+    pp_err = max(float(np.abs(g - w).max() / np.abs(w).max())
+                 for g, w in zip(got[0]["pp"], want["pp"]))
+    d = dict(
+        layers=PAR_SMALL_LAYERS, spawn_s=d_s,
+        pp_rel_err=pp_err, pp_ranks_agree=all(
+            all(np.array_equal(x, y) for x, y in zip(r["pp"], got[0]["pp"]))
+            for r in got),
+        dp_equal=all(r["dp"] == want["dp"] for r in got),
+        dp_requests=len(want["dp"]),
+        eval_losses=[[e[0]["s"] for e in r["eval"]] for r in got],
+        eval_want=[e[0]["s"] for e in want["eval"]])
+    d["eval_equal"] = all(
+        abs(g - w) <= 1e-6 * abs(w)
+        for losses in d["eval_losses"] for g, w in zip(losses, d["eval_want"]))
+    d["tp2_allclose"] = all(
+        np.allclose(g, w, rtol=tol, atol=tol)
+        for g, w, tol in zip(got[0]["tp"], want["tp"],
+                             [TP_TOL] + [TP_CHAIN_TOL] * 4))
+    d["tp2_ranks_agree"] = all(
+        all(np.array_equal(x, y) for x, y in zip(r["tp"], got[0]["tp"]))
+        for r in got)
+    d["tp2_max_abs"] = max(float(np.abs(g - w).max())
+                           for g, w in zip(got[0]["tp"], want["tp"]))
+    d["ok"] = (pp_err <= TP_TOL and d["pp_ranks_agree"] and d["dp_equal"]
+               and d["eval_equal"] and d["tp2_allclose"]
+               and d["tp2_ranks_agree"])
+    rec["small"] = d
+    print("PARALLEL_SMALL " + json.dumps(d), flush=True)
+
+    rec["seconds"] = time.perf_counter() - t_start
+    rec["ok"] = (a["ok"] and rec["shard_cases"]["ok"] and c["ok"]
+                 and d["ok"])
+    print("PARALLEL " + json.dumps(dict(
+        ok=rec["ok"], seconds=rec["seconds"], card=rec["card"],
+        note=rec["note"], tp2_ok=a["ok"], tp2_f32_tokens_equal=a[
+            "f32_tokens_equal"], tp2_routes_ok=a["routes_ok"],
+        tp2_decode_ms_per_token=a["decode_ms_per_token"],
+        shard_cases=rec["shard_cases"], nccl_graphs_ok=c["ok"],
+        small_ok=d["ok"])), flush=True)
+    if not rec["ok"]:
+        fail(f"parallel phase: {json.dumps(rec, default=str)[:2000]}")
+    return rec
+
+
+
 def main():
     # -- phase 1: environment ------------------------------------------------
     t_start = time.perf_counter()
@@ -2918,7 +3458,10 @@ def main():
     realize = realization_phases(
         os.path.join(OUT_DIR, "search_out", f"iter_{SEARCH_ITERS}.stats"))
 
-    # -- phase 8: kernels line and last line ---------------------------------
+    # -- phase 8: parallel forms on torch.distributed ranks -----------------
+    par = parallel_phase(cases, gen)
+
+    # -- phase 9: kernels line and last line ---------------------------------
     def pick(kernel, **match):
         return next(c for c in cases if c["kernel"] == kernel
                     and all(c.get(k) == v for k, v in match.items()))
@@ -3048,7 +3591,7 @@ def main():
                                    if k != "table"},
                    "eval_parity": eval_recs, "eval_profile": eval_prof,
                    "search": search_rec, "probes": probes,
-                   "realize": realize,
+                   "realize": realize, "parallel": par,
                    "build_report": build_rec},
                   f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -30,7 +30,11 @@ _MODULES = ("amq_tpu_torch.serving.engine", "amq_tpu_torch.serving.benchmark",
             "amq_tpu_torch.quantization.awq",
             "amq_tpu_torch.quantization.owq",
             "amq_tpu_torch.quantization.api", "amq_tpu_torch.cli.proxy",
-            "amq_tpu_torch.cli.quantize")
+            "amq_tpu_torch.cli.quantize", "amq_tpu_torch.parallel",
+            "amq_tpu_torch.parallel.comm", "amq_tpu_torch.parallel.multihost",
+            "amq_tpu_torch.parallel.tp", "amq_tpu_torch.parallel.tp_stacked",
+            "amq_tpu_torch.parallel.pp", "amq_tpu_torch.parallel.launch",
+            "amq_tpu_torch.serving.dp")
 
 
 def test_import_pulls_in_no_jax():
@@ -114,6 +118,15 @@ def test_entry_points_refuse_hidden_cpu(tmp_path):
     stats.write_text('{"archive": [], "candidates": []}')
     with pytest.raises(RuntimeError, match="CUDA"):
         quantize.main(["--synthetic", "--load", str(stats)])
+
+    from amq_tpu_torch.parallel import launch, tp_stacked
+    from amq_tpu_torch.serving.dp import DPSlotEngine
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tp_stacked.make_tp_engine(cfg, None, 1, model={}, graphs=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DPSlotEngine(model={}, cfg=cfg, group=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch.main([])
     with pytest.raises(RuntimeError, match="CUDA"):
         speed_benchmark.main(["--synthetic", "--method", "owq"])
 
