@@ -13,7 +13,10 @@ tensor-parallel unrolled model (``tp``), pipeline stages (``pp``), the
 tensor-parallel stacked serving model (``tp-stacked``, with a data axis),
 stages of tensor-parallel shards (``pp-tp``) and data-parallel slots
 (``dp-serving``); ``dp_eval_run`` is data-parallel evaluation.  They
-return numpy arrays and Python values.
+return numpy arrays and Python values.  Like the port's engines they run
+on the rank's card with the kernels unless the caller passes
+``device="cpu"`` (and, for the plain path, ``use_kernels=False``); without
+a card and without that request they raise.
 
     python -m amq_tpu_torch.parallel.launch --nprocs 4 --device cpu
 
@@ -37,6 +40,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..core.device import resolve_device
 
 
 # ---------------------------------------------------------------------------
@@ -128,13 +133,14 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 def tp_stacked_run(rank, world, proxies, bits_range, cfg, tokens, *,
                    steps=0, tp=None, stack_kw=None,
-                   compute_dtype=torch.float32, max_len=32, device="cpu",
-                   use_kernels=False):
+                   compute_dtype=torch.float32, max_len=32, device=None,
+                   use_kernels=True):
     """Prefill ``tokens`` [B, S] and ``steps`` greedy decode steps through
     the TP stacked forward: ``tp`` ranks per 'tensor' row (default all),
     the batch rows split over the 'data' rows; ``use_kernels`` routes the
     linears and decode attention through the kernels.  Returns ``(data
     index, tensor index, [logits of each call])`` for this rank's rows."""
+    device = resolve_device(device)
     from ..models import linear as linear_mod
     from ..models import llama
     from ..serving.engine import kernel_linear_impl
@@ -164,10 +170,11 @@ def tp_stacked_run(rank, world, proxies, bits_range, cfg, tokens, *,
 
 
 def tp_run(rank, world, params, cfg, tokens, step_tokens=(), *,
-           compute_dtype=torch.float32, max_len=32, device="cpu"):
+           compute_dtype=torch.float32, max_len=32, device=None):
     """The TP unrolled forward over ``params`` (``init_params``-shaped):
     prefill ``tokens`` with a cache, then one call per ``step_tokens``
     entry [B, 1].  Returns the logits of each call."""
+    device = resolve_device(device)
     from ..models import llama
     from . import tp as tpmod
     shard = tpmod.shard_params(params, world, rank)
@@ -187,13 +194,14 @@ def tp_run(rank, world, params, cfg, tokens, step_tokens=(), *,
 
 def pp_run(rank, world, model_or_proxies, cfg, prompt, step_tokens=(), *,
            n_micro=2, tp=1, bits_range=None, arch=None,
-           compute_dtype=torch.float32, max_len=32, device="cpu",
-           use_kernels=False):
+           compute_dtype=torch.float32, max_len=32, device=None,
+           use_kernels=True):
     """A pipeline over ``world / tp`` stages: prefill ``prompt`` [B, S],
     then one decode call per ``step_tokens`` entry [B, 1].  With ``tp > 1``
     ``model_or_proxies`` are the per-bit proxies (each stage a TP group of
     ``parallel.tp_stacked`` shards), else the stacked model.  Returns the
     last-position logits of each call."""
+    device = resolve_device(device)
     from . import pp, tp_stacked as tps
     n_stages = world // tp
     mesh = pp.stage_mesh(n_stages, tp)
@@ -217,10 +225,11 @@ def pp_run(rank, world, model_or_proxies, cfg, prompt, step_tokens=(), *,
 
 def dp_serving_run(rank, world, model, cfg, prompts, n_new, *,
                    slots_per_rank=1, chunk_steps=1, prefill_buckets=(8, 16),
-                   compute_dtype=torch.float32, max_len=64, device="cpu",
-                   use_kernels=False):
+                   compute_dtype=torch.float32, max_len=64, device=None,
+                   use_kernels=True):
     """Data-parallel slots: every rank submits the same requests and runs
     the same loop.  Returns ``{uid: tokens}`` as this rank saw it."""
+    device = resolve_device(device)
     from ..serving.dp import DPSlotEngine
     from ..serving.engine import ContinuousBatcher, Request
     eng = DPSlotEngine(model, cfg, dist.group.WORLD,
@@ -243,10 +252,11 @@ def hqq_realize(params, cfg, arch, method="hqq"):
 
 def dp_eval_run(rank, world, cfg, dense_params, datasets, archs, *,
                 batch_size=2, search=True, compute_dtype=torch.float32,
-                device="cpu"):
+                device=None):
     """Data-parallel evaluation: an ``Evaluator`` whose samples are split
     over the group's ranks (final mode: HQQ realizations).  Returns
     ``eval(arch)`` for each arch."""
+    device = resolve_device(device)
     from ..evaluation.evaluator import Evaluator
     ev = Evaluator(cfg, dense_params=dense_params, datasets=datasets,
                    batch_size=batch_size, compute_dtype=compute_dtype,
@@ -302,8 +312,10 @@ def dryrun(nprocs: int = 4, device: str = "cpu", backend: str = "gloo"):
     toks = rng.integers(0, cfg.vocab_size, (4, 8)).astype(np.int64)
     steps = rng.integers(0, cfg.vocab_size, (2, 4, 1)).astype(np.int64)
     tp = 2 if nprocs % 2 == 0 else 1
-    # one intra-op thread a rank on the CPU: the ranks share its cores
+    # one intra-op thread a rank on the CPU: the ranks share its cores;
+    # the rank programs on the plain path, as the references run
     kw = dict(backend=backend, threads=1 if device == "cpu" else None)
+    plain = dict(device=device, use_kernels=False)
 
     def ref_chain(model, fwd, n):
         cache = llama.KVCache.create(cfg, 4, 32, dtype=f32, device=device)
@@ -330,14 +342,14 @@ def dryrun(nprocs: int = 4, device: str = "cpu", backend: str = "gloo"):
         m, cfg, t, cache=c, compute_dtype=f32), 2)
     # pp: stages of the stacked model
     got = spawn(pp_run, nprocs, stacked, cfg, toks, steps, n_micro=2,
-                device=device, **kw)[0]
+                **plain, **kw)[0]
     err = max(_close(g, w[:, -1]) for g, w in zip(got, want))
     print(f"dryrun pp ok: stages={nprocs} rel_err={err:.2e}", flush=True)
 
     # tp-stacked: (data x tensor), batch rows over 'data'
     res = spawn(tp_stacked_run, nprocs, proxies, bits, cfg, toks, steps=2,
                 tp=tp, stack_kw=dict(arch=arch, head_bits=None),
-                device=device, **kw)
+                **plain, **kw)
     rows = {d: outs for d, t, outs in res if t == 0}
     got = [np.concatenate([rows[d][i] for d in sorted(rows)])
            for i in range(3)]
@@ -350,7 +362,7 @@ def dryrun(nprocs: int = 4, device: str = "cpu", backend: str = "gloo"):
     # pp-tp: stages of tensor-parallel shards
     if nprocs >= 4 and tp == 2:
         got = spawn(pp_run, nprocs, proxies, cfg, toks, steps, n_micro=2,
-                    tp=2, bits_range=bits, arch=arch, device=device, **kw)[0]
+                    tp=2, bits_range=bits, arch=arch, **plain, **kw)[0]
         err = max(_close(g, w[:, -1], 3e-4) for g, w in zip(got, want))
         print(f"dryrun pp-tp ok: stages={nprocs // 2} tensor=2 "
               f"rel_err={err:.2e}", flush=True)
@@ -358,7 +370,7 @@ def dryrun(nprocs: int = 4, device: str = "cpu", backend: str = "gloo"):
     # dp-serving: slots over ranks against one process
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 7, 4, 6)]
     got = spawn(dp_serving_run, nprocs, stacked, cfg, prompts, 4,
-                device=device, **kw)
+                **plain, **kw)
     local = SlotEngine(stacked, cfg, n_slots=2, max_len=64, compute_dtype=f32,
                        use_kernels=False, prefill_buckets=(8, 16),
                        device=device)
@@ -380,7 +392,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                    help="cuda (every rank on card rank %% count) or cpu")
     p.add_argument("--backend", default="gloo", choices=("gloo", "nccl"))
     args = p.parse_args(argv)
-    from ..core.device import resolve_device
     resolve_device(args.device)
     dryrun(args.nprocs, args.device, args.backend)
     return 0

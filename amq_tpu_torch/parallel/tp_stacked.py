@@ -42,10 +42,6 @@ from ..models.linear import QuantLinear
 from ..models.stacked import (StackedModel, forward_stacked,
                               merge_containers, quantize_head, stack_proxies)
 
-COLUMN_PARALLEL = ("self_attn.q_proj", "self_attn.k_proj",
-                   "self_attn.v_proj", "mlp.gate_proj", "mlp.up_proj")
-ROW_PARALLEL = ("self_attn.o_proj", "mlp.down_proj")
-
 
 # ---------------------------------------------------------------------------
 # shard geometry

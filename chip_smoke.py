@@ -152,9 +152,10 @@ Phases (any failed check exits non-zero before the last line):
    device), phase 4's layout from random seeded proxies cut with
    shard_proxy and stacked per rank, the 8-bit head vocab-sharded, on the
    TP engine (eager), against the single-card Engine on the unsharded
-   stack: float32 greedy tokens equal and prefill logits within LOGIT_TOL
-   of the largest logit (beside the single card's own kernel-vs-plain gap
-   and the JAX suite's elementwise 2e-4, reported), the bf16 first
+   stack: float32 greedy tokens equal and the prefill logits' gap, over
+   the largest logit, within the larger of TP_TOL (2e-4) and twice the
+   single card's own kernel-vs-plain gap measured in the same run (the
+   JAX suite's elementwise 2e-4 reported beside it), the bf16 first
    divergence and logit gap reported (beside the single card's bf16
    kernel-vs-plain gap), every decode
    GEMV on the grouped route and the prefill on the tile kernel (wrapper
@@ -163,14 +164,16 @@ Phases (any failed check exits non-zero before the last line):
    host-staged all-reduce's microseconds (two ranks on one card: no
    scaling claim) (PARALLEL_TP2); (b) CASE lines at one tp-2 rank's shapes (qkv, o,
    gateup, down at 2/3/4 bits, the 16000-lane head at M 1 and 64, decode
-   attention at 16 heads); (c) tp 1 on an NCCL group with captured graphs
-   holding the all-reduces, tokens equal to the plain Engine's
+   attention at 16 heads); (c) tp 1 on an NCCL group with captured graphs,
+   tokens equal to the plain Engine's (on a one-rank group NCCL's
+   all-reduce launches nothing, so the graphs hold no collective; the
+   profiler's NCCL kernel count is reported)
    (PARALLEL_NCCL); (d) at 4 layers, two gloo ranks: the pipeline (2
    stages x 2 microbatches, float32) within 2e-4 of one process's
    forward, the data-parallel slots' tokens and the data-parallel
    evaluation's losses equal to one process's, tp 2 (prefill and a
-   4-step chain, float32, kernels) within LOGIT_TOL of the single card
-   beside its kernel-vs-plain control (PARALLEL_SMALL).  The
+   4-step chain, float32, kernels) within the larger of TP_TOL and twice
+   the single card's kernel-vs-plain gap (PARALLEL_SMALL).  The
    PARALLEL line sums them up with the phase's seconds.
 9. the kernels line (with an M = 64 entry per row 1, 2 and 4 for the
    tile kernel, `<name>_tile`), the card line, and the last line
@@ -1902,6 +1905,13 @@ PROFILED_KERNELS = {"grouped": "qmm_grouped_kernel<", "tile": "qmm_tile_kernel<"
                     "decode_attention": "decode_attn_kernel<"}
 
 
+#: idle seconds at each end of a counting session: without them a few
+#: device records at a session's edge now and then went missing (a
+#: short count with equal tokens); probes/profile_window.py runs the
+#: count both ways
+PROFILE_PAD_S = 0.05
+
+
 def profiled_kernel_counts(run):
     """Kernels the profiler saw on the card over ``run()``, by family
     (PROFILED_KERNELS): counted from the device's own records, so graph
@@ -1909,8 +1919,10 @@ def profiled_kernel_counts(run):
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         run()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
     counts = {fam: 0 for fam in PROFILED_KERNELS}
     for ev in prof.key_averages():
         if ev.self_device_time_total <= 0:
@@ -2749,13 +2761,19 @@ PAR_SMALL_LAYERS = 4
 #: the JAX suite's TP tolerances (tests/test_tp_stacked.py: prefill,
 #: decode chain), elementwise, set at graft-tp's widths (hidden 512),
 #: where the CPU tests hold them.  At 7B width the card's own float32
-#: kernel-vs-plain gap on one card already exceeds them (2.8e-4 of the
+#: kernel-vs-plain gap on one card can exceed them (2.8e-4 of the
 #: largest logit at 32 layers on an H100), so phase 8 reports them and
-#: gates the TP logits on LOGIT_TOL, phase 4's float32 tolerance for a
-#: gap of summation order alone, beside that control (PARALLEL_*
-#: ``*_control_rel``); the pipeline's logits stay gated at TP_TOL of the
-#: largest logit
+#: gates the TP logits' gap over the largest logit on tp_tol(): TP_TOL,
+#: or twice the single card's kernel-vs-plain gap of the same run where
+#: that is larger (PARALLEL_* ``*_control_rel``).  The pipeline's logits
+#: stay gated at TP_TOL of the largest logit
 TP_TOL, TP_CHAIN_TOL = 2e-4, 3e-4
+
+
+def tp_tol(control_rel):
+    """The TP logit gate: a sharding fault must show above both the JAX
+    suite's tolerance and the summation-order gap one card shows alone."""
+    return max(TP_TOL, 2.0 * control_rel)
 
 
 def numerics():
@@ -2943,8 +2961,9 @@ def tp_rank(rank, world, prompt):
 
 def nccl_rank(rank, world, prompt):
     """Phase 8c: the tp = 1 engine on an NCCL group with captured graphs
-    (the all-reduces inside them) against the plain Engine on the same
-    model, bf16, at PAR_SMALL_LAYERS layers."""
+    against the plain Engine on the same model, bf16, at PAR_SMALL_LAYERS
+    layers.  The all-reduces are called inside the captures, but on one
+    rank NCCL launches no kernel for them (``nccl_kernels_8_steps``)."""
     import torch.distributed as dist
     from amq_tpu_torch.parallel import comm
     from amq_tpu_torch.parallel import tp_stacked as tps
@@ -3158,8 +3177,8 @@ def parallel_phase(cases, gen):
         f32_logits_max_abs=float(np.abs(f32_logits - f32_ref).max()),
         f32_logits_rel=float(np.abs(f32_logits - f32_ref).max()
                              / np.abs(f32_ref).max()),
-        f32_ref_logit_max=float(np.abs(f32_ref).max()), tol=LOGIT_TOL,
-        f32_control_rel=control["float32"],
+        f32_ref_logit_max=float(np.abs(f32_ref).max()),
+        tol=tp_tol(control["float32"]), f32_control_rel=control["float32"],
         bf16_control_rel=control["bfloat16"],
         bf16_first_divergence=first_divergence(r0["bfloat16"]["tokens"],
                                                ref["bfloat16"]["tokens"]),
@@ -3174,7 +3193,7 @@ def parallel_phase(cases, gen):
     a["routes_ok"] = (all(tuple(r["launches"]) == want for r in ranks)
                       and r0["profiled"] == want_seen)
     a["ok"] = (a["ranks_agree"] and a["f32_tokens_equal"]
-               and a["f32_logits_rel"] <= LOGIT_TOL and a["routes_ok"]
+               and a["f32_logits_rel"] <= a["tol"] and a["routes_ok"]
                and a["backend"] == "gloo")
     rec["tp2"] = a
     print("PARALLEL_TP2 " + json.dumps({k: v for k, v in a.items()
@@ -3242,9 +3261,9 @@ def parallel_phase(cases, gen):
     d["tp2_control_rel"] = max(
         float(np.abs(c - w).max() / np.abs(w).max())
         for c, w in zip(want["tp_control"], want["tp"]))
-    d["tp2_tol"] = LOGIT_TOL
+    d["tp2_tol"] = tp_tol(d["tp2_control_rel"])
     d["ok"] = (pp_err <= TP_TOL and d["pp_ranks_agree"] and d["dp_equal"]
-               and d["eval_equal"] and d["tp2_rel"] <= LOGIT_TOL
+               and d["eval_equal"] and d["tp2_rel"] <= d["tp2_tol"]
                and d["tp2_ranks_agree"])
     rec["small"] = d
     print("PARALLEL_SMALL " + json.dumps(d), flush=True)

@@ -66,7 +66,8 @@ def test_dp_slots_match_jax(served, chunk_steps):
     got = launch.spawn(launch.dp_serving_run, 4, tmodel,
                        t_get_config(cfg.name), prompts, 5,
                        chunk_steps=chunk_steps, prefill_buckets=(8, 16),
-                       max_len=64, backend="gloo", threads=1)
+                       max_len=64, device="cpu", use_kernels=False,
+                       backend="gloo", threads=1)
     for rank_got in got:               # every rank holds every request
         assert rank_got == want
 
@@ -94,7 +95,8 @@ def test_dp_eval_matches_one_process(evaluated, search):
                     quantize_fn=None if search else launch.hqq_realize)
     want = [one.eval(a) for a in archs]
     got = launch.spawn(launch.dp_eval_run, 2, cfg, params, data, archs,
-                       search=search, backend="gloo", threads=1)
+                       search=search, device="cpu", backend="gloo",
+                       threads=1)
     for rank_got in got:
         for (g, gb), (w, wb) in zip(rank_got, want):
             assert gb == wb

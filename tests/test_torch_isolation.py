@@ -23,6 +23,7 @@ _MODULES = ("amq_tpu_torch.serving.engine", "amq_tpu_torch.serving.benchmark",
             "amq_tpu_torch.probes.kernel_attrib",
             "amq_tpu_torch.probes.pipelined_gemv",
             "amq_tpu_torch.probes.kernel_roofline",
+            "amq_tpu_torch.probes.profile_window",
             "amq_tpu_torch.core.pseudo", "amq_tpu_torch.core.lora",
             "amq_tpu_torch.utils.checkpoint", "amq_tpu_torch.models.hf",
             "amq_tpu_torch.quantization", "amq_tpu_torch.quantization.calib",
@@ -127,6 +128,14 @@ def test_entry_points_refuse_hidden_cpu(tmp_path):
         DPSlotEngine(model={}, cfg=cfg, group=None)
     with pytest.raises(RuntimeError, match="CUDA"):
         launch.main([])
+    # the rank programs resolve their device as the engines do
+    for run, args in ((launch.tp_stacked_run, ([], (2,), cfg, [[0]])),
+                      (launch.tp_run, ({}, cfg, [[0]])),
+                      (launch.pp_run, ({}, cfg, [[0]])),
+                      (launch.dp_serving_run, ({}, cfg, [[0]], 1)),
+                      (launch.dp_eval_run, (cfg, {}, {}, []))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run(0, 1, *args)
     with pytest.raises(RuntimeError, match="CUDA"):
         speed_benchmark.main(["--synthetic", "--method", "owq"])
 

@@ -79,7 +79,8 @@ def test_pp_matches_jax(setup):
                    prompt, steps)
     res = launch.spawn(launch.pp_run, 2, tmodel, t_get_config(cfg.name),
                        prompt.astype(np.int64), steps.astype(np.int64),
-                       n_micro=2, max_len=T, backend="gloo", threads=1)
+                       n_micro=2, max_len=T, device="cpu", use_kernels=False,
+                       backend="gloo", threads=1)
     for got in res:                 # the last stage's logits on every rank
         for i, (g, w) in enumerate(zip(got, want)):
             np.testing.assert_allclose(g, w, rtol=2e-4, atol=2e-4,
@@ -105,7 +106,8 @@ def test_pp_tp_matches_jax(setup):
     res = launch.spawn(launch.pp_run, 4, tproxies, t_get_config(cfg.name),
                        prompt.astype(np.int64), steps.astype(np.int64),
                        n_micro=2, tp=2, bits_range=BITS, arch=arch,
-                       max_len=T, backend="gloo", threads=1)
+                       max_len=T, device="cpu", use_kernels=False,
+                       backend="gloo", threads=1)
     for got in res:
         for i, (g, w) in enumerate(zip(got, want)):
             np.testing.assert_allclose(g, w, rtol=3e-4, atol=3e-4,

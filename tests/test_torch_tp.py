@@ -220,8 +220,8 @@ def test_tp_stacked_chain_matches_jax(built, jax_tp, kind, tp):
                          steps=4)
     res = launch.spawn(launch.tp_stacked_run, tp, tproxies, BITS, tcfg,
                        toks.astype(np.int64), steps=4,
-                       stack_kw=dict(arch=arch, **SERVE), backend="gloo",
-                       threads=1)
+                       stack_kw=dict(arch=arch, **SERVE), device="cpu",
+                       use_kernels=False, backend="gloo", threads=1)
     # every rank returns the same gathered logits
     for _, _, outs in res[1:]:
         for a, b in zip(outs, res[0][2]):
@@ -249,7 +249,8 @@ def test_tp_stacked_data_tensor_matches_jax(built):
     want = np.asarray(fwd(model, jnp.asarray(toks), cache)[0])
     res = launch.spawn(launch.tp_stacked_run, 4, tproxies, BITS, tcfg,
                        toks.astype(np.int64), tp=2,
-                       stack_kw=dict(arch=arch), backend="gloo", threads=1)
+                       stack_kw=dict(arch=arch), device="cpu",
+                       use_kernels=False, backend="gloo", threads=1)
     rows = {d: outs[0] for d, t, outs in res if t == 0}
     got = np.concatenate([rows[0], rows[1]])
     np.testing.assert_allclose(got, want, rtol=PREFILL_TOL, atol=PREFILL_TOL)

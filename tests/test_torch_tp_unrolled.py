@@ -67,7 +67,7 @@ def test_tp_unrolled_matches_jax(unrolled, tp):
         want.append(np.asarray(logits))
     got = launch.spawn(launch.tp_run, tp, tparams, t_get_config("graft-tp"),
                        toks.astype(np.int64), steps.astype(np.int64),
-                       backend="gloo", threads=1)[0]
+                       device="cpu", backend="gloo", threads=1)[0]
     for i, (g, w) in enumerate(zip(got, want)):
         np.testing.assert_allclose(g, w, rtol=PREFILL_TOL, atol=PREFILL_TOL,
                                    err_msg=f"call {i}")
@@ -109,7 +109,8 @@ def test_tp_unrolled_proxy_switch_matches_jax():
             select=BITS.index(arch["linear"][n][i])) for n in LINEAR_NAMES}}
         for i, layer in enumerate(ported[-1]["layers"])]
     got = launch.spawn(launch.tp_run, 2, tsw, t_get_config("graft-tp"),
-                       toks.astype(np.int64), backend="gloo", threads=1)[0]
+                       toks.astype(np.int64), device="cpu", backend="gloo",
+                       threads=1)[0]
     np.testing.assert_allclose(got[0], want, rtol=PREFILL_TOL,
                                atol=PREFILL_TOL)
 
