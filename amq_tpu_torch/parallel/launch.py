@@ -30,12 +30,13 @@ from __future__ import annotations
 import argparse
 import os
 import pickle
-import queue
 import sys
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from multiprocessing import connection as mp_connection
+from multiprocessing import resource_tracker
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,8 +48,17 @@ from ..core.device import resolve_device
 # ---------------------------------------------------------------------------
 # spawning
 
+def _stop_resource_tracker() -> None:
+    """Stop the resource tracker that starting a spawn-context process
+    launches: a helper process that otherwise outlives every rank and
+    exits only after this process does.  Only for a tracker that
+    :func:`spawn` started itself: the ranks report over pipes, which
+    register nothing with it."""
+    resource_tracker._resource_tracker._stop()
+
+
 def _rank_main(fn, rank, world, backend, init_method, args, kwargs, threads,
-               out):
+               conn):
     try:
         if threads:
             torch.set_num_threads(threads)
@@ -60,10 +70,12 @@ def _rank_main(fn, rank, world, backend, init_method, args, kwargs, threads,
             result = fn(rank, world, *args, **kwargs)
         finally:
             dist.destroy_process_group()
-        out.put((rank, True, pickle.dumps(result)))
+        conn.send((True, pickle.dumps(result)))
     except BaseException:
-        out.put((rank, False, traceback.format_exc()))
+        conn.send((False, traceback.format_exc()))
         raise
+    finally:
+        conn.close()
 
 
 def spawn(fn: Callable, nprocs: int, *args, backend: str,
@@ -76,37 +88,40 @@ def spawn(fn: Callable, nprocs: int, *args, backend: str,
     ``timeout`` seconds makes this raise (every rank is then stopped).
     ``threads`` sets each rank's intra-op thread count."""
     ctx = torch.multiprocessing.get_context("spawn")
+    tracker_was_running = resource_tracker._resource_tracker._fd is not None
     results: Dict[int, Any] = {}
     errors: Dict[int, str] = {}
     with tempfile.TemporaryDirectory() as tmp:
         init = "file://" + os.path.join(tmp, "store")
-        out = ctx.Queue()
+        pipes = [ctx.Pipe(duplex=False) for _ in range(nprocs)]
         procs = [ctx.Process(target=_rank_main,
                              args=(fn, r, nprocs, backend, init, args,
-                                   kwargs, threads, out))
+                                   kwargs, threads, pipes[r][1]))
                  for r in range(nprocs)]
         for p in procs:
             p.start()
+        for _, send in pipes:
+            send.close()
+        waiting = {pipes[r][0]: r for r in range(nprocs)}
         deadline = time.monotonic() + timeout
         try:
-            while len(results) + len(errors) < nprocs:
-                try:
-                    rank, ok, payload = out.get(timeout=0.5)
-                except queue.Empty:
-                    dead = [r for r, p in enumerate(procs)
-                            if p.exitcode not in (None, 0)
-                            and r not in results and r not in errors]
-                    if dead or time.monotonic() > deadline:
-                        why = (f"ranks {dead} died" if dead
-                               else f"timed out after {timeout} s")
-                        raise RuntimeError(f"spawn of {fn.__name__}: {why}; "
-                                           f"errors {errors}")
-                    continue
-                if ok:
-                    results[rank] = pickle.loads(payload)
-                else:
-                    errors[rank] = payload
-                    break
+            while waiting and not errors:
+                for conn in mp_connection.wait(list(waiting), timeout=0.5):
+                    rank = waiting.pop(conn)
+                    try:
+                        ok, payload = conn.recv()
+                    except EOFError:
+                        procs[rank].join(timeout=5)
+                        errors[rank] = (f"exited without a result (exit code "
+                                        f"{procs[rank].exitcode})")
+                        continue
+                    if ok:
+                        results[rank] = pickle.loads(payload)
+                    else:
+                        errors[rank] = payload
+                if waiting and time.monotonic() > deadline:
+                    raise RuntimeError(f"spawn of {fn.__name__}: timed out "
+                                       f"after {timeout} s; errors {errors}")
         finally:
             if errors or len(results) < nprocs:
                 for p in procs:
@@ -117,11 +132,41 @@ def spawn(fn: Callable, nprocs: int, *args, backend: str,
                 if p.is_alive():
                     p.kill()
                     p.join()
+            for recv, _ in pipes:
+                recv.close()
+            if not tracker_was_running:
+                _stop_resource_tracker()
     if errors:
         raise RuntimeError(f"spawn of {fn.__name__} failed:\n"
                            + "\n".join(f"rank {r}:\n{e}"
                                        for r, e in sorted(errors.items())))
     return [results[r] for r in range(nprocs)]
+
+
+def descendants(pid: Optional[int] = None) -> List[Tuple[int, str]]:
+    """The live processes below ``pid`` (default this process), children
+    and theirs, as ``(pid, command line)`` read from ``/proc``; exited
+    ones not yet reaped are left out."""
+    root = os.getpid() if pid is None else pid
+    parent, cmd = {}, {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                line = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:                          # exited while we looked
+            continue
+        if fields[0] != "Z":
+            parent[int(d)], cmd[int(d)] = int(fields[1]), line.strip()
+    found, frontier = [], [root]
+    while frontier:
+        kids = [p for p, pp in parent.items() if pp in frontier]
+        found += kids
+        frontier = kids
+    return [(p, cmd[p]) for p in sorted(found)]
 
 
 # ---------------------------------------------------------------------------

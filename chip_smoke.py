@@ -175,7 +175,9 @@ Phases (any failed check exits non-zero before the last line):
    4-step chain, float32, kernels) within the larger of TP_TOL and twice
    the single card's kernel-vs-plain gap (PARALLEL_SMALL).  The
    PARALLEL line sums them up with the phase's seconds.
-9. the kernels line (with an M = 64 entry per row 1, 2 and 4 for the
+9. PROCESSES_LEFT: every process the run started (compilers, ranks,
+   multiprocessing's resource tracker) has ended, or the run fails; then
+   the kernels line (with an M = 64 entry per row 1, 2 and 4 for the
    tile kernel, `<name>_tile`), the card line, and the last line
    {"ok": true, "device": {...}}.
 """
@@ -3307,6 +3309,7 @@ def main():
     from amq_tpu_torch import ops
     from amq_tpu_torch.models.config import get_config
     from amq_tpu_torch.ops import _cuda
+    from amq_tpu_torch.parallel import launch
     from amq_tpu_torch.serving.benchmark import PeakMemTracker, benchmark_speed
     from amq_tpu_torch.serving.engine import Engine
 
@@ -3634,6 +3637,12 @@ def main():
                    "realize": realize, "parallel": par,
                    "build_report": build_rec},
                   f, indent=1)
+    # every process this run started (compilers, ranks, multiprocessing's
+    # resource tracker) has ended before the result is printed
+    left = launch.descendants()
+    print(f"PROCESSES_LEFT {json.dumps(left)}", flush=True)
+    if left:
+        fail(f"processes left running: {left}")
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {smi_line()}", flush=True)

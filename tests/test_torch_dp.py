@@ -10,6 +10,10 @@
   what the JAX ``pod_mesh`` refuses.
 """
 
+import math
+import operator
+from multiprocessing import resource_tracker
+
 import numpy as np
 import pytest
 import jax
@@ -162,3 +166,26 @@ def test_pod_mesh_groups_by_host():
                    ({"data": 2, "tensor": 2}, 1, 1, 5.0, 4.0)]
     refused = launch.spawn(pod_rank, 4, 3, backend="gloo", threads=1)
     assert all("must divide" in r for r in refused)
+
+
+def test_spawn_leaves_no_process():
+    """Every rank, and the resource tracker that starting them launched,
+    has ended when spawn returns or raises; a tracker already running
+    before is left running."""
+    before = launch.descendants()
+    assert launch.spawn(operator.add, 2, backend="gloo",
+                        threads=1) == [2, 3]
+    assert launch.descendants() == before
+    with pytest.raises(RuntimeError, match="math domain error"):
+        launch.spawn(math.log, 2, backend="gloo", threads=1)   # log(0, 2)
+    assert launch.descendants() == before
+    resource_tracker.ensure_running()
+    try:
+        tracker = launch.descendants()
+        assert len(tracker) == len(before) + 1
+        assert launch.spawn(operator.add, 2, backend="gloo",
+                            threads=1) == [2, 3]
+        assert launch.descendants() == tracker
+    finally:
+        resource_tracker._resource_tracker._stop()
+    assert launch.descendants() == before
