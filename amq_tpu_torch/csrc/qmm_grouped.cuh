@@ -3,8 +3,10 @@
 // consumer warps that run the grouped form on tensor cores (qmm_tile.cuh's
 // grouped_step, grouped_stage_low, grouped_stage_pipe).
 //
-// One copy of the ring serves three kernels: quant_matmul.cu's grouped
-// GEMV (qmm_grouped_kernel<BITS, false>), quant_matmul_pipe.cu's pipelined
+// One copy of the ring serves four kernels: quant_matmul.cu's grouped
+// GEMV (qmm_grouped_kernel<BITS, false>; below 8 bits, at superblocks
+// smaller than a stage, qmm_grouped_span_kernel, whose stages span several
+// superblocks: "Spanning stages" below), quant_matmul_pipe.cu's pipelined
 // one (qmm_grouped_kernel<BITS, true>: the same ring, the pipelined
 // consumer) and quant_matmul_mlp.cu's one-launch MLP, whose blocks walk
 // many (column tile, K split) items through one ring (the stage count runs
@@ -70,13 +72,15 @@ __device__ __forceinline__ unsigned char* ring_stage(const GroupedRing& r,
   return ring_smem + 128 + (j % kGStages) * r.lay.stage;
 }
 
-// The ring of a call shaped like `a`; with `init` (once per kernel, every
-// thread of the block) its barriers are set up.
+// The ring of a call shaped like `a` (`span` superblocks a stage: each
+// brings its meta slots); with `init` (once per kernel, every thread of
+// the block) its barriers are set up.
 template <int BITS>
-__device__ GroupedRing grouped_ring(const GemvArgs& a, bool init) {
+__device__ GroupedRing grouped_ring(const GemvArgs& a, bool init,
+                                    int span = 1) {
   const int es = a.w.meta_bf16 ? 2 : 4;
   const int slots =
-      grouped_meta_slots(BITS, a.w.superblock, a.w.group_size);
+      span * grouped_meta_slots(BITS, a.w.superblock, a.w.group_size);
   const GroupedRing r{grouped_layout<BITS>(a.op.M, a.op.u != nullptr, es,
                                            slots),
                       slots, es};
@@ -322,12 +326,206 @@ __global__ void __launch_bounds__((kGWarps + 1) * 32, 2)
   grouped_store(a, tot, col0, gridDim.y == 1 ? -1 : blockIdx.y);
 }
 
-// Dynamic shared memory of one grouped block: barriers, then the ring.
+// ---------------------------------------------------------------------------
+// Spanning stages: superblocks smaller than one ring stage.
+//
+// Below 8 bits a superblock whose round plane has Rg < n word rows (every
+// width's 128-row superblock; OWQ's compacted down projection, Kp 11008 in
+// superblocks of 256 rows, at 2 and 3 bits) fills a stage with span = n /
+// Rg whole superblocks, so that a stage moves as many bytes as one of a
+// large superblock: the stage's word row i of each plane block is
+// superblock i / Rg's row i % Rg (3-bit: its 2-bit rows [0, Rg), then
+// [Rg, 2 Rg), then its 1-bit rows), its meta slots are each superblock's
+// in turn, and each activation row holds each superblock's sb activations
+// in turn (one copy per row and superblock).  The consumer corrects every
+// round once per superblock (span_stage_low; span_stage_pair for 4-row
+// superblocks, whose two rounds share an MMA step).  The last stage of K
+// may hold fewer superblocks: only those are copied and consumed.  Splits
+// end at stages.  Its own kernel, one per superblock form (SPS, see
+// span_superblock: every offset a constant), so that the whole-stage
+// kernel keeps its code.
+
+// Stages of the split that starts at stage st_lo (ceil(superblocks / span)
+// stages in K).
+__device__ __forceinline__ int span_stages(const GemvArgs& a, int span,
+                                           int st_lo) {
+  const int n_st = (a.Kp / a.w.superblock + span - 1) / span;
+  return max(0, min(n_st, st_lo + a.sb_per_split) - st_lo);
+}
+
+// Producer (one warp): spanning stage js into ring slot j % kGStages, the
+// block's j-th stage: its superblocks' words, meta slots and activation
+// rows (rows past K zeros, written before the barrier's arrival).
+template <int BITS>
+__device__ void span_issue(const GemvArgs& a, const GroupedRing& r, int span,
+                           int col0, int js, int j, int lane) {
+  using F = GroupedForm<BITS>;
+  constexpr int P = F::rounds;
+  const int sb = a.w.superblock, gs = a.w.group_size, Np = a.w.Np;
+  const int M = a.op.M;
+  const bool swiglu = a.op.u != nullptr;
+  const int R = sb * BITS / 32;                    // word rows per superblock
+  const int Rg = grouped_round_rows(BITS, sb);     // ... of a round plane
+  const int sb0 = js * span;
+  const int parts = min(span, a.Kp / sb - sb0);    // superblocks present
+  const int per_sb = r.slots / span;               // meta slots of each
+  const int cols = min(kGBN, Np - col0);
+  const int xrow = P * F::xstride;                 // bf16 per activation row
+  unsigned char* st = ring_stage(r, j);
+  uint64_t* bar = ring_full(j);
+  if (j >= kGStages) mbar_wait(ring_empty(j), (j / kGStages - 1) & 1);
+  const int nx = (swiglu ? 2 : 1) * M * parts;     // activation copies
+  int xbytes = 0;
+  for (int q = 0; q < parts; ++q)
+    xbytes += 2 * max(0, min(sb, a.op.K - (sb0 + q) * sb));
+  for (int i = lane; i < nx; i += 32) {
+    const int which = i / (M * parts), mq = i - which * M * parts;
+    const int q = mq % parts;
+    const int len = max(0, min(sb, a.op.K - (sb0 + q) * sb));
+    __nv_bfloat16* xdst = reinterpret_cast<__nv_bfloat16*>(
+        st + (which ? r.lay.u_off : r.lay.x_off)) + (mq / parts) * xrow +
+        q * sb;
+    for (int c = len; c < sb; ++c) xdst[c] = __float2bfloat16(0.f);
+  }
+  // this lane's generic writes to the ring come before the copies' (async
+  // proxy) writes
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncwarp();
+  if (lane == 0)
+    mbar_arrive_expect_tx(bar, F::wrows / span * parts * cols * 4 +
+                                   2 * per_sb * parts * cols * r.es +
+                                   (swiglu ? 2 : 1) * M * xbytes);
+  __syncwarp();
+  for (int i = lane; i < F::wrows; i += 32) {
+    const int pl = i / F::n, q = (i - pl * F::n) / Rg;
+    const int rr = i - pl * F::n - q * Rg;
+    if (q >= parts) continue;
+    const int src = BITS == 3 ? (pl == 2 ? 2 * Rg : pl * Rg) + rr : rr;
+    bulk_g2s(st + i * kGWordStride * 4,
+             a.w.packed + (static_cast<size_t>(sb0 + q) * R + src) * Np + col0,
+             cols * 4, bar);
+  }
+  for (int i = lane; i < 2 * per_sb * parts; i += 32) {
+    // row 2i scale, 2i + 1 zero of slot i; superblock q's slot s covers
+    // its rounds from s * P / per_sb
+    const int slot = i >> 1, q = slot / per_sb, s = slot - q * per_sb;
+    const int grp = ((sb0 + q) * sb + s * (P / per_sb) * 2 * Rg) / gs;
+    const unsigned char* base =
+        static_cast<const unsigned char*>((i & 1) ? a.w.zero : a.w.scale);
+    bulk_g2s(st + r.lay.meta_off + i * kGBN * r.es,
+             base + (static_cast<size_t>(grp) * Np + col0) * r.es,
+             cols * r.es, bar);
+  }
+  for (int i = lane; i < nx; i += 32) {
+    const int which = i / (M * parts), mq = i - which * M * parts;
+    const int m = mq / parts, q = mq - m * parts;
+    const int len = max(0, min(sb, a.op.K - (sb0 + q) * sb));
+    if (len > 0)
+      bulk_g2s(st + (which ? r.lay.u_off : r.lay.x_off) +
+                   (m * xrow + q * sb) * 2,
+               static_cast<const __nv_bfloat16*>(which ? a.op.u : a.op.x) +
+                   static_cast<size_t>(m) * a.op.ldx + (sb0 + q) * sb,
+               len * 2, bar);
+  }
+}
+
+// Consumer warps: the S spanning stages of the split from stage st_lo
+// into tot, superblocks of SPS 8-row steps (0: 4-row superblocks).
+template <int BITS, int SPS>
+__device__ void span_consume(const GemvArgs& a, const GroupedRing& r,
+                             int span, int st_lo, int S,
+                             float (&tot)[kGTiles][4]) {
+  using F = GroupedForm<BITS>;
+  constexpr int P = F::rounds;
+  constexpr int sb = span_superblock<BITS, SPS>();
+  const int M = a.op.M;
+  const bool swiglu = a.op.u != nullptr;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wcol = warp * 16 * kGTiles;
+  const int per_sb = r.slots / span;
+  const int lg_share = __ffs(P / per_sb) - 1;       // rounds per slot: 2^lg
+  const int sb_meta = 2 * per_sb * kGBN * r.es;     // meta bytes of each
+  const int xrow = P * F::xstride;
+  // B rows past M read row M - 1 (their products reach no output)
+  const int xm = min(lane >> 2, M - 1);
+#pragma unroll
+  for (int ct = 0; ct < kGTiles; ++ct)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) tot[ct][i] = 0.f;
+  for (int s = 0; s < S; ++s) {
+    mbar_wait(ring_full(s), (s / kGStages) & 1);
+    unsigned char* st = ring_stage(r, s);
+    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(st + r.lay.x_off);
+    const int parts = min(span, a.Kp / sb - (st_lo + s) * span);
+    if (swiglu) {
+      // silu(x) * u once per stage, in place (as grouped_consume)
+      const __nv_bfloat16* us =
+          reinterpret_cast<const __nv_bfloat16*>(st + r.lay.u_off);
+      const int half = parts * sb / 2;
+      for (int i = tid; i < M * half; i += kGWarps * 32) {
+        const int row = i / half;
+        const int o = row * xrow + 2 * (i - row * half);
+        uint32_t* xp = reinterpret_cast<uint32_t*>(xs + o);
+        *xp = swiglu_pair(*xp, *reinterpret_cast<const uint32_t*>(us + o));
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kGWarps * 32) : "memory");
+    }
+    const uint32_t* ws = reinterpret_cast<const uint32_t*>(st);
+    const __nv_bfloat16* xr = xs + xm * xrow;
+    const unsigned char* meta = st + r.lay.meta_off;
+    // every stage but K's last holds `span` superblocks
+    if constexpr (SPS == 0) {
+      if (parts == span)
+        span_stage_pair<BITS, true>(ws, xr, meta, r.es, lg_share, sb_meta,
+                                    parts, wcol, lane, tot);
+      else
+        span_stage_pair<BITS, false>(ws, xr, meta, r.es, lg_share, sb_meta,
+                                     parts, wcol, lane, tot);
+    } else {
+      if (parts == span)
+        span_stage_low<BITS, SPS, true>(ws, xr, meta, r.es, lg_share,
+                                        sb_meta, parts, wcol, lane, tot);
+      else
+        span_stage_low<BITS, SPS, false>(ws, xr, meta, r.es, lg_share,
+                                         sb_meta, parts, wcol, lane, tot);
+    }
+    __syncwarp();                  // the warp is done with the slot
+    if (lane == 0) mbar_arrive(ring_empty(s));
+  }
+}
+
+// The grouped GEMV at spanning layouts of SPS-step superblocks (the
+// superblock span_superblock<BITS, SPS>): grid (ceil(N / kGBN), splits),
+// each split a run of `sb_per_split` spanning stages.
+template <int BITS, int SPS>
+__global__ void __launch_bounds__((kGWarps + 1) * 32, 2)
+    qmm_grouped_span_kernel(GemvArgs a) {
+  static_assert(BITS != 8, "8-bit superblocks hold whole stages");
+  constexpr int span = GroupedForm<BITS>::n / (SPS == 0 ? 4 : 8 * SPS);
+  const GroupedRing r = grouped_ring<BITS>(a, true, span);
+  const int col0 = blockIdx.x * kGBN;
+  const int st_lo = blockIdx.y * a.sb_per_split;
+  const int S = span_stages(a, span, st_lo);
+  if (threadIdx.x >> 5 == kGWarps) {
+    for (int j = 0; j < S; ++j)
+      span_issue<BITS>(a, r, span, col0, st_lo + j, j, threadIdx.x & 31);
+    return;
+  }
+  float tot[kGTiles][4];
+  span_consume<BITS, SPS>(a, r, span, st_lo, S, tot);
+  grouped_store(a, tot, col0, gridDim.y == 1 ? -1 : blockIdx.y);
+}
+
+// Dynamic shared memory of one grouped block: barriers, then the ring
+// (whole stages, or spanning ones).
 template <int BITS>
 size_t grouped_smem(int M, bool swiglu, int meta_bf16, int sb, int gs) {
+  const int span =
+      grouped_whole_stages(BITS, sb) ? 1 : grouped_span(BITS, sb);
   return 128 + static_cast<size_t>(kGStages) *
                    grouped_layout<BITS>(M, swiglu, meta_bf16 ? 2 : 4,
-                                        grouped_meta_slots(BITS, sb, gs))
+                                        span * grouped_meta_slots(BITS, sb, gs))
                        .stage;
 }
 
@@ -350,7 +548,7 @@ cudaError_t allow_smem(Kernel kernel, size_t smem, size_t& allowed) {
 }
 
 template <int BITS, bool PIPE>
-cudaError_t grouped_allow(size_t smem) {
+static cudaError_t grouped_allow(size_t smem) {
   static size_t allowed = 0;
   return allow_smem(qmm_grouped_kernel<BITS, PIPE>, smem, allowed);
 }
@@ -370,33 +568,103 @@ cudaError_t launch_grouped(const GemvArgs& a, int splits, cudaStream_t stream) {
 
 inline bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
+template <int BITS, int SPS>
+static cudaError_t span_allow(size_t smem) {
+  static size_t allowed = 0;
+  return allow_smem(qmm_grouped_span_kernel<BITS, SPS>, smem, allowed);
+}
+
+// The spanning kernels each width has: superblocks of 8-row steps SPS =
+// sb / (16 P) (1 or 2; the superblocks of 128 rows and up smaller than a
+// stage), and at 1 and 3 bits SPS = 0 (4-row superblocks of 128 rows).
+template <int BITS, int SPS>
+constexpr bool span_form() {
+  return BITS != 8 && span_superblock<BITS, SPS>() >= 128 &&
+         (SPS > 0 || BITS == 1 || BITS == 3) &&
+         grouped_round_rows(BITS, span_superblock<BITS, SPS>()) <
+             GroupedForm<BITS>::n;
+}
+
+// f(kernel, allow) with the spanning kernel of superblock `sb` and its
+// shared-memory setter; cudaErrorInvalidValue where the width has none.
+template <int BITS, class Fn>
+cudaError_t with_span_kernel(int sb, Fn f) {
+  if constexpr (span_form<BITS, 0>())
+    if (sb == span_superblock<BITS, 0>())
+      return f(qmm_grouped_span_kernel<BITS, 0>, span_allow<BITS, 0>);
+  if constexpr (span_form<BITS, 1>())
+    if (sb == span_superblock<BITS, 1>())
+      return f(qmm_grouped_span_kernel<BITS, 1>, span_allow<BITS, 1>);
+  if constexpr (span_form<BITS, 2>())
+    if (sb == span_superblock<BITS, 2>())
+      return f(qmm_grouped_span_kernel<BITS, 2>, span_allow<BITS, 2>);
+  return cudaErrorInvalidValue;
+}
+
+template <int BITS>
+cudaError_t launch_span(const GemvArgs& a, int splits, cudaStream_t stream) {
+  const size_t smem = grouped_smem<BITS>(a.op.M, a.op.u != nullptr,
+                                         a.w.meta_bf16, a.w.superblock,
+                                         a.w.group_size);
+  return with_span_kernel<BITS>(
+      a.w.superblock, [&](auto kernel, auto allow) {
+        cudaError_t e = allow(smem);
+        if (e != cudaSuccess) return e;
+        dim3 grid((a.N + kGBN - 1) / kGBN, splits);
+        kernel<<<grid, (kGWarps + 1) * 32, smem, stream>>>(a);
+        return cudaGetLastError();
+      });
+}
+
+// Does a width have a spanning kernel for superblock sb?  (The forms of
+// with_span_kernel, without instantiating its kernels: the pipelined
+// GEMV, the MLP and the attribution probe ask too.)
+template <int BITS>
+bool span_has(int sb) {
+  return (span_form<BITS, 0>() && sb == span_superblock<BITS, 0>()) ||
+         (span_form<BITS, 1>() && sb == span_superblock<BITS, 1>()) ||
+         (span_form<BITS, 2>() && sb == span_superblock<BITS, 2>());
+}
+
+inline bool span_takes(int nbits, int sb) {
+  switch (nbits) {
+    case 1: return span_has<1>(sb);
+    case 2: return span_has<2>(sb);
+    case 3: return span_has<3>(sb);
+    case 4: return span_has<4>(sb);
+    default: return false;
+  }
+}
+
 // The calls the ring takes (the wrapper's _grouped_applies, at the default
 // ring shape): bf16 activations, 1 <= M <= 8, Np, K and the row stride of
 // x multiples of 8 and 16-byte aligned activations, words and meta
 // (16-byte bulk copies), a superblock of at most 1024 rows that holds
-// whole groups and whole ring stages, groups of a multiple of 2 * kGSR
-// rows (64: a stage's rows of one round lie in one group); 8-bit: rounds
-// that nest with the groups (the correction at group ends); 1/2/3/4-bit:
-// power-of-two groups and superblock (the meta slots a stage's rounds
-// share).  Whole stages: a superblock of a multiple of 128 rows at 8 bits,
-// 256 at 4, 512 at 3 and 2, 1024 at 1.
+// whole groups, groups of a multiple of 2 * kGSR rows (64: a stage's rows
+// of one round lie in one group); 8-bit: rounds that nest with the groups
+// (the correction at group ends) and whole ring stages (a superblock of a
+// multiple of 128 rows); 1/2/3/4-bit: power-of-two groups and superblock
+// (the meta slots a stage's rounds share), whole stages (256 rows at 4
+// bits, 512 at 3 and 2, 1024 at 1) or, with `spanning` (the grouped GEMV's
+// spanning kernel; its pipelined form, the MLP and the attribution probe
+// take whole stages only), any superblock of 128 rows and up.
 inline bool grouped_takes(const void* x, const void* u, int x_bf16,
                           const int32_t* packed, const void* scale,
                           const void* zero, int M, int K, int ldx, int Kp,
-                          int Np, int nbits, int gs, int sb) {
+                          int Np, int nbits, int gs, int sb,
+                          bool spanning = false) {
   if (nbits != 1 && nbits != 2 && nbits != 3 && nbits != 4 && nbits != 8)
     return false;
-  const int n = nbits == 8   ? GroupedForm<8>::n
-                : nbits == 3 ? GroupedForm<3>::n
-                             : GroupedForm<1>::n;
   return x_bf16 && M >= 1 && M <= 8 && gs > 0 && gs % (2 * kGSR) == 0 &&
-         sb % gs == 0 && Kp % sb == 0 && sb <= 1024 &&
-         grouped_round_rows(nbits, sb) % n == 0 && Np % 8 == 0 &&
+         sb % gs == 0 && Kp % sb == 0 && sb <= 1024 && Np % 8 == 0 &&
          K % 8 == 0 && ldx % 8 == 0 && aligned16(x) &&
          (u == nullptr || aligned16(u)) && aligned16(packed) &&
          aligned16(scale) && aligned16(zero) &&
-         (nbits == 8 ? rounds_nest_groups(nbits, sb, gs)
-                     : pow2(gs) && pow2(sb));
+         (nbits == 8 ? rounds_nest_groups(nbits, sb, gs) &&
+                           grouped_whole_stages(nbits, sb)
+                     : pow2(gs) && pow2(sb) &&
+                           (grouped_whole_stages(nbits, sb) ||
+                            (spanning && span_takes(nbits, sb))));
 }
 
 // Sum the K splits' partials into out (fixed order), after a split launch.

@@ -312,7 +312,7 @@ struct GroupedForm {
 
 // Word rows per superblock of the round plane (the 1-bit plane at 3 bits):
 // a round spans twice as many K rows.
-__host__ __device__ inline int grouped_round_rows(int bits, int sb) {
+__host__ __device__ constexpr int grouped_round_rows(int bits, int sb) {
   return bits == 3 ? sb / 32 : sb * bits / 32;
 }
 
@@ -324,6 +324,25 @@ __host__ __device__ inline int grouped_meta_slots(int bits, int sb, int gs) {
   if (bits == 8) return P;
   const int span = 2 * grouped_round_rows(bits, sb);
   return span >= gs ? P : P / (gs / span);
+}
+
+// Superblocks per ring stage: 1 where a superblock holds whole stages,
+// else the n / Rg whole superblocks a spanning stage takes (below 8 bits,
+// superblocks of 128 rows and up: qmm_grouped.cuh's spanning kernel).
+__host__ __device__ inline int grouped_span(int bits, int sb) {
+  const int n = bits == 3 ? GroupedForm<3>::n : GroupedForm<1>::n;
+  const int rg = grouped_round_rows(bits, sb);
+  return rg < n ? n / rg : 1;
+}
+
+// Does a superblock hold whole ring stages?  The layouts of the ring's
+// first kernel (qmm_grouped_kernel: the grouped GEMV, its pipelined
+// form, the one-launch MLP and the attribution probe).
+__host__ __device__ inline bool grouped_whole_stages(int bits, int sb) {
+  const int n = bits == 8   ? GroupedForm<8>::n
+                : bits == 3 ? GroupedForm<3>::n
+                            : GroupedForm<1>::n;
+  return grouped_round_rows(bits, sb) % n == 0;
 }
 
 // One grouped ring stage, in bytes: the word rows of kGBN columns; two
@@ -554,17 +573,13 @@ __device__ __forceinline__ void low_shift(uint32_t (&w)[S][kGTiles][W][4],
       }
 }
 
-// The correction of round p's products `acc` and x sums `xa` with slot
-// (p >> lg_share)'s meta, into tot (the field at offset o weighs 2^o).
+// The correction of products `acc` and x sums `xa` of fields weighing
+// 1 / inv with the meta slot at `ms` (scale row, then zero row), into tot.
 template <int BITS>
-__device__ __forceinline__ void low_correct(const float (&acc)[kGTiles][4],
-                                            const float (&xa)[4], int p,
-                                            const unsigned char* meta,
-                                            int meta_es, int lg_share, int c0,
-                                            float (&tot)[kGTiles][4]) {
+__device__ __forceinline__ void low_correct_at(
+    const float (&acc)[kGTiles][4], const float (&xa)[4], float inv,
+    const unsigned char* ms, int meta_es, int c0, float (&tot)[kGTiles][4]) {
   using F = GroupedForm<BITS>;
-  const float inv = __int_as_float((127 - low_offset<BITS>(p)) << 23);  // 2^-o
-  const unsigned char* ms = meta + 2 * (p >> lg_share) * kGBN * meta_es;
   const unsigned char* mz = ms + kGBN * meta_es;
 #pragma unroll
   for (int ct = 0; ct < kGTiles; ++ct) {
@@ -591,6 +606,20 @@ __device__ __forceinline__ void low_correct(const float (&acc)[kGTiles][4],
                                                 tot[ct][i]));
     }
   }
+}
+
+// The correction of round p's products `acc` and x sums `xa` with slot
+// (p >> lg_share)'s meta, into tot (the field at offset o weighs 2^o).
+template <int BITS>
+__device__ __forceinline__ void low_correct(const float (&acc)[kGTiles][4],
+                                            const float (&xa)[4], int p,
+                                            const unsigned char* meta,
+                                            int meta_es, int lg_share, int c0,
+                                            float (&tot)[kGTiles][4]) {
+  low_correct_at<BITS>(acc, xa,
+                       __int_as_float((127 - low_offset<BITS>(p)) << 23),
+                       meta + 2 * (p >> lg_share) * kGBN * meta_es, meta_es,
+                       c0, tot);
 }
 
 // One round p of a low-width stage: products of the warp's tiles (words in
@@ -744,6 +773,156 @@ __device__ __forceinline__ void grouped_stage_pipe(const uint32_t* ws,
       b = bn;
     }
     low_correct<BITS>(acc, xa, p, meta, meta_es, lg_share, c0, tot);
+  }
+}
+
+// Spanning stages (qmm_grouped.cuh's spanning kernel) come in three
+// forms by a superblock's round-plane word rows Rg: SPS = Rg / 8 whole
+// 8-row MMA steps (1 or 2), or SPS = 0 for 4-row superblocks (1 and 3
+// bits at 128 rows), whose steps take two rounds.  The form fixes the
+// superblock, sb = P * 16 * SPS K rows (128 for SPS = 0), so every offset
+// below is a constant.
+template <int BITS, int SPS>
+__host__ __device__ constexpr int span_superblock() {
+  return SPS == 0 ? 128 : GroupedForm<BITS>::rounds * 16 * SPS;
+}
+
+// One warp's share of a spanning 1/2/3/4-bit stage of SPS-step
+// superblocks: grouped_stage_low's rounds, but each round corrected per
+// superblock j with its own slots (meta + j * sb_meta), and x row g
+// holding each superblock's sb activations in turn (superblock j's round
+// p at j * sb + p * 2 Rg).  Without FULL (the tail of K) superblocks past
+// `parts` are skipped: their words and meta were never copied.
+template <int BITS, int SPS, bool FULL>
+__device__ __forceinline__ void span_stage_low(
+    const uint32_t* ws, const __nv_bfloat16* xr, const unsigned char* meta,
+    int meta_es, int lg_share, int sb_meta, int parts, int wcol, int lane,
+    float (&tot)[kGTiles][4]) {
+  using F = GroupedForm<BITS>;
+  constexpr int S = F::n / 8;
+  constexpr int W = BITS == 3 ? 3 : 1;
+  constexpr int sb = span_superblock<BITS, SPS>();
+  constexpr uint32_t kOnes = 0x3F803F80u;        // bf16 (1, 1)
+  static_assert(SPS == 1 || SPS == 2, "8-row steps per superblock");
+  const int t = lane & 3;
+  uint32_t w[S][kGTiles][W][4];
+  low_load<BITS>(ws, wcol, lane, w);
+  const int c0 = wcol + 2 * (lane >> 2);
+#pragma unroll 1
+  for (int p = 0; p < F::rounds; ++p) {
+    const __nv_bfloat16* xp = xr + p * 16 * SPS + 4 * t;
+    float acc[kGTiles][4], xa[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ct = 0; ct < kGTiles; ++ct)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[ct][i] = 0.f;
+#pragma unroll
+    for (int st = 0; st < S; ++st) {
+      const int j = st / SPS, sj = st % SPS;
+      if (!FULL && j >= parts) break;
+      const uint2 b =
+          *reinterpret_cast<const uint2*>(xp + j * sb + 16 * sj);
+#pragma unroll
+      for (int ct = 0; ct < kGTiles; ++ct) {
+        uint32_t a[4];
+        low_frag<BITS>(w[st][ct], p, a);
+        mma16816_bf16(acc[ct], a[0], a[1], a[2], a[3], b.x, b.y);
+      }
+      mma16816_bf16(xa, kOnes, kOnes, kOnes, kOnes, b.x, b.y);
+      if (sj == SPS - 1) {                       // superblock j's last step
+        low_correct<BITS>(acc, xa, p, meta + j * sb_meta, meta_es, lg_share,
+                          c0, tot);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          xa[i] = 0.f;
+#pragma unroll
+          for (int ct = 0; ct < kGTiles; ++ct) acc[ct][i] = 0.f;
+        }
+      }
+    }
+    low_shift<BITS>(w, p);
+  }
+}
+
+// One warp's share of a spanning stage of 4-row superblocks (SPS = 0: 1
+// and 3 bits at 128 rows, where an 8-row MMA step would straddle two
+// superblocks' groups).  A step is one superblock and two rounds: the A
+// fragment's k-pairs t take word row t at round 2q, its k-pairs t + 4 the
+// same row at round 2q + 1, against x rows 16q + 2t and 16q + 8 + 2t (the
+// two rounds' K rows: adjacent, in one group), so a lane holds one word
+// row per column and each superblock's round pair is corrected once.
+// Fields are read at bit 0 (2 shifts a pair; 3-bit: the even round's
+// 2-bit row t, the odd one's row Rg + t, beside 1-bit row t).  FULL as in
+// span_stage_low.
+template <int BITS, bool FULL>
+__device__ __forceinline__ void span_stage_pair(
+    const uint32_t* ws, const __nv_bfloat16* xr, const unsigned char* meta,
+    int meta_es, int lg_share, int sb_meta, int parts, int wcol, int lane,
+    float (&tot)[kGTiles][4]) {
+  static_assert(BITS == 1 || BITS == 3, "4-row superblocks: 1 and 3 bits");
+  using F = GroupedForm<BITS>;
+  constexpr int S = F::n / 4;                    // superblocks per stage
+  constexpr int W = BITS == 3 ? 3 : 1;
+  constexpr int sb = span_superblock<BITS, 0>();
+  constexpr uint32_t kOnes = 0x3F803F80u;        // bf16 (1, 1)
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t w[S][kGTiles][W][2];
+#pragma unroll
+  for (int st = 0; st < S; ++st)
+#pragma unroll
+    for (int ct = 0; ct < kGTiles; ++ct)
+#pragma unroll
+      for (int pl = 0; pl < W; ++pl) {
+        const uint2 v = *reinterpret_cast<const uint2*>(
+            ws + (pl * F::n + 4 * st + t) * kGWordStride + wcol + 16 * ct +
+            2 * g);
+        w[st][ct][pl][0] = v.x;
+        w[st][ct][pl][1] = v.y;
+      }
+  const int c0 = wcol + 2 * g;
+#pragma unroll 1
+  for (int q = 0; q < F::rounds / 2; ++q) {
+    const unsigned char* slot = meta + 2 * ((2 * q) >> lg_share) * kGBN *
+                                           meta_es;
+    const __nv_bfloat16* xq = xr + 16 * q + 2 * t;
+#pragma unroll
+    for (int st = 0; st < S; ++st) {
+      if (!FULL && st >= parts) break;
+      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xq + st * sb);
+      const uint32_t b1 =
+          *reinterpret_cast<const uint32_t*>(xq + st * sb + 8);
+      float acc[kGTiles][4], xa[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int ct = 0; ct < kGTiles; ++ct) {
+        uint32_t a[4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {           // columns 2g, 2g + 1
+          const uint32_t* v = w[st][ct][0];
+          if constexpr (BITS == 3) {
+            a[h] = low_pair<3>(v[h], w[st][ct][2][h], 0u);
+            a[2 + h] = low_pair<3>(w[st][ct][1][h], w[st][ct][2][h] >> 1, 0u);
+          } else {
+            a[h] = (v[h] & F::pair_mask) | 0x43004300u;
+            a[2 + h] = ((v[h] >> 1) & F::pair_mask) | 0x43004300u;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[ct][i] = 0.f;
+        mma16816_bf16(acc[ct], a[0], a[1], a[2], a[3], b0, b1);
+      }
+      mma16816_bf16(xa, kOnes, kOnes, kOnes, kOnes, b0, b1);
+      low_correct_at<BITS>(acc, xa, 1.f, slot + st * sb_meta, meta_es, c0,
+                           tot);
+    }
+#pragma unroll
+    for (int st = 0; st < S; ++st)
+#pragma unroll
+      for (int ct = 0; ct < kGTiles; ++ct)
+#pragma unroll
+        for (int pl = 0; pl < W; ++pl) {
+          w[st][ct][pl][0] >>= 2;
+          w[st][ct][pl][1] >>= 2;
+        }
   }
 }
 

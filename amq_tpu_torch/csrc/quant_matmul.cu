@@ -35,7 +35,9 @@
 // (_gemv_blockdiag), and so the decode and speculative-verify calls of
 // the 2/3/4-bit layers (quant_matmul_indexed, quant_matmul_swiglu_indexed)
 // and of the 8-bit lm_head.  It computes the reference's grouped form
-// (qmm_tile.cuh: grouped_step at 8 bits, grouped_stage_low below): codes
+// (qmm_tile.cuh: grouped_step at 8 bits, grouped_stage_low below; at
+// superblocks smaller than a ring stage span_stage_low / span_stage_pair,
+// several superblocks a stage): codes
 // extracted as exact bf16 128 + code values (a shift and a LOP3 per two
 // codes, often only the LOP3; no I2F or FFMA per weight), products on
 // tensor cores (mma.sync.m16n8k16, f32 accumulation), the activation sums
@@ -204,18 +206,34 @@ __global__ void __launch_bounds__(256) qmm_gemm_kernel(GemvArgs a) {
 
 // Blocks of the grouped kernel one SM holds at this call's shared memory
 // and the kernel's registers, or -1 on an error.
-template <int BITS>
-int grouped_blocks(int M, bool swiglu, int meta_bf16, int sb, int gs) {
-  const size_t smem = grouped_smem<BITS>(M, swiglu, meta_bf16, sb, gs);
+template <class Kernel>
+int ring_blocks(Kernel kernel, cudaError_t allowed, size_t smem) {
   int n = 0;
-  if (grouped_allow<BITS, false>(smem) != cudaSuccess ||
+  if (allowed != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, qmm_grouped_kernel<BITS, false>, (kGWarps + 1) * 32, smem) !=
-          cudaSuccess) {
+          &n, kernel, (kGWarps + 1) * 32, smem) != cudaSuccess) {
     cudaGetLastError();       // not left for the next launch's check
     return -1;
   }
   return n;
+}
+
+// ... the whole-stage kernel, or the spanning one where the layout spans.
+template <int BITS>
+int grouped_blocks(int M, bool swiglu, int meta_bf16, int sb, int gs) {
+  const size_t smem = grouped_smem<BITS>(M, swiglu, meta_bf16, sb, gs);
+  if constexpr (BITS != 8) {
+    if (!grouped_whole_stages(BITS, sb)) {
+      int n = -1;
+      with_span_kernel<BITS>(sb, [&](auto kernel, auto allow) {
+        n = ring_blocks(kernel, allow(smem), smem);
+        return cudaSuccess;
+      });
+      return n;
+    }
+  }
+  return ring_blocks(qmm_grouped_kernel<BITS, false>,
+                     grouped_allow<BITS, false>(smem), smem);
 }
 
 template <int NB, int MT>
@@ -296,10 +314,12 @@ extern "C" int amq_qmm(const void* x, const void* u, int x_bf16,
 }
 
 // The grouped tensor-core GEMV at 8, 4, 3, 2 and 1 bits, for the calls
-// grouped_takes accepts.  Same arguments as amq_qmm, but `sb_per_split`
-// counts ring stages (grouped_round_rows / GroupedForm::n of them per
-// superblock; at 8 bits a multiple of that: whole superblocks); -1 for a
-// call it does not take.
+// grouped_takes accepts (spanning layouts too: qmm_grouped_span_kernel).
+// Same arguments as amq_qmm, but `sb_per_split` counts ring stages
+// (grouped_round_rows / GroupedForm::n of them per superblock, at 8 bits a
+// multiple of that: whole superblocks; at a spanning layout one per
+// grouped_span superblocks, the last stage of K holding the rest); -1 for
+// a call it does not take.
 extern "C" int amq_qmm_grouped(const void* x, const void* u, int x_bf16,
                                const int32_t* packed, const void* scale,
                                const void* zero, int meta_bf16, void* out,
@@ -309,7 +329,7 @@ extern "C" int amq_qmm_grouped(const void* x, const void* u, int x_bf16,
                                int sb_per_split, void* stream) {
   const int spb = nbits == 8 ? superblock / 4 / GroupedForm<8>::n : 1;
   if (!grouped_takes(x, u, x_bf16, packed, scale, zero, M, K, ldx, Kp, Np,
-                     nbits, group_size, superblock) ||
+                     nbits, group_size, superblock, true) ||
       splits < 1 || sb_per_split < 1 || sb_per_split % spb ||
       (splits > 1 && partial == nullptr))
     return -1;
@@ -319,12 +339,21 @@ extern "C" int amq_qmm_grouped(const void* x, const void* u, int x_bf16,
              out, out_bf16, partial, N, Kp, sb_per_split};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  switch (nbits) {
-    case 1: e = launch_grouped<1, false>(a, splits, s); break;
-    case 2: e = launch_grouped<2, false>(a, splits, s); break;
-    case 3: e = launch_grouped<3, false>(a, splits, s); break;
-    case 4: e = launch_grouped<4, false>(a, splits, s); break;
-    default: e = launch_grouped<8, false>(a, splits, s); break;
+  if (!grouped_whole_stages(nbits, superblock)) {
+    switch (nbits) {
+      case 1: e = launch_span<1>(a, splits, s); break;
+      case 2: e = launch_span<2>(a, splits, s); break;
+      case 3: e = launch_span<3>(a, splits, s); break;
+      default: e = launch_span<4>(a, splits, s); break;
+    }
+  } else {
+    switch (nbits) {
+      case 1: e = launch_grouped<1, false>(a, splits, s); break;
+      case 2: e = launch_grouped<2, false>(a, splits, s); break;
+      case 3: e = launch_grouped<3, false>(a, splits, s); break;
+      case 4: e = launch_grouped<4, false>(a, splits, s); break;
+      default: e = launch_grouped<8, false>(a, splits, s); break;
+    }
   }
   return finish_splits(e, partial, out, M * N, splits, out_bf16, s);
 }

@@ -3,9 +3,10 @@
 ``KERNELS`` lists each kernel's wrapper; every wrapper carries a
 ``launches`` counter that counts its kernel launches (never a plain-version
 call).  ``GROUPED`` lists the wrappers whose decode calls may take the
-grouped tensor-core GEMV; their ``grouped_launches`` count those, and
-their ``tile_launches`` the multi-row calls that took the tile kernel on
-wgmma.  A captured CUDA graph launches its kernels on every replay without
+grouped tensor-core GEMV; their ``grouped_launches`` count those (and
+``span_launches`` those of them whose superblocks span a ring stage),
+and their ``tile_launches`` the multi-row calls that took the tile kernel
+on wgmma.  A captured CUDA graph launches its kernels on every replay without
 calling a wrapper: ``serving.graphs`` adds a replay's launches with
 :func:`add_launch_counts` (and takes back those of its warm-up and
 capture, which run the wrappers but are undone or launch nothing).
@@ -30,6 +31,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in GROUPED:
         fn.grouped_launches = 0
+        fn.span_launches = 0
         fn.tile_launches = 0
 
 
@@ -41,6 +43,10 @@ def grouped_launch_counts() -> dict:
     return {fn.__name__: fn.grouped_launches for fn in GROUPED}
 
 
+def span_launch_counts() -> dict:
+    return {fn.__name__: fn.span_launches for fn in GROUPED}
+
+
 def tile_launch_counts() -> dict:
     return {fn.__name__: fn.tile_launches for fn in GROUPED}
 
@@ -50,6 +56,7 @@ def counter_state() -> dict:
     state = {(fn, "launches"): fn.launches for fn in KERNELS}
     for fn in GROUPED:
         state[(fn, "grouped_launches")] = fn.grouped_launches
+        state[(fn, "span_launches")] = fn.span_launches
         state[(fn, "tile_launches")] = fn.tile_launches
     return state
 

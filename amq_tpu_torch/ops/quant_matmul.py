@@ -6,7 +6,8 @@ Each public function here replaces one Pallas kernel of the JAX package's
 * the CUDA kernel (``csrc/quant_matmul.cu``, one template over nbits in
   {1, 2, 3, 4, 8}: calls with bf16 activations and M <= 8 take the grouped
   tensor-core GEMV, the JAX package's serving form, where its conditions
-  hold (:func:`_grouped_applies`); calls with bf16 activations and 8 < M
+  hold (:func:`_grouped_applies`: every superblock of 128 rows and up
+  below 8 bits, whole ring stages at 8); calls with bf16 activations and 8 < M
   the tile kernel on wgmma (``csrc/quant_matmul_tile.cu``, the JAX
   package's bf16 multi-row form: each weight tile dequantized once, in
   bf16) where :func:`_tile_applies` says so; other calls, f32
@@ -19,7 +20,9 @@ Each public function here replaces one Pallas kernel of the JAX package's
 * a launch counter (``<function>.launches``), raised where the kernel is
   launched and nowhere else; beside it ``<function>.grouped_launches`` and
   ``<function>.tile_launches`` count the launches that took the grouped
-  GEMV and the tile kernel.
+  GEMV and the tile kernel, and ``<function>.span_launches`` the grouped
+  ones at layouts whose superblocks are smaller than a ring stage (the
+  grouped GEMV's spanning kernel).
 
 Under the JAX package's ``AMQ_PIPE`` switch (read once, at import, into
 ``_PIPE_DEFAULT``; default off) the decode GEMVs of
@@ -130,6 +133,26 @@ def _grouped_stage_rows(nbits: int, rows: int = _GROUPED_ROWS) -> int:
     return rows // 2 if nbits == 3 and rows >= 16 else rows
 
 
+def _grouped_whole_stages(nbits: int, superblock: int,
+                          rows: int = _GROUPED_ROWS) -> bool:
+    """Does a superblock hold whole ring stages (``grouped_whole_stages``
+    in ``csrc/qmm_tile.cuh``)?  The layouts of the ring's whole-stage
+    kernel, the only ones the pipelined GEMV and the one-launch MLP take;
+    the grouped GEMV fills a stage with several smaller superblocks."""
+    return (_grouped_round_rows(nbits, superblock)
+            % _grouped_stage_rows(nbits, rows) == 0)
+
+
+def _grouped_stages(nbits: int, superblock: int, Kp: int,
+                    rows: int = _GROUPED_ROWS) -> int:
+    """Ring stages of the grouped GEMV over K: Rg / n per superblock where
+    a superblock holds whole stages, else one per n / Rg superblocks (a
+    spanning stage), the last one holding the rest (Rg: the round plane's
+    word rows per superblock, n: per stage)."""
+    n_sb, n = Kp // superblock, _grouped_stage_rows(nbits, rows)
+    return -(-n_sb * _grouped_round_rows(nbits, superblock) // n)
+
+
 @functools.lru_cache(maxsize=None)
 def _grouped_blocks(nbits: int, swiglu: bool, meta_bf16: int,
                     group_size: int, superblock: int, index: int) -> int:
@@ -153,14 +176,14 @@ def _grouped_splits(N: int, nbits: int, superblock: int, Kp: int,
                     bn: int = _GROUPED_BN) -> tuple:
     """(splits, ring stages per split) for the grouped GEMV: as many splits
     as fit ``blocks`` blocks per SM in one wave (a second, partial wave
-    would cost a whole block's time).  The 1/2/3/4-bit kernel corrects at
-    every stage, so a split may end at any stage; the 8-bit one corrects at
-    group ends and splits at superblocks.  ``rows`` and ``bn`` are the
-    ring's shape (``probes/grouped_ring.py`` sweeps others)."""
-    spb = (_grouped_round_rows(nbits, superblock)
-           // _grouped_stage_rows(nbits, rows))
-    unit = spb if nbits == 8 else 1
-    units = Kp // superblock * spb // unit
+    would cost a whole block's time).  The 1/2/3/4-bit kernels correct at
+    every stage, so a split may end at any stage (a spanning one too); the
+    8-bit one corrects at group ends and splits at superblocks.  ``rows``
+    and ``bn`` are the ring's shape (``probes/grouped_ring.py`` sweeps
+    others)."""
+    unit = (_grouped_round_rows(nbits, superblock)
+            // _grouped_stage_rows(nbits, rows) if nbits == 8 else 1)
+    units = _grouped_stages(nbits, superblock, Kp, rows) // unit
     tiles = -(-N // bn)
     want = max(1, min(units, blocks * _sm_count(device.index or 0) // tiles))
     per = -(-units // want)
@@ -174,21 +197,22 @@ def _pow2(v: int) -> bool:
 @functools.lru_cache(maxsize=None)
 def _grouped_layout(nbits: int, group_size: int, superblock: int) -> bool:
     """The weight layouts the grouped GEMV takes (``grouped_takes`` in
-    ``csrc/quant_matmul.cu`` refuses the rest): groups of a multiple of 64
-    rows, a superblock of at most 1024 rows holding whole groups and whole
-    ring stages (a multiple of 128 rows at 8 bits, 256 at 4, 512 at 3 and
-    2, 1024 at 1); at 8 bits extraction rounds that nest with the groups,
-    below it power-of-two groups and superblock."""
+    ``csrc/qmm_grouped.cuh`` refuses the rest): groups of a multiple of 64
+    rows, a superblock of at most 1024 rows holding whole groups; at 8 bits
+    extraction rounds that nest with the groups and whole ring stages (a
+    superblock of a multiple of 128 rows); below it power-of-two groups and
+    a power-of-two superblock of 128 rows or more -- whole stages (256 rows
+    at 4 bits, 512 at 3 and 2, 1024 at 1) or, smaller, several superblocks
+    to a stage (the spanning kernel)."""
     if nbits not in (1, 2, 3, 4, 8) or not (
             group_size % (2 * _GROUPED_ROWS) == 0
-            and superblock % group_size == 0 and superblock <= 1024
-            and _grouped_round_rows(nbits, superblock)
-            % _grouped_stage_rows(nbits) == 0):
+            and superblock % group_size == 0 and superblock <= 1024):
         return False
     if nbits == 8:
         half = superblock // 2          # an 8-bit round's K rows
-        return half % group_size == 0 or group_size % half == 0
-    return _pow2(group_size) and _pow2(superblock)
+        return ((half % group_size == 0 or group_size % half == 0)
+                and _grouped_whole_stages(nbits, superblock))
+    return _pow2(group_size) and _pow2(superblock) and superblock >= 128
 
 
 def _grouped_applies(x: torch.Tensor, packed: torch.Tensor,
@@ -232,6 +256,7 @@ def _pipe_applies(x: torch.Tensor, packed: torch.Tensor,
     it without the switch."""
     return (bool(_PIPE_DEFAULT) and nbits != 8
             and superblock // group_size >= 8
+            and _grouped_whole_stages(nbits, superblock)
             and _grouped_applies(x, packed, scale, zero, nbits, group_size,
                                  superblock, up))
 
@@ -241,12 +266,14 @@ def _mlp_applies(x: torch.Tensor, gu, dn, nbits: int, group_size: int,
     """Does the one-launch MLP take this call?  Its gateup is a grouped
     call on x and its down one on a bf16 [M, Kp_d] activation of its own,
     so both stacks' layers (``(packed, scale, zero)``) must be ones the
-    grouped ring takes (:func:`_grouped_applies`, which also holds x to
-    bf16, M <= 8 and its strides and alignment); and, on a card, each
+    grouped ring takes in whole stages (:func:`_grouped_whole_stages`,
+    :func:`_grouped_applies`, which also holds x to bf16, M <= 8 and its
+    strides and alignment); and, on a card, each
     product's 256-column tiles must fit one wave of the grouped GEMV's
     blocks (the kernel runs one block per item of the larger product, all
     resident at once, and the grouped plan's splits then fit too)."""
-    if not (_grouped_applies(x, *gu, nbits, group_size, superblock)
+    if not (_grouped_whole_stages(nbits, superblock)
+            and _grouped_applies(x, *gu, nbits, group_size, superblock)
             and dn[0].shape[-1] % 8 == 0
             and all(t.data_ptr() % 16 == 0 for t in dn)):
         return False
@@ -566,6 +593,8 @@ def _qmm(x, up, packed, scale, zero, *, out_dtype, counter, pipe=False,
     counter.launches += 1
     if route == "grouped":
         counter.grouped_launches += 1
+        if not _grouped_whole_stages(static["nbits"], static["superblock"]):
+            counter.span_launches += 1
     elif route == "tile":
         counter.tile_launches += 1
     return out
@@ -618,6 +647,8 @@ def quant_matmul_indexed(x: torch.Tensor, packed_stack: torch.Tensor,
 quant_matmul_indexed.launches = 0
 #: launches that took the grouped tensor-core GEMV
 quant_matmul_indexed.grouped_launches = 0
+#: ... of them at a layout whose superblocks span a ring stage
+quant_matmul_indexed.span_launches = 0
 #: launches that took the tile kernel on wgmma (bf16 x, 8 < M)
 quant_matmul_indexed.tile_launches = 0
 
@@ -680,6 +711,8 @@ def quant_matmul_swiglu_indexed(gate: torch.Tensor, up: torch.Tensor,
 quant_matmul_swiglu_indexed.launches = 0
 #: launches that took the grouped tensor-core GEMV
 quant_matmul_swiglu_indexed.grouped_launches = 0
+#: ... of them at a layout whose superblocks span a ring stage
+quant_matmul_swiglu_indexed.span_launches = 0
 #: launches that took the tile kernel on wgmma (bf16 x, 8 < M)
 quant_matmul_swiglu_indexed.tile_launches = 0
 
@@ -835,6 +868,8 @@ def quant_matmul(x: torch.Tensor, qt: QuantizedTensor,
 quant_matmul.launches = 0
 #: launches that took the grouped tensor-core GEMV
 quant_matmul.grouped_launches = 0
+#: ... of them at a layout whose superblocks span a ring stage
+quant_matmul.span_launches = 0
 #: launches that took the tile kernel on wgmma (bf16 x, 8 < M)
 quant_matmul.tile_launches = 0
 

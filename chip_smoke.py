@@ -411,21 +411,28 @@ def check_matmul(site, nbits, M, meta_dtype, gen):
 
 #: OWQ's packed 7B layouts (N, Kp, superblock): q/k/v/o and gate/up keep
 #: Kp 4096 (superblock 1024); down's 10954 non-outlier columns pad to Kp
-#: 11008 (superblock 256)
+#: 11008 (superblock 256: below 4 bits two superblocks fill a ring stage)
 OWQ_SITES_7B = {"owq_attn": (4096, 4096, 1024), "owq_gate": (11008, 4096, 1024),
                 "owq_down": (4096, 11008, 256)}
+#: the other small superblocks ``pick_superblock`` gives: a q/k/v/o site
+#: whose outliers leave 31 groups (Kp 3968, superblock 128; timed at
+#: 1-4 bits) and seven 512-row superblocks (Kp 3584; 1 bit, whose stage
+#: holds 1024 rows)
+OWQ_SMALL_SB = {"owq_sb128": (4096, 3968, 128), "owq_sb512": (4096, 3584, 512)}
 
 
 def check_owq_matmul(site, nbits, M, gen):
     """``quant_matmul`` at an OWQ-packed layout (3-bit in native planes,
     f32 scale/zero as ``owq_pack`` writes them, bf16 x and out) against
-    its plain version (the tile form at 8 < M, where the tile kernel
-    runs) and ``quant_matmul_reference``, the route (grouped, tile or
-    CUDA-core) by name and held to ``_grouped_applies`` and
-    ``_tile_applies``; at M = 64 the CUDA-core GEMM's time beside it."""
+    its plain version (the grouped form at M <= 8, the tile form at 8 < M)
+    and ``quant_matmul_reference``, the route (grouped -- on the spanning
+    kernel where a stage holds several superblocks --, tile or CUDA-core)
+    by name and held to ``_grouped_applies`` and ``_tile_applies``; the
+    CUDA-core GEMV's (M <= 8) or GEMM's time beside it.  Every M <= 8
+    call must take the grouped route and beat the CUDA-core GEMV."""
     from amq_tpu_torch.core.quantize import QuantizedTensor, dequantize_kn
     from amq_tpu_torch.ops import quant_matmul as qm
-    N, K, sb = OWQ_SITES_7B[site]
+    N, K, sb = {**OWQ_SITES_7B, **OWQ_SMALL_SB}[site]
     L = max(2, min(24, math.ceil(200e6 / (N * K * nbits / 8))))
     packed = rand_words((L, K * nbits // 32, N), gen)
     scale = torch.rand((L, K // 128, N), generator=gen, device="cuda") * 0.02
@@ -436,27 +443,31 @@ def check_owq_matmul(site, nbits, M, gen):
     x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
     grouped = qm._grouped_applies(x, packed[1], scale[1], zero[1], nbits, 128,
                                   sb)
+    span = grouped and not qm._grouped_whole_stages(nbits, sb)
     tile = qm._tile_applies(x, packed[1], scale[1], zero[1], nbits, 128, sb)
-    before = (qm.quant_matmul.launches, qm.quant_matmul.grouped_launches,
-              qm.quant_matmul.tile_launches)
+    counter = qm.quant_matmul
+    before = (counter.launches, counter.grouped_launches,
+              counter.span_launches, counter.tile_launches)
     got = qm.quant_matmul(x, qts[1])
     again = qm.quant_matmul(x, qts[1])
-    launched = (qm.quant_matmul.launches - before[0],
-                qm.quant_matmul.grouped_launches - before[1],
-                qm.quant_matmul.tile_launches - before[2])
+    launched = (counter.launches - before[0],
+                counter.grouped_launches - before[1],
+                counter.span_launches - before[2],
+                counter.tile_launches - before[3])
     reference = qm.quant_matmul_reference(x, qts[1])
-    want = (qm.qmm_tile_plain(x, packed[1], scale[1], zero[1], nbits=nbits,
-                              group_size=128, shape=(N, K), superblock=sb,
-                              out_dtype=torch.bfloat16)
-            if tile else reference)
+    kw = dict(nbits=nbits, group_size=128, shape=(N, K), superblock=sb,
+              out_dtype=torch.bfloat16)
+    plain_fn = (qm.qmm_grouped_plain if grouped else qm.qmm_tile_plain
+                if tile else None)
+    want = (plain_fn(x, packed[1], scale[1], zero[1], **kw) if plain_fn
+            else reference)
     torch.cuda.synchronize()
     rel, err = rel_err(got, want)
     rel_ref = rel_err(got, reference)[0]
     ms = time_ms([lambda i=i: qm.quant_matmul(x, qts[i]) for i in range(L)])
-    gemm_ms = (time_ms([lambda i=i: qm._qmm_cuda_core(
-        x, packed[i], scale[i], zero[i], nbits=nbits, group_size=128,
-        shape=(N, K), superblock=sb, out_dtype=torch.bfloat16)
-        for i in range(L)]) if tile else None)
+    core_ms = (time_ms([lambda i=i: qm._qmm_cuda_core(
+        x, packed[i], scale[i], zero[i], **kw) for i in range(L)])
+        if grouped or tile else None)
     plain_ms = time_ms([lambda: qm.quant_matmul_reference(x, qts[1])], iters=3)
     wt = dequantize_kn(qts[1], torch.float32).to(torch.bfloat16).contiguous()
     library_ms = time_ms([lambda: torch.matmul(x, wt)])
@@ -464,19 +475,24 @@ def check_owq_matmul(site, nbits, M, gen):
     b_ms, b_by = bound(weight_bytes(packed, scale, N) + x.numel() * 2
                        + M * N * 2, 2 * M * N * K)
     tol = MM_TOL[torch.bfloat16]
+    deterministic = bool(torch.equal(got, again))
     rec = dict(kernel="quant_matmul", site=site, nbits=nbits, M=M,
-               meta="float32", route=("grouped" if grouped else "tile"
-                                      if tile else "gemv" if M <= 8
-                                      else "gemm"),
-               max_abs_err=err, rel_err=rel, rel_err_vs_reference=rel_ref,
-               tol=tol, deterministic=bool(torch.equal(got, again)), ms=ms,
-               gemm_ms=gemm_ms, plain_ms=plain_ms, library_ms=library_ms,
+               superblock=sb, meta="float32",
+               route=("grouped" if grouped else "tile" if tile
+                      else "gemv" if M <= 8 else "gemm"),
+               spanning=span, max_abs_err=err, rel_err=rel,
+               rel_err_vs_reference=rel_ref, tol=tol,
+               deterministic=deterministic, ms=ms,
+               gemv_ms=core_ms if grouped else None,
+               gemm_ms=core_ms if tile else None, plain_ms=plain_ms,
+               library_ms=library_ms,
                library="torch.matmul bf16 x dense dequantized weight "
                "(different function)", bound_ms=b_ms, bound_by=b_by,
                share_of_bound=b_ms / ms,
-               ok=(rel <= tol and rel_ref <= tol
-                   and bool(torch.equal(got, again))
-                   and launched == (2, 2 * int(grouped), 2 * int(tile))))
+               ok=(rel <= tol and rel_ref <= tol and deterministic
+                   and launched == (2, 2 * int(grouped), 2 * int(span),
+                                    2 * int(tile))
+                   and (M > 8 or (grouped and ms < core_ms))))
     print("CASE " + json.dumps(rec), flush=True)
     return rec
 
@@ -889,17 +905,19 @@ def check_flash(label, B, Hq, Hkv, S, T, d, offset, dtype, gen):
 
 
 #: the bf16 flash kernel's symbol (tensor cores), the grouped ring's
-#: kernels' (tensor cores, every width: the grouped GEMV, its pipelined
-#: form, the one-launch MLP), and the kernels whose registers and spills
-#: phase 2 reports (library -> symbol pattern)
+#: kernels' (tensor cores, every width: the grouped GEMV -- whole stages,
+#: and spanning ones, qmm_grouped_span_kernel --, its pipelined form, the
+#: one-launch MLP), and the kernels whose registers and spills phase 2
+#: reports (library -> symbol pattern)
 WGMMA_FLASH = "flash_kernel_wgmma"
-GROUPED_GEMV = "qmm_grouped_kernel"
+GROUPED_GEMV = "qmm_grouped"
 MLP_KERNEL = "qmm_mlp_kernel"
 RING_KERNELS = {"quant_matmul": GROUPED_GEMV, "quant_matmul_pipe":
                 GROUPED_GEMV, "quant_matmul_mlp": MLP_KERNEL}
-#: instantiations per ring library: widths 1/2/3/4/8, the pipelined form
-#: 1-4
-RING_COUNTS = {"quant_matmul": 5, "quant_matmul_pipe": 4,
+#: instantiations per ring library: widths 1/2/3/4/8 and the spanning
+#: kernel's eight superblock forms (1-bit 128 / 256 / 512, 2-bit 128 /
+#: 256, 3-bit 128 / 256, 4-bit 128); the pipelined form 1-4
+RING_COUNTS = {"quant_matmul": 13, "quant_matmul_pipe": 4,
                "quant_matmul_mlp": 5}
 #: the tile kernel on wgmma (the multi-row branch of rows 1, 2 and 4):
 #: widths 1/2/3/4/8 times one, two or four 64-row M sub-tiles times stages
@@ -1264,10 +1282,11 @@ def logits_check(model, cfg, prompt, compute_dtype):
     return rec
 
 
-def device_profile(run, steps):
+def device_profile(run, steps, top=8):
     """Device time by kernel per step over ``run()`` (which takes ``steps``
     decode steps; torch.profiler), the wall time of the same window and
-    the card's busy share."""
+    the card's busy share; the ``top`` kernels (all of them under
+    ``kernels_ms_per_token`` with ``top=None``)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1284,11 +1303,15 @@ def device_profile(run, steps):
             by_name[key] = (by_name.get(key, 0.0)
                             + ev.self_device_time_total / steps / 1e3)
     device_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return dict(steps=steps, wall_ms_per_token=wall_ms,
-                device_ms_per_token=device_ms,
-                device_busy_share=device_ms / wall_ms,
-                top_kernels_ms_per_token=dict(top))
+    rec = dict(steps=steps, wall_ms_per_token=wall_ms,
+               device_ms_per_token=device_ms,
+               device_busy_share=device_ms / wall_ms)
+    if top is None:
+        rec["kernels_ms_per_token"] = by_name
+    else:
+        rec["top_kernels_ms_per_token"] = dict(
+            sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
+    return rec
 
 
 def profile_decode(eng, prompt, steps=8, tag="PROFILE"):
@@ -2642,14 +2665,28 @@ def realize_parity_phase():
     return rec
 
 
-def reckon_owq_grouped(arch, L, steps):
+def reckon_owq_grouped(L, steps):
     """Grouped GEMV launches of an OWQ-served bf16 generate, reckoned: per
-    decode token (M = 1) every site whose compacted layout the ring takes
-    -- q/k/v/o and gate/up (Kp 4096, superblock 1024) at every width, down
-    (Kp 11008, superblock 256) at 4 bits only (a 2- or 3-bit ring stage
-    holds 512 rows); the 64-token prefill runs none."""
-    per = sum(6 + (arch["linear"]["mlp.down_proj"][i] == 4) for i in range(L))
-    return per * steps
+    decode token (M = 1) all seven sites of every layer at every width --
+    q/k/v/o and gate/up (Kp 4096, superblock 1024) in whole ring stages,
+    down (Kp 11008, superblock 256) too, two superblocks a stage below 4
+    bits; the 64-token prefill runs none."""
+    return 7 * L * steps
+
+
+#: per width, the smallest superblock of whole ring stages (32 word rows
+#: of the round plane; 16 at 3 bits)
+WHOLE_STAGE_SB = {1: 1024, 2: 512, 3: 512, 4: 256}
+
+
+def reckon_owq_span(params, steps):
+    """... of them on the spanning kernel: every OWQ linear whose
+    superblock is smaller than a ring stage at its width (at 7B: down,
+    Kp 11008 in superblocks of 256, below 4 bits)."""
+    return sum(lay[name].packed.qt.superblock
+               < WHOLE_STAGE_SB[lay[name].packed.qt.nbits]
+               for lay in params["layers"] for name in lay
+               if hasattr(lay[name], "packed")) * steps
 
 
 def owq_serving_phase(hf_path):
@@ -2693,7 +2730,7 @@ def owq_serving_phase(hf_path):
                                        eng.new_cache())[0].float()
     zero = {k: 0 for k in counts[("float32", True)][0]}
     want = dict(zero, quant_matmul=7 * L * OWQ_GEN)
-    want_grouped = reckon_owq_grouped(arch, L, OWQ_GEN - 1)
+    want_grouped = reckon_owq_grouped(L, OWQ_GEN - 1)
     gap = (logits[("bfloat16", True)] - logits[("bfloat16", False)]).abs()
     rec = dict(
         model=cfg.name, depth=L, realize_s=realize_s,
@@ -2752,6 +2789,180 @@ def realization_phases(stats_path):
     print(f"realization: {wall:.1f} s", flush=True)
     return dict(proxy=proxy_rec, methods=recs, parity=parity, owq_serve=serve,
                 wall_s=wall)
+
+
+# ---------------------------------------------------------------------------
+# phase 7c: OWQ packed serving at full Llama-2-7B width and depth
+
+#: seed of the random OWQ model; float32 tokens checked over this many
+OWQ_SEED, OWQ_F32_GEN = 11, 8
+#: the device kernels of one OWQ decode step, by route (the profiler's
+#: names)
+OWQ_ROUTES = {"grouped": ("qmm_grouped_kernel<", "qmm_grouped_span_kernel<"),
+              "cuda_core": ("qmm_gemv_kernel<",),
+              "split_sums": ("reduce_splits_kernel",)}
+
+
+def random_owq_model(cfg, gen):
+    """Llama-2-7B in OWQ's packed serving form from random codes (seeded;
+    OWQ's calibration is not run): per linear at ``cycled_arch``'s bits,
+    ``compute_n_out``'s outlier columns at 3.0 bits drawn at random and
+    kept as bf16 columns, the other columns' codes in order, padded to
+    whole groups with zero codes and packed in the superblock ``owq_pack``
+    picks, f32 scale and zero as ``owq_pack`` writes them (scaled so that
+    each weight column has unit-variance fan-in); unit norms, a random
+    bf16 embedding and head."""
+    import dataclasses
+    from amq_tpu_torch.core import bitpack
+    from amq_tpu_torch.core.quantize import QuantizedTensor
+    from amq_tpu_torch.models.config import LINEAR_NAMES, cycled_arch
+    from amq_tpu_torch.models.linear import OWQLinear
+    from amq_tpu_torch.models.llama import init_params
+    from amq_tpu_torch.quantization.owq import (OWQPacked, compute_n_out,
+                                                outlier_segments)
+    L, h = cfg.num_layers, cfg.hidden_size
+    arch = cycled_arch(L)
+    n_out = compute_n_out(cfg, 3.0, 128)
+    params = init_params(dataclasses.replace(cfg, num_layers=0), gen,
+                         dtype=torch.bfloat16, device="cuda")
+    rng = np.random.default_rng(OWQ_SEED)
+    layers = []
+    for li in range(L):
+        layer = {"input_norm": torch.ones(h, dtype=torch.bfloat16,
+                                          device="cuda"),
+                 "post_norm": torch.ones(h, dtype=torch.bfloat16,
+                                         device="cuda")}
+        for name in LINEAR_NAMES:
+            bits = int(round(arch["linear"][name][li]))
+            N, K = cfg.linear_shape(name)
+            out_ids = sorted(rng.choice(K, n_out[name], replace=False).tolist())
+            keep = K - len(out_ids)
+            Kp = -(-keep // 128) * 128
+            sb = bitpack.pick_superblock(Kp, 128)
+            codes = torch.randint(0, 2**bits, (Kp, N), generator=gen,
+                                  device="cuda")
+            codes[keep:] = 0
+            step = math.sqrt(12.0 / K) / 2**bits
+            scale = step * (0.5 + torch.rand((Kp // 128, N), generator=gen,
+                                             device="cuda"))
+            zero = (2**bits - 1) / 2 + 0.5 * (
+                torch.rand((Kp // 128, N), generator=gen, device="cuda") - 0.5)
+            qt = QuantizedTensor(packed=bitpack.pack(codes, bits, sb),
+                                 scale=scale, zero=zero, nbits=bits,
+                                 group_size=128, shape=(N, Kp), superblock=sb)
+            del codes
+            w_out = (torch.randn((len(out_ids), N), generator=gen,
+                                 device="cuda") / math.sqrt(K)).to(
+                                     torch.bfloat16)
+            layer[name] = OWQLinear(packed=OWQPacked.from_layout(
+                qt, w_out, outlier_segments(out_ids, K), out_ids))
+        layers.append(layer)
+    params["layers"] = layers
+    return params
+
+
+def route_ms(prof_rec):
+    """Device ms per token by route (OWQ_ROUTES) from a device_profile
+    record's kernels."""
+    out = {route: 0.0 for route in OWQ_ROUTES}
+    for name, ms in prof_rec["kernels_ms_per_token"].items():
+        for route, tags in OWQ_ROUTES.items():
+            if any(t in name for t in tags):
+                out[route] += ms
+    out["other"] = prof_rec["device_ms_per_token"] - sum(out.values())
+    return out
+
+
+def owq_decode_phase(gate=True):
+    """Phase 7c: OWQ packed serving at full Llama-2-7B width and all 32
+    layers (random codes at OWQ's packed layouts, ``random_owq_model``),
+    bf16 on captured graphs, prompt 64 -> 128, batch 1: decode ms/token,
+    TTFT, device ms per token by kernel and by route (profiler, 16 decode
+    steps), an ``OWQ_DECODE`` line with the card's.  Gated (``gate``):
+    ``quant_matmul`` launches 7 x 32 per token, every decode launch on the
+    grouped route (down below 4 bits on the spanning kernel), and float32
+    greedy tokens over OWQ_F32_GEN equal to the plain path's.  Without
+    ``gate`` (an older checkout's package, for a before figure) the same
+    numbers are reported, not gated."""
+    from amq_tpu_torch import ops
+    from amq_tpu_torch.models.config import get_config
+    from amq_tpu_torch.serving.benchmark import benchmark_speed
+    from amq_tpu_torch.serving.engine import Engine
+    t0 = time.perf_counter()
+    cfg = get_config("Llama-2-7b-hf")
+    L = cfg.num_layers
+    gen = torch.Generator(device="cuda").manual_seed(OWQ_SEED)
+    qp = random_owq_model(cfg, gen)
+    down = {(lay["mlp.down_proj"].packed.qt.nbits,
+             lay["mlp.down_proj"].packed.qt.superblock)
+            for lay in qp["layers"]}
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    prompt = np.random.default_rng(OWQ_SEED).integers(
+        0, cfg.vocab_size, (1, PROMPT)).astype(np.int32)
+    eng = Engine(qp, cfg, batch_size=1, max_len=PROMPT + GEN + 8)
+    ops.reset_launch_counts()
+    toks = eng.generate(prompt, max_new_tokens=GEN)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["quant_matmul"]
+    grouped = ops.grouped_launch_counts()["quant_matmul"]
+    span = (ops.span_launch_counts()["quant_matmul"]
+            if hasattr(ops, "span_launch_counts") else None)
+    speed = {mode: benchmark_speed(eng, mode, prompt_len=PROMPT, gen_len=GEN)
+             for mode in ("GEMV", "TTFT")}
+    model, cache = eng.params, eng.new_cache()
+    first, cache = eng._prefill_token(model, eng.tokens_to_device(prompt),
+                                      cache)
+    eng._decode_n(model, first, cache, n_steps=2)
+    prof = device_profile(
+        lambda: eng._decode_n(model, first, cache, n_steps=16), 16,
+        top=None)
+    del eng
+    torch.cuda.empty_cache()
+    # float32: the kernel path (CUDA-core GEMV: f32 activations) against
+    # the plain path (quant_matmul_reference) over a short generate
+    f32 = {}
+    for use_kernels in (True, False):
+        e = Engine(qp, cfg, batch_size=1, max_len=PROMPT + OWQ_F32_GEN + 8,
+                   compute_dtype=torch.float32, use_kernels=use_kernels)
+        f32[use_kernels] = e.generate(prompt, max_new_tokens=OWQ_F32_GEN)
+        del e
+        torch.cuda.empty_cache()
+    want_grouped = reckon_owq_grouped(L, GEN - 1)
+    want_span = reckon_owq_span(qp, GEN - 1)
+    rec = dict(
+        model=cfg.name, depth=L, bits="cycled_arch (2/3/4)",
+        down_layouts=sorted(down), prompt=PROMPT, gen=GEN,
+        decode_ms_per_token=speed["GEMV"]["decode_token_ms"],
+        ttft_ms=speed["TTFT"]["ttft_ms"],
+        device_ms_per_token=prof["device_ms_per_token"],
+        device_busy_share=prof["device_busy_share"],
+        route_ms_per_token=route_ms(prof),
+        kernels_ms_per_token=prof["kernels_ms_per_token"],
+        quant_matmul_launches=launches, want_launches=7 * L * GEN,
+        grouped_launches=grouped, want_grouped=want_grouped,
+        span_launches=span, want_span=want_span,
+        f32_tokens_equal=bool((f32[True] == f32[False]).all()),
+        tokens_in_range=bool(toks.shape == (1, GEN) and (
+            (toks >= 0) & (toks < cfg.vocab_size)).all()),
+        build_s=build_s, gated=gate, card=smi_line(),
+        phase_s=time.perf_counter() - t0)
+    print("OWQ_DECODE " + json.dumps(rec), flush=True)
+    del qp
+    torch.cuda.empty_cache()
+    if gate:
+        if not rec["tokens_in_range"]:
+            fail(f"OWQ decode tokens out of range: {toks.shape}")
+        if (launches, grouped, span) != (7 * L * GEN, want_grouped,
+                                         want_span):
+            fail(f"OWQ decode launches {(launches, grouped, span)} != "
+                 f"{(7 * L * GEN, want_grouped, want_span)}")
+        if rec["route_ms_per_token"]["cuda_core"] > 0:
+            fail(f"OWQ decode ran the CUDA-core GEMV: {rec}")
+        if not rec["f32_tokens_equal"]:
+            fail(f"OWQ f32 kernel-path tokens differ from the plain path: "
+                 f"{f32}")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -3377,6 +3588,11 @@ def main():
             for M in (1, PROMPT):
                 cases.append(check_owq_matmul(site, nbits, M, gen))
         torch.cuda.empty_cache()
+    # the other superblocks smaller than a ring stage (spanning stages)
+    for nbits in (1, 2, 3, 4):
+        cases.append(check_owq_matmul("owq_sb128", nbits, 1, gen))
+    cases.append(check_owq_matmul("owq_sb512", 1, 1, gen))
+    torch.cuda.empty_cache()
     bad = [c for c in cases if not c["ok"]]
     if bad:
         fail(f"{len(bad)} kernel cases outside tolerance: {bad[:3]}")
@@ -3501,6 +3717,9 @@ def main():
     realize = realization_phases(
         os.path.join(OUT_DIR, "search_out", f"iter_{SEARCH_ITERS}.stats"))
 
+    # -- phase 7c: OWQ packed serving at full width and depth ---------------
+    owq_decode = owq_decode_phase()
+
     # -- phase 8: parallel forms on torch.distributed ranks -----------------
     par = parallel_phase(cases, gen)
 
@@ -3560,6 +3779,12 @@ def main():
                                    meta="bfloat16"),
                               "amq_tpu_torch/csrc/quant_matmul_tile.cu",
                               "amq_tpu/ops/quant_matmul.py:458"),
+        # row 4's decode GEMV at superblocks smaller than a ring stage
+        # (OWQ's down at 3 bits): the grouped GEMV's spanning kernel
+        "quant_matmul_span": (pick("quant_matmul", site="owq_down", nbits=3,
+                                   M=1),
+                              "amq_tpu_torch/csrc/qmm_grouped.cuh",
+                              "amq_tpu/ops/quant_matmul.py:458"),
         # no Pallas kernel: the JAX package's XLA dequantization
         "dequantize_kn": (pick("dequantize_kn", site="gate", nbits=4),
                           "amq_tpu_torch/csrc/dequant.cu",
@@ -3579,6 +3804,7 @@ def main():
                    "quant_matmul_mlp_indexed": switch_recs["pipe+mlp"][
                        "launches"]["quant_matmul_mlp_indexed"],
                    "dequantize_kn": sens["launches"]["dequantize_kn"],
+                   "quant_matmul_span": owq_decode["span_launches"],
                    **{f"{k}_tile": v for k, v in tile_counts.items()}}
     kernels = []
     for name, (c, src, rep) in headline.items():
@@ -3592,7 +3818,9 @@ def main():
                      if k in c},
             "cases_checked": sum(1 for x in cases if x["kernel"] == name
                                  or f"{x['kernel']}_tile" == name
-                                 and x.get("route") == "tile")})
+                                 and x.get("route") == "tile"
+                                 or f"{x['kernel']}_span" == name
+                                 and x.get("spanning"))})
     # the probe kernels: launches over phase 3c, numbers of its gateup case
     for name, src, rep, checked in (
             ("gemv_attrib", "amq_tpu_torch/csrc/gemv_attrib.cu",
@@ -3634,7 +3862,8 @@ def main():
                                    if k != "table"},
                    "eval_parity": eval_recs, "eval_profile": eval_prof,
                    "search": search_rec, "probes": probes,
-                   "realize": realize, "parallel": par,
+                   "realize": realize, "owq_decode": owq_decode,
+                   "parallel": par,
                    "build_report": build_rec},
                   f, indent=1)
     # every process this run started (compilers, ranks, multiprocessing's

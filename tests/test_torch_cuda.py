@@ -301,8 +301,7 @@ def test_cuda_grouped_gemv_routes_every_layout(nbits, group, superblock):
                                    group, superblock)
     out = torch.empty((1, N), dtype=torch.float32, device="cuda")
     # unsplit: every ring stage of K in one block
-    per = (tqm._grouped_round_rows(nbits, superblock)
-           // tqm._grouped_stage_rows(nbits) * (K // superblock))
+    per = tqm._grouped_stages(nbits, superblock, K)
     p = tqm._cuda.ptr
     rc = tqm._lib("amq_qmm_grouped")(
         p(x), None, 1, p(qt.packed), p(qt.scale), p(qt.zero), 1, p(out), 0,
@@ -775,7 +774,8 @@ def test_cuda_extract_ahead_matches_plain(nbits, K):
 
 #: OWQ's compacted 7B layouts: (N, Kp, superblock) -- q/k/v/o and gate/up
 #: keep Kp 4096 (superblock 1024), down's 10954 non-outlier columns pad to
-#: Kp 11008 (superblock 256, not a power-of-two multiple of 1024)
+#: Kp 11008 (superblock 256: 43 superblocks, spanning ring stages below 4
+#: bits)
 OWQ_LAYOUTS = {"attn": (4096, 4096, 1024), "down": (4096, 11008, 256)}
 
 
@@ -786,8 +786,9 @@ OWQ_LAYOUTS = {"attn": (4096, 4096, 1024), "down": (4096, 11008, 256)}
 def test_cuda_quant_matmul_at_owq_layouts(site, nbits, M):
     """``quant_matmul`` (the route ``owq_matmul`` takes on the card) at
     OWQ's packed layouts, 3-bit in native planes, bf16 x, f32 meta (as
-    ``owq_pack`` writes it), against ``quant_matmul_reference``; the
-    grouped counter moves exactly where ``_grouped_applies`` routes, the
+    ``owq_pack`` writes it), against ``quant_matmul_reference`` and, on
+    the grouped route, its plain version; the grouped counter moves at
+    every M = 1 call (down's 2/3-bit layouts on the spanning kernel), the
     tile counter at M = 64 (the tile kernel takes every OWQ layout)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
@@ -805,7 +806,7 @@ def test_cuda_quant_matmul_at_owq_layouts(site, nbits, M):
     x = torch.randn((M, Kp), generator=g, device="cuda").to(torch.bfloat16)
     grouped = tqm._grouped_applies(x, qt.packed, qt.scale, qt.zero, nbits,
                                    128, sb)
-    assert grouped == (M == 1 and (site == "attn" or nbits == 4))
+    assert grouped == (M == 1)
     tile = tqm._tile_applies(x, qt.packed, qt.scale, qt.zero, nbits, 128, sb)
     assert tile == (M == 64)
     before = (tqm.quant_matmul.launches, tqm.quant_matmul.grouped_launches,
@@ -820,10 +821,77 @@ def test_cuda_quant_matmul_at_owq_layouts(site, nbits, M):
     assert got.dtype == torch.bfloat16
     _norm_close(got.float().cpu().numpy(), want.float().cpu().numpy(),
                 atol=2e-2)
+    if grouped:
+        plain = tqm.qmm_grouped_plain(
+            x, qt.packed, qt.scale, qt.zero, nbits=nbits, group_size=128,
+            shape=(N, Kp), superblock=sb, out_dtype=torch.bfloat16)
+        _norm_close(got.float().cpu().numpy(), plain.float().cpu().numpy(),
+                    atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("meta", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("swiglu", [False, True])
+@pytest.mark.parametrize("M", [1, 3, 8])
+@pytest.mark.parametrize("nbits,superblock", [
+    (1, 128), (1, 256), (1, 512), (2, 128), (2, 256), (3, 128), (3, 256),
+    (4, 128)])
+def test_cuda_spanning_gemv_matches_grouped_plain(nbits, superblock, M,
+                                                  swiglu, meta):
+    """The grouped GEMV at superblocks smaller than a ring stage (the
+    spanning kernel; 4-row superblocks of 1 and 3 bits on the round-pair
+    consumer) against its plain version, the grouped form: an odd count
+    of superblocks (the last stage part full), K short of Kp (zeros past
+    K), N = 320 not a multiple of the column tile, K split over blocks,
+    groups of 64 and of 128; f32 out within 1e-4 normalized, two calls
+    with the same bits, one grouped launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from amq_tpu_torch.core import bitpack
+    N, Kp = 320, 27 * superblock
+    K = Kp - superblock + 64
+    for group in (64, 128):
+        g = torch.Generator(device="cuda").manual_seed(
+            nbits * 1000 + superblock + M + 7 * swiglu + group)
+        codes = torch.randint(0, 2**nbits, (Kp, N), generator=g,
+                              device="cuda")
+        scale = (torch.rand((Kp // group, N), generator=g, device="cuda")
+                 * 0.02).to(meta)
+        zero = (torch.rand((Kp // group, N), generator=g, device="cuda")
+                * (2**nbits - 1)).to(meta)
+        stack = (bitpack.pack(codes, nbits, superblock)[None], scale[None],
+                 zero[None], 0)
+        x, u = (torch.randn((M, K), generator=g, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        assert tqm._grouped_applies(x, stack[0][0], scale, zero, nbits, group,
+                                    superblock)
+        assert not tqm._grouped_whole_stages(nbits, superblock)
+        kw = dict(nbits=nbits, group_size=group, shape=(N, K),
+                  superblock=superblock, out_dtype=torch.float32)
+        splits = tqm._grouped_plan(N, Kp, nbits, swiglu, int(
+            meta == torch.bfloat16), group, superblock, 0)[0]
+        assert splits >= 2
+        counter = (tqm.quant_matmul_swiglu_indexed if swiglu
+                   else tqm.quant_matmul_indexed)
+        before = counter.grouped_launches
+
+        def call():
+            if swiglu:
+                return tqm.quant_matmul_swiglu_indexed(x, u, *stack, **kw)
+            return tqm.quant_matmul_indexed(x, *stack, **kw)
+
+        got, again = call(), call()
+        want = tqm.qmm_grouped_plain(x, stack[0][0], scale, zero,
+                                     up=u if swiglu else None, **kw)
+        torch.cuda.synchronize()
+        assert counter.grouped_launches - before == 2
+        _norm_close(got.cpu().numpy(), want.cpu().numpy(), 1e-4)
+        assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [3, 4])
+
 def test_cuda_gptq_matches_cpu(bits):
     """GPTQ of one float32 layer on the card within 2e-5 of the CPU (TF32
     off, as ``cli.common.setup_torch`` sets it)."""

@@ -148,20 +148,22 @@ def test_grouped_plain_low_widths_match_jax_indexed(nbits, M, swiglu):
 
 
 #: per width, the smallest superblock of whole grouped ring stages (32
-#: word rows of the round plane; 16 at 3 bits, beside 32 2-bit rows)
+#: word rows of the round plane; 16 at 3 bits, beside 32 2-bit rows);
+#: below 8 bits smaller ones fill a stage with several superblocks
 _WHOLE_STAGE = {8: 128, 4: 256, 3: 512, 2: 512, 1: 1024}
 
 
 @pytest.mark.parametrize("nbits", [1, 2, 3, 4, 8])
 def test_grouped_routing_conditions(nbits):
     """bf16 activations, M <= 8, groups of a multiple of 64, a superblock
-    of at most 1024 rows holding whole ring stages (each width's smallest
-    is accepted, half and one and a half of it refused), Np, K and x's row stride multiples
-    of 8, 16-byte aligned operands; at 8 bits rounds that nest with the
-    groups, below 8 bits power-of-two groups and superblock (binding at 4
-    bits only: whole stages imply it at 1-3): the grouped
-    GEMV; anything else keeps the CUDA-core GEMV (f32 activations are the
-    JAX package's per-weight route)."""
+    of at most 1024 rows (each width's smallest of whole ring stages is
+    accepted; half of it too below 8 bits, where a stage spans several
+    superblocks, but not at 8 bits; one and a half of it refused), Np, K
+    and x's row stride multiples of 8, 16-byte aligned operands; at 8 bits
+    rounds that nest with the groups and whole stages, below 8 bits
+    power-of-two groups and superblock: the grouped GEMV; anything else
+    keeps the CUDA-core GEMV (f32 activations are the JAX package's
+    per-weight route)."""
     sb = _WHOLE_STAGE[nbits]
     x = torch.zeros((8, 1024), dtype=torch.bfloat16)
     meta = torch.zeros((2, 128), dtype=torch.bfloat16)
@@ -174,7 +176,8 @@ def test_grouped_routing_conditions(nbits):
 
     assert ok()
     assert ok(group=128, superblock=1024)
-    assert not ok(superblock=sb // 2)               # half a ring stage
+    # half a ring stage: a spanning stage of two superblocks below 8 bits
+    assert ok(superblock=sb // 2) == (nbits != 8)
     # 1.5 ring stages (1-bit: 1536 rows, also past 1024; 8-bit: 192 rows,
     # 48 word rows)
     assert not ok(superblock=3 * sb // 2)
@@ -185,7 +188,7 @@ def test_grouped_routing_conditions(nbits):
     assert not ok(cols=124)
     assert not ok(x=x[:, 1:1021])                   # K, alignment
     if nbits == 8:
-        assert not ok(nbits=4, superblock=128)      # half a 4-bit stage
+        assert ok(nbits=4, superblock=128)          # half a 4-bit stage
         assert ok(group=64, superblock=384)         # 64-row groups nest
         assert not ok(group=128, superblock=384)    # rounds straddle groups
     if nbits == 4:      # whole stages, but not powers of two

@@ -40,6 +40,7 @@ from amq_tpu_torch.probes import chain, kernel_attrib as ka
 from amq_tpu_torch.probes import decode_ab as dab
 from amq_tpu_torch.probes import grouped_ring as gr
 from amq_tpu_torch.probes import kernel_roofline as kr
+from amq_tpu_torch.probes import owq_ab
 from amq_tpu_torch.probes import pipelined_gemv as pg
 from amq_tpu_torch.utils import profiling as tprof
 
@@ -383,6 +384,17 @@ def test_grouped_ring_sweep_starts_at_the_shipped_shape():
         gr.main(device="cpu")
     with pytest.raises(SystemExit):
         gr.main(["5"], device="cpu")
+
+
+def test_owq_ab_refuses_no_roots_and_a_root_without_the_package(tmp_path):
+    """The OWQ A/B takes at least one checkout, and a root without the
+    package (the child would import another tree's) fails its child
+    rather than measuring the wrong package."""
+    import subprocess
+    with pytest.raises(SystemExit, match="usage"):
+        owq_ab.main([])
+    with pytest.raises(subprocess.CalledProcessError):
+        owq_ab.run(str(tmp_path), "owq")
 
 
 def test_decode_ab_refuses_no_roots_and_a_failed_root(tmp_path):
