@@ -39,12 +39,48 @@
 // operand.  One __syncthreads per key tile; nothing goes through shared
 // memory between the two products.
 //
-// f32: CUDA cores (TF32 tensor cores would not hold the JAX suite's 2e-4
-// tolerance).  64-query x 64-key tiles staged in shared memory as f32,
-// each of 256 threads holding a 4 x 4 block of scores and a 4 x (d / 16)
-// block of the output in registers, with 16-byte shared loads laid out
-// free of bank conflicts; K and V share one staging buffer so two blocks
-// fit on an SM.
+// f32 (PTQ calibration, float32 evaluation): split TF32 on the tensor
+// cores (3xTF32, mma.sync m16n8k8).  One TF32 product keeps 11 significant
+// bits and misses the JAX suite's 2e-4 by about 5x at S = T = 2048, d 128;
+// so every operand x of both products is split as hi = tf32_rna(x), lo =
+// tf32_rna(x - hi) (x - hi is exact in f32), and each product is taken as
+// lo * hi + hi * lo + hi * hi into the f32 accumulator, the small terms
+// first.  The dropped lo * lo is 2^-22 of the product: about 1e-6
+// absolute at that shape (tests/test_torch_flash_tf32.py emulates it).
+// The tensor cores do three products where CUDA cores would do one, and
+// still have 495 / 3 TFLOP/s against 67.
+//   Budget (d 128; d 64 halves every row-length array):
+//   - a block is eight warps of 16 query rows (128 rows, the bf16 block's),
+//     one block an SM, no spill (REGS in chip_smoke.py);
+//   - shared memory: Q (72 KB as f32, rows d + 16 floats apart) and a
+//     two-stage cp.async ring of 64-key K and V tiles as f32 (141 KB),
+//     215 KB in all.  Q stays f32 and is split again at each key tile:
+//     its hi and lo held in registers would take 128 a thread (even Q as
+//     f32 in registers, 64, spilled), stored split they would not fit
+//     beside the ring;
+//   - a warp's O accumulator (16 x d) is 64 registers, its score tile (16
+//     x 64 keys) 32; the fragments of one k-step are split as they are
+//     read;
+//   - K and V are split where they are read from shared memory, by the
+//     warp that multiplies them: storing hi and lo would double the ring
+//     and the shared-memory reads, 72 KB a warp per tile already.
+//   Fragments are read with 16-byte shared loads, free of bank conflicts:
+//   - S = Q K^T permutes d inside each 16-wide slice (any order of the
+//     summed index does), so a thread's float4 of a K row (or its Q row)
+//     holds its B (A) fragments of two k-steps; Q and K rows are d + 16
+//     floats apart, so the two rows of a quarter warp land on the two
+//     halves of the banks;
+//   - O += P V takes P from the score accumulator in registers: in an
+//     8-key step the A fragment's column t holds key 2t and column t + 4
+//     key 2t + 1, which is where the accumulator already has them, and V's
+//     B fragments (rows 2t and 2t + 1) are read in its stored [keys, d]
+//     layout, no transpose; output column g of n-tile 4 q + i is d 32 q +
+//     4 g + i, so a thread's float4 of a V row serves four n-tiles.  V rows
+//     are d + 4 floats apart (rows 2t of a quarter warp 8 banks apart).
+//   The split is most of the instructions: about 0.8 elements an HMMA at
+//   six instructions each.  Diagonal-tile skipping, the heaviest-first
+//   order and the element mask follow the bf16 kernel; a warp also skips
+//   the tiles past its own last row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,185 +93,8 @@ using namespace amq;
 
 namespace {
 
-constexpr int kBQ = 64;        // queries per block
-constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 256;  // 16 row groups of 4 queries x 16 threads
+constexpr int kThreads = 256;  // eight warps, two warpgroups
 constexpr float kNeg = -1e30f;
-
-// the CUDA-core kernel below runs for f32 inputs only (bf16 takes the
-// tensor-core kernel); p.astype(v.dtype) of the Pallas kernel is then exact
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ float round_as(float v, float) { return v; }
-
-template <int D>
-constexpr int smem_bytes() {
-  // Q tile and one K-or-V tile (row stride D + 4), P tile (stride kBK + 4)
-  return ((kBQ + kBK) * (D + 4) + kBQ * (kBK + 4)) * 4;
-}
-
-template <typename T, int D>
-__device__ __forceinline__ void stage_tile(float* dst, const T* __restrict__ src,
-                                           int row0, int n_rows, int tid) {
-  constexpr int RS = D + 4;
-  for (int i = tid; i < kBK * D; i += kThreads) {
-    const int r = i / D, e = i % D;
-    dst[r * RS + e] =
-        row0 + r < n_rows ? to_f(src[static_cast<size_t>(row0 + r) * D + e]) : 0.f;
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2) flash_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int32_t* __restrict__ offset_ptr, T* __restrict__ out, int Hq,
-    int Hkv, int S, int T_len, int causal, float scale) {
-  constexpr int RS = D + 4;     // Q / KV row stride (floats)
-  constexpr int PS = kBK + 4;   // P row stride
-  constexpr int NJ = D / 64;    // float4 column groups per thread in PV
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* KVs = Qs + kBQ * RS;
-  float* Ps = KVs + kBK * RS;
-
-  const int iq = gridDim.x - 1 - blockIdx.x;   // heaviest query tile first
-  const int bh = blockIdx.y;                   // b * Hq + h
-  const int b = bh / Hq, h = bh % Hq;
-  const int kvh = b * Hkv + h / (Hq / Hkv);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int offset = causal ? offset_ptr[0] : 0;
-  const int q0 = iq * kBQ;
-
-  const T* qb = q + static_cast<size_t>(bh) * S * D;
-  const T* kb = k + static_cast<size_t>(kvh) * T_len * D;
-  const T* vb = v + static_cast<size_t>(kvh) * T_len * D;
-
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, e = i % D;
-    Qs[r * RS + e] =
-        q0 + r < S ? to_f(qb[static_cast<size_t>(q0 + r) * D + e]) * scale : 0.f;
-  }
-
-  int n_tiles = (T_len + kBK - 1) / kBK;
-  if (causal) {
-    const int q_hi = offset + min(q0 + kBQ, S) - 1;   // highest query position
-    n_tiles = max(0, min(n_tiles, q_hi / kBK + 1));
-  }
-
-  float m_run[4], l_run[4], acc[4][4 * NJ];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m_run[a] = kNeg;
-    l_run[a] = 0.f;
-#pragma unroll
-    for (int n = 0; n < 4 * NJ; ++n) acc[a][n] = 0.f;
-  }
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * kBK;
-    __syncthreads();                       // previous V tile and P consumed
-    stage_tile<T, D>(KVs, kb, k0, T_len, tid);
-    __syncthreads();
-
-    // scores of rows ty*4 + a against keys tx + 16*c
-    float s[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[a][c] = 0.f;
-#pragma unroll 4
-    for (int e = 0; e < D; e += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-        qv[a] = *reinterpret_cast<const float4*>(&Qs[(ty * 4 + a) * RS + e]);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        kv[c] = *reinterpret_cast<const float4*>(&KVs[(tx + 16 * c) * RS + e]);
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          s[a][c] = fmaf(qv[a].x, kv[c].x, s[a][c]);
-          s[a][c] = fmaf(qv[a].y, kv[c].y, s[a][c]);
-          s[a][c] = fmaf(qv[a].z, kv[c].z, s[a][c]);
-          s[a][c] = fmaf(qv[a].w, kv[c].w, s[a][c]);
-        }
-    }
-
-    // mask, online softmax (row statistics shared by the 16 threads of a row)
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int q_pos = offset + q0 + ty * 4 + a;
-      float mx = m_run[a];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int k_pos = k0 + tx + 16 * c;
-        const bool ok = k_pos < T_len && (!causal || k_pos <= q_pos);
-        s[a][c] = ok ? s[a][c] : kNeg;
-        mx = fmaxf(mx, s[a][c]);
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float corr = expf(m_run[a] - mx);
-      float ls = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = expf(s[a][c] - mx);
-        ls += p;
-        Ps[(ty * 4 + a) * PS + tx + 16 * c] = round_as(p, T());
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) ls += __shfl_xor_sync(0xffffffffu, ls, o);
-      l_run[a] = l_run[a] * corr + ls;
-      m_run[a] = mx;
-#pragma unroll
-      for (int n = 0; n < 4 * NJ; ++n) acc[a][n] *= corr;
-    }
-    __syncthreads();                       // P complete, K consumed
-    stage_tile<T, D>(KVs, vb, k0, T_len, tid);
-    __syncthreads();
-
-    // acc[a][4*jj + t] += sum_k P[row a][k] * V[k][tx*4 + 64*jj + t]
-#pragma unroll 2
-    for (int kk = 0; kk < kBK; kk += 4) {
-      float4 pv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-        pv[a] = *reinterpret_cast<const float4*>(&Ps[(ty * 4 + a) * PS + kk]);
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-#pragma unroll
-        for (int jj = 0; jj < NJ; ++jj) {
-          const float4 vv = *reinterpret_cast<const float4*>(
-              &KVs[(kk + t) * RS + tx * 4 + 64 * jj]);
-#pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            const float p = t == 0 ? pv[a].x : t == 1 ? pv[a].y : t == 2 ? pv[a].z : pv[a].w;
-            acc[a][4 * jj + 0] = fmaf(p, vv.x, acc[a][4 * jj + 0]);
-            acc[a][4 * jj + 1] = fmaf(p, vv.y, acc[a][4 * jj + 1]);
-            acc[a][4 * jj + 2] = fmaf(p, vv.z, acc[a][4 * jj + 2]);
-            acc[a][4 * jj + 3] = fmaf(p, vv.w, acc[a][4 * jj + 3]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = q0 + ty * 4 + a;
-    if (r >= S) continue;
-    const float l = l_run[a] == 0.f ? 1.f : l_run[a];
-    T* ob = out + (static_cast<size_t>(bh) * S + r) * D;
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj)
-#pragma unroll
-      for (int t = 0; t < 4; ++t)
-        store(ob + tx * 4 + 64 * jj + t, acc[a][4 * jj + t] / l);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16: warpgroup MMA
@@ -347,7 +206,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel_wgmma(
     const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ offset_ptr,
     __nv_bfloat16* __restrict__ out, int Hq, int Hkv, int S, int T_len,
     int causal, float scale_log2) {
-  extern __shared__ float4 smem4[];   // the one declaration of this file
+  extern __shared__ float4 smem4[];   // declared alike in every kernel
   const uint32_t sQ =
       (static_cast<uint32_t>(__cvta_generic_to_shared(smem4)) + 1023) &
       ~1023u;
@@ -501,6 +360,282 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel_wgmma(
 }
 
 // ---------------------------------------------------------------------------
+// f32: split TF32 on mma.sync
+
+constexpr int kTfBQ = 128;     // queries per block: eight warps of 16 rows
+constexpr int kTfBK = 64;      // keys per tile
+template <int D>
+__host__ __device__ constexpr int tf_k_stride() { return D + 16; }   // floats
+template <int D>
+__host__ __device__ constexpr int tf_v_stride() { return D + 4; }
+template <int D>
+__host__ __device__ constexpr int tf_stage_floats() {
+  return kTfBK * (tf_k_stride<D>() + tf_v_stride<D>());   // K, then V
+}
+template <int D>
+__host__ __device__ constexpr int tf_smem_bytes() {
+  // Q, then the two-stage ring
+  return (kTfBQ * tf_k_stride<D>() + 2 * tf_stage_floats<D>()) * 4;
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo up to 2^-22 x, both TF32.  hi is rounded with two integer
+// operations, cvt.rna's bits for every x but NaN (whose lo, rounded by
+// cvt.rna itself, is then NaN, so the products stay NaN); cvt.rna on hi
+// would add its NaN guard, two more instructions an element
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void split4(const float4& x, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  split_tf32(x.x, hi[0], lo[0]);
+  split_tf32(x.y, hi[1], lo[1]);
+  split_tf32(x.z, hi[2], lo[2]);
+  split_tf32(x.w, hi[3], lo[3]);
+}
+
+// d[16 x 8] += a[16 x 8] b[8 x 8], one TF32 product
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in split TF32: lo * hi and hi * lo, then hi * hi
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+// rows [row0, row0 + N_ROWS) of a [*, D] f32 matrix to dst, rows RS
+// floats apart; rows at or past `limit` are zero-filled
+template <int D, int RS, int N_ROWS = kTfBK>
+__device__ __forceinline__ void load_tile_f32(uint32_t dst,
+                                              const float* __restrict__ src,
+                                              int row0, int limit, int tid) {
+  constexpr int kChunks = D / 4;   // 16-byte chunks per row
+  static_assert(N_ROWS * kChunks % kThreads == 0, "whole rounds");
+#pragma unroll
+  for (int it = 0; it < N_ROWS * kChunks / kThreads; ++it) {
+    const int i = it * kThreads + tid;
+    const int r = i / kChunks, c = i % kChunks;
+    const bool ok = row0 + r < limit;
+    const float* g = src + static_cast<size_t>(ok ? row0 + r : 0) * D + c * 4;
+    cp_async16(dst + (r * RS + c * 4) * 4, g, ok);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1) flash_kernel_tf32x3(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const int32_t* __restrict__ offset_ptr,
+    float* __restrict__ out, int Hq, int Hkv, int S, int T_len, int causal,
+    float scale) {
+  constexpr int KS = tf_k_stride<D>(), VS = tf_v_stride<D>();
+  constexpr int kStage = tf_stage_floats<D>();
+  constexpr int NC = kTfBK / 8;      // 8-key n-tiles of S, k-steps of PV
+  extern __shared__ float4 smem4[];
+  const float* sQ = reinterpret_cast<const float*>(smem4);
+  const float* sm = sQ + kTfBQ * KS;          // the ring: stage s, K then V
+  const uint32_t sq =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem4));
+  const uint32_t sbase = sq + kTfBQ * KS * 4;
+
+  const int iq = gridDim.x - 1 - blockIdx.x;   // heaviest query tile first
+  const int bh = blockIdx.y;                   // b * Hq + h
+  const int b = bh / Hq, h = bh % Hq;
+  const int kvh = b * Hkv + h / (Hq / Hkv);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;        // fragment row, column
+  const int offset = causal ? offset_ptr[0] : 0;
+  const int q0 = iq * kTfBQ;
+  const int wq0 = q0 + 16 * warp;              // the warp's first row
+  const int r_lo = wq0 + g;                    // this thread's rows r_lo, + 8
+
+  const float* qb = q + static_cast<size_t>(bh) * S * D;
+  const float* kb = k + static_cast<size_t>(kvh) * T_len * D;
+  const float* vb = v + static_cast<size_t>(kvh) * T_len * D;
+
+  int n_tiles = (T_len + kTfBK - 1) / kTfBK;
+  if (causal) {
+    const int q_hi = offset + min(q0 + kTfBQ, S) - 1;   // highest position
+    n_tiles = max(0, min(n_tiles, q_hi / kTfBK + 1));
+  }
+  // the tiles this warp multiplies: none past its own last row
+  int w_tiles = wq0 < S ? n_tiles : 0;
+  if (causal && wq0 < S)
+    w_tiles = min(n_tiles, (offset + min(wq0 + 16, S) - 1) / kTfBK + 1);
+
+  load_tile_f32<D, KS, kTfBQ>(sq, qb, q0, S, tid);
+  if (n_tiles > 0) {
+    load_tile_f32<D, KS>(sbase, kb, 0, T_len, tid);
+    load_tile_f32<D, VS>(sbase + KS * kTfBK * 4, vb, 0, T_len, tid);
+  }
+  cp_async_commit();
+  // this thread's Q rows r_lo, r_lo + 8 at d 4 t (A fragments' columns)
+  const float* qw = sQ + (16 * warp + g) * KS + 4 * t;
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_run[2] = {kNeg, kNeg}, l_run[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait_all();          // tile j landed for this thread
+    __syncthreads();              // ... for every thread; tile j - 1 consumed
+    if (j + 1 < n_tiles) {        // refill the other stage meanwhile
+      const uint32_t nxt = sbase + ((j + 1) & 1) * kStage * 4;
+      load_tile_f32<D, KS>(nxt, kb, (j + 1) * kTfBK, T_len, tid);
+      load_tile_f32<D, VS>(nxt + KS * kTfBK * 4, vb, (j + 1) * kTfBK, T_len,
+                           tid);
+    }
+    cp_async_commit();
+    if (j >= w_tiles) continue;   // no row of this warp sees tile j
+    const float* Ks = sm + (j & 1) * kStage;
+    const float* Vs = Ks + KS * kTfBK;
+
+    // S = Q K^T: s[c][e] is row r_lo + 8 (e / 2), key 8 c + 2 t + e % 2
+    float s[NC][4];
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[c][e] = 0.f;
+#pragma unroll 2
+    for (int ds = 0; ds < D / 16; ++ds) {
+      // A fragments of k-steps 2 ds and 2 ds + 1: (row g, column t),
+      // (g + 8, t), (g, t + 4), (g + 8, t + 4); q scaled first, as the
+      // reference does
+      const float4 x0 = *reinterpret_cast<const float4*>(qw + 16 * ds);
+      const float4 x1 =
+          *reinterpret_cast<const float4*>(qw + 8 * KS + 16 * ds);
+      uint32_t ah[2][4], al[2][4];
+      split_tf32(__fmul_rn(x0.x, scale), ah[0][0], al[0][0]);
+      split_tf32(__fmul_rn(x1.x, scale), ah[0][1], al[0][1]);
+      split_tf32(__fmul_rn(x0.y, scale), ah[0][2], al[0][2]);
+      split_tf32(__fmul_rn(x1.y, scale), ah[0][3], al[0][3]);
+      split_tf32(__fmul_rn(x0.z, scale), ah[1][0], al[1][0]);
+      split_tf32(__fmul_rn(x1.z, scale), ah[1][1], al[1][1]);
+      split_tf32(__fmul_rn(x0.w, scale), ah[1][2], al[1][2]);
+      split_tf32(__fmul_rn(x1.w, scale), ah[1][3], al[1][3]);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        // B fragments (row t, t + 4; column g): key 8 c + g at the same d
+        const float4 kx = *reinterpret_cast<const float4*>(
+            Ks + (8 * c + g) * KS + 16 * ds + 4 * t);
+        uint32_t bh[4], bl[4];
+        split4(kx, bh, bl);
+        mma_3xtf32(s[c], ah[0], al[0], bh[0], bh[1], bl[0], bl[1]);
+        mma_3xtf32(s[c], ah[1], al[1], bh[2], bh[3], bl[2], bl[3]);
+      }
+    }
+
+    // mask (tiles across the diagonal or T only), online softmax in base 2
+    const int k0 = j * kTfBK;
+    const bool edge = k0 + kTfBK > T_len ||
+                      (causal && k0 + kTfBK - 1 > offset + wq0);
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[c][e] * kLog2e;
+        if (edge) {
+          const int kp = k0 + 8 * c + 2 * t + (e & 1);
+          const int qp = offset + r_lo + 8 * (e >> 1);
+          if (kp >= T_len || (causal && kp > qp)) x = kNeg;
+        }
+        s[c][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      corr[i] = exp2f(m_run[i] - mx[i]);
+      m_run[i] = mx[i];
+      l_run[i] *= corr[i];
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[c][e] = exp2f(s[c][e] - mx[e >> 1]);
+        l_run[e >> 1] += s[c][e];
+      }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+
+    // O += P V: 8-key step c takes P's A fragment from s[c] (column t is
+    // key 8 c + 2 t, column t + 4 key 8 c + 2 t + 1) and V rows 8 c + 2 t
+    // and 8 c + 2 t + 1 as B; n-tile 4 qd + i, column g is d 32 qd + 4 g + i
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      uint32_t ph[4], pl[4];
+      split_tf32(s[c][0], ph[0], pl[0]);
+      split_tf32(s[c][2], ph[1], pl[1]);
+      split_tf32(s[c][1], ph[2], pl[2]);
+      split_tf32(s[c][3], ph[3], pl[3]);
+      const float* v0 = Vs + (8 * c + 2 * t) * VS + 4 * g;
+#pragma unroll
+      for (int qd = 0; qd < D / 32; ++qd) {
+        const float4 x0 = *reinterpret_cast<const float4*>(v0 + 32 * qd);
+        const float4 x1 = *reinterpret_cast<const float4*>(v0 + VS + 32 * qd);
+        uint32_t h0[4], l0[4], h1[4], l1[4];
+        split4(x0, h0, l0);
+        split4(x1, h1, l1);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          mma_3xtf32(o[4 * qd + i], ph, pl, h0[i], h1[i], l0[i], l1[i]);
+      }
+    }
+  }
+  cp_async_wait_all();            // nothing in flight at exit
+
+  // o[4 qd + i][2 r + e]: row r_lo + 8 r, d 32 qd + 8 t + 4 e + i
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l = l == 0.f ? 1.f : l;
+    const int row = r_lo + 8 * r;
+    if (row >= S) continue;
+    float* ob = out + (static_cast<size_t>(bh) * S + row) * D + 8 * t;
+#pragma unroll
+    for (int qd = 0; qd < D / 32; ++qd)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        *reinterpret_cast<float4*>(ob + 32 * qd + 4 * e) = make_float4(
+            o[4 * qd][2 * r + e] / l, o[4 * qd + 1][2 * r + e] / l,
+            o[4 * qd + 2][2 * r + e] / l, o[4 * qd + 3][2 * r + e] / l);
+  }
+}
+
+// ---------------------------------------------------------------------------
 
 template <typename Kernel>
 cudaError_t configure(Kernel kernel, int smem) {
@@ -515,10 +650,10 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        int Hkv, int S, int T_len, int causal, float scale,
                        cudaStream_t s) {
   static const cudaError_t configured =
-      configure(flash_kernel<float, D>, smem_bytes<D>());
+      configure(flash_kernel_tf32x3<D>, tf_smem_bytes<D>());
   if (configured != cudaSuccess) return configured;
-  const dim3 grid((S + kBQ - 1) / kBQ, B * Hq);
-  flash_kernel<float, D><<<grid, kThreads, smem_bytes<D>(), s>>>(
+  const dim3 grid((S + kTfBQ - 1) / kTfBQ, B * Hq);
+  flash_kernel_tf32x3<D><<<grid, kThreads, tf_smem_bytes<D>(), s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), offset, static_cast<float*>(out), Hq, Hkv,
       S, T_len, causal, scale);

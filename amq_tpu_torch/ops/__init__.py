@@ -6,8 +6,10 @@ call).  ``GROUPED`` lists the wrappers whose decode calls may take the
 grouped tensor-core GEMV; their ``grouped_launches`` count those (and
 ``span_launches`` those of them whose superblocks span a ring stage),
 and their ``tile_launches`` the multi-row calls that took the tile kernel
-on wgmma.  A captured CUDA graph launches its kernels on every replay without
-calling a wrapper: ``serving.graphs`` adds a replay's launches with
+on wgmma; ``flash_attention.f32_launches`` counts the flash launches on
+float32 inputs (the split-TF32 kernel).  A captured CUDA graph launches
+its kernels on every replay without calling a wrapper: ``serving.graphs``
+adds a replay's launches with
 :func:`add_launch_counts` (and takes back those of its warm-up and
 capture, which run the wrappers but are undone or launch nothing).
 """
@@ -33,6 +35,7 @@ def reset_launch_counts() -> None:
         fn.grouped_launches = 0
         fn.span_launches = 0
         fn.tile_launches = 0
+    _flash.flash_attention.f32_launches = 0
 
 
 def launch_counts() -> dict:
@@ -58,6 +61,8 @@ def counter_state() -> dict:
         state[(fn, "grouped_launches")] = fn.grouped_launches
         state[(fn, "span_launches")] = fn.span_launches
         state[(fn, "tile_launches")] = fn.tile_launches
+    state[(_flash.flash_attention, "f32_launches")] = \
+        _flash.flash_attention.f32_launches
     return state
 
 

@@ -14,9 +14,15 @@ cores: warpgroup MMA (``wgmma``) over 128-query blocks, 64-key K/V tiles
 streamed through a two-stage ``cp.async`` ring while the previous tile is
 multiplied, the softmax in registers and P fed to the PV product from
 registers.  Its scores are scaled in f32 after the product (the JAX kernel
-scales q first).  f32 inputs run on CUDA cores in f32, which the JAX
-suite's 2e-4 tolerance needs (TF32 would not hold it).  The top of the CUDA
-source sets the design out.
+scales q first).  f32 inputs (PTQ calibration, float32 evaluation) run
+both products on the tensor cores in split TF32 (3xTF32, ``mma.sync``):
+every operand is split into two TF32 values, hi and lo, and each product
+is taken as lo*hi + hi*lo + hi*hi in f32.  One TF32 product would miss
+the JAX suite's 2e-4 (about 1e-3 at S = T = 2048, d 128); the split
+misses the f32 function by about 1e-6 there
+(``tests/test_torch_flash_tf32.py`` emulates both).  The top of the CUDA
+source sets the design out.  ``flash_attention.f32_launches`` counts the
+f32 kernel's launches among ``launches``.
 """
 
 from __future__ import annotations
@@ -103,6 +109,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"{what}: q, k and v dtypes must agree")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{what}: inputs must be contiguous")
+    # the kernels read 16-byte chunks: a misaligned view is copied
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     off = _offset_tensor(offset, q.device)
     out = torch.empty_like(q)
     rc = _lib()(_cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(off),
@@ -110,7 +118,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 d, int(causal), _cuda.stream())
     _cuda.check(rc, what)
     flash_attention.launches += 1
+    if q.dtype == torch.float32:
+        flash_attention.f32_launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.f32_launches = 0

@@ -319,7 +319,9 @@ gemv_attrib.launches = 0
 _SASS_FN = re.compile(
     r"Function : \S*attrib_(gemv|grouped)_(?:kernel|pinned)ILi(\d)ELi(\d)E")
 _SASS_HEAD = re.compile(r"Function : (\S+)")
-_SASS_OP = re.compile(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)")
+# the instruction's address has four hex digits or more (a kernel past
+# 64 KB of code)
+_SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)")
 SASS_OPS = ("FFMA", "I2F", "LDG", "LDS", "HMMA", "LOP3", "SHF")
 
 
@@ -360,6 +362,15 @@ def count_ops(text: str, symbol: str, ops) -> dict:
             found = _SASS_OP.findall(body)
             recs[h.group(1)] = {op: found.count(op) for op in ops}
     return recs
+
+
+def count_forms(text: str, symbol: str, forms: dict) -> dict:
+    """Per kernel whose symbol matches ``symbol``: how many of its
+    instructions match each regex of ``forms`` (name -> regex over the
+    whole instruction, e.g. ``HMMA\\.\\S*TF32`` for an operand type)."""
+    return {h.group(1): {name: len(re.findall(rx, body))
+                         for name, rx in forms.items()}
+            for h, body in _functions(text) if re.search(symbol, h.group(1))}
 
 
 def sass_listing(name: str) -> str:

@@ -12,9 +12,11 @@ Phases (any failed check exits non-zero before the last line):
    pipelined form and the one-launch MLP, the dequantization kernel, the
    attribution probe's grouped body, the extract-ahead GEMV and the
    multi-row tile kernel, from -Xptxas -v), SASS (HGMMA / HMMA / FFMA per
-   flash kernel, and also LOP3 / SHF per grouped ring kernel and tile
-   kernel, from cuobjdump -sass) and TILE_PTXAS (ptxas's wgmma notes on
-   the tile kernel) lines; fails if the bf16 flash kernel holds no HGMMA,
+   flash kernel, TF32 HMMA / HGMMA per f32 flash kernel, and also LOP3 /
+   SHF per grouped ring kernel and tile kernel, from cuobjdump -sass) and
+   TILE_PTXAS (ptxas's wgmma notes on the tile kernel) lines; fails if
+   the bf16 flash kernel holds no HGMMA, the f32 one (split TF32) no
+   tensor-core product of TF32 type,
    a grouped ring kernel no HMMA or HGMMA, a tile kernel instantiation
    no HGMMA, or a redesigned kernel spills.
 3. kernels vs their plain PyTorch versions at the Llama-2-7B shapes:
@@ -30,13 +32,16 @@ Phases (any failed check exits non-zero before the last line):
    beside the CUDA-core GEMM's in the same case, gemm_ms); decode
    attention at the Llama-2-7B, GQA, hd-64 and sliding-window shapes;
    flash attention at the Llama-2-7B evaluation shape (bf16 and f32),
-   prefill with a cache (unaligned T), the GQA Llama-3-8B shape and d 64;
+   prefill with a cache (unaligned T), the GQA Llama-3-8B shape and d 64,
+   each also in f32 (the split-TF32 kernel, PTQ calibration's), and f32
+   at AWQ's calibration length (S 512);
    decode attention at a 4000-key context (reported) and a float32 batch-
    independence case (each row of a B = 4 call torch.equal to the row
    alone).  One line per case: error vs tolerance, two calls torch.equal,
    kernel / plain / library times, the least time the card could take
    (bytes over 3.35 TB/s or operations over the peak for the inputs' type)
-   and, for flash, the share of that peak.
+   and, for flash, the share of that peak (f32: of the split-TF32 rate,
+   three TF32 products per product, with the CUDA-core bound beside it).
    The decode kernels of the JAX package's opt-in switches at the same
    shapes, both in the grouped form on the grouped GEMV's ring: the
    pipelined grouped GEMV (qkv / o / gateup, down with the SwiGLU
@@ -134,8 +139,9 @@ Phases (any failed check exits non-zero before the last line):
    load_quantized torch.equal to quantize_model in memory (PROXY) and
    served by the speed CLI with --proxy_path; the quantize CLI on phase
    7's iter_2.stats with gptq, awq, hqq and fp16 at 32 layers and owq
-   at 16 (REALIZE: seconds per stage, perplexity, flash and dequantization
-   launches equal to the counts reckoned, GPTQ's and OWQ's Hessian-
+   at 16 (REALIZE: seconds per stage, perplexity, flash (f32 ones apart)
+   and dequantization launches equal to the counts reckoned, GPTQ's and
+   OWQ's Hessian-
    weighted error tr((W-Q) H (W-Q)^T) below round-to-nearest's at layers
    0 and L-1); an f32 HQQ realization's perplexity on the kernel path
    within 1e-3 of the plain path (REALIZE_PARITY); OWQ packed serving
@@ -178,7 +184,9 @@ Phases (any failed check exits non-zero before the last line):
 9. PROCESSES_LEFT: every process the run started (compilers, ranks,
    multiprocessing's resource tracker) has ended, or the run fails; then
    the kernels line (with an M = 64 entry per row 1, 2 and 4 for the
-   tile kernel, `<name>_tile`), the card line, and the last line
+   tile kernel, `<name>_tile`, and the float32 flash kernel,
+   `flash_attention_f32`, launched by phase 7b's calibration; the flash
+   entries name their design), the card line, and the last line
    {"ok": true, "device": {...}}.
 """
 
@@ -198,6 +206,7 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12           # H100 SXM dense bf16, NVIDIA data sheet
 F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
+TF32_FLOPS = 495e12           # H100 SXM dense TF32 tensor cores
 OUT_DIR = "chiprun_out"
 
 
@@ -842,7 +851,16 @@ FLASH_CASES = (
     ("prefill-cache", 1, 32, 32, 512, 2056, 128, 1536, torch.bfloat16),
     ("gqa-llama3-8b", 2, 32, 8, 2048, 2048, 128, 0, torch.bfloat16),
     ("hd64", 2, 16, 2, 256, 256, 64, 0, torch.bfloat16),
+    # f32 (the split-TF32 kernel): GQA, the prefill-cache offset, d 64 and
+    # AWQ's calibration length (a batch of 8 samples)
+    ("gqa-llama3-8b-f32", 2, 32, 8, 2048, 2048, 128, 0, torch.float32),
+    ("prefill-cache-f32", 1, 32, 32, 512, 2056, 128, 1536, torch.float32),
+    ("hd64-f32", 2, 16, 2, 256, 256, 64, 0, torch.float32),
+    ("awq-calib-f32", 8, 32, 32, 512, 512, 128, 0, torch.float32),
 )
+#: the kernel each dtype takes
+FLASH_DESIGN = {torch.bfloat16: "wgmma m64nNk16 bf16 (PR 5)",
+                torch.float32: "split TF32 (3xTF32) on mma.sync m16n8k8"}
 #: f32: the JAX suite's absolute tolerance (sums in other orders); bf16:
 #: max |kernel - plain| / max |plain| (one bf16 rounding of p and of the
 #: output each, 2^-8 relative, p against a running vs the final max)
@@ -888,8 +906,13 @@ def check_flash(label, B, Hq, Hkv, S, T, d, offset, dtype, gen):
     live = min(offset + S, T)
     esize = q.element_size()
     nbytes = (2 * B * Hq * S * d + 2 * B * Hkv * live * d) * esize
-    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
-    b_ms, b_by = bound(nbytes, flops, peak)
+    if dtype == torch.bfloat16:
+        peak, ops_done = BF16_FLOPS, flops
+    else:
+        # split TF32: three tensor-core products per product; the CUDA
+        # cores' bound beside it
+        peak, ops_done = TF32_FLOPS, 3 * flops
+    b_ms, b_by = bound(nbytes, ops_done, peak)
     rec = dict(kernel="flash_attention", case=label, B=B, Hq=Hq, Hkv=Hkv,
                S=S, T=T, d=d, offset=offset, dtype=str(dtype).split(".")[-1],
                max_abs_err=err, err_vs_tol=score, tol=FLASH_TOL[dtype],
@@ -897,9 +920,13 @@ def check_flash(label, B, Hq, Hkv, S, T, d, offset, dtype, gen):
                host_us=wrapper_us, library_ms=library_ms,
                library="scaled_dot_product_attention(enable_gqa=True)",
                tflops=flops / ms / 1e9,
-               share_of_peak=flops / ms / 1e-3 / peak, bound_ms=b_ms,
-               bound_by=b_by,
+               share_of_peak=ops_done / ms / 1e-3 / peak, bound_ms=b_ms,
+               bound_by=b_by, design=FLASH_DESIGN[dtype],
                ok=score <= FLASH_TOL[dtype] and deterministic)
+    if dtype == torch.float32:
+        f32_ms, f32_by = bound(nbytes, flops, F32_FLOPS)
+        rec.update(bound_f32_cores_ms=f32_ms, bound_f32_cores_by=f32_by,
+                   share_of_f32_cores=flops / ms / 1e-3 / F32_FLOPS)
     print("CASE " + json.dumps(rec), flush=True)
     return rec
 
@@ -910,6 +937,10 @@ def check_flash(label, B, Hq, Hkv, S, T, d, offset, dtype, gen):
 #: one-launch MLP), and the kernels whose registers and spills phase 2
 #: reports (library -> symbol pattern)
 WGMMA_FLASH = "flash_kernel_wgmma"
+#: the f32 flash kernel's (split TF32 on mma.sync): its tensor-core
+#: products of TF32 type, HMMA.1688.F32.TF32 (or HGMMA ... TF32)
+TF32_FLASH = "flash_kernel_tf32x3"
+TF32_MMA = r"HG?MMA\.\S*TF32"
 GROUPED_GEMV = "qmm_grouped"
 MLP_KERNEL = "qmm_mlp_kernel"
 RING_KERNELS = {"quant_matmul": GROUPED_GEMV, "quant_matmul_pipe":
@@ -938,9 +969,11 @@ def build_report():
     dequantization kernel and the two probe kernels on the ring and on
     wgmma, its registers and local spill bytes, from nvcc's -Xptxas -v) and a SASS line (per flash kernel and ring kernel its
     HGMMA, HMMA and FFMA instructions, and the ring kernels' LOP3 and SHF,
-    from cuobjdump -sass; the tile kernel's too, with its LDS, and
+    from cuobjdump -sass, and the f32 flash kernel's TF32 tensor-core
+    products, TF32_MMA; the tile kernel's too, with its LDS, and
     ptxas's wgmma notes on it, TILE_PTXAS).  Fails if the bf16 flash
-    kernel holds no HGMMA (warpgroup MMA), a ring kernel (any width) no
+    kernel holds no HGMMA (warpgroup MMA), the f32 one (split TF32) no
+    HMMA or HGMMA of TF32 type, a ring kernel (any width) no
     HMMA or HGMMA, a ring library lacks an instantiation, a tile kernel
     instantiation is missing or holds no HGMMA, or one of these kernels
     spills."""
@@ -957,8 +990,11 @@ def build_report():
         names = ka.kernel_names(usage)
         regs[name] = {names[sym]: use for sym, use in usage.items()}
     print("REGS " + json.dumps(regs), flush=True)
-    counts = ka.count_ops(ka.sass_listing("flash_attention"), "flash_kernel",
-                          ("HGMMA", "HMMA", "FFMA"))
+    flash_sass = ka.sass_listing("flash_attention")
+    counts = ka.count_ops(flash_sass, "flash_kernel", ("HGMMA", "HMMA", "FFMA"))
+    tf32 = ka.count_forms(flash_sass, TF32_FLASH, {"TF32_MMA": TF32_MMA})
+    for sym, c in tf32.items():
+        counts[sym].update(c)
     ring = {}
     for lib, pattern in RING_KERNELS.items():
         # the ring kernels' extraction (LOP3, SHF) beside their MMAs
@@ -985,6 +1021,8 @@ def build_report():
     wgmma = {sym: c for sym, c in sass.items() if WGMMA_FLASH in sym}
     if len(wgmma) != 2 or not all(c["HGMMA"] > 0 for c in wgmma.values()):
         fail(f"the bf16 flash kernels hold no HGMMA: {sass}")
+    if len(tf32) != 2 or not all(c["TF32_MMA"] > 0 for c in tf32.values()):
+        fail(f"the f32 flash kernels hold no TF32 tensor-core product: {sass}")
     if ring != RING_COUNTS:
         fail(f"ring kernel instantiations {ring} != {RING_COUNTS}")
     tensor = {sym: c for sym, c in sass.items()
@@ -992,8 +1030,7 @@ def build_report():
     if not all(c["HMMA"] + c["HGMMA"] > 0 for c in tensor.values()):
         fail(f"a grouped ring kernel holds no HMMA or HGMMA: {sass}")
     spills = [sym for lib in regs.values() for sym, use in lib.items()
-              if use["spill_stores"] + use["spill_loads"] > 0
-              and not ("flash_kernel" in sym and WGMMA_FLASH not in sym)]
+              if use["spill_stores"] + use["spill_loads"] > 0]
     if spills:
         fail(f"redesigned kernels spill: {spills}")
     return dict(regs=regs, sass=sass)
@@ -2550,13 +2587,16 @@ def reckon_realize(method, L):
     capture (GPTQ / OWQ also one to propagate through the quantized
     block; AWQ propagates in the capture and runs the attention 1 + 20
     times in its scale search), then one per layer and perplexity batch;
-    HQQ dequantizes each of its 7 L linears once before the pass."""
+    HQQ dequantizes each of its 7 L linears once before the pass.  The
+    calibration's launches are float32 (``flash_f32``, the split-TF32
+    kernel), the perplexity's bf16."""
     calib = math.ceil(REAL_N / 8)           # *_quantize_model's batch 8
     ppl = math.ceil(REAL_N / min(REAL_BATCH, 4))
     per_layer = {"gptq": 2 * calib, "owq": 2 * calib,
                  "awq": calib + 1 + 20}.get(method, 0)
     return {"flash_attention": L * (per_layer + ppl),
-            "dequantize_kn": 7 * L if method == "hqq" else 0}
+            "dequantize_kn": 7 * L if method == "hqq" else 0,
+            "flash_f32": L * per_layer}
 
 
 def realize_phase(stats_path):
@@ -2568,6 +2608,7 @@ def realize_phase(stats_path):
     from amq_tpu_torch.cli import quantize
     from contextlib import nullcontext
     from amq_tpu_torch.models.config import get_config
+    from amq_tpu_torch.ops import flash_attention as fa
     from amq_tpu_torch.quantization import gptq, owq
     card = smi_line()
     owq_cfg = cut_model(OWQ_DEPTH)
@@ -2596,7 +2637,8 @@ def realize_phase(stats_path):
         with patch:
             res = quantize.main(args)
         wall = time.perf_counter() - t0
-        counts = ops.launch_counts()
+        counts = dict(ops.launch_counts(),
+                      flash_f32=fa.flash_attention.f32_launches)
         want = {k: 0 for k in counts}
         want.update(reckon_realize(method, cfg.num_layers))
         r = res[0]
@@ -2625,6 +2667,7 @@ def realize_parity_phase():
     from amq_tpu_torch.cli.common import base_parser, load_model, load_tokens
     from amq_tpu_torch.evaluation import Evaluator
     from amq_tpu_torch.models.config import cycled_arch
+    from amq_tpu_torch.ops import flash_attention as fa
     from amq_tpu_torch.quantization import get_quantized_params
     args = base_parser("realize parity").parse_args(
         ["--model_name", "Llama-2-7b-hf", "--synthetic", "--n_sample",
@@ -2644,10 +2687,11 @@ def realize_parity_phase():
         t0 = time.perf_counter()
         got[use_kernels] = ev.eval_ppl(qp, toks)
         got[f"s_{use_kernels}"] = time.perf_counter() - t0
-        got[f"launches_{use_kernels}"] = ops.launch_counts()
+        got[f"launches_{use_kernels}"] = dict(
+            ops.launch_counts(), flash_f32=fa.flash_attention.f32_launches)
     L = cfg.num_layers
     want = {k: 0 for k in got["launches_True"]}
-    want_k = dict(want, flash_attention=L, dequantize_kn=7 * L)
+    want_k = dict(want, flash_attention=L, flash_f32=L, dequantize_kn=7 * L)
     rel = abs(got[True] - got[False]) / abs(got[False])
     rec = dict(method="hqq", compute="float32", kernel_ppl=got[True],
                plain_ppl=got[False], rel_err=rel, tol=PPL_TOL,
@@ -3750,6 +3794,11 @@ def main():
                                  case="llama2-7b-eval-bf16"),
                             "amq_tpu_torch/csrc/flash_attention.cu",
                             "amq_tpu/ops/flash_attention.py:157"),
+        # its float32 form (PTQ calibration): split TF32 on mma.sync
+        "flash_attention_f32": (pick("flash_attention",
+                                     case="llama2-7b-eval-f32"),
+                                "amq_tpu_torch/csrc/flash_attention.cu",
+                                "amq_tpu/ops/flash_attention.py:157"),
         "quant_matmul_indexed_pipe": (
             pick("quant_matmul_indexed_pipe", site="gateup", nbits=4, M=1),
             "amq_tpu_torch/csrc/quant_matmul_pipe.cu",
@@ -3793,7 +3842,8 @@ def main():
     # launches on each kernel's main path: the decode generate for the
     # serving kernels (under AMQ_PIPE for the pipelined GEMVs, under both
     # switches for the MLP kernel), the sensitivity CLI for flash attention
-    # and the dequantization
+    # and the dequantization, phase 7b's PTQ calibration for the float32
+    # flash kernel
     pipe_counts = switch_recs["pipe"]["launches"]
     main_counts = {**counts,
                    "flash_attention": sens["launches"]["flash_attention"],
@@ -3804,6 +3854,8 @@ def main():
                    "quant_matmul_mlp_indexed": switch_recs["pipe+mlp"][
                        "launches"]["quant_matmul_mlp_indexed"],
                    "dequantize_kn": sens["launches"]["dequantize_kn"],
+                   "flash_attention_f32": sum(r["launches"]["flash_f32"]
+                                              for r in realize["methods"]),
                    "quant_matmul_span": owq_decode["span_launches"],
                    **{f"{k}_tile": v for k, v in tile_counts.items()}}
     kernels = []
@@ -3814,13 +3866,16 @@ def main():
             "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"],
+            **({"design": c["design"]} if "design" in c else {}),
             "case": {k: c[k] for k in ("site", "nbits", "M", "meta", "case")
                      if k in c},
             "cases_checked": sum(1 for x in cases if x["kernel"] == name
                                  or f"{x['kernel']}_tile" == name
                                  and x.get("route") == "tile"
                                  or f"{x['kernel']}_span" == name
-                                 and x.get("spanning"))})
+                                 and x.get("spanning")
+                                 or f"{x['kernel']}_f32" == name
+                                 and x.get("dtype") == "float32")})
     # the probe kernels: launches over phase 3c, numbers of its gateup case
     for name, src, rep, checked in (
             ("gemv_attrib", "amq_tpu_torch/csrc/gemv_attrib.cu",

@@ -7,6 +7,8 @@ This file imports no JAX, so it also runs where only PyTorch is installed
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -596,6 +598,12 @@ FLASH_CASES = [
     (1, 4, 4, 128, 200, 128, 40, torch.bfloat16, True),
     (1, 8, 2, 192, 328, 64, 136, torch.bfloat16, True),
     (1, 4, 4, 128, 192, 128, 0, torch.bfloat16, False),
+    # f32 (split TF32 on mma.sync, 128-row blocks of 16-row warps): S and
+    # T unaligned to a warp's rows or a key tile, with GQA and an offset;
+    # non-causal at d 64 with a partial warp
+    (1, 8, 2, 200, 333, 64, 133, torch.float32, True),
+    (2, 4, 4, 77, 77, 64, 0, torch.float32, False),
+    (1, 4, 1, 136, 300, 128, 164, torch.float32, True),
 ]
 
 
@@ -624,6 +632,26 @@ def test_cuda_flash_attention_matches_plain(case):
         # bf16 output and p each carry one bf16 rounding (2^-8 relative)
         _norm_close(got.float().cpu().numpy(), want.float().cpu().numpy(),
                     atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_takes_misaligned_views(dtype):
+    """Contiguous views whose data is not 16-byte aligned (the kernels read
+    16-byte chunks) give the bits of the same tensors aligned."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from amq_tpu_torch.ops import flash_attention as tfa
+    g = torch.Generator(device="cuda").manual_seed(3)
+    shape = (1, 4, 128, 64)
+    n = math.prod(shape)
+    views = [torch.randn(n + 1, generator=g, device="cuda").to(dtype)[1:]
+             .view(shape) for _ in range(3)]
+    assert all(t.data_ptr() % 16 for t in views)
+    got = tfa.flash_attention(*views)
+    want = tfa.flash_attention(*(t.clone() for t in views))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
