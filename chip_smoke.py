@@ -859,7 +859,7 @@ FLASH_CASES = (
     ("awq-calib-f32", 8, 32, 32, 512, 512, 128, 0, torch.float32),
 )
 #: the kernel each dtype takes
-FLASH_DESIGN = {torch.bfloat16: "wgmma m64nNk16 bf16 (PR 5)",
+FLASH_DESIGN = {torch.bfloat16: "wgmma m64nNk16 bf16",
                 torch.float32: "split TF32 (3xTF32) on mma.sync m16n8k8"}
 #: f32: the JAX suite's absolute tolerance (sums in other orders); bf16:
 #: max |kernel - plain| / max |plain| (one bf16 rounding of p and of the
