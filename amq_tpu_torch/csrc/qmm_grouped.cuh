@@ -3,7 +3,7 @@
 // consumer warps that run the grouped form on tensor cores (qmm_tile.cuh's
 // grouped_step, grouped_stage_low, grouped_stage_pipe).
 //
-// One copy of the ring serves four kernels: quant_matmul.cu's grouped
+// One copy of the ring serves five kernels: quant_matmul.cu's grouped
 // GEMV (qmm_grouped_kernel<BITS, false>; below 8 bits, at superblocks
 // smaller than a stage, qmm_grouped_span_kernel, whose stages span several
 // superblocks: "Spanning stages" below), quant_matmul_pipe.cu's pipelined
@@ -11,7 +11,9 @@
 // consumer) and quant_matmul_mlp.cu's one-launch MLP, whose blocks walk
 // many (column tile, K split) items through one ring (the stage count runs
 // on across items, so the barriers re-arm) and may issue a stage's weights
-// ahead of its activations (grouped_issue's parts).
+// ahead of its activations (grouped_issue's parts); quant_matmul_f32.cu's
+// float32 GEMV stages the split pass's three bf16 parts of f32 x as 3M
+// activation rows (the producer's and the layout's EXACT form).
 //
 // The design (bound: bytes).  A block owns kGBN = 256 columns: kGWarps = 8
 // consumer warps of kGTiles = 2 16-column MMA tiles each, every warp over
@@ -73,16 +75,17 @@ __device__ __forceinline__ unsigned char* ring_stage(const GroupedRing& r,
 }
 
 // The ring of a call shaped like `a` (`span` superblocks a stage: each
-// brings its meta slots); with `init` (once per kernel, every thread of
-// the block) its barriers are set up.
-template <int BITS>
+// brings its meta slots; EXACT the float32 form's, qmm_tile.cuh); with
+// `init` (once per kernel, every thread of the block) its barriers are set
+// up.
+template <int BITS, bool EXACT = false>
 __device__ GroupedRing grouped_ring(const GemvArgs& a, bool init,
                                     int span = 1) {
   const int es = a.w.meta_bf16 ? 2 : 4;
   const int slots =
       span * grouped_meta_slots(BITS, a.w.superblock, a.w.group_size);
   const GroupedRing r{grouped_layout<BITS>(a.op.M, a.op.u != nullptr, es,
-                                           slots),
+                                           slots, EXACT),
                       slots, es};
   if (init) {
     if (threadIdx.x < kGStages) {
@@ -112,14 +115,15 @@ __device__ __forceinline__ int grouped_stages(const GemvArgs& a, int st_lo) {
 // ring slot j % kGStages, the block's j-th stage.  Activation rows past M
 // are not copied (they only reach unwritten outputs); rows past K are
 // zeros, written before the barrier's arrival so that its completion
-// publishes them.
-template <int BITS>
+// publishes them.  EXACT (the float32 form): the activation operand's 3M
+// rows (the parts), and at 8 bits every stage's meta, in its own type.
+template <int BITS, bool EXACT = false>
 __device__ void grouped_issue(const GemvArgs& a, const GroupedRing& r,
                               int col0, int js, int j, int lane, int parts) {
   using F = GroupedForm<BITS>;
   constexpr int P = F::rounds;
   const int sb = a.w.superblock, gs = a.w.group_size, Np = a.w.Np;
-  const int M = a.op.M;
+  const int M = EXACT ? 3 * a.op.M : a.op.M;
   const bool swiglu = a.op.u != nullptr;
   const int R = sb * BITS / 32;                    // word rows per superblock
   const int Rg = grouped_round_rows(BITS, sb);     // ... of a round plane
@@ -133,7 +137,7 @@ __device__ void grouped_issue(const GemvArgs& a, const GroupedRing& r,
     // 8-bit: a group's rows in one round (its whole superblock when the
     // group spans rounds): the stage ending them carries the meta
     const int span = min(gs / 2, R);
-    const bool meta = BITS != 8 || (row0 + kGSR) % span == 0;
+    const bool meta = BITS != 8 || EXACT || (row0 + kGSR) % span == 0;
     if (j >= kGStages)
       mbar_wait(ring_empty(j), (j / kGStages - 1) & 1);
     if (lane == 0)
@@ -155,7 +159,8 @@ __device__ void grouped_issue(const GemvArgs& a, const GroupedRing& r,
           (k0 + (lane >> 1) * (P / r.slots) * 2 * Rg) / gs;
       const unsigned char* base = static_cast<const unsigned char*>(
           (lane & 1) ? a.w.zero : a.w.scale);
-      bulk_g2s(st + r.lay.meta_off + lane * kGBN * (BITS == 8 ? 4 : r.es),
+      bulk_g2s(st + r.lay.meta_off +
+                   lane * kGBN * (BITS == 8 && !EXACT ? 4 : r.es),
                base + (static_cast<size_t>(grp) * Np + col0) * r.es,
                cols * r.es, bar);
     }
@@ -355,14 +360,15 @@ __device__ __forceinline__ int span_stages(const GemvArgs& a, int span,
 
 // Producer (one warp): spanning stage js into ring slot j % kGStages, the
 // block's j-th stage: its superblocks' words, meta slots and activation
-// rows (rows past K zeros, written before the barrier's arrival).
-template <int BITS>
+// rows (rows past K zeros, written before the barrier's arrival; EXACT:
+// the 3M rows of the float32 form's parts).
+template <int BITS, bool EXACT = false>
 __device__ void span_issue(const GemvArgs& a, const GroupedRing& r, int span,
                            int col0, int js, int j, int lane) {
   using F = GroupedForm<BITS>;
   constexpr int P = F::rounds;
   const int sb = a.w.superblock, gs = a.w.group_size, Np = a.w.Np;
-  const int M = a.op.M;
+  const int M = EXACT ? 3 * a.op.M : a.op.M;
   const bool swiglu = a.op.u != nullptr;
   const int R = sb * BITS / 32;                    // word rows per superblock
   const int Rg = grouped_round_rows(BITS, sb);     // ... of a round plane
@@ -518,14 +524,16 @@ __global__ void __launch_bounds__((kGWarps + 1) * 32, 2)
 }
 
 // Dynamic shared memory of one grouped block: barriers, then the ring
-// (whole stages, or spanning ones).
+// (whole stages, or spanning ones; `exact` the float32 form's).
 template <int BITS>
-size_t grouped_smem(int M, bool swiglu, int meta_bf16, int sb, int gs) {
+size_t grouped_smem(int M, bool swiglu, int meta_bf16, int sb, int gs,
+                    bool exact = false) {
   const int span =
       grouped_whole_stages(BITS, sb) ? 1 : grouped_span(BITS, sb);
   return 128 + static_cast<size_t>(kGStages) *
                    grouped_layout<BITS>(M, swiglu, meta_bf16 ? 2 : 4,
-                                        span * grouped_meta_slots(BITS, sb, gs))
+                                        span * grouped_meta_slots(BITS, sb, gs),
+                                        exact)
                        .stage;
 }
 

@@ -1,14 +1,15 @@
 // The decode-GEMV arithmetic over pair-planar packed weights: the CUDA-core
 // per-weight form and the steps of the grouped form on tensor cores.
 //
-// The CUDA-core form serves quant_matmul.cu's decode GEMV (f32
-// activations, and the bf16 calls the grouped GEMV does not take; loads go
-// straight from device memory into registers) and the attribution probe's
+// The CUDA-core form serves quant_matmul.cu's decode GEMV (the calls
+// neither grouped form takes; loads go straight from device memory into
+// registers) and the attribution probe's
 // `gemv` body (gemv_attrib.cu).  Both take their extraction and fma order
 // from superblock_fma, their row-slice sum from sum_slices and their
 // split-K sum from reduce_splits_kernel, so they give the same bits.  The
 // grouped form's steps (grouped_step, grouped_stage_low,
-// grouped_stage_pipe) run in the ring of qmm_grouped.cuh.
+// grouped_stage_pipe; for f32 activations exact_stage, exact_span_stage)
+// run in the ring of qmm_grouped.cuh.
 //
 // A block of kBN columns x kKS row slices (512 threads) accumulates x[M, K]
 // @ dequant(W)[K, col0:col0+kBN].
@@ -354,14 +355,18 @@ struct GroupedLayout {
   int meta_off, x_off, u_off, stage;
 };
 
+// (`exact`, the float32 form: 3M activation rows, the parts, at every
+// width, and meta in its own type at 8 bits too.)
 template <int BITS>
 __host__ __device__ inline GroupedLayout grouped_layout(int M, bool swiglu,
                                                         int meta_es,
-                                                        int slots) {
+                                                        int slots,
+                                                        bool exact = false) {
   using F = GroupedForm<BITS>;
   const int words = F::wrows * kGWordStride * 4;
-  const int meta = 2 * slots * kGBN * (BITS == 8 ? 4 : meta_es);
-  const int x = (BITS == 8 ? 8 : M) * F::rounds * F::xstride * 2;
+  const int meta = 2 * slots * kGBN * (BITS == 8 && !exact ? 4 : meta_es);
+  const int x = (exact ? 3 * M : BITS == 8 ? 8 : M) * F::rounds *
+                F::xstride * 2;
   return GroupedLayout{words, words + meta, words + meta + x,
                        words + meta + (swiglu ? 2 : 1) * x};
 }
@@ -574,12 +579,14 @@ __device__ __forceinline__ void low_shift(uint32_t (&w)[S][kGTiles][W][4],
 }
 
 // The correction of products `acc` and x sums `xa` of fields weighing
-// 1 / inv with the meta slot at `ms` (scale row, then zero row), into tot.
-template <int BITS>
+// 1 / inv with the meta slot at `ms` (scale row, then zero row), into tot
+// (EXACT: fields read without the code offset, the float32 form below).
+template <int BITS, bool EXACT = false>
 __device__ __forceinline__ void low_correct_at(
     const float (&acc)[kGTiles][4], const float (&xa)[4], float inv,
     const unsigned char* ms, int meta_es, int c0, float (&tot)[kGTiles][4]) {
   using F = GroupedForm<BITS>;
+  constexpr float zoff = EXACT ? 0.f : F::zoff;
   const unsigned char* mz = ms + kGBN * meta_es;
 #pragma unroll
   for (int ct = 0; ct < kGTiles; ++ct) {
@@ -601,7 +608,7 @@ __device__ __forceinline__ void low_correct_at(
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int cc = i >> 1;
-      const float corr = (z[cc] + F::zoff * inv) * s[cc];
+      const float corr = (z[cc] + zoff * inv) * s[cc];
       tot[ct][i] = fmaf(-xa[i & 1], corr, fmaf(s[cc] * inv, acc[ct][i],
                                                 tot[ct][i]));
     }
@@ -610,13 +617,13 @@ __device__ __forceinline__ void low_correct_at(
 
 // The correction of round p's products `acc` and x sums `xa` with slot
 // (p >> lg_share)'s meta, into tot (the field at offset o weighs 2^o).
-template <int BITS>
+template <int BITS, bool EXACT = false>
 __device__ __forceinline__ void low_correct(const float (&acc)[kGTiles][4],
                                             const float (&xa)[4], int p,
                                             const unsigned char* meta,
                                             int meta_es, int lg_share, int c0,
                                             float (&tot)[kGTiles][4]) {
-  low_correct_at<BITS>(acc, xa,
+  low_correct_at<BITS, EXACT>(acc, xa,
                        __int_as_float((127 - low_offset<BITS>(p)) << 23),
                        meta + 2 * (p >> lg_share) * kGBN * meta_es, meta_es,
                        c0, tot);
@@ -923,6 +930,218 @@ __device__ __forceinline__ void span_stage_pair(
           w[st][ct][pl][0] >>= 2;
           w[st][ct][pl][1] >>= 2;
         }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The float32 form on tensor cores: float32 activations, the JAX package's
+// f32 function (_dequant_tile in f32, then an f32 dot), on the grouped
+// ring (quant_matmul_f32.cu's kernels).
+//
+// Codes are small integers and exact in bf16; only x needs more bits than
+// bf16 has.  A pass before the ring (quant_matmul_f32.cu's split kernel)
+// splits each f32 activation once into three bf16 parts, hi = bf16(x),
+// mid = bf16(x - hi), lo = bf16(x - hi - mid) (each difference exact in
+// f32; together they hold x's 24 bits), rows 3m + q of a bf16 operand that
+// the ring stages as it stages bf16 x.  The products take exact codes: a
+// field read in place as 128 + 2^o c, minus 128 in bf16 (exact; 8 bits:
+// the nibbles as 128 + lo and 2048 + 16 hi, minus their offsets, both into
+// one accumulator), so no 128 * xsum term sits in the f32 sums to cancel
+// (summed in f32 it would cost about 7 of x's bits).  Per round and stage,
+// as grouped_stage_low corrects,
+//   tot += s 2^-o y - (z s) xsum
+// with y = sum c part and xsum = sum part (the ones MMA) per B column.  The
+// B side holds the parts as columns: column c = 3m + q of J n8 groups (J =
+// 1 up to M = 2, 3 up to M = 8), each column with its own accumulator and
+// correction, so row m's bits do not depend on M; the store sums row m's
+// three columns in part order.  Splits, ring and stage plan are the bf16
+// GEMV's.
+
+constexpr uint32_t kBias128 = 0x43004300u;     // bf16 (128, 128)
+constexpr uint32_t kBias2048 = 0x45004500u;    // bf16 (2048, 2048)
+
+// a - b per bf16 half (exact for the small integers here)
+__device__ __forceinline__ uint32_t bf2_sub(uint32_t a, uint32_t b) {
+  const __nv_bfloat162 r =
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+              *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// A fragments of exact codes per round step (8 bits: 16 hi and lo).
+template <int BITS>
+__host__ __device__ constexpr int exact_frags() {
+  return BITS == 8 ? 2 : 1;
+}
+
+// One tile's exact-code A registers of round p at one step, from its words
+// `v` shifted to the round (low_shift): low_frag's 128 + 2^o c minus 128;
+// at 8 bits the round's byte as lo nibble and 16 x hi nibble.
+template <int BITS, int W>
+__device__ __forceinline__ void exact_frag(const uint32_t (&v)[W][4], int p,
+                                           uint32_t (&a)[exact_frags<BITS>()][4]) {
+  if constexpr (BITS == 8) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[0][i] = bf2_sub((v[0][i] & 0x000F000Fu) | kBias128, kBias128);
+      a[1][i] = bf2_sub(((v[0][i] >> 4) & 0x000F000Fu) | kBias2048, kBias2048);
+    }
+  } else {
+    low_frag<BITS>(v, p, a[0]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[0][i] = bf2_sub(a[0][i], kBias128);
+  }
+}
+
+// Per column group j the ring row this lane's B column reads: column 8 j +
+// lane / 4 is row 3m + q; columns past the 3M rows read the last one
+// (their sums reach no output).
+template <int J>
+__device__ __forceinline__ void exact_rows(const __nv_bfloat16* xs, int rows,
+                                           int row_elems, int lane,
+                                           const __nv_bfloat16* (&xr)[J]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    xr[j] = xs + min(8 * j + (lane >> 2), rows - 1) * row_elems;
+}
+
+// The products of one step: the tile's exact codes against each column
+// group's B fragment `b`, and the ones MMA per group.
+template <int BITS, int J>
+__device__ __forceinline__ void exact_step(
+    const uint32_t (&a)[kGTiles][exact_frags<BITS>()][4], const uint2 (&b)[J],
+    float (&acc)[J][kGTiles][4], float (&xa)[J][4]) {
+  constexpr uint32_t kOnes = 0x3F803F80u;        // bf16 (1, 1)
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+#pragma unroll
+    for (int ct = 0; ct < kGTiles; ++ct)
+#pragma unroll
+      for (int f = 0; f < exact_frags<BITS>(); ++f)
+        mma16816_bf16(acc[j][ct], a[ct][f][0], a[ct][f][1], a[ct][f][2],
+                      a[ct][f][3], b[j].x, b[j].y);
+    mma16816_bf16(xa[j], kOnes, kOnes, kOnes, kOnes, b[j].x, b[j].y);
+  }
+}
+
+template <int J>
+__device__ __forceinline__ void exact_clear(float (&acc)[J][kGTiles][4],
+                                            float (&xa)[J][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      xa[j][i] = 0.f;
+#pragma unroll
+      for (int ct = 0; ct < kGTiles; ++ct) acc[j][ct][i] = 0.f;
+    }
+}
+
+// One round p of a stage in the float32 form (low_round's shape).
+template <int BITS, int S, int W, int J>
+__device__ __forceinline__ void exact_round(
+    uint32_t (&w)[S][kGTiles][W][4], int p, const __nv_bfloat16* const (&xr)[J],
+    const unsigned char* meta, int meta_es, int lg_share, int c0,
+    float (&tot)[J][kGTiles][4]) {
+  using F = GroupedForm<BITS>;
+  const int t = (threadIdx.x & 31) & 3;
+  float acc[J][kGTiles][4], xa[J][4];
+  exact_clear<J>(acc, xa);
+#pragma unroll
+  for (int st = 0; st < S; ++st) {
+    uint2 b[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+      b[j] = *reinterpret_cast<const uint2*>(xr[j] + p * F::xstride + 16 * st +
+                                             4 * t);
+    uint32_t a[kGTiles][exact_frags<BITS>()][4];
+#pragma unroll
+    for (int ct = 0; ct < kGTiles; ++ct) exact_frag<BITS>(w[st][ct], p, a[ct]);
+    exact_step<BITS, J>(a, b, acc, xa);
+  }
+  low_shift<BITS>(w, p);
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    low_correct<BITS, true>(acc[j], xa[j], p, meta, meta_es, lg_share, c0,
+                            tot[j]);
+}
+
+// One warp's share of a whole ring stage in the float32 form (every width:
+// grouped_stage_low's words, rounds and per-round corrections; 8 bits takes
+// its P = 2 rounds' meta from every stage): `xs` the stage's activation rows
+// [rows = 3M][P][xstride].
+template <int BITS, int J>
+__device__ __forceinline__ void exact_stage(const uint32_t* ws,
+                                            const __nv_bfloat16* xs, int rows,
+                                            const unsigned char* meta,
+                                            int meta_es, int lg_share,
+                                            int wcol, int lane,
+                                            float (&tot)[J][kGTiles][4]) {
+  using F = GroupedForm<BITS>;
+  constexpr int S = F::n / 8;
+  constexpr int W = BITS == 3 ? 3 : 1;
+  uint32_t w[S][kGTiles][W][4];
+  low_load<BITS>(ws, wcol, lane, w);
+  const int c0 = wcol + 2 * (lane >> 2);
+  const __nv_bfloat16* xr[J];
+  exact_rows<J>(xs, rows, F::rounds * F::xstride, lane, xr);
+  if constexpr (BITS == 4 || BITS == 8) {
+#pragma unroll
+    for (int p = 0; p < F::rounds; ++p)
+      exact_round<BITS>(w, p, xr, meta, meta_es, lg_share, c0, tot);
+  } else {
+#pragma unroll 1
+    for (int p = 0; p < F::rounds; ++p)
+      exact_round<BITS>(w, p, xr, meta, meta_es, lg_share, c0, tot);
+  }
+}
+
+// One warp's share of a spanning stage of SPS-step superblocks in the
+// float32 form (span_stage_low's order: each round corrected per
+// superblock with its own slots; FULL as there).
+template <int BITS, int SPS, int J, bool FULL>
+__device__ __forceinline__ void exact_span_stage(
+    const uint32_t* ws, const __nv_bfloat16* xs, int rows,
+    const unsigned char* meta, int meta_es, int lg_share, int sb_meta,
+    int parts, int wcol, int lane, float (&tot)[J][kGTiles][4]) {
+  using F = GroupedForm<BITS>;
+  constexpr int S = F::n / 8;
+  constexpr int W = BITS == 3 ? 3 : 1;
+  constexpr int sb = span_superblock<BITS, SPS>();
+  static_assert(SPS == 1 || SPS == 2, "8-row steps per superblock");
+  const int t = lane & 3;
+  uint32_t w[S][kGTiles][W][4];
+  low_load<BITS>(ws, wcol, lane, w);
+  const int c0 = wcol + 2 * (lane >> 2);
+  const __nv_bfloat16* xr[J];
+  exact_rows<J>(xs, rows, F::rounds * F::xstride, lane, xr);
+#pragma unroll 1
+  for (int p = 0; p < F::rounds; ++p) {
+    float acc[J][kGTiles][4], xa[J][4];
+    exact_clear<J>(acc, xa);
+#pragma unroll
+    for (int st = 0; st < S; ++st) {
+      const int j = st / SPS, sj = st % SPS;
+      if (!FULL && j >= parts) break;
+      uint2 b[J];
+#pragma unroll
+      for (int g = 0; g < J; ++g)
+        b[g] = *reinterpret_cast<const uint2*>(xr[g] + p * 16 * SPS + 4 * t +
+                                               j * sb + 16 * sj);
+      uint32_t a[kGTiles][exact_frags<BITS>()][4];
+#pragma unroll
+      for (int ct = 0; ct < kGTiles; ++ct)
+        exact_frag<BITS>(w[st][ct], p, a[ct]);
+      exact_step<BITS, J>(a, b, acc, xa);
+      if (sj == SPS - 1) {                       // superblock j's last step
+#pragma unroll
+        for (int g = 0; g < J; ++g)
+          low_correct<BITS, true>(acc[g], xa[g], p, meta + j * sb_meta,
+                                  meta_es, lg_share, c0, tot[g]);
+        exact_clear<J>(acc, xa);
+      }
+    }
+    low_shift<BITS>(w, p);
   }
 }
 

@@ -17,8 +17,9 @@
 // Bound on the H100: bytes.  At decode (M <= 8) every packed word and meta
 // value is read once per call and the arithmetic is a few operations per
 // weight, far below the card's operations-per-byte balance.  The CUDA-core
-// GEMV (f32 activations, and the M <= 8 calls the grouped GEMV does not
-// take) therefore keeps loads coalesced and many in flight: neighbouring
+// GEMV (the M <= 8 calls neither the grouped GEMV nor its float32 form,
+// quant_matmul_f32.cu, takes) therefore keeps loads coalesced and many in
+// flight: neighbouring
 // threads own neighbouring N columns (one 128-byte row segment per warp),
 // each block splits a superblock's rows over 8 row slices, and small-N
 // sites split K across blocks (partials reduced by a second pass).

@@ -64,6 +64,31 @@
 // amq_swiglu_bf16), once per element: recomputed per column tile, as the
 // TPU kernel's prologue is per n tile, its exponentials would outweigh
 // the products at the down site (16 column tiles).
+//
+// The float32 form (qmm_tile_f32_kernel, entry amq_qmm_tile_f32): f32
+// activations, 8 < M, the reference's f32 function (_dequant_tile in f32,
+// an f32 dot).  Codes are exact in bf16, so A holds the codes themselves
+// (128 + c minus 128 in bf16; 8 bits: the byte as a float, converted
+// exactly) and x arrives split once into three bf16 parts (hi, mid, lo:
+// quant_matmul_f32.cu's split pass, rows 3m + q).  The parts stack along
+// the K of one accumulator -- per k16 step three wgmma of the same A
+// registers against the three part slabs of the x slot -- and each chunk
+// (2 ns K rows of one group: ns is chosen so that no chunk spans groups)
+// is corrected once its products are done, tot += s acc - (z s) xsum,
+// with the chunk's x sums from the split pass beside the parts in the x
+// slot.  The split pass writes the parts as the x slot's own image (its
+// swizzle, zeros past K), so the x producer issues four bulk copies a
+// chunk, not 1,536 copies of 16 bytes at M 64: issued by one warp, those
+// set the pace on the H100.  The f32 total sits beside the accumulators
+// (32 + 32 registers), and chunk c's A registers are extracted while
+// chunk c - 1's products run (two sets), so the block is the M <= 64 one
+// (three consumer warpgroups, 192 columns; larger M takes more 64-row M
+// tiles) and a stage holds at most 16 word rows: with two sub-tiles
+// (168 registers a thread at 320 threads) or 32-row stages (128 at 448)
+// ptxas spilled.  Chunk c - 1's correction follows its wait; the first
+// product of a chunk overwrites the accumulators (scale-d 0).  Bound:
+// operations at M = 64 (three bf16 products), bytes below.  Row m's bits
+// do not depend on M, as above.
 
 #include "qmm_grouped.cuh"
 #include "wgmma.cuh"
@@ -103,9 +128,11 @@ struct TileShape {
   int R, ns, P, Q, es, words, stage, x;
 };
 
+// (`exact`, the float32 form: an x slot of three part slabs and 1 KB of
+// x sums.)
 __host__ __device__ inline TileShape tile_shape(int nb, int sb, int gs,
                                                 int meta_bf16, int NS,
-                                                int ns) {
+                                                int ns, bool exact = false) {
   const int bn = 64 * tile_wg(NS);
   TileShape t;
   t.R = nb == 3 ? sb / 32 : sb * nb / 32;
@@ -115,7 +142,7 @@ __host__ __device__ inline TileShape tile_shape(int nb, int sb, int gs,
   t.es = meta_bf16 ? 2 : 4;
   t.words = (nb == 3 ? 3 : 1) * ns * (bn + 8) * 4;
   t.stage = t.words + t.P * t.Q * 2 * bn * t.es;
-  t.x = NS * 64 * 128;
+  t.x = exact ? 3 * NS * 64 * 128 + 1024 : NS * 64 * 128;
   return t;
 }
 
@@ -154,6 +181,22 @@ inline int tile_ns(int nb, int gs, int sb, int meta_bf16) {
         tile_slots(tile_shape(nb, sb, gs, meta_bf16, 1, ns)).w >= 2 &&
         tile_slots(tile_shape(nb, sb, gs, meta_bf16, 2, ns)).w >= 2 &&
         tile_slots(tile_shape(nb, sb, gs, meta_bf16, 4, ns)).w >= 2)
+      return ns;
+  return 0;
+}
+
+// Word rows per stage of a layout in the float32 form (0: not taken):
+// tile_ns's rule at 16 or 8 rows, with chunks of 2 ns K rows inside one
+// group (each chunk corrected with one group's meta) and a ring of the
+// float32 x slots that fits at one M sub-tile.
+inline int tile_ns_exact(int nb, int gs, int sb, int meta_bf16) {
+  if ((nb != 1 && nb != 2 && nb != 3 && nb != 4 && nb != 8) || sb % 64 ||
+      sb > 1024 || gs < 16 || gs % 16 || sb % gs)
+    return 0;
+  const int R = nb == 3 ? sb / 32 : sb * nb / 32;
+  for (int ns = 16; ns >= 8; ns /= 2)
+    if (R % ns == 0 && gs % (2 * ns) == 0 &&
+        tile_slots(tile_shape(nb, sb, gs, meta_bf16, 1, ns, true)).w >= 2)
       return ns;
   return 0;
 }
@@ -342,6 +385,81 @@ struct TileBars {
   }
 };
 
+// A block's rings in its dynamic shared memory, from a 1024-byte boundary
+// (the 128-byte swizzle's atoms), addressed from ring_smem so that loads
+// stay in shared space: barriers, x slots, word slots; `tile_ring` sets up
+// the barriers (every thread of the block; an x slot fills on
+// `x_arrivals` arrivals: a warp's cp.async, or one bulk copy's).
+struct TileRing {
+  TileBars bars;
+  unsigned char *x, *w;
+};
+
+__device__ __forceinline__ TileRing tile_ring(const TileShape& sh,
+                                              const TileSlots& slots,
+                                              int warps, int x_arrivals) {
+  const uint32_t raw = static_cast<uint32_t>(
+      __cvta_generic_to_shared(ring_smem));
+  unsigned char* base = ring_smem + (((raw + 1023) & ~1023u) - raw);
+  const TileRing r{TileBars{reinterpret_cast<uint64_t*>(base)}, base + 1024,
+                   base + 1024 + slots.x * sh.x};
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < slots.w; ++i) {
+      mbar_init(r.bars.wfull(i), 1);
+      mbar_init(r.bars.wempty(i), warps);
+    }
+    for (int i = 0; i < slots.x; ++i) {
+      mbar_init(r.bars.xfull(i), x_arrivals);
+      mbar_init(r.bars.xempty(i), warps);
+    }
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncthreads();
+  return r;
+}
+
+// Producer: stage js's words and meta into word slot wpos (the block's
+// j-th stage: past the ring's `wslots` it first waits for the slot to be
+// freed).  3-bit: 2-bit rows [r0, +ns) and [R + r0, +ns), then 1-bit rows
+// [r0, +ns) of the plane after the 2-bit plane's 2R rows; the scale (row
+// 2i) and zero (row 2i + 1) of every group the stage's rounds touch.
+template <int NB, int WG>
+__device__ __forceinline__ void tile_issue_words(
+    const GemvArgs& a, const TileShape& sh, const TileBars& bars,
+    unsigned char* wring, const RingPos& wpos, int j, int js, int wslots,
+    int col0, int lane) {
+  using C = TileCfg<WG>;
+  const int sb = a.w.superblock, gs = a.w.group_size, Np = a.w.Np;
+  const int cols = min(C::bn, Np - col0);          // a multiple of 8
+  const int Rw = sb * NB / 32;                     // word rows per superblock
+  const int spb = sh.R / sh.ns;
+  const int sbi = js / spb, r0 = (js % spb) * sh.ns;
+  unsigned char* st = wring + wpos.slot * sh.stage;
+  const int nrows = (NB == 3 ? 3 : 1) * sh.ns;
+  const int nmeta = 2 * sh.P * sh.Q;
+  if (j >= wslots) mbar_wait(bars.wempty(wpos.slot), wpos.phase ^ 1);
+  uint64_t* full = bars.wfull(wpos.slot);
+  if (lane == 0)
+    mbar_arrive_expect_tx(full, nrows * cols * 4 + nmeta * cols * sh.es);
+  __syncwarp();
+  for (int i = lane; i < nrows; i += 32) {
+    const int pl = i / sh.ns, rr = r0 + i - pl * sh.ns;
+    const int src = NB == 3 ? (pl == 2 ? 2 * sh.R : pl * sh.R) + rr : rr;
+    bulk_g2s(st + i * C::stride * 4,
+             a.w.packed + (static_cast<size_t>(sbi) * Rw + src) * Np + col0,
+             cols * 4, full);
+  }
+  for (int i = lane; i < nmeta; i += 32) {
+    const int slot = i >> 1, p = slot / sh.Q, q = slot - p * sh.Q;
+    const int grp = (sbi * sb + p * 2 * sh.R + 2 * r0) / gs + q;
+    const unsigned char* src = static_cast<const unsigned char*>(
+        (i & 1) ? a.w.zero : a.w.scale);
+    bulk_g2s(st + sh.words + i * C::bn * sh.es,
+             src + (static_cast<size_t>(grp) * Np + col0) * sh.es,
+             cols * sh.es, full);
+  }
+}
+
 // One consumer chunk: round p of the stage at `ws` (ST k16 steps; A
 // registers into a[BUF]), its products against the x slot at `xpos` into
 // acc (the block's first chunk, `release` false, overwrites it: no other
@@ -394,28 +512,12 @@ template <int NB, int NS, int ST>
 __global__ void __launch_bounds__(TileCfg<tile_wg(NS)>::threads, 1)
     qmm_tile_kernel(GemvArgs a, TileSlots slots) {
   using C = TileCfg<tile_wg(NS)>;
-  const int sb = a.w.superblock, gs = a.w.group_size, Np = a.w.Np;
+  const int sb = a.w.superblock, gs = a.w.group_size;
   const TileShape sh = tile_shape(NB, sb, gs, a.w.meta_bf16, NS, 8 * ST);
-  // the ring from a 1024-byte boundary (the 128-byte swizzle's atoms),
-  // addressed from ring_smem so that loads stay in shared space
-  const uint32_t raw = static_cast<uint32_t>(
-      __cvta_generic_to_shared(ring_smem));
-  unsigned char* base = ring_smem + (((raw + 1023) & ~1023u) - raw);
-  const TileBars bars{reinterpret_cast<uint64_t*>(base)};
-  unsigned char* xring = base + 1024;
-  unsigned char* wring = xring + slots.x * sh.x;
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < slots.w; ++i) {
-      mbar_init(bars.wfull(i), 1);
-      mbar_init(bars.wempty(i), C::warps);
-    }
-    for (int i = 0; i < slots.x; ++i) {
-      mbar_init(bars.xfull(i), 32);
-      mbar_init(bars.xempty(i), C::warps);
-    }
-  }
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  __syncthreads();
+  const TileRing ring = tile_ring(sh, slots, C::warps, 32);
+  const TileBars bars = ring.bars;
+  unsigned char* xring = ring.x;
+  unsigned char* wring = ring.w;
 
   const int col0 = blockIdx.x * C::bn;
   const int m0 = blockIdx.z * kTMT;
@@ -428,47 +530,14 @@ __global__ void __launch_bounds__(TileCfg<tile_wg(NS)>::threads, 1)
   if (warp >= C::warps) {
     // producers: warp C::warps the words and meta of each stage, warp
     // C::warps + 1 the x chunks, each as far ahead as its ring allows
-    const int cols = min(C::bn, Np - col0);        // a multiple of 8
-    const int Rw = sb * NB / 32;                   // word rows per superblock
     const int Mt = min(kTMT, a.op.M - m0);
     constexpr int kPieces = 2 * ST;                // 16 bytes per x row
     const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.op.x);
     RingPos wpos{0, 0}, xpos{0, 0};
-    int js_w = st_lo;                              // the next words' stage
-    auto issue_words = [&]() {
-      const int sbi = js_w / spb, r0 = (js_w % spb) * sh.ns;
-      unsigned char* st = wring + wpos.slot * sh.stage;
-      const int nrows = (NB == 3 ? 3 : 1) * sh.ns;
-      const int nmeta = 2 * sh.P * sh.Q;
-      if (js_w - st_lo >= slots.w)
-        mbar_wait(bars.wempty(wpos.slot), wpos.phase ^ 1);
-      uint64_t* full = bars.wfull(wpos.slot);
-      if (lane == 0)
-        mbar_arrive_expect_tx(full, nrows * cols * 4 + nmeta * cols * sh.es);
-      __syncwarp();
-      for (int i = lane; i < nrows; i += 32) {
-        // 3-bit: 2-bit rows [r0, +ns) and [R + r0, +ns), then 1-bit rows
-        // [r0, +ns) of the plane after the 2-bit plane's 2R rows
-        const int pl = i / sh.ns, rr = r0 + i - pl * sh.ns;
-        const int src = NB == 3 ? (pl == 2 ? 2 * sh.R : pl * sh.R) + rr : rr;
-        bulk_g2s(st + i * C::stride * 4,
-                 a.w.packed + (static_cast<size_t>(sbi) * Rw + src) * Np + col0,
-                 cols * 4, full);
-      }
-      for (int i = lane; i < nmeta; i += 32) {   // row 2i scale, 2i + 1 zero
-        const int slot = i >> 1, p = slot / sh.Q, q = slot - p * sh.Q;
-        const int grp = (sbi * sb + p * 2 * sh.R + 2 * r0) / gs + q;
-        const unsigned char* src = static_cast<const unsigned char*>(
-            (i & 1) ? a.w.zero : a.w.scale);
-        bulk_g2s(st + sh.words + i * C::bn * sh.es,
-                 src + (static_cast<size_t>(grp) * Np + col0) * sh.es,
-                 cols * sh.es, full);
-      }
-      ++js_w;
-      wpos.step(slots.w);
-    };
     if (warp == C::warps) {
-      for (int j = 0; j < S; ++j) issue_words();
+      for (int j = 0; j < S; ++j, wpos.step(slots.w))
+        tile_issue_words<NB, tile_wg(NS)>(a, sh, bars, wring, wpos, j,
+                                          st_lo + j, slots.w, col0, lane);
       return;
     }
     int xc = 0;
@@ -614,6 +683,297 @@ cudaError_t dispatch_tile(const GemvArgs& a, int splits, cudaStream_t s) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The float32 form (see the top of this file).
+
+// The four A registers of round p at k16 step kk in the float32 form:
+// tile_frag's registers of exact codes (widths 1-4: 128 + c minus 128;
+// 8 bits: each byte as the float 2^23 + c minus 2^23, converted to bf16).
+template <int NB>
+__device__ __forceinline__ void tile_frag_exact(const uint32_t* ws,
+                                                int stride, int ns, int p,
+                                                int kk, int t, int c,
+                                                uint32_t (&a)[4]) {
+  const int o = (8 * kk + t) * stride + c;
+  if constexpr (NB == 8) {
+    const uint32_t sel0 = tile_sel8(p), sel1 = tile_sel8(2 + p);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint2 w = *reinterpret_cast<const uint2*>(ws + o + 4 * h * stride);
+      const uint32_t v[2] = {w.x, w.y};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float c0 =
+            __uint_as_float(__byte_perm(v[e], 0x4B00u, sel0)) - 8388608.f;
+        const float c1 =
+            __uint_as_float(__byte_perm(v[e], 0x4B00u, sel1)) - 8388608.f;
+        a[2 * h + e] = bf2_bits(__floats2bfloat162_rn(c0, c1));
+      }
+    }
+  } else if constexpr (NB == 3) {
+    const uint32_t* hs = ws + (p & 1) * ns * stride;
+    const uint32_t* ls = ws + 2 * ns * stride;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint2 wh = *reinterpret_cast<const uint2*>(hs + o + 4 * h * stride);
+      const uint2 wl = *reinterpret_cast<const uint2*>(ls + o + 4 * h * stride);
+      a[2 * h] = bf2_sub((((wh.x >> (2 * (p >> 1))) & 0x00030003u) << 1) |
+                             ((wl.x >> p) & 0x00010001u) | kBias128,
+                         kBias128);
+      a[2 * h + 1] = bf2_sub((((wh.y >> (2 * (p >> 1))) & 0x00030003u) << 1) |
+                                 ((wl.y >> p) & 0x00010001u) | kBias128,
+                             kBias128);
+    }
+  } else {
+    constexpr uint32_t mask = ((1u << NB) - 1u) * 0x00010001u;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint2 w = *reinterpret_cast<const uint2*>(ws + o + 4 * h * stride);
+      a[2 * h] = bf2_sub(((w.x >> (NB * p)) & mask) | kBias128, kBias128);
+      a[2 * h + 1] = bf2_sub(((w.y >> (NB * p)) & mask) | kBias128, kBias128);
+    }
+  }
+}
+
+// One chunk's correction, tot += s acc - (z s) xsum: `mc` the thread's two
+// columns' scales and z s products, `xs` the chunk's x sums by M-tile row.
+template <int NS>
+__device__ __forceinline__ void tile_correct(const float (&acc)[NS][32],
+                                             const float (&mc)[4],
+                                             const float* xs, int t,
+                                             float (&tot)[NS][32]) {
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const float2 xv =
+          *reinterpret_cast<const float2*>(xs + 64 * s + 8 * q + 2 * t);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float xi = i ? xv.y : xv.x;
+        float& t0 = tot[s][4 * q + i];
+        float& t1 = tot[s][4 * q + 2 + i];
+        t0 = fmaf(-mc[2], xi, fmaf(mc[0], acc[s][4 * q + i], t0));
+        t1 = fmaf(-mc[3], xi, fmaf(mc[1], acc[s][4 * q + 2 + i], t1));
+      }
+    }
+}
+
+// One float32 chunk: round p of the stage at `ws` -- its exact-code A
+// registers into a[BUF] and its group's meta into mc[BUF] while the
+// previous chunk's products run; then (`release`) that chunk's wait, its
+// correction from x slot `prev` and the slot's release; then this chunk's
+// products against the x slot at `xpos`, three parts per k16 step, the
+// first overwriting acc.
+template <int NB, int NS, int ST, int BUF>
+__device__ __forceinline__ void tile_chunk_exact(
+    const TileShape& sh, const uint32_t* ws, const unsigned char* meta, int p,
+    int c0, int lane, const TileBars& bars, const RingPos& xpos, int prev,
+    bool release, const unsigned char* xring, uint32_t (&a)[2][ST][4],
+    float (&mc)[2][4], float (&acc)[NS][32], float (&tot)[NS][32]) {
+  using C = TileCfg<tile_wg(NS)>;
+  constexpr int kSlab = NS * 64 * 128;
+  const int t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < ST; ++kk)
+    tile_frag_exact<NB>(ws, C::stride, sh.ns, p, kk, t, c0, a[BUF][kk]);
+  const ColMeta m = col_meta(meta + p * 2 * C::bn * sh.es, sh.es, C::bn, c0);
+  mc[BUF][0] = m.s[0];
+  mc[BUF][1] = m.s[1];
+  mc[BUF][2] = m.z[0] * m.s[0];
+  mc[BUF][3] = m.z[1] * m.s[1];
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if (release) {
+    tile_correct<NS>(acc, mc[BUF ^ 1],
+                     reinterpret_cast<const float*>(xring + prev * sh.x +
+                                                    3 * kSlab),
+                     t, tot);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars.xempty(prev));
+  }
+  mbar_wait(bars.xfull(xpos.slot), xpos.phase);
+  fence_proxy_async();
+  __syncwarp();
+  wgmma_fence();
+  const uint32_t xa = static_cast<uint32_t>(
+      __cvta_generic_to_shared(xring + xpos.slot * sh.x));
+#pragma unroll
+  for (int kk = 0; kk < ST; ++kk)
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+        wgmma_rs_n64(acc[s], a[BUF][kk],
+                     smem_desc(xa + q * kSlab + s * 64 * 128 + kk * 32, 16,
+                               1024),
+                     kk > 0 || q > 0);
+  wgmma_commit();
+}
+
+// Grid (ceil(N / bn), splits, ceil(M / (64 NS))); x the split pass's x
+// slot image (ldx = mpad rows a part, a multiple of 64 NS), xsc its chunk
+// sums [Kp / (2 ns)][mpad].  Launched at NS = 1 (see the top of the file).
+template <int NB, int NS, int ST>
+__global__ void __launch_bounds__(TileCfg<tile_wg(NS)>::threads, 1)
+    qmm_tile_f32_kernel(GemvArgs a, TileSlots slots, const float* xsc) {
+  using C = TileCfg<tile_wg(NS)>;
+  constexpr int kMT = 64 * NS;                     // rows of an M tile
+  constexpr int kSlab = NS * 64 * 128;             // bytes of one part
+  const int sb = a.w.superblock;
+  const TileShape sh = tile_shape(NB, sb, a.w.group_size, a.w.meta_bf16, NS,
+                                  8 * ST, true);
+  const TileRing ring = tile_ring(sh, slots, C::warps, 1);
+  const int col0 = blockIdx.x * C::bn;
+  const int m0 = blockIdx.z * kMT;
+  const int spb = sh.R / sh.ns;                    // stages per superblock
+  const int n_st = a.Kp / sb * spb;
+  const int st_lo = blockIdx.y * a.sb_per_split;
+  const int S = max(0, min(n_st, st_lo + a.sb_per_split) - st_lo);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  if (warp >= C::warps) {
+    RingPos wpos{0, 0}, xpos{0, 0};
+    if (warp == C::warps) {
+      for (int j = 0; j < S; ++j, wpos.step(slots.w))
+        tile_issue_words<NB, tile_wg(NS)>(a, sh, ring.bars, ring.w, wpos, j,
+                                          st_lo + j, slots.w, col0, lane);
+      return;
+    }
+    // the x chunks: each part's rows of the M tile and the chunk's x sums,
+    // one bulk copy each from the split pass's image (x, ldx rows a part)
+    const unsigned char* img = static_cast<const unsigned char*>(a.op.x);
+    const int mpad = a.op.ldx;
+    int xc = 0;
+    for (int j = 0; j < S; ++j) {
+      const int js = st_lo + j, sbi = js / spb, r0 = (js % spb) * sh.ns;
+      for (int p = 0; p < sh.P; ++p, ++xc) {
+        if (xc >= slots.x)
+          mbar_wait(ring.bars.xempty(xpos.slot), xpos.phase ^ 1);
+        if (lane == 0) {
+          unsigned char* xs = ring.x + xpos.slot * sh.x;
+          uint64_t* full = ring.bars.xfull(xpos.slot);
+          const int ci = (sbi * sb + p * 2 * sh.R + 2 * r0) / (2 * sh.ns);
+          mbar_arrive_expect_tx(full, 3 * kSlab + kMT * 4);
+          for (int q = 0; q < 3; ++q)
+            bulk_g2s(xs + q * kSlab,
+                     img + ((static_cast<size_t>(ci) * 3 + q) * mpad + m0) *
+                               128,
+                     kSlab, full);
+          bulk_g2s(xs + 3 * kSlab, xsc + static_cast<size_t>(ci) * mpad + m0,
+                   kMT * 4, full);
+        }
+        __syncwarp();
+        xpos.step(slots.x);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroups: warp w4 of warpgroup wg holds A rows 16 w4 +
+  // lane / 4 (weight column c0) and + 8 (column c0 + 1), as qmm_tile_kernel
+  const int wg = warp >> 2, w4 = warp & 3;
+  const int c0 = 64 * wg + 16 * w4 + 2 * (lane >> 2);
+  float acc[NS][32];                  // set by each chunk's first product
+  float tot[NS][32];
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) tot[s][i] = 0.f;
+  uint32_t afr[2][ST][4];
+  float mc[2][4];
+  RingPos wpos{0, 0}, xpos{0, 0};
+  int prev = 0;                       // the previous chunk's x slot
+  bool started = false;
+  for (int j = 0; j < S; ++j) {
+    mbar_wait(ring.bars.wfull(wpos.slot), wpos.phase);
+    const unsigned char* st = ring.w + wpos.slot * sh.stage;
+    const uint32_t* ws = reinterpret_cast<const uint32_t*>(st);
+    const unsigned char* meta = st + sh.words;
+    for (int p = 0; p < sh.P; p += 2) {  // P is even
+      tile_chunk_exact<NB, NS, ST, 0>(sh, ws, meta, p, c0, lane, ring.bars,
+                                      xpos, prev, started, ring.x, afr, mc,
+                                      acc, tot);
+      prev = xpos.slot;
+      xpos.step(slots.x);
+      tile_chunk_exact<NB, NS, ST, 1>(sh, ws, meta, p + 1, c0, lane,
+                                      ring.bars, xpos, prev, true, ring.x,
+                                      afr, mc, acc, tot);
+      prev = xpos.slot;
+      xpos.step(slots.x);
+      started = true;
+    }
+    __syncwarp();                    // the warp is done with the stage
+    if (lane == 0) mbar_arrive(ring.bars.wempty(wpos.slot));
+    wpos.step(slots.w);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if (started)                        // the last chunk (BUF 1)
+    tile_correct<NS>(acc, mc[1],
+                     reinterpret_cast<const float*>(ring.x + prev * sh.x +
+                                                    3 * kSlab),
+                     lane & 3, tot);
+
+  // tot[s][4 q + i]: weight column col0 + c0 + (i >> 1), row m0 + 64 s +
+  // 8 q + 2 (lane % 4) + (i & 1)
+  const int t = lane & 3;
+  const int n = col0 + c0;
+  if (n >= a.N) return;
+  float* part = gridDim.y > 1 ? a.partial + static_cast<size_t>(blockIdx.y) *
+                                                a.op.M * a.N
+                              : nullptr;
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int m = m0 + 64 * s + 8 * q + 2 * t + i;
+        if (m >= a.op.M) continue;
+        const size_t o = static_cast<size_t>(m) * a.N + n;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (n + h >= a.N) continue;
+          const float v = tot[s][4 * q + 2 * h + i];
+          if (part)
+            part[o + h] = v;
+          else
+            store_f(a.out, o + h, v, a.out_bf16);
+        }
+      }
+}
+
+template <int NB, int NS, int ST>
+cudaError_t launch_tile_exact(const GemvArgs& a, int splits, const float* xsc,
+                              cudaStream_t stream) {
+  using C = TileCfg<tile_wg(NS)>;
+  const TileShape sh = tile_shape(NB, a.w.superblock, a.w.group_size,
+                                  a.w.meta_bf16, NS, 8 * ST, true);
+  const TileSlots slots = tile_slots(sh);
+  if (slots.w < 2) return cudaErrorInvalidValue;
+  const size_t smem = tile_smem(sh, slots);
+  static size_t allowed = 0;
+  cudaError_t e = allow_smem(qmm_tile_f32_kernel<NB, NS, ST>, smem, allowed);
+  if (e != cudaSuccess) return e;
+  dim3 grid((a.N + C::bn - 1) / C::bn, splits,
+            (a.op.M + 64 * NS - 1) / (64 * NS));
+  if (a.op.ldx % (64 * NS)) return cudaErrorInvalidValue;
+  qmm_tile_f32_kernel<NB, NS, ST><<<grid, C::threads, smem, stream>>>(
+      a, slots, xsc);
+  return cudaGetLastError();
+}
+
+template <int NB>
+cudaError_t dispatch_tile_exact(const GemvArgs& a, int splits,
+                                const float* xsc, cudaStream_t s) {
+  switch (tile_ns_exact(NB, a.w.group_size, a.w.superblock, a.w.meta_bf16)) {
+    case 16: return launch_tile_exact<NB, 1, 2>(a, splits, xsc, s);
+    case 8: return launch_tile_exact<NB, 1, 1>(a, splits, xsc, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // silu(g) * u in f32, rounded to bf16 (qmm_tile.cuh's swiglu_pair), two
 // elements a thread: g, u [M, K] with row stride ldx -> out [M, K].
 __global__ void swiglu_bf16_kernel(const uint32_t* g, const uint32_t* u,
@@ -667,6 +1027,50 @@ extern "C" int amq_qmm_tile(const void* x, const void* u, int x_bf16,
 extern "C" int amq_qmm_tile_stages(int nbits, int group_size, int superblock,
                                    int meta_bf16) {
   const int ns = tile_ns(nbits, group_size, superblock, meta_bf16);
+  return ns == 0 ? 0 : (nbits == 3 ? superblock / 32
+                                   : superblock * nbits / 32) / ns;
+}
+
+// The tile kernel's float32 form: amq_qmm_tile's arguments, x the split
+// pass's x slot image at the layout's 2 ns (ns: amq_qmm_tile_f32_stages)
+// with ldx = its rows a part (M rounded up to 64; x_bf16 1, u null), then
+// its chunk sums xsc [Kp / (2 ns)][ldx]; 0, a cudaError_t of the launch,
+// or -1 for a call it does not take.
+extern "C" int amq_qmm_tile_f32(const void* x, const void* u, int x_bf16,
+                                const int32_t* packed, const void* scale,
+                                const void* zero, int meta_bf16, void* out,
+                                int out_bf16, float* partial, int M, int K,
+                                int ldx, int Kp, int N, int Np, int nbits,
+                                int group_size, int superblock, int splits,
+                                int sb_per_split, const float* xsc,
+                                void* stream) {
+  if (u != nullptr || xsc == nullptr || ldx < M || !aligned16(xsc) ||
+      !tile_takes(x, x_bf16, packed, scale, zero, meta_bf16, M, K, ldx, Kp,
+                  N, Np, nbits, group_size, superblock) ||
+      tile_ns_exact(nbits, group_size, superblock, meta_bf16) == 0 ||
+      splits < 1 || sb_per_split < 1 || (splits > 1 && partial == nullptr))
+    return -1;
+  GemvArgs a{Operand{x, nullptr, 1, M, K, ldx},
+             Weights{reinterpret_cast<const uint32_t*>(packed), scale, zero,
+                     meta_bf16, Np, group_size, superblock},
+             out, out_bf16, partial, N, Kp, sb_per_split};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (nbits) {
+    case 1: e = dispatch_tile_exact<1>(a, splits, xsc, s); break;
+    case 2: e = dispatch_tile_exact<2>(a, splits, xsc, s); break;
+    case 3: e = dispatch_tile_exact<3>(a, splits, xsc, s); break;
+    case 4: e = dispatch_tile_exact<4>(a, splits, xsc, s); break;
+    default: e = dispatch_tile_exact<8>(a, splits, xsc, s); break;
+  }
+  return finish_splits(e, partial, out, M * N, splits, out_bf16, s);
+}
+
+// Ring stages per superblock of a layout in the float32 form, 0 for a
+// layout it does not take (tile_ns_exact).
+extern "C" int amq_qmm_tile_f32_stages(int nbits, int group_size,
+                                       int superblock, int meta_bf16) {
+  const int ns = tile_ns_exact(nbits, group_size, superblock, meta_bf16);
   return ns == 0 ? 0 : (nbits == 3 ? superblock / 32
                                    : superblock * nbits / 32) / ns;
 }

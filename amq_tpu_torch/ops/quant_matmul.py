@@ -10,10 +10,13 @@ Each public function here replaces one Pallas kernel of the JAX package's
   below 8 bits, whole ring stages at 8); calls with bf16 activations and 8 < M
   the tile kernel on wgmma (``csrc/quant_matmul_tile.cu``, the JAX
   package's bf16 multi-row form: each weight tile dequantized once, in
-  bf16) where :func:`_tile_applies` says so; other calls, f32
-  activations among them, the CUDA-core decode GEMV (M <= 8) or the
-  CUDA-core GEMM (8 < M), the JAX package's f32 form), launched for CUDA
-  tensors,
+  bf16) where :func:`_tile_applies` says so; calls with f32 activations
+  the same two predicates send to the float32 forms of both on tensor
+  cores (``csrc/quant_matmul_f32.cu`` and ``qmm_tile_f32_kernel``: exact
+  codes against x split once into three bf16 parts, the JAX package's f32
+  function, reference :func:`qmm_exact_plain`); other calls the CUDA-core
+  decode GEMV (M <= 8) or the CUDA-core GEMM (8 < M), the JAX package's
+  f32 form), launched for CUDA tensors,
 * a plain PyTorch version of the same function, taken only for CPU
   tensors: :func:`qmm_tile_plain` for bf16 activations and 8 < M, else
   :func:`qmm_plain` (dequantize in float32, then a float32 product),
@@ -67,18 +70,33 @@ _PIPE_DEFAULT = int(os.environ.get("AMQ_PIPE", "0"))
 
 
 _SOURCE = {"amq_qmm_pipe": "quant_matmul_pipe",
-           "amq_qmm_tile": "quant_matmul_tile"}
+           "amq_qmm_tile": "quant_matmul_tile",
+           "amq_qmm_tile_f32": "quant_matmul_tile",
+           "amq_qmm_grouped_f32": "quant_matmul_f32"}
 
 
 @functools.lru_cache(maxsize=None)
 def _lib(entry: str = "amq_qmm"):
     """An entry point of ``csrc/quant_matmul.cu`` (``amq_qmm``, the grouped
     ``amq_qmm_grouped``), the pipelined grouped ``amq_qmm_pipe`` of
-    ``csrc/quant_matmul_pipe.cu`` or the tile kernel's ``amq_qmm_tile``
-    of ``csrc/quant_matmul_tile.cu``; all take the same arguments."""
+    ``csrc/quant_matmul_pipe.cu``, the tile kernel's ``amq_qmm_tile`` and
+    ``amq_qmm_tile_f32`` of ``csrc/quant_matmul_tile.cu`` or the float32
+    GEMV's ``amq_qmm_grouped_f32`` of ``csrc/quant_matmul_f32.cu``; all
+    take the same arguments (``amq_qmm_tile_f32`` also the split pass's
+    chunk sums)."""
     fn = getattr(_cuda.library(_SOURCE.get(entry, "quant_matmul")), entry)
-    fn.argtypes = [_c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_int,
-                   _c_ptr, _c_int, _c_ptr] + [_c_int] * 11 + [_c_ptr]
+    fn.argtypes = ([_c_ptr, _c_ptr, _c_int, _c_ptr, _c_ptr, _c_ptr, _c_int,
+                    _c_ptr, _c_int, _c_ptr] + [_c_int] * 11
+                   + ([_c_ptr] if entry == "amq_qmm_tile_f32" else [])
+                   + [_c_ptr])
+    fn.restype = _c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _split_lib():
+    fn = _cuda.library("quant_matmul_f32").amq_split_f32
+    fn.argtypes = [_c_ptr, _c_ptr] + [_c_int] * 4 + [_c_ptr] * 2 + [_c_int] * 2 + [_c_ptr]
     fn.restype = _c_int
     return fn
 
@@ -223,9 +241,15 @@ def _grouped_applies(x: torch.Tensor, packed: torch.Tensor,
     bf16 activations) for every width; the port does too, wherever the
     kernel's own conditions hold: a layout :func:`_grouped_layout` takes,
     a padded N, K and x's row stride that are multiples of 8, and 16-byte
-    aligned activations and weights (16-byte bulk copies).  Other calls
-    take the CUDA-core GEMV; this is the only predicate that routes."""
-    return (1 <= x.shape[0] <= 8 and x.dtype == torch.bfloat16
+    aligned activations and weights (16-byte bulk copies).  With f32
+    activations (the JAX package's f32 function) the ring's float32 form
+    takes the same calls but the 4-row superblocks (1 and 3 bits at 128
+    rows).  Other calls take the CUDA-core GEMV; this is the only
+    predicate that routes."""
+    return (1 <= x.shape[0] <= 8
+            and (x.dtype == torch.bfloat16
+                 or x.dtype == torch.float32
+                 and not (nbits in (1, 3) and superblock == 128))
             and _grouped_layout(nbits, group_size, superblock)
             and packed.shape[-1] % 8 == 0 and x.shape[-1] % 8 == 0
             and x.stride(0) % 8 == 0
@@ -244,6 +268,24 @@ def _grouped_plan(N: int, Kp: int, nbits: int, swiglu: bool, meta_bf16: int,
                            torch.device("cuda", index))
 
 
+@functools.lru_cache(maxsize=None)
+def _grouped_f32_plan(N: int, Kp: int, nbits: int, meta_bf16: int,
+                      group_size: int, superblock: int, index: int) -> tuple:
+    """... of a float32 grouped call: the bf16 GEMV's split rule at the
+    blocks per SM of the float32 GEMV's M = 2 form (so every M splits
+    alike; above M = 2 its blocks take two waves)."""
+    fn = _cuda.library("quant_matmul_f32").amq_qmm_grouped_f32_blocks
+    fn.argtypes = [_c_int] * 4
+    fn.restype = _c_int
+    with torch.cuda.device(index):
+        blocks = fn(nbits, meta_bf16, group_size, superblock)
+    if blocks < 1:
+        raise RuntimeError(f"float32 grouped GEMV ({nbits}-bit): no block "
+                           f"fits an SM ({blocks})")
+    return _grouped_splits(N, nbits, superblock, Kp, blocks,
+                           torch.device("cuda", index))
+
+
 def _pipe_applies(x: torch.Tensor, packed: torch.Tensor,
                   scale: torch.Tensor, zero: torch.Tensor, nbits: int,
                   group_size: int, superblock: int, up=None) -> bool:
@@ -254,7 +296,7 @@ def _pipe_applies(x: torch.Tensor, packed: torch.Tensor,
     strides and alignment).  The one predicate that routes: a call the
     switch selects but the ring does not take goes where the wrapper sends
     it without the switch."""
-    return (bool(_PIPE_DEFAULT) and nbits != 8
+    return (bool(_PIPE_DEFAULT) and nbits != 8 and x.dtype == torch.bfloat16
             and superblock // group_size >= 8
             and _grouped_whole_stages(nbits, superblock)
             and _grouped_applies(x, packed, scale, zero, nbits, group_size,
@@ -265,14 +307,15 @@ def _mlp_applies(x: torch.Tensor, gu, dn, nbits: int, group_size: int,
                  superblock: int) -> bool:
     """Does the one-launch MLP take this call?  Its gateup is a grouped
     call on x and its down one on a bf16 [M, Kp_d] activation of its own,
-    so both stacks' layers (``(packed, scale, zero)``) must be ones the
-    grouped ring takes in whole stages (:func:`_grouped_whole_stages`,
-    :func:`_grouped_applies`, which also holds x to bf16, M <= 8 and its
-    strides and alignment); and, on a card, each
+    so x must be bf16 and both stacks' layers (``(packed, scale, zero)``)
+    ones the grouped ring takes in whole stages
+    (:func:`_grouped_whole_stages`, :func:`_grouped_applies`, which also
+    holds x to M <= 8 and its strides and alignment); and, on a card, each
     product's 256-column tiles must fit one wave of the grouped GEMV's
     blocks (the kernel runs one block per item of the larger product, all
     resident at once, and the grouped plan's splits then fit too)."""
     if not (_grouped_whole_stages(nbits, superblock)
+            and x.dtype == torch.bfloat16
             and _grouped_applies(x, *gu, nbits, group_size, superblock)
             and dn[0].shape[-1] % 8 == 0
             and all(t.data_ptr() % 16 == 0 for t in dn)):
@@ -290,14 +333,19 @@ def _mlp_applies(x: torch.Tensor, gu, dn, nbits: int, group_size: int,
 #: the tile kernel's shape (``csrc/quant_matmul_tile.cu``): a block's
 #: shared memory, its barriers and alignment, (M sub-tiles, columns) of
 #: its block shapes (M <= 64: three warpgroups, M <= 128: two, above:
-#: one), bytes of an x chunk per M sub-tile
+#: one; the float32 form takes the first at every M), bytes of an x chunk
+#: per M sub-tile (the float32 form: three parts and 1 KB of x sums)
 _TILE_SMEM, _TILE_HEAD = 232448, 2048
 _TILE_BLOCKS, _TILE_XSUB = ((1, 192), (2, 128), (4, 64)), 64 * 128
 
 
+def _tile_x_bytes(sub: int, exact: bool) -> int:
+    return 3 * sub * _TILE_XSUB + 1024 if exact else sub * _TILE_XSUB
+
+
 @functools.lru_cache(maxsize=None)
 def _tile_ns(nbits: int, group_size: int, superblock: int,
-             meta_bf16: int) -> int:
+             meta_bf16: int, exact: bool = False) -> int:
     """Word rows per ring stage of the tile kernel at a weight layout, or
     0 for a layout it does not take (``tile_ns`` in
     ``csrc/quant_matmul_tile.cu``): widths 1/2/3/4/8, a superblock of a
@@ -307,7 +355,9 @@ def _tile_ns(nbits: int, group_size: int, superblock: int,
     1-bit and 3-bit superblocks of a multiple of 256 rows, 2-bit of 128),
     whose chunks of 2 ns K rows lie in one group or hold whole ones, and
     whose ring (two word stages with their meta, two x chunks) fits a
-    block's shared memory at every block shape."""
+    block's shared memory at every block shape.  ``exact``, the float32
+    form (``tile_ns_exact``): 16 or 8 rows, chunks inside one group, and
+    the ring of its x slots at one M sub-tile (its only block shape)."""
     if (nbits not in (1, 2, 3, 4, 8) or superblock % 64 or superblock > 1024
             or group_size < 16 or group_size % 16
             or superblock % group_size):
@@ -315,15 +365,16 @@ def _tile_ns(nbits: int, group_size: int, superblock: int,
     R = superblock // 32 if nbits == 3 else superblock * nbits // 32
     P = 16 if nbits == 3 else 16 // nbits
     es = 2 if meta_bf16 else 4
-    for ns in (32, 16, 8):
-        if R % ns or not (group_size % (2 * ns) == 0
-                          or (2 * ns) % group_size == 0):
+    blocks = _TILE_BLOCKS[:1] if exact else _TILE_BLOCKS
+    for ns in ((16, 8) if exact else (32, 16, 8)):
+        if R % ns or not (group_size % (2 * ns) == 0 or not exact
+                          and (2 * ns) % group_size == 0):
             continue
         Q = max(1, 2 * ns // group_size)
         if all(_TILE_SMEM - _TILE_HEAD
                - 2 * ((3 if nbits == 3 else 1) * ns * (bn + 8) * 4
-                      + P * Q * 2 * bn * es) >= 2 * sub * _TILE_XSUB
-               for sub, bn in _TILE_BLOCKS):
+                      + P * Q * 2 * bn * es) >= 2 * _tile_x_bytes(sub, exact)
+               for sub, bn in blocks):
             return ns
     return 0
 
@@ -337,11 +388,14 @@ def _tile_applies(x: torch.Tensor, packed: torch.Tensor,
     wherever the kernel's own conditions hold: a layout
     :func:`_tile_ns` takes, a padded N, K and x's row stride that are
     multiples of 8, and 16-byte aligned activations and weights (16-byte
-    copies).  Other calls with 8 < M take the CUDA-core GEMM; this is the
-    only predicate that routes them."""
-    return (x.shape[0] > 8 and x.dtype == torch.bfloat16
+    copies).  With f32 activations the tile kernel's float32 form takes
+    the layouts ``_tile_ns(..., exact=True)`` takes.  Other calls with
+    8 < M take the CUDA-core GEMM; this is the only predicate that routes
+    them."""
+    return (x.shape[0] > 8 and x.dtype in (torch.bfloat16, torch.float32)
             and _tile_ns(nbits, group_size, superblock,
-                         int(scale.dtype == torch.bfloat16)) > 0
+                         int(scale.dtype == torch.bfloat16),
+                         x.dtype == torch.float32) > 0
             and packed.shape[-1] % 8 == 0 and x.shape[-1] % 8 == 0
             and x.stride(0) % 8 == 0
             and all(t.data_ptr() % 16 == 0 for t in (x, packed, scale, zero)
@@ -350,8 +404,10 @@ def _tile_applies(x: torch.Tensor, packed: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def _tile_plan(N: int, Kp: int, nbits: int, group_size: int,
-               superblock: int, meta_bf16: int, index: int) -> tuple:
-    """(splits, ring stages per split) of a tile call.  The K splits are
+               superblock: int, meta_bf16: int, index: int,
+               exact: bool = False) -> tuple:
+    """(splits, ring stages per split) of a tile call (``exact``: of its
+    float32 form).  The K splits are
     reckoned for the M <= 64 block (192 columns, one an SM): of up to
     three blocks an SM's worth of splits, the fewest whose waves of
     blocks times stages per split is least (a split's blocks run in
@@ -360,7 +416,7 @@ def _tile_plan(N: int, Kp: int, nbits: int, group_size: int,
     bits at any M."""
     R = superblock // 32 if nbits == 3 else superblock * nbits // 32
     units = Kp // superblock * (R // _tile_ns(nbits, group_size, superblock,
-                                              meta_bf16))
+                                              meta_bf16, exact))
     sms = _sm_count(index)
     tiles = -(-N // _TILE_BLOCKS[0][1])
     cap = max(1, min(units, -(-3 * sms // tiles)))
@@ -452,6 +508,54 @@ def qmm_grouped_plain(x, packed, scale, zero, *, nbits, group_size, shape,
     return out[:, :N].to(out_dtype)
 
 
+def split_f32_plain(x: torch.Tensor, parts: int = 3) -> torch.Tensor:
+    """The split pass's parts of f32 x: ``[parts, *x.shape]`` f32 holding
+    bf16 values, part q the bf16 rounding of what parts 0 .. q-1 left
+    (each difference exact in f32; three hold x's 24 bits)."""
+    out, rest = [], x.float()
+    for _ in range(parts):
+        part = rest.to(torch.bfloat16).float()
+        out.append(part)
+        rest = rest - part
+    return torch.stack(out)
+
+
+def qmm_exact_plain(x, packed, scale, zero, *, nbits, group_size, shape,
+                    superblock, out_dtype, up=None, parts=3,
+                    piece=None) -> torch.Tensor:
+    """The float32 form of the grouped GEMV and the tile kernel (f32
+    activations): x (with ``up``, ``silu(x) * up`` in f32) split into
+    ``parts`` bf16 parts (:func:`split_f32_plain`); per piece of
+    ``piece`` K rows (default a group; the GEMV corrects per 64-row round
+    of a ring stage, the tile kernel per chunk of 2 ns rows) and column n,
+    ``y = sum_q sum_k c_k part_q,k`` (exact codes: products exact, f32
+    sums) and ``xsum = sum_q sum_k part_q,k``, then
+    ``out = sum_pieces s y - (z s) xsum`` with the piece's group's scale
+    and zero, in piece order.  Three parts compute the JAX package's f32
+    function (:func:`qmm_plain`) to f32 rounding; the arithmetic the two
+    kernels run, held to the JAX package's f32 functions by
+    ``tests/test_torch_qmm_f32.py``."""
+    if up is not None:
+        x = swiglu_plain(x, up)
+    N, K = shape
+    codes = bitpack.unpack(packed, nbits, superblock)        # [Kp, Np]
+    Kp, Np = codes.shape
+    piece = piece or group_size
+    G, per = Kp // piece, group_size // piece
+    xp = F.pad(split_f32_plain(x, parts), (0, Kp - K))
+    xp = xp.reshape(parts, -1, G, piece)                      # [q, M, G, p]
+    c = codes.float().reshape(G, piece, Np)
+    y = torch.einsum("qmgk,gkn->gmn", xp, c)                  # [G, M, Np]
+    xsum = xp.sum(dim=(0, 3)).T[:, :, None]                   # [G, M, 1]
+    rep = functools.partial(torch.repeat_interleave, repeats=per, dim=0)
+    s = rep(scale.float()).reshape(G, 1, Np)
+    zs = rep(zero.float()).reshape(G, 1, Np) * s
+    out = y.new_zeros(y.shape[1:])
+    for g in range(G):                                        # piece order
+        out = out + (s[g] * y[g] - zs[g] * xsum[g])
+    return out[:, :N].to(out_dtype)
+
+
 def _mlp_chain(gemv, x, gu_packed, gu_scale, gu_zero, d_packed, d_scale,
                d_zero, *, nbits, group_size, gu_shape, d_shape, superblock,
                out_dtype) -> torch.Tensor:
@@ -535,26 +639,37 @@ def _qmm_cuda(x, up, packed, scale, zero, *, nbits, group_size, shape,
         x, packed, scale, zero, nbits, group_size, superblock, up)
     tile = not (cuda_core or ring) and _tile_applies(
         x, packed, scale, zero, nbits, group_size, superblock, up)
-    if pipe and not ring:
+    if pipe and (not ring or x.dtype != torch.bfloat16):
         raise ValueError(f"{what}: the pipelined GEMV takes bf16 x, M <= 8 "
                          f"and the grouped ring's layouts, strides and "
                          f"alignment")
     meta_bf16 = _cuda.dtype_flag(scale, what)
     index = x.device.index or 0
-    if ring:
+    exact = (ring or tile) and x.dtype == torch.float32   # the float32 forms
+    ldx, extra = x.stride(0), ()
+    if ring and exact:
+        entry = "amq_qmm_grouped_f32"
+        splits, per = _grouped_f32_plan(N, Kp, nbits, meta_bf16, group_size,
+                                        superblock, index)
+        x, up, ldx = _split_f32(x, up, Kp, 0, what)[0], None, K
+    elif ring:
         entry = "amq_qmm_pipe" if pipe else "amq_qmm_grouped"
         splits, per = _grouped_plan(N, Kp, nbits, up is not None, meta_bf16,
                                     group_size, superblock, index)
     elif tile:
-        entry = "amq_qmm_tile"
+        entry = "amq_qmm_tile_f32" if exact else "amq_qmm_tile"
         splits, per = _tile_plan(N, Kp, nbits, group_size, superblock,
-                                 meta_bf16, index)
-        if up is not None:    # the SwiGLU prologue, once per element
+                                 meta_bf16, index, exact)
+        if exact:             # the parts' x slot image and the x sums
+            x, xsc = _split_f32(x, up, Kp, 2 * _tile_ns(
+                nbits, group_size, superblock, meta_bf16, True), what)
+            up, ldx, extra = None, xsc.shape[1], (_cuda.ptr(xsc),)
+        elif up is not None:  # the SwiGLU prologue, once per element
             act = torch.empty((M, K), dtype=torch.bfloat16, device=x.device)
             _cuda.check(_swiglu_lib()(_cuda.ptr(x), _cuda.ptr(up),
                                       _cuda.ptr(act), M, K, x.stride(0),
                                       _cuda.stream()), f"{what} (SwiGLU)")
-            x, up = act, None
+            x, up, ldx = act, None, K
     else:
         entry = "amq_qmm"
         splits, per = _splits(M, N, Kp // superblock, x.device)
@@ -565,12 +680,35 @@ def _qmm_cuda(x, up, packed, scale, zero, *, nbits, group_size, shape,
                      _cuda.ptr(packed), _cuda.ptr(scale), _cuda.ptr(zero),
                      meta_bf16, _cuda.ptr(out),
                      _cuda.dtype_flag(out, what), _cuda.ptr(partial),
-                     M, K, x.stride(0), Kp, N, Np, nbits, group_size,
-                     superblock, splits, per, _cuda.stream())
+                     M, K, ldx, Kp, N, Np, nbits, group_size,
+                     superblock, splits, per, *extra, _cuda.stream())
     _cuda.check(rc, what)
     route = ("pipe" if pipe else "grouped") if ring else (
         "tile" if tile else "cuda_core")
     return out, route
+
+
+def _split_f32(x, up, Kp: int, chunk: int, what: str) -> tuple:
+    """The split pass on f32 x [M, K] (with ``up``, ``silu(x) * up``) into
+    three bf16 parts: for the grouped GEMV (``chunk`` 0) [M, 3, K] (rows
+    3m + q, row stride K) and None; for the tile kernel (``chunk`` its
+    2 ns) its x slot image [Kp / chunk, 3, mpad, 64] (mpad: M rounded up
+    to the 64-row M tile) and the f32 x sums of each chunk of K rows
+    [Kp / chunk, mpad]."""
+    M, K = x.shape
+    if chunk:
+        mpad = -(-M // 64) * 64
+        parts = torch.empty((Kp // chunk, 3, mpad, 64), dtype=torch.bfloat16,
+                            device=x.device)
+        sums = torch.empty((Kp // chunk, mpad), dtype=torch.float32,
+                           device=x.device)
+    else:
+        mpad, sums = 0, None
+        parts = torch.empty((M, 3, K), dtype=torch.bfloat16, device=x.device)
+    _cuda.check(_split_lib()(_cuda.ptr(x), _cuda.ptr(up), M, K, x.stride(0),
+                             Kp, _cuda.ptr(parts), _cuda.ptr(sums), chunk,
+                             mpad, _cuda.stream()), f"{what} (split)")
+    return parts, sums
 
 
 def _plain(x, packed, scale, zero, *, out_dtype, up=None, **static):
@@ -645,11 +783,13 @@ def quant_matmul_indexed(x: torch.Tensor, packed_stack: torch.Tensor,
 
 
 quant_matmul_indexed.launches = 0
-#: launches that took the grouped tensor-core GEMV
+#: launches that took the grouped tensor-core GEMV (M <= 8; its float32
+#: form for f32 x)
 quant_matmul_indexed.grouped_launches = 0
 #: ... of them at a layout whose superblocks span a ring stage
 quant_matmul_indexed.span_launches = 0
-#: launches that took the tile kernel on wgmma (bf16 x, 8 < M)
+#: launches that took the tile kernel on wgmma (8 < M; its float32 form
+#: for f32 x)
 quant_matmul_indexed.tile_launches = 0
 
 
@@ -709,11 +849,13 @@ def quant_matmul_swiglu_indexed(gate: torch.Tensor, up: torch.Tensor,
 
 
 quant_matmul_swiglu_indexed.launches = 0
-#: launches that took the grouped tensor-core GEMV
+#: launches that took the grouped tensor-core GEMV (M <= 8; its float32
+#: form for f32 x)
 quant_matmul_swiglu_indexed.grouped_launches = 0
 #: ... of them at a layout whose superblocks span a ring stage
 quant_matmul_swiglu_indexed.span_launches = 0
-#: launches that took the tile kernel on wgmma (bf16 x, 8 < M)
+#: launches that took the tile kernel on wgmma (8 < M; its float32 form
+#: for f32 x)
 quant_matmul_swiglu_indexed.tile_launches = 0
 
 
@@ -866,11 +1008,13 @@ def quant_matmul(x: torch.Tensor, qt: QuantizedTensor,
 
 
 quant_matmul.launches = 0
-#: launches that took the grouped tensor-core GEMV
+#: launches that took the grouped tensor-core GEMV (M <= 8; its float32
+#: form for f32 x)
 quant_matmul.grouped_launches = 0
 #: ... of them at a layout whose superblocks span a ring stage
 quant_matmul.span_launches = 0
-#: launches that took the tile kernel on wgmma (bf16 x, 8 < M)
+#: launches that took the tile kernel on wgmma (8 < M; its float32 form
+#: for f32 x)
 quant_matmul.tile_launches = 0
 
 

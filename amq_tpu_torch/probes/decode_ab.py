@@ -23,13 +23,19 @@ tree's own package and ``chip_smoke.py`` helpers: the random 7B model of
 * the 64-token prefill: ``prefill_ms`` and ``ttft_ms`` (the medians of
   :data:`REPEATS` runs of ``benchmark_speed``'s GEMM and TTFT modes),
   ``prefill_device_ms`` and ``prefill_busy_share`` (one prefill under the
-  profiler, ``chip_smoke.device_profile``) and ``logit_gap_bf16``
+  profiler, ``chip_smoke.device_profile``) and ``logit_gap``
   (``chip_smoke.logits_check`` in bf16: the kernel path's last-position
   prefill logits against the plain path's, normalized).
 
+With ``--dtype float32`` the engine computes in float32 (compute and
+cache dtype; the float32 forms of the decode GEMVs and prefill products
+on trees that have them), the gateup call takes f32 x, the logit gap is
+``logits_check``'s float32 one (``logit_gap``) and the continuous
+(bf16 slot) profile is skipped.
+
 One ``AB`` line per root:
 
-    python -m amq_tpu_torch.probes.decode_ab ROOT [ROOT ...]
+    python -m amq_tpu_torch.probes.decode_ab [--dtype float32] ROOT [ROOT ...]
 
 on the card.
 """
@@ -54,11 +60,13 @@ from amq_tpu_torch.serving.benchmark import benchmark_speed
 from amq_tpu_torch.serving.engine import Engine
 
 steps, repeats = int(sys.argv[1]), int(sys.argv[2])
+dtype = getattr(torch, sys.argv[3])
 torch.backends.cuda.matmul.allow_tf32 = False
 cfg = get_config("Llama-2-7b-hf")
 gen = torch.Generator(device="cuda").manual_seed(0)
 model = cs.random_llama7b(cfg, gen)
-eng = Engine(model, cfg, batch_size=1, max_len=cs.PROMPT + cs.GEN + 8)
+eng = Engine(model, cfg, batch_size=1, max_len=cs.PROMPT + cs.GEN + 8,
+             compute_dtype=dtype, cache_dtype=dtype)
 prompt = np.random.default_rng(0).integers(
     0, cfg.vocab_size, (1, cs.PROMPT)).astype(np.int32)
 eng.generate(prompt, max_new_tokens=4)
@@ -77,7 +85,8 @@ for _ in range(repeats):
     torch.cuda.synchronize()
     walls.append((time.perf_counter() - t0) * 1e3 / steps)
 prof = cs.profile_decode(eng, prompt)
-cont = cs.continuous_profile(model, cfg)["default"]
+cont = (cs.continuous_profile(model, cfg)["default"]
+        if dtype == torch.bfloat16 else {})
 prefill = {mode: statistics.median(
     benchmark_speed(eng, mode, prompt_len=cs.PROMPT, gen_len=cs.GEN)[key]
     for _ in range(repeats))
@@ -85,13 +94,13 @@ prefill = {mode: statistics.median(
 toks = eng.tokens_to_device(prompt)
 pre_prof = cs.device_profile(
     lambda: eng._prefill_token(model, toks, eng.new_cache()), 1)
-gap = cs.logits_check(model, cfg, prompt, torch.bfloat16)["rel_err"]
+gap = cs.logits_check(model, cfg, prompt, dtype)["rel_err"]
 del model, eng, cache
 torch.cuda.empty_cache()
 
 N, K, _ = cs.SITES_7B["gateup"]
 packed, scale, zero, sb = cs.rand_site(N, K, 4, 2, torch.bfloat16, gen)
-x = torch.randn((1, K), generator=gen, device="cuda").to(torch.bfloat16)
+x = torch.randn((1, K), generator=gen, device="cuda").to(dtype)
 kw = dict(nbits=4, group_size=128, shape=(N, K), superblock=sb)
 before = getattr(qm.quant_matmul_indexed, "grouped_launches", 0)
 qm.quant_matmul_indexed(x, packed, scale, zero, 1, **kw)
@@ -100,29 +109,32 @@ host = cs.host_us(lambda: qm.quant_matmul_indexed(x, packed, scale, zero, 1,
                                                   **kw))
 core = getattr(qm, "_qmm_cuda_core", None)      # the forced CUDA-core route
 host_core = (cs.host_us(lambda: core(x, packed[1], scale[1], zero[1],
-                                     out_dtype=torch.bfloat16, **kw))
+                                     out_dtype=dtype, **kw))
              if core else None)
 print("AB " + json.dumps(dict(
+    dtype=sys.argv[3],
     decode_wall_ms=statistics.median(walls), decode_wall_runs_ms=walls,
     profile_device_ms=prof["device_ms_per_token"],
     profile_wall_ms=prof["wall_ms_per_token"],
-    continuous_device_ms=cont["device_ms_per_token"],
-    continuous_wall_ms=cont["wall_ms_per_token"],
+    continuous_device_ms=cont.get("device_ms_per_token"),
+    continuous_wall_ms=cont.get("wall_ms_per_token"),
     host_us=host, route="grouped" if grouped else "cuda-core",
     host_us_cuda_core=host_core, prefill_ms=prefill["GEMM"],
     ttft_ms=prefill["TTFT"], prefill_device_ms=pre_prof["device_ms_per_token"],
     prefill_busy_share=pre_prof["device_busy_share"],
     prefill_top_kernels_ms=pre_prof["top_kernels_ms_per_token"],
-    logit_gap_bf16=gap)), flush=True)
+    logit_gap=gap)), flush=True)
 """
 
 
-def run(root: str, steps: int = STEPS, repeats: int = REPEATS) -> dict:
-    """One root's record (``root`` and its ``AB`` numbers)."""
+def run(root: str, steps: int = STEPS, repeats: int = REPEATS,
+        dtype: str = "bfloat16") -> dict:
+    """One root's record (``root`` and its ``AB`` numbers) with the engine
+    in ``dtype`` (bfloat16 or float32)."""
     root = os.path.abspath(root)
     env = dict(os.environ, PYTHONPATH=root)
     proc = subprocess.run([sys.executable, "-c", _CHILD, str(steps),
-                           str(repeats)], cwd=root, env=env,
+                           str(repeats), dtype], cwd=root, env=env,
                           capture_output=True, text=True, check=False)
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB ")]
     if proc.returncode or not lines:
@@ -133,12 +145,15 @@ def run(root: str, steps: int = STEPS, repeats: int = REPEATS) -> dict:
 
 def main(argv=None) -> list:
     roots = list(argv if argv is not None else sys.argv[1:])
-    if not roots:
+    dtype = "bfloat16"
+    if roots[:1] == ["--dtype"]:
+        dtype, roots = (roots[1:2] or [""])[0], roots[2:]
+    if not roots or dtype not in ("bfloat16", "float32"):
         raise SystemExit("usage: python -m amq_tpu_torch.probes.decode_ab "
-                         "ROOT [ROOT ...]")
+                         "[--dtype float32] ROOT [ROOT ...]")
     recs = []
     for root in roots:
-        rec = run(root)
+        rec = run(root, dtype=dtype)
         print("AB " + json.dumps(rec), flush=True)
         recs.append(rec)
     return recs

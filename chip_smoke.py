@@ -326,17 +326,23 @@ SITES_7B = {  # name -> (N, K, kernel)
 MM_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 
 
-def check_matmul(site, nbits, M, meta_dtype, gen):
-    """One dequant-matmul case; returns its record."""
+def check_matmul(site, nbits, M, meta_dtype, gen, x_dtype=torch.bfloat16):
+    """One dequant-matmul case; returns its record.  ``x_dtype`` float32:
+    the float32 forms (the grouped ring's at M <= 8, the tile kernel's
+    above), f32 out, held to qmm_plain, timed beside the CUDA-core route
+    and the float32 torch.matmul on the dense f32 weight (TF32 off), the
+    bound three bf16 products' operations or the bytes."""
     from amq_tpu_torch.core.quantize import QuantizedTensor, dequantize_kn
     from amq_tpu_torch.ops import quant_matmul as qm
     N, K, kernel = SITES_7B[site]
-    out_dtype = torch.float32 if site.startswith("head") else torch.bfloat16
+    f32 = x_dtype == torch.float32
+    out_dtype = (torch.float32 if f32 or site.startswith("head")
+                 else torch.bfloat16)
     # enough layers that cycling through them overflows the L2
     L = max(2, min(24, math.ceil(200e6 / (N * K * nbits / 8))))
     packed, scale, zero, sb = rand_site(N, K, nbits, L, meta_dtype, gen)
-    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
-    u = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    x = torch.randn((M, K), generator=gen, device="cuda").to(x_dtype)
+    u = torch.randn((M, K), generator=gen, device="cuda").to(x_dtype)
     kw = dict(nbits=nbits, group_size=128, shape=(N, K), superblock=sb,
               out_dtype=out_dtype)
 
@@ -352,13 +358,13 @@ def check_matmul(site, nbits, M, meta_dtype, gen):
 
     # the kernel's plain version: the grouped form where the grouped
     # tensor-core GEMV runs (bf16 x, M <= 8), the bf16 multi-row form where
-    # the tile kernel runs (bf16 x, 8 < M), else the f32 one
+    # the tile kernel runs (bf16 x, 8 < M), else (f32 x too) the f32 one
     up = u if "swiglu" in kernel else None
     grouped = qm._grouped_applies(x, packed[1], scale[1], zero[1], nbits, 128,
                                   sb, up)
     tile = qm._tile_applies(x, packed[1], scale[1], zero[1], nbits, 128, sb,
                             up)
-    plain_fn = (qm.qmm_grouped_plain if grouped
+    plain_fn = (qm.qmm_plain if f32 else qm.qmm_grouped_plain if grouped
                 else qm.qmm_tile_plain if tile else qm.qmm_plain)
 
     def plain_call(i, fn=plain_fn):
@@ -377,7 +383,7 @@ def check_matmul(site, nbits, M, meta_dtype, gen):
     deterministic = bool(torch.equal(got, again))
     # against the f32 dequantize-then-multiply too (another rounding)
     rel_f32 = (rel_err(got, plain_call(1, qm.qmm_plain))[0]
-               if grouped or tile else rel)
+               if (grouped or tile) and not f32 else rel)
     tol = MM_TOL[out_dtype]
     ms = time_ms([lambda i=i: kernel_call(i) for i in range(L)])
     # the CUDA-core GEMV (M <= 8) or GEMM (8 < M) in the same case (the
@@ -388,20 +394,22 @@ def check_matmul(site, nbits, M, meta_dtype, gen):
         if grouped or tile else None)
     plain_ms = time_ms([lambda: plain_call(1)], iters=3)
     wrapper_us = host_us(lambda: kernel_call(1))
-    # yardstick, a different function: a bf16 matmul against the
-    # dequantized (dense bf16) weight
+    # yardstick: a matmul against the dequantized dense weight, bf16 (a
+    # different function) or, for f32 x, f32 (the same function; TF32 off)
     wt = dequantize_kn(QuantizedTensor(packed[1], scale[1], zero[1], nbits,
                                        128, (N, K), sb),
-                       torch.float32).to(torch.bfloat16).contiguous()
+                       torch.float32).to(x_dtype).contiguous()
     xa = (qm.swiglu_plain(x, u) if "swiglu" in kernel else x)
     library_ms = time_ms([lambda: torch.matmul(xa, wt)])
     del wt
     nbytes = (weight_bytes(packed, scale, N)
-              + (2 if "swiglu" in kernel else 1) * x.numel() * 2
+              + (2 if "swiglu" in kernel else 1) * x.numel() * x.element_size()
               + M * N * (4 if out_dtype == torch.float32 else 2))
-    b_ms, b_by = bound(nbytes, 2 * M * N * K)
+    # the float32 forms run three bf16 products (x's parts)
+    b_ms, b_by = bound(nbytes, (3 if f32 else 1) * 2 * M * N * K)
     rec = dict(kernel=kernel, site=site, nbits=nbits, M=M,
                meta=str(meta_dtype).split(".")[-1],
+               dtype=str(x_dtype).split(".")[-1],
                route=("grouped" if grouped else "tile" if tile
                       else "gemv" if M <= 8 else "gemm"),
                max_abs_err=err, rel_err=rel, rel_err_vs_f32_plain=rel_f32,
@@ -409,11 +417,16 @@ def check_matmul(site, nbits, M, meta_dtype, gen):
                gemv_ms=core_ms if grouped else None,
                gemm_ms=core_ms if tile else None,
                plain_ms=plain_ms, host_us=wrapper_us,
-               library_ms=library_ms, library="torch.matmul bf16 x dense "
-               "dequantized weight (different function)", bound_ms=b_ms,
-               bound_by=b_by, share_of_bound=b_ms / ms,
+               library_ms=library_ms,
+               library=("torch.matmul f32 x dense dequantized f32 weight "
+                        "(TF32 off)" if f32 else "torch.matmul bf16 x dense "
+                        "dequantized weight (different function)"),
+               bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
                ok=(rel <= tol and deterministic
-                   and took == (2 * grouped, 2 * tile)))
+                   and took == (2 * grouped, 2 * tile)
+                   and (not f32 or grouped or tile)))
+    if f32:     # the f32 function on the CUDA cores, for scale
+        rec["bound_f32_cores_ms"] = 2 * M * N * K / F32_FLOPS * 1e3
     print("CASE " + json.dumps(rec), flush=True)
     return rec
 
@@ -430,7 +443,7 @@ OWQ_SITES_7B = {"owq_attn": (4096, 4096, 1024), "owq_gate": (11008, 4096, 1024),
 OWQ_SMALL_SB = {"owq_sb128": (4096, 3968, 128), "owq_sb512": (4096, 3584, 512)}
 
 
-def check_owq_matmul(site, nbits, M, gen):
+def check_owq_matmul(site, nbits, M, gen, x_dtype=torch.bfloat16):
     """``quant_matmul`` at an OWQ-packed layout (3-bit in native planes,
     f32 scale/zero as ``owq_pack`` writes them, bf16 x and out) against
     its plain version (the grouped form at M <= 8, the tile form at 8 < M)
@@ -438,10 +451,14 @@ def check_owq_matmul(site, nbits, M, gen):
     kernel where a stage holds several superblocks --, tile or CUDA-core)
     by name and held to ``_grouped_applies`` and ``_tile_applies``; the
     CUDA-core GEMV's (M <= 8) or GEMM's time beside it.  Every M <= 8
-    call must take the grouped route and beat the CUDA-core GEMV."""
+    call must take the grouped route and beat the CUDA-core GEMV.
+    ``x_dtype`` float32: the float32 forms, f32 out, held to qmm_plain at
+    MM_TOL[float32] (its times reported, not gated)."""
     from amq_tpu_torch.core.quantize import QuantizedTensor, dequantize_kn
     from amq_tpu_torch.ops import quant_matmul as qm
     N, K, sb = {**OWQ_SITES_7B, **OWQ_SMALL_SB}[site]
+    f32 = x_dtype == torch.float32
+    out_dtype = torch.float32 if f32 else torch.bfloat16
     L = max(2, min(24, math.ceil(200e6 / (N * K * nbits / 8))))
     packed = rand_words((L, K * nbits // 32, N), gen)
     scale = torch.rand((L, K // 128, N), generator=gen, device="cuda") * 0.02
@@ -449,7 +466,7 @@ def check_owq_matmul(site, nbits, M, gen):
             * (2**nbits - 1))
     qts = [QuantizedTensor(packed[i], scale[i], zero[i], nbits, 128, (N, K),
                            sb) for i in range(L)]
-    x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    x = torch.randn((M, K), generator=gen, device="cuda").to(x_dtype)
     grouped = qm._grouped_applies(x, packed[1], scale[1], zero[1], nbits, 128,
                                   sb)
     span = grouped and not qm._grouped_whole_stages(nbits, sb)
@@ -465,9 +482,9 @@ def check_owq_matmul(site, nbits, M, gen):
                 counter.tile_launches - before[3])
     reference = qm.quant_matmul_reference(x, qts[1])
     kw = dict(nbits=nbits, group_size=128, shape=(N, K), superblock=sb,
-              out_dtype=torch.bfloat16)
-    plain_fn = (qm.qmm_grouped_plain if grouped else qm.qmm_tile_plain
-                if tile else None)
+              out_dtype=out_dtype)
+    plain_fn = (qm.qmm_plain if f32 else qm.qmm_grouped_plain if grouped
+                else qm.qmm_tile_plain if tile else None)
     want = (plain_fn(x, packed[1], scale[1], zero[1], **kw) if plain_fn
             else reference)
     torch.cuda.synchronize()
@@ -478,15 +495,17 @@ def check_owq_matmul(site, nbits, M, gen):
         x, packed[i], scale[i], zero[i], **kw) for i in range(L)])
         if grouped or tile else None)
     plain_ms = time_ms([lambda: qm.quant_matmul_reference(x, qts[1])], iters=3)
-    wt = dequantize_kn(qts[1], torch.float32).to(torch.bfloat16).contiguous()
+    wt = dequantize_kn(qts[1], torch.float32).to(x_dtype).contiguous()
     library_ms = time_ms([lambda: torch.matmul(x, wt)])
     del wt
-    b_ms, b_by = bound(weight_bytes(packed, scale, N) + x.numel() * 2
-                       + M * N * 2, 2 * M * N * K)
-    tol = MM_TOL[torch.bfloat16]
+    b_ms, b_by = bound(weight_bytes(packed, scale, N)
+                       + x.numel() * x.element_size()
+                       + M * N * out_dtype.itemsize,
+                       (3 if f32 else 1) * 2 * M * N * K)
+    tol = MM_TOL[out_dtype]
     deterministic = bool(torch.equal(got, again))
     rec = dict(kernel="quant_matmul", site=site, nbits=nbits, M=M,
-               superblock=sb, meta="float32",
+               superblock=sb, meta="float32", dtype=str(x_dtype).split(".")[-1],
                route=("grouped" if grouped else "tile" if tile
                       else "gemv" if M <= 8 else "gemm"),
                spanning=span, max_abs_err=err, rel_err=rel,
@@ -495,13 +514,15 @@ def check_owq_matmul(site, nbits, M, gen):
                gemv_ms=core_ms if grouped else None,
                gemm_ms=core_ms if tile else None, plain_ms=plain_ms,
                library_ms=library_ms,
-               library="torch.matmul bf16 x dense dequantized weight "
-               "(different function)", bound_ms=b_ms, bound_by=b_by,
-               share_of_bound=b_ms / ms,
+               library=("torch.matmul f32 x dense dequantized f32 weight "
+                        "(TF32 off)" if f32 else "torch.matmul bf16 x dense "
+                        "dequantized weight (different function)"),
+               bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
                ok=(rel <= tol and rel_ref <= tol and deterministic
                    and launched == (2, 2 * int(grouped), 2 * int(span),
                                     2 * int(tile))
-                   and (M > 8 or (grouped and ms < core_ms))))
+                   and (grouped or tile if f32 else
+                        M > 8 or (grouped and ms < core_ms))))
     print("CASE " + json.dumps(rec), flush=True)
     return rec
 
@@ -944,22 +965,27 @@ TF32_MMA = r"HG?MMA\.\S*TF32"
 GROUPED_GEMV = "qmm_grouped"
 MLP_KERNEL = "qmm_mlp_kernel"
 RING_KERNELS = {"quant_matmul": GROUPED_GEMV, "quant_matmul_pipe":
-                GROUPED_GEMV, "quant_matmul_mlp": MLP_KERNEL}
+                GROUPED_GEMV, "quant_matmul_mlp": MLP_KERNEL,
+                "quant_matmul_f32": GROUPED_GEMV}
 #: instantiations per ring library: widths 1/2/3/4/8 and the spanning
 #: kernel's eight superblock forms (1-bit 128 / 256 / 512, 2-bit 128 /
-#: 256, 3-bit 128 / 256, 4-bit 128); the pipelined form 1-4
+#: 256, 3-bit 128 / 256, 4-bit 128); the pipelined form 1-4; the float32
+#: GEMV's widths 1/2/3/4/8 and six spanning forms (not the 4-row ones),
+#: each at one and three n8 column groups
 RING_COUNTS = {"quant_matmul": 13, "quant_matmul_pipe": 4,
-               "quant_matmul_mlp": 5}
+               "quant_matmul_mlp": 5, "quant_matmul_f32": 22}
 #: the tile kernel on wgmma (the multi-row branch of rows 1, 2 and 4):
 #: widths 1/2/3/4/8 times one, two or four 64-row M sub-tiles times stages
-#: of 8, 16 or 32 word rows
+#: of 8, 16 or 32 word rows; its float32 form at one sub-tile and stages
+#: of 8 or 16
 TILE_KERNEL, TILE_COUNT = "qmm_tile_kernel", 45
+TILE_F32_KERNEL, TILE_F32_COUNT = "qmm_tile_f32_kernel", 10
 REPORT_KERNELS = {"flash_attention": "flash_kernel", "decode_attention":
                   "decode_attn_kernel", **RING_KERNELS,
                   "dequant": "dequant_kernel",
                   "gemv_attrib": "attrib_grouped_kernel",
                   "gemv_extract_ahead": "extract_ahead_kernel",
-                  "quant_matmul_tile": TILE_KERNEL}
+                  "quant_matmul_tile": "qmm_tile_"}
 
 
 def build_report():
@@ -1002,9 +1028,13 @@ def build_report():
                              ("HGMMA", "HMMA", "FFMA", "LOP3", "SHF"))
         ring[lib] = len(found)
         counts.update(found)
-    tile = ka.count_ops(ka.sass_listing("quant_matmul_tile"), TILE_KERNEL,
+    tile_sass = ka.sass_listing("quant_matmul_tile")
+    tile = ka.count_ops(tile_sass, TILE_KERNEL,
                         ("HGMMA", "HMMA", "FFMA", "LOP3", "SHF", "LDS"))
+    tile_f32 = ka.count_ops(tile_sass, TILE_F32_KERNEL,
+                            ("HGMMA", "HMMA", "FFMA", "LOP3", "SHF", "LDS"))
     counts.update(tile)
+    counts.update(tile_f32)
     names = ka.kernel_names(counts)
     sass = {names[sym]: c for sym, c in counts.items()}
     print("SASS " + json.dumps(sass), flush=True)
@@ -1018,6 +1048,10 @@ def build_report():
                                           for c in tile.values()):
         fail(f"tile kernel instantiations {len(tile)} (want {TILE_COUNT}) "
              f"or one without HGMMA: {tile}")
+    if len(tile_f32) != TILE_F32_COUNT or not all(
+            c["HGMMA"] > 0 for c in tile_f32.values()):
+        fail(f"float32 tile kernel instantiations {len(tile_f32)} (want "
+             f"{TILE_F32_COUNT}) or one without HGMMA: {tile_f32}")
     wgmma = {sym: c for sym, c in sass.items() if WGMMA_FLASH in sym}
     if len(wgmma) != 2 or not all(c["HGMMA"] > 0 for c in wgmma.values()):
         fail(f"the bf16 flash kernels hold no HGMMA: {sass}")
@@ -1458,6 +1492,54 @@ def reckon_grouped(L, steps, pipe):
             "quant_matmul": steps}
 
 
+def core_launches():
+    """Launches of rows 1, 2 and 4 since the counts were reset that took
+    the CUDA-core GEMV or GEMM: each wrapper's launches that took neither
+    the grouped ring (bf16 or its float32 form) nor the tile kernel."""
+    from amq_tpu_torch import ops
+    return sum(fn.launches - fn.grouped_launches - fn.tile_launches
+               for fn in ops.GROUPED)
+
+
+def f32_serve(model, cfg, prompt):
+    """The float32 main path (phase 4): Engine.generate at compute dtype
+    float32 on captured graphs, counted -- every decode GEMV of rows 1, 2
+    and 4 and the head on the grouped ring's float32 form
+    (reckon_grouped), every prefill product on the tile kernel's
+    (reckon_tile), no CUDA-core launch -- then decode ms/token and the
+    64-token prefill's ms (benchmark_speed).  An F32_SERVE line."""
+    from amq_tpu_torch import ops
+    from amq_tpu_torch.serving.benchmark import benchmark_speed
+    from amq_tpu_torch.serving.engine import Engine
+    L = cfg.num_layers
+    eng = Engine(model, cfg, batch_size=1, max_len=PROMPT + GEN + 8,
+                 compute_dtype=torch.float32, cache_dtype=torch.float32)
+    ops.reset_launch_counts()
+    toks = eng.generate(prompt, max_new_tokens=GEN)
+    torch.cuda.synchronize()
+    got = dict(launches=ops.launch_counts(),
+               grouped=ops.grouped_launch_counts(),
+               tile=ops.tile_launch_counts(), core=core_launches())
+    want = dict(launches=reckon_decode(L, 1, PROMPT, GEN - 1, False, False),
+                grouped=reckon_grouped(L, GEN - 1, False),
+                tile=reckon_tile(L, 1), core=0)
+    speed = {mode: benchmark_speed(eng, mode, prompt_len=PROMPT, gen_len=GEN)
+             for mode in ("GEMV", "GEMM")}
+    rec = dict(compute="float32", prompt=PROMPT, gen=GEN, **got,
+               want=want, decode_ms_per_token=speed["GEMV"]["decode_token_ms"],
+               prefill_ms=speed["GEMM"]["prefill_ms"],
+               tokens_in_range=bool(toks.shape == (1, GEN) and (
+                   (toks >= 0) & (toks < cfg.vocab_size)).all()),
+               card=smi_line())
+    print("F32_SERVE " + json.dumps(rec), flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    if got != want or not rec["tokens_in_range"]:
+        fail(f"float32 serving launches {got} != {want}, or tokens out of "
+             f"range")
+    return rec
+
+
 def first_step_logits(eng, model, prompt):
     """Logits [V] of the first decode step after the prompt's prefill."""
     cache = eng.new_cache()
@@ -1615,6 +1697,8 @@ def slot_f32_check(model, cfg):
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in lens]
+    from amq_tpu_torch import ops
+    ops.reset_launch_counts()
     eng = Engine(model, cfg, batch_size=1, max_len=max_len,
                  compute_dtype=torch.float32, cache_dtype=torch.float32)
     want = {u: eng.generate(p[None], max_new_tokens=n_new)[0].tolist()
@@ -1626,11 +1710,17 @@ def slot_f32_check(model, cfg):
         batcher.submit(Request(uid=u, prompt=p, max_new_tokens=n_new))
     got = se.run(batcher)
     agree = sum(got.get(u) == want[u] for u in want)
+    torch.cuda.synchronize()
     rec = dict(prompts=list(lens), new_tokens=n_new, slots=2,
-               requests_token_exact=agree, requests=len(want))
+               requests_token_exact=agree, requests=len(want),
+               grouped_launches=sum(ops.grouped_launch_counts().values()),
+               tile_launches=sum(ops.tile_launch_counts().values()),
+               core_launches=core_launches())
     print("SLOT_F32 " + json.dumps(rec), flush=True)
     if agree != len(want):
         fail(f"float32 SlotEngine differs from generate: {got} vs {want}")
+    if rec["core_launches"] or not rec["grouped_launches"]:
+        fail(f"float32 slots ran the CUDA-core GEMV / GEMM: {rec}")
     del se, eng
     torch.cuda.empty_cache()
     return rec
@@ -1889,8 +1979,10 @@ def graph_f32_gates(model, cfg, prompt):
     and accepted)."""
     from amq_tpu_torch.serving.engine import Engine
     from amq_tpu_torch.serving.speculative import SpeculativeEngine
+    from amq_tpu_torch import ops
     f32 = dict(compute_dtype=torch.float32, cache_dtype=torch.float32)
     gen, spec, slot, stats = {}, {}, {}, {}
+    ops.reset_launch_counts()
     for label, graphs in (("eager", False), ("graph", True)):
         eng = Engine(model, cfg, batch_size=1, max_len=PROMPT + SPEC_NEW + 8,
                      graphs=graphs, **f32)
@@ -1913,9 +2005,13 @@ def graph_f32_gates(model, cfg, prompt):
                                 == spec["graph"]["tokens"]).all()),
         speculative_rounds={k: v["rounds"] for k, v in spec.items()},
         speculative_accepted={k: v["accepted"] for k, v in spec.items()},
-        runners=stats)
+        runners=stats,
+        grouped_launches=sum(ops.grouped_launch_counts().values()),
+        tile_launches=sum(ops.tile_launch_counts().values()),
+        core_launches=core_launches())
     rec["ok"] = (rec["generate_equal"] and rec["slot_equal"]
                  and rec["speculative_equal"]
+                 and rec["core_launches"] == 0
                  and spec["eager"]["rounds"] == spec["graph"]["rounds"]
                  and spec["eager"]["accepted"] == spec["graph"]["accepted"])
     print("GRAPH_F32 " + json.dumps(rec), flush=True)
@@ -2769,7 +2865,8 @@ def owq_serving_phase(hf_path):
             key = (str(dt).split(".")[-1], use_kernels)
             toks[key] = eng.generate(prompt, max_new_tokens=OWQ_GEN)
             torch.cuda.synchronize()
-            counts[key] = (ops.launch_counts(), ops.grouped_launch_counts())
+            counts[key] = (ops.launch_counts(), ops.grouped_launch_counts(),
+                           core_launches())
             logits[key] = eng._prefill(qp, eng.tokens_to_device(prompt),
                                        eng.new_cache())[0].float()
     zero = {k: 0 for k in counts[("float32", True)][0]}
@@ -2788,6 +2885,7 @@ def owq_serving_phase(hf_path):
         f32_logit_gap=(logits[("float32", True)]
                        - logits[("float32", False)]).abs().max().item(),
         launches={f"{k[0]}_{k[1]}": v[0] for k, v in counts.items()},
+        f32_core_launches=counts[("float32", True)][2],
         grouped={f"{k[0]}_{k[1]}": v[1]["quant_matmul"]
                  for k, v in counts.items()},
         want_launches=want, want_grouped_bf16=want_grouped,
@@ -2799,10 +2897,12 @@ def owq_serving_phase(hf_path):
         fail(f"OWQ speed CLI gave no rate: {cli}")
     if not rec["f32_tokens_equal"]:
         fail(f"OWQ f32 kernel-path tokens differ from the plain path: {rec}")
-    for key, (c, g) in counts.items():
+    for key, (c, g, _) in counts.items():
         w = want if key[1] else zero
         if c != w:
             fail(f"OWQ serving launches {key}: {c} != {w}")
+    if rec["f32_core_launches"]:
+        fail(f"OWQ f32 serving ran the CUDA-core GEMV / GEMM: {rec}")
     if counts[("bfloat16", True)][1]["quant_matmul"] != want_grouped:
         fail(f"OWQ grouped launches {rec['grouped']} != {want_grouped}")
     return rec
@@ -2969,7 +3069,14 @@ def owq_decode_phase(gate=True):
     for use_kernels in (True, False):
         e = Engine(qp, cfg, batch_size=1, max_len=PROMPT + OWQ_F32_GEN + 8,
                    compute_dtype=torch.float32, use_kernels=use_kernels)
+        ops.reset_launch_counts()
         f32[use_kernels] = e.generate(prompt, max_new_tokens=OWQ_F32_GEN)
+        torch.cuda.synchronize()
+        if use_kernels:
+            f32_routes = dict(grouped=ops.grouped_launch_counts()[
+                "quant_matmul"], span=ops.span_launch_counts()["quant_matmul"],
+                tile=ops.tile_launch_counts()["quant_matmul"],
+                core=core_launches())
         del e
         torch.cuda.empty_cache()
     want_grouped = reckon_owq_grouped(L, GEN - 1)
@@ -2987,6 +3094,7 @@ def owq_decode_phase(gate=True):
         grouped_launches=grouped, want_grouped=want_grouped,
         span_launches=span, want_span=want_span,
         f32_tokens_equal=bool((f32[True] == f32[False]).all()),
+        f32_routes=f32_routes,
         tokens_in_range=bool(toks.shape == (1, GEN) and (
             (toks >= 0) & (toks < cfg.vocab_size)).all()),
         build_s=build_s, gated=gate, card=smi_line(),
@@ -3006,6 +3114,9 @@ def owq_decode_phase(gate=True):
         if not rec["f32_tokens_equal"]:
             fail(f"OWQ f32 kernel-path tokens differ from the plain path: "
                  f"{f32}")
+        if f32_routes["core"] or not f32_routes["span"]:
+            fail(f"OWQ f32 decode ran the CUDA-core GEMV / GEMM or no "
+                 f"spanning launch: {f32_routes}")
     return rec
 
 
@@ -3166,11 +3277,14 @@ def tp_rank(rank, world, prompt):
                                  max_len=PAR_PROMPT + PAR_GEN + 8,
                                  compute_dtype=dt, cache_dtype=dt,
                                  graphs=False)
+        ops.reset_launch_counts()
         last, _ = eng._prefill(model, eng.tokens_to_device(prompt),
                                eng.new_cache())
         toks = eng.generate(prompt, max_new_tokens=PAR_GEN)
+        torch.cuda.synchronize()
         out[str(dt).split(".")[-1]] = dict(logits=last.float().cpu().numpy(),
-                                           tokens=toks)
+                                           tokens=toks,
+                                           core_launches=core_launches())
     # eng: the bf16 engine.  Launch counts over one generate, every rank
     ops.reset_launch_counts()
     eng.generate(prompt, max_new_tokens=PAR_GEN)
@@ -3442,13 +3556,15 @@ def parallel_phase(cases, gen):
         bf16_logits_rel=float(np.abs(bf_logits - bf_ref).max()
                               / np.abs(bf_ref).max()),
         bf16_top1_agree=bool(bf_logits.argmax() == bf_ref.argmax()),
+        f32_core_launches=[r["float32"]["core_launches"] for r in ranks],
         launches=[r["launches"] for r in ranks], launches_want=want,
         profiled_rank0=r0["profiled"], profiled_want=want_seen,
         decode_ms_per_token=[r["decode_ms_per_token"] for r in ranks],
         all_reduce_us=[r["all_reduce_us"] for r in ranks],
         decode_profile_rank0=r0["decode_profile"])
     a["routes_ok"] = (all(tuple(r["launches"]) == want for r in ranks)
-                      and r0["profiled"] == want_seen)
+                      and r0["profiled"] == want_seen
+                      and not any(a["f32_core_launches"]))
     a["ok"] = (a["ranks_agree"] and a["f32_tokens_equal"]
                and a["f32_logits_rel"] <= a["tol"] and a["routes_ok"]
                and a["backend"] == "gloo")
@@ -3609,6 +3725,21 @@ def main():
     # cross-block split)
     cases.append(check_attention("long-context", 1, 32, 1, 128, 4096,
                                  (4000,), gen))
+    # the float32 forms (f32 x): the grouped ring's at M <= 8, the tile
+    # kernel's at 64, every one on its route, held to qmm_plain
+    for M in (1, 8, PROMPT):
+        for site in ("qkv", "o", "gateup", "down"):
+            for nbits in (2, 3, 4):
+                cases.append(check_matmul(site, nbits, M, torch.bfloat16, gen,
+                                          torch.float32))
+        cases.append(check_matmul("head", 8, M, torch.bfloat16, gen,
+                                  torch.float32))
+        torch.cuda.empty_cache()
+    for nbits in (2, 3):                # OWQ's down, on the spanning kernel
+        for M in (1, PROMPT):
+            cases.append(check_owq_matmul("owq_down", nbits, M, gen,
+                                          torch.float32))
+    torch.cuda.empty_cache()
     cases.append(check_batch_independence(gen))
     for fc in FLASH_CASES:
         cases.append(check_flash(*fc, gen))
@@ -3712,6 +3843,7 @@ def main():
             fail(f"{mode} gave no rate")
 
     prof = profile_decode(eng, prompt)
+    f32_rec = f32_serve(model, cfg, prompt)
     logit_recs = [logits_check(model, cfg, prompt, dt)
                   for dt in (torch.float32, torch.bfloat16)]
     if not all(r["ok"] for r in logit_recs):
@@ -3774,12 +3906,13 @@ def main():
 
     headline = {
         "quant_matmul_indexed": (pick("quant_matmul_indexed", site="gateup",
-                                      nbits=4, M=1, meta="bfloat16"),
+                                      nbits=4, M=1, meta="bfloat16",
+                                      dtype="bfloat16"),
                                  "amq_tpu_torch/csrc/quant_matmul.cu",
                                  "amq_tpu/ops/quant_matmul.py:730"),
         "quant_matmul_swiglu_indexed": (
             pick("quant_matmul_swiglu_indexed", site="down", nbits=4, M=1,
-                 meta="bfloat16"),
+                 meta="bfloat16", dtype="bfloat16"),
             "amq_tpu_torch/csrc/quant_matmul.cu",
             "amq_tpu/ops/quant_matmul.py:927"),
         "decode_attention_indexed": (
@@ -3787,7 +3920,7 @@ def main():
             "amq_tpu_torch/csrc/decode_attention.cu",
             "amq_tpu/ops/decode_attention.py:201"),
         "quant_matmul": (pick("quant_matmul", site="head", M=1,
-                              meta="bfloat16"),
+                              meta="bfloat16", dtype="bfloat16"),
                          "amq_tpu_torch/csrc/quant_matmul.cu",
                          "amq_tpu/ops/quant_matmul.py:458"),
         "flash_attention": (pick("flash_attention",
@@ -3816,24 +3949,54 @@ def main():
         # kernel on wgmma
         "quant_matmul_indexed_tile": (
             pick("quant_matmul_indexed", site="gateup", nbits=4, M=PROMPT,
-                 meta="bfloat16"),
+                 meta="bfloat16", dtype="bfloat16"),
             "amq_tpu_torch/csrc/quant_matmul_tile.cu",
             "amq_tpu/ops/quant_matmul.py:730"),
         "quant_matmul_swiglu_indexed_tile": (
             pick("quant_matmul_swiglu_indexed", site="down", nbits=4,
-                 M=PROMPT, meta="bfloat16"),
+                 M=PROMPT, meta="bfloat16", dtype="bfloat16"),
             "amq_tpu_torch/csrc/quant_matmul_tile.cu",
             "amq_tpu/ops/quant_matmul.py:927"),
         "quant_matmul_tile": (pick("quant_matmul", site="head", M=PROMPT,
-                                   meta="bfloat16"),
+                                   meta="bfloat16", dtype="bfloat16"),
                               "amq_tpu_torch/csrc/quant_matmul_tile.cu",
                               "amq_tpu/ops/quant_matmul.py:458"),
         # row 4's decode GEMV at superblocks smaller than a ring stage
         # (OWQ's down at 3 bits): the grouped GEMV's spanning kernel
         "quant_matmul_span": (pick("quant_matmul", site="owq_down", nbits=3,
-                                   M=1),
+                                   M=1, dtype="bfloat16"),
                               "amq_tpu_torch/csrc/qmm_grouped.cuh",
                               "amq_tpu/ops/quant_matmul.py:458"),
+        # the float32 forms of rows 1, 2 and 4 (f32 activations): the
+        # grouped ring's float32 GEMV and the tile kernel's float32 form
+        "quant_matmul_indexed_f32": (
+            pick("quant_matmul_indexed", site="gateup", nbits=4, M=1,
+                 dtype="float32"),
+            "amq_tpu_torch/csrc/quant_matmul_f32.cu",
+            "amq_tpu/ops/quant_matmul.py:730"),
+        "quant_matmul_swiglu_indexed_f32": (
+            pick("quant_matmul_swiglu_indexed", site="down", nbits=4, M=1,
+                 dtype="float32"),
+            "amq_tpu_torch/csrc/quant_matmul_f32.cu",
+            "amq_tpu/ops/quant_matmul.py:927"),
+        "quant_matmul_f32": (pick("quant_matmul", site="head", M=1,
+                                  dtype="float32"),
+                             "amq_tpu_torch/csrc/quant_matmul_f32.cu",
+                             "amq_tpu/ops/quant_matmul.py:458"),
+        "quant_matmul_indexed_tile_f32": (
+            pick("quant_matmul_indexed", site="gateup", nbits=4, M=PROMPT,
+                 dtype="float32"),
+            "amq_tpu_torch/csrc/quant_matmul_tile.cu",
+            "amq_tpu/ops/quant_matmul.py:730"),
+        "quant_matmul_swiglu_indexed_tile_f32": (
+            pick("quant_matmul_swiglu_indexed", site="down", nbits=4,
+                 M=PROMPT, dtype="float32"),
+            "amq_tpu_torch/csrc/quant_matmul_tile.cu",
+            "amq_tpu/ops/quant_matmul.py:927"),
+        "quant_matmul_tile_f32": (pick("quant_matmul", site="head", M=PROMPT,
+                                       dtype="float32"),
+                                  "amq_tpu_torch/csrc/quant_matmul_tile.cu",
+                                  "amq_tpu/ops/quant_matmul.py:458"),
         # no Pallas kernel: the JAX package's XLA dequantization
         "dequantize_kn": (pick("dequantize_kn", site="gate", nbits=4),
                           "amq_tpu_torch/csrc/dequant.cu",
@@ -3857,7 +4020,10 @@ def main():
                    "flash_attention_f32": sum(r["launches"]["flash_f32"]
                                               for r in realize["methods"]),
                    "quant_matmul_span": owq_decode["span_launches"],
-                   **{f"{k}_tile": v for k, v in tile_counts.items()}}
+                   **{f"{k}_tile": v for k, v in tile_counts.items()},
+                   # the float32 main path's generate (phase 4, F32_SERVE)
+                   **{f"{k}_f32": v for k, v in f32_rec["grouped"].items()},
+                   **{f"{k}_tile_f32": v for k, v in f32_rec["tile"].items()}}
     kernels = []
     for name, (c, src, rep) in headline.items():
         kernels.append({
@@ -3872,6 +4038,10 @@ def main():
             "cases_checked": sum(1 for x in cases if x["kernel"] == name
                                  or f"{x['kernel']}_tile" == name
                                  and x.get("route") == "tile"
+                                 and x.get("dtype") != "float32"
+                                 or f"{x['kernel']}_tile_f32" == name
+                                 and x.get("route") == "tile"
+                                 and x.get("dtype") == "float32"
                                  or f"{x['kernel']}_span" == name
                                  and x.get("spanning")
                                  or f"{x['kernel']}_f32" == name
@@ -3909,6 +4079,7 @@ def main():
                    "logits": logit_recs, "launches": counts,
                    "grouped_launches": grouped_counts,
                    "tile_launches": tile_counts, "profile": prof,
+                   "f32_serve": f32_rec,
                    "long_prompt": long_rec, "switches": switch_recs,
                    "continuous": cont_recs, "slot_f32": slot_rec,
                    "speculative": spec_recs, "graphs": graph_recs,

@@ -1083,3 +1083,161 @@ def test_cuda_failed_capture_raises(tiny_serving):
     with pytest.raises(RuntimeError, match="no eager fallback"):
         runner.run(("host_read",), body, state=(x,))
     assert runner.captures == 0 and runner.replays == 0
+
+
+# ---------------------------------------------------------------------------
+# The float32 forms of rows 1, 2 and 4 (f32 activations on tensor cores)
+
+def _f32_case(nbits, M, meta, seed, N=320, K=2048, superblock=None):
+    rng = np.random.default_rng(seed)
+    W = torch.from_numpy(rng.normal(size=(N, K)).astype(np.float32) * 0.02)
+    qt = tq.quantize(W.cuda(), nbits=nbits, meta_dtype=meta,
+                     **({"superblock": superblock} if superblock else {}))
+    x, u = (torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)
+                             ).cuda() for _ in range(2))
+    return qt, x, u
+
+
+def _f32_call(qt, x, u, swiglu, **kw):
+    stack = (qt.packed[None], qt.scale[None], qt.zero[None], 0)
+    if swiglu:
+        return tqm.quant_matmul_swiglu_indexed(x, u, *stack, **kw)
+    if qt.nbits == 8:
+        return tqm.quant_matmul(x, qt, out_dtype=kw["out_dtype"])
+    return tqm.quant_matmul_indexed(x, *stack, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("meta", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("swiglu", [False, True])
+@pytest.mark.parametrize("M", [1, 2, 3, 5, 8, 9, 64, 200])
+@pytest.mark.parametrize("nbits", [1, 2, 3, 4, 8])
+def test_cuda_f32_forms_match_plain(nbits, M, swiglu, meta):
+    """f32 activations: M <= 8 on the grouped ring's float32 form, 8 < M
+    on the tile kernel's (N = 320 not a multiple of either's columns, K =
+    2048 split over blocks), within 1e-4 of the f32 function qmm_plain
+    (normalized) and of the kernels' own arithmetic qmm_exact_plain, two
+    calls equal, one launch per call counted on its route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    qt, x, u = _f32_case(nbits, M, meta, 200 + nbits + M + 10 * swiglu)
+    kw = dict(nbits=nbits, group_size=128, shape=qt.shape,
+              superblock=qt.superblock, out_dtype=torch.float32)
+    counter = (tqm.quant_matmul_swiglu_indexed if swiglu
+               else tqm.quant_matmul if nbits == 8
+               else tqm.quant_matmul_indexed)
+    route = "grouped_launches" if M <= 8 else "tile_launches"
+    before = counter.launches, getattr(counter, route)
+    got, again = (_f32_call(qt, x, u, swiglu, **kw) for _ in range(2))
+    up = u if swiglu else None
+    want = tqm.qmm_plain(x, qt.packed, qt.scale, qt.zero, up=up, **kw)
+    exact = tqm.qmm_exact_plain(x, qt.packed, qt.scale, qt.zero, up=up, **kw)
+    torch.cuda.synchronize()
+    assert (counter.launches - before[0],
+            getattr(counter, route) - before[1]) == (2, 2)
+    assert torch.equal(got, again)
+    _norm_close(got.cpu().numpy(), want.cpu().numpy(), 1e-4)
+    _norm_close(got.cpu().numpy(), exact.cpu().numpy(), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbits", [1, 2, 3, 4, 8])
+def test_cuda_f32_rows_independent_of_M(nbits):
+    """Row m of a float32 call has the bits of the same row in a call of
+    another M on the same route: M = 8 and 5 against each row alone on
+    the grouped ring (J = 3 against J = 1 column groups), M = 200 against
+    M = 64 and 9 on the tile kernel (two M tiles against one)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    qt, x, u = _f32_case(nbits, 200, torch.bfloat16, 260 + nbits, N=4096,
+                         K=4096)
+    kw = dict(nbits=nbits, group_size=128, shape=qt.shape,
+              superblock=qt.superblock, out_dtype=torch.float32)
+    for rows in (8, 5):
+        many = _f32_call(qt, x[:rows], u, False, **kw)
+        for m in range(rows):
+            assert torch.equal(_f32_call(qt, x[m:m + 1], u, False, **kw)[0],
+                               many[m]), (rows, m)
+    big = _f32_call(qt, x, u, False, **kw)
+    for rows in (64, 9):
+        assert torch.equal(_f32_call(qt, x[:rows], u, False, **kw),
+                           big[:rows]), rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("swiglu", [False, True])
+@pytest.mark.parametrize("M", [1, 5])
+@pytest.mark.parametrize("nbits,superblock", [
+    (1, 256), (1, 512), (2, 128), (2, 256), (3, 256), (4, 128)])
+def test_cuda_f32_spanning_matches_plain(nbits, superblock, M, swiglu):
+    """The float32 GEMV at superblocks smaller than a ring stage (OWQ's
+    down at 2 and 3 bits among them), K over an odd count of superblocks
+    so the last stage of K is partial: the spanning counter moves, within
+    1e-4 of qmm_plain; the 4-row superblocks (1 and 3 bits at 128 rows)
+    keep the CUDA-core GEMV."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    qt, x, u = _f32_case(nbits, M, torch.float32, 300 + nbits + superblock,
+                         K=superblock * 11, superblock=superblock)
+    kw = dict(nbits=nbits, group_size=128, shape=qt.shape,
+              superblock=qt.superblock, out_dtype=torch.float32)
+    counter = (tqm.quant_matmul_swiglu_indexed if swiglu
+               else tqm.quant_matmul_indexed)
+    before = counter.span_launches
+    got = _f32_call(qt, x, u, swiglu, **kw)
+    want = tqm.qmm_plain(x, qt.packed, qt.scale, qt.zero,
+                         up=u if swiglu else None, **kw)
+    torch.cuda.synchronize()
+    assert counter.span_launches - before == 1
+    _norm_close(got.cpu().numpy(), want.cpu().numpy(), 1e-4)
+    for b in (1, 3):
+        assert not tqm._grouped_applies(x, qt.packed, qt.scale, qt.zero, b,
+                                        128, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbits", [1, 2, 3, 4, 8])
+def test_cuda_tile_f32_layout_agrees_with_library(nbits):
+    """_tile_ns(..., exact=True) and the library's tile_ns_exact agree on
+    every weight layout, as test_cuda_tile_layout_agrees_with_library
+    holds the bf16 form's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    fn = tqm._cuda.library("quant_matmul_tile").amq_qmm_tile_f32_stages
+    fn.argtypes = [tqm._c_int] * 4
+    fn.restype = tqm._c_int
+    for sb in range(64, 1025, 64):
+        R = sb // 32 if nbits == 3 else sb * nbits // 32
+        for gs in (8, 16, 32, 48, 64, 128, 192, 256, 512, 1024):
+            for mb in (0, 1):
+                ns = tqm._tile_ns(nbits, gs, sb, mb, True)
+                assert fn(nbits, gs, sb, mb) == (R // ns if ns else 0), (
+                    nbits, gs, sb, mb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", [1, 64])
+def test_cuda_swiglu_takes_views_of_gateup(M, dtype):
+    """quant_matmul_swiglu_indexed with gate and up as the model passes
+    them -- column views of one gateup output [M, 2 K + 64], row stride
+    past K -- at M 1 (grouped ring) and 64 (tile kernel: bf16 through the
+    SwiGLU prologue's contiguous output, f32 through the split pass)
+    equals the same call on contiguous copies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    rng = np.random.default_rng(400 + M)
+    N, K = 320, 2048
+    W = torch.from_numpy(rng.normal(size=(N, K)).astype(np.float32) * 0.02)
+    qt = tq.quantize(W.cuda(), nbits=4, meta_dtype=torch.bfloat16)
+    gu = torch.from_numpy(rng.normal(size=(M, 2 * K + 64)).astype(
+        np.float32)).cuda().to(dtype)
+    gate, up = gu[:, :K], gu[:, K:2 * K]
+    kw = dict(nbits=4, group_size=128, shape=(N, K), superblock=qt.superblock,
+              out_dtype=torch.float32)
+    stack = (qt.packed[None], qt.scale[None], qt.zero[None], 0)
+    got = tqm.quant_matmul_swiglu_indexed(gate, up, *stack, **kw)
+    want = tqm.quant_matmul_swiglu_indexed(gate.contiguous(), up.contiguous(),
+                                           *stack, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -161,9 +161,9 @@ def test_grouped_routing_conditions(nbits):
     superblocks, but not at 8 bits; one and a half of it refused), Np, K
     and x's row stride multiples of 8, 16-byte aligned operands; at 8 bits
     rounds that nest with the groups and whole stages, below 8 bits
-    power-of-two groups and superblock: the grouped GEMV; anything else
-    keeps the CUDA-core GEMV (f32 activations are the JAX package's
-    per-weight route)."""
+    power-of-two groups and superblock: the grouped GEMV; f32 activations
+    too (its float32 form), but not at 4-row superblocks (1 and 3 bits at
+    128 rows); anything else keeps the CUDA-core GEMV."""
     sb = _WHOLE_STAGE[nbits]
     x = torch.zeros((8, 1024), dtype=torch.bfloat16)
     meta = torch.zeros((2, 128), dtype=torch.bfloat16)
@@ -181,7 +181,9 @@ def test_grouped_routing_conditions(nbits):
     # 1.5 ring stages (1-bit: 1536 rows, also past 1024; 8-bit: 192 rows,
     # 48 word rows)
     assert not ok(superblock=3 * sb // 2)
-    assert not ok(x=x.float())
+    assert ok(x=x.float())
+    assert ok(x=x.float(), superblock=128) == (nbits not in (1, 3))
+    assert not ok(x=x.half())
     assert not ok(x=torch.zeros((9, 1024), dtype=torch.bfloat16))
     assert not ok(group=32)
     assert not ok(superblock=2048)
@@ -394,7 +396,8 @@ def test_tile_routing_conditions(nbits):
     16-byte aligned operands and a layout the tile kernel takes (a
     superblock of whole 16-row groups whose round plane holds whole
     16-row steps: 1-bit and 3-bit superblocks of a multiple of 256 rows,
-    2-bit of 128; a ring that fits): the tile kernel; anything else keeps
+    2-bit of 128; a ring that fits): the tile kernel; f32 activations
+    too (its float32 form, chunks inside one group); anything else keeps
     the CUDA-core GEMM."""
     x = torch.zeros((64, 1024), dtype=torch.bfloat16)
     meta = torch.zeros((8, 128), dtype=torch.bfloat16)
@@ -411,7 +414,10 @@ def test_tile_routing_conditions(nbits):
     assert ok(x=torch.zeros((300, 1024), dtype=torch.bfloat16))
     assert ok(group=64, superblock=256)
     assert not ok(x=x[:8])
-    assert not ok(x=x.float())
+    assert ok(x=x.float())
+    assert ok(x=x.float(), meta=meta.float())
+    assert ok(x=x.float(), group=16, superblock=256)
+    assert not ok(x=x.half())
     assert not ok(cols=124)
     assert not ok(x=x[:, 1:1021])                   # K, alignment
     assert not ok(group=8, superblock=256)

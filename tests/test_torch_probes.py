@@ -407,6 +407,19 @@ def test_decode_ab_refuses_no_roots_and_a_failed_root(tmp_path):
         dab.run(str(tmp_path), steps=1, repeats=1)
 
 
+def test_decode_ab_takes_a_compute_dtype(tmp_path):
+    """``--dtype float32`` runs the A/B with the engine in float32 (the
+    child gets the dtype; a root without ``chip_smoke.py`` still stops it
+    with the child's error); any other dtype, or the flag without roots,
+    is refused."""
+    for argv in (["--dtype", "float16", str(tmp_path)], ["--dtype"],
+                 ["--dtype", "float32"]):
+        with pytest.raises(SystemExit, match="usage"):
+            dab.main(argv)
+    with pytest.raises(SystemExit, match="chip_smoke"):
+        dab.main(["--dtype", "float32", str(tmp_path)])
+
+
 def test_count_sass_reads_each_attribution_kernel():
     """The SASS counter on a listing in cuobjdump's layout: per kernel its
     body, width, variant (by the body's own names) and instruction counts
