@@ -955,7 +955,7 @@ __device__ __forceinline__ void span_stage_pair(
 // 1 up to M = 2, 3 up to M = 8), each column with its own accumulator and
 // correction, so row m's bits do not depend on M; the store sums row m's
 // three columns in part order.  Splits, ring and stage plan are the bf16
-// GEMV's.
+// GEMV's, the 4-row superblocks' round pairs too (exact_span_pair_stage).
 
 constexpr uint32_t kBias128 = 0x43004300u;     // bf16 (128, 128)
 constexpr uint32_t kBias2048 = 0x45004500u;    // bf16 (2048, 2048)
@@ -1142,6 +1142,90 @@ __device__ __forceinline__ void exact_span_stage(
       }
     }
     low_shift<BITS>(w, p);
+  }
+}
+
+// One warp's share of a spanning stage of 4-row superblocks in the float32
+// form (span_stage_pair's order: a step is one superblock's round pair,
+// corrected at once with its slot; the exact codes 128 + c minus 128
+// against each column group's parts; FULL as there).  Its own copy of
+// span_stage_pair's word loads and code fields: built from shared helpers,
+// the J = 1 form spilled at the ring's launch bound (3 bits, 96 registers).
+template <int BITS, int J, bool FULL>
+__device__ __forceinline__ void exact_span_pair_stage(
+    const uint32_t* ws, const __nv_bfloat16* xs, int rows,
+    const unsigned char* meta, int meta_es, int lg_share, int sb_meta,
+    int parts, int wcol, int lane, float (&tot)[J][kGTiles][4]) {
+  static_assert(BITS == 1 || BITS == 3, "4-row superblocks: 1 and 3 bits");
+  using F = GroupedForm<BITS>;
+  constexpr int S = F::n / 4;                    // superblocks per stage
+  constexpr int W = BITS == 3 ? 3 : 1;
+  constexpr int sb = span_superblock<BITS, 0>();
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t w[S][kGTiles][W][2];
+#pragma unroll
+  for (int st = 0; st < S; ++st)
+#pragma unroll
+    for (int ct = 0; ct < kGTiles; ++ct)
+#pragma unroll
+      for (int pl = 0; pl < W; ++pl) {
+        const uint2 v = *reinterpret_cast<const uint2*>(
+            ws + (pl * F::n + 4 * st + t) * kGWordStride + wcol + 16 * ct +
+            2 * g);
+        w[st][ct][pl][0] = v.x;
+        w[st][ct][pl][1] = v.y;
+      }
+  const int c0 = wcol + 2 * g;
+  const __nv_bfloat16* xr[J];
+  exact_rows<J>(xs, rows, F::rounds * F::xstride, lane, xr);
+#pragma unroll 1
+  for (int q = 0; q < F::rounds / 2; ++q) {
+    const unsigned char* slot = meta + 2 * ((2 * q) >> lg_share) * kGBN *
+                                           meta_es;
+#pragma unroll
+    for (int st = 0; st < S; ++st) {
+      if (!FULL && st >= parts) break;
+      uint2 b[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const __nv_bfloat16* xq = xr[j] + st * sb + 16 * q + 2 * t;
+        b[j] = make_uint2(*reinterpret_cast<const uint32_t*>(xq),
+                          *reinterpret_cast<const uint32_t*>(xq + 8));
+      }
+      uint32_t a[kGTiles][exact_frags<BITS>()][4];
+#pragma unroll
+      for (int ct = 0; ct < kGTiles; ++ct)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {           // columns 2g, 2g + 1
+          const uint32_t* v = w[st][ct][0];
+          uint32_t lo, hi;
+          if constexpr (BITS == 3) {
+            lo = low_pair<3>(v[h], w[st][ct][2][h], 0u);
+            hi = low_pair<3>(w[st][ct][1][h], w[st][ct][2][h] >> 1, 0u);
+          } else {
+            lo = (v[h] & F::pair_mask) | kBias128;
+            hi = ((v[h] >> 1) & F::pair_mask) | kBias128;
+          }
+          a[ct][0][h] = bf2_sub(lo, kBias128);
+          a[ct][0][2 + h] = bf2_sub(hi, kBias128);
+        }
+      float acc[J][kGTiles][4], xa[J][4];
+      exact_clear<J>(acc, xa);
+      exact_step<BITS, J>(a, b, acc, xa);
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        low_correct_at<BITS, true>(acc[j], xa[j], 1.f, slot + st * sb_meta,
+                                   meta_es, c0, tot[j]);
+    }
+#pragma unroll
+    for (int st = 0; st < S; ++st)
+#pragma unroll
+      for (int ct = 0; ct < kGTiles; ++ct)
+#pragma unroll
+        for (int pl = 0; pl < W; ++pl) {
+          w[st][ct][pl][0] >>= 2;
+          w[st][ct][pl][1] >>= 2;
+        }
   }
 }
 

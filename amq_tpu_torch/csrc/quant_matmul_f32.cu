@@ -137,7 +137,8 @@ __device__ void exact_consume(const GemvArgs& a, const GroupedRing& r, int S,
   }
 }
 
-// Consumer warps of the spanning kernel (SPS-step superblocks).
+// Consumer warps of the spanning kernel (SPS-step superblocks; SPS = 0:
+// the 4-row superblocks' round pairs).
 template <int BITS, int SPS, int J>
 __device__ void exact_span_consume(const GemvArgs& a, const GroupedRing& r,
                                    int span, int st_lo, int S,
@@ -157,16 +158,26 @@ __device__ void exact_span_consume(const GemvArgs& a, const GroupedRing& r,
     const __nv_bfloat16* xs =
         reinterpret_cast<const __nv_bfloat16*>(st + r.lay.x_off);
     const int parts = min(span, a.Kp / sb - (st_lo + s) * span);
-    if (parts == span)
-      exact_span_stage<BITS, SPS, J, true>(ws, xs, 3 * a.op.M,
-                                           st + r.lay.meta_off, r.es,
-                                           lg_share, sb_meta, parts, wcol,
-                                           lane, tot);
-    else
-      exact_span_stage<BITS, SPS, J, false>(ws, xs, 3 * a.op.M,
-                                            st + r.lay.meta_off, r.es,
-                                            lg_share, sb_meta, parts, wcol,
-                                            lane, tot);
+    const unsigned char* meta = st + r.lay.meta_off;
+    if constexpr (SPS == 0) {
+      if (parts == span)
+        exact_span_pair_stage<BITS, J, true>(ws, xs, 3 * a.op.M, meta, r.es,
+                                             lg_share, sb_meta, parts, wcol,
+                                             lane, tot);
+      else
+        exact_span_pair_stage<BITS, J, false>(ws, xs, 3 * a.op.M, meta, r.es,
+                                              lg_share, sb_meta, parts, wcol,
+                                              lane, tot);
+    } else {
+      if (parts == span)
+        exact_span_stage<BITS, SPS, J, true>(ws, xs, 3 * a.op.M, meta, r.es,
+                                             lg_share, sb_meta, parts, wcol,
+                                             lane, tot);
+      else
+        exact_span_stage<BITS, SPS, J, false>(ws, xs, 3 * a.op.M, meta, r.es,
+                                              lg_share, sb_meta, parts, wcol,
+                                              lane, tot);
+    }
     __syncwarp();
     if (lane == 0) mbar_arrive(ring_empty(s));
   }
@@ -240,13 +251,13 @@ __global__ void __launch_bounds__((kGWarps + 1) * 32, exact_min_blocks<J>())
 }
 
 // ... at spanning layouts of SPS-step superblocks, as
-// qmm_grouped_span_kernel (the 4-row superblocks' pair form, 1 and 3 bits
-// at 128 rows, has no float32 kernel).
+// qmm_grouped_span_kernel (SPS = 0: the 4-row superblocks' pair form, 1
+// and 3 bits at 128 rows).
 template <int BITS, int SPS, int J>
 __global__ void __launch_bounds__((kGWarps + 1) * 32, exact_min_blocks<J>())
     qmm_grouped_f32_span_kernel(GemvArgs a) {
-  static_assert(BITS != 8 && SPS > 0, "spanning SPS-step superblocks");
-  constexpr int span = GroupedForm<BITS>::n / (8 * SPS);
+  static_assert(BITS != 8, "8-bit superblocks hold whole stages");
+  constexpr int span = GroupedForm<BITS>::n / (SPS == 0 ? 4 : 8 * SPS);
   const GroupedRing r = grouped_ring<BITS, true>(a, true, span);
   const int col0 = blockIdx.x * kGBN;
   const int st_lo = blockIdx.y * a.sb_per_split;
@@ -275,12 +286,16 @@ cudaError_t exact_span_allow(size_t smem) {
 }
 
 // f(kernel, allow) with the kernel of this call's layout and J (spanning:
-// span_form's SPS = 1 and 2 forms), or cudaErrorInvalidValue for a layout
-// without one.
+// span_form's SPS = 0, 1 and 2 forms), or cudaErrorInvalidValue for a
+// layout without one.
 template <int BITS, int J, class Fn>
 cudaError_t with_exact_kernel(int sb, Fn f) {
   if (grouped_whole_stages(BITS, sb))
     return f(qmm_grouped_f32_kernel<BITS, J>, exact_allow<BITS, J>);
+  if constexpr (span_form<BITS, 0>())
+    if (sb == span_superblock<BITS, 0>())
+      return f(qmm_grouped_f32_span_kernel<BITS, 0, J>,
+               exact_span_allow<BITS, 0, J>);
   if constexpr (span_form<BITS, 1>())
     if (sb == span_superblock<BITS, 1>())
       return f(qmm_grouped_f32_span_kernel<BITS, 1, J>,
@@ -332,14 +347,12 @@ int exact_blocks(int meta_bf16, int sb, int gs) {
   return n;
 }
 
-// The layouts the float32 GEMV takes: the bf16 GEMV's (grouped_takes),
-// but no 4-row superblocks (1 and 3 bits at 128 rows).
+// The layouts the float32 GEMV takes: the bf16 GEMV's (grouped_takes).
 bool exact_takes(const void* x, int x_bf16, const int32_t* packed,
                  const void* scale, const void* zero, int M, int K, int ldx,
                  int Kp, int Np, int nbits, int gs, int sb) {
   return grouped_takes(x, nullptr, x_bf16, packed, scale, zero, M, K, ldx, Kp,
-                       Np, nbits, gs, sb, true) &&
-         !((nbits == 1 || nbits == 3) && sb == 128);
+                       Np, nbits, gs, sb, true);
 }
 
 }  // namespace

@@ -40,7 +40,17 @@
 // its rounds touch, by bulk copies on a full / empty mbarrier pair (up to
 // three stages); its P extraction rounds are P x chunks of 2 ns K rows,
 // in a ring of their own (up to four slots, cp.async completing on the
-// slot's full mbarrier).  The two producers run ahead independently.  A
+// slot's full mbarrier).  The 4-row superblocks (1 and 3 bits at 128
+// rows, whose round plane has 4 word rows: a k16 step would straddle two
+// superblocks' rounds) take the pair form (template PAIR, so that every
+// offset is a constant): a stage holds kPairNs = 16 rows, four whole
+// superblocks (the last stage of K the ones left), and its 16 chunks of
+// 32 K rows are four per superblock in K order; a k16 step takes one
+// superblock's rounds q and q + 1, whose 16 K rows are adjacent and in
+// one group, from the same word row (K pairs t and t + 4: the row's fields
+// at the two rounds), so a lane loads one word per column and plane for
+// both halves of its A registers.  Each chunk's meta slot is its group's,
+// as in the whole-stage form.  The two producers run ahead independently.  A
 // consumer warp reads its two columns' words (one 8-byte load per word
 // row) and meta from the stage, builds the A registers of a chunk (meta
 // once per group and column), waits for the chunk's x and issues ns / 8
@@ -165,19 +175,33 @@ inline size_t tile_smem(const TileShape& t, const TileSlots& n) {
          static_cast<size_t>(n.w) * t.stage;
 }
 
+// The 4-row superblocks (1 and 3 bits at 128 rows: the round plane has 4
+// word rows, so no stage of 8 or more rows lies in one superblock): a
+// stage of kPairNs rows holds kPairNs / 4 whole superblocks, each with its
+// own meta slots, and a 16-row k16 step takes one superblock and two
+// rounds (the pair form; see the top of the file).
+constexpr int kPairNs = 16;
+
+__host__ __device__ constexpr bool tile_pair(int nb, int sb) {
+  return (nb == 1 || nb == 3) && sb == 128;
+}
+
 // Word rows per stage of a layout (0: the kernel does not take it): the
 // largest of 32, 16, 8 that divides the round plane's rows, whose chunks
 // of 2 ns K rows lie in one group or hold whole ones, and whose ring fits
-// at every block shape (one, two or four M sub-tiles).  It depends on the
-// layout only, so the K order of the sums, and the bits of row m, are the
-// same at any M.
+// at every block shape (one, two or four M sub-tiles); the 4-row
+// superblocks take kPairNs rows at groups of a multiple of 32 (a chunk in
+// one group).  It depends on the layout only, so the K order of the sums,
+// and the bits of row m, are the same at any M.
 inline int tile_ns(int nb, int gs, int sb, int meta_bf16) {
   if ((nb != 1 && nb != 2 && nb != 3 && nb != 4 && nb != 8) || sb % 64 ||
       sb > 1024 || gs < 16 || gs % 16 || sb % gs)
     return 0;
   const int R = nb == 3 ? sb / 32 : sb * nb / 32;
+  const bool pair = tile_pair(nb, sb);
   for (int ns = 32; ns >= 8; ns /= 2)
-    if (R % ns == 0 && (gs % (2 * ns) == 0 || (2 * ns) % gs == 0) &&
+    if ((pair ? ns == kPairNs && gs % (2 * ns) == 0
+              : R % ns == 0 && (gs % (2 * ns) == 0 || (2 * ns) % gs == 0)) &&
         tile_slots(tile_shape(nb, sb, gs, meta_bf16, 1, ns)).w >= 2 &&
         tile_slots(tile_shape(nb, sb, gs, meta_bf16, 2, ns)).w >= 2 &&
         tile_slots(tile_shape(nb, sb, gs, meta_bf16, 4, ns)).w >= 2)
@@ -194,8 +218,9 @@ inline int tile_ns_exact(int nb, int gs, int sb, int meta_bf16) {
       sb > 1024 || gs < 16 || gs % 16 || sb % gs)
     return 0;
   const int R = nb == 3 ? sb / 32 : sb * nb / 32;
+  const bool pair = tile_pair(nb, sb);
   for (int ns = 16; ns >= 8; ns /= 2)
-    if (R % ns == 0 && gs % (2 * ns) == 0 &&
+    if ((pair ? ns == kPairNs : R % ns == 0) && gs % (2 * ns) == 0 &&
         tile_slots(tile_shape(nb, sb, gs, meta_bf16, 1, ns, true)).w >= 2)
       return ns;
   return 0;
@@ -312,18 +337,58 @@ __device__ __forceinline__ ColMeta col_meta(const unsigned char* slot, int es,
   return m;
 }
 
+// The exact bf16 pairs 128 + c of the four A registers of chunk p at k16
+// step kk of a stage of 4-row superblocks (kPairNs rows: four whole
+// superblocks; 1 and 3 bits).  Chunk p is rounds 4 (p % 4) .. + 3 of the
+// stage's superblock p / 4 (stage rows 4 (p / 4) ..), and step kk its
+// rounds q = 4 (p % 4) + 2 kk and q + 1: K pairs t and t + 4 are the same
+// word row t at the two rounds' fields (3-bit: the superblock's 2-bit
+// rows t and 4 + t, stage blocks 0 and 1, at round q / 2, beside 1-bit
+// row t).  Register i: K pair t + 4 (i >> 1), column c + (i & 1).
+template <int NB>
+__device__ __forceinline__ void pair_raw(const uint32_t* ws, int stride,
+                                         int ns, int p, int kk, int t, int c,
+                                         uint32_t (&raw)[4]) {
+  static_assert(NB == 1 || NB == 3, "4-row superblocks: 1 and 3 bits");
+  const int q = 4 * (p & 3) + 2 * kk;
+  const int o = (4 * (p >> 2) + t) * stride + c;
+  if constexpr (NB == 3) {
+    const uint2 h0 = *reinterpret_cast<const uint2*>(ws + o);
+    const uint2 h1 = *reinterpret_cast<const uint2*>(ws + ns * stride + o);
+    const uint2 l = *reinterpret_cast<const uint2*>(ws + 2 * ns * stride + o);
+    raw[0] = (((h0.x >> q) & 0x00030003u) << 1) | ((l.x >> q) & 0x00010001u) |
+             0x43004300u;
+    raw[1] = (((h0.y >> q) & 0x00030003u) << 1) | ((l.y >> q) & 0x00010001u) |
+             0x43004300u;
+    raw[2] = (((h1.x >> q) & 0x00030003u) << 1) |
+             ((l.x >> (q + 1)) & 0x00010001u) | 0x43004300u;
+    raw[3] = (((h1.y >> q) & 0x00030003u) << 1) |
+             ((l.y >> (q + 1)) & 0x00010001u) | 0x43004300u;
+  } else {
+    const uint2 w = *reinterpret_cast<const uint2*>(ws + o);
+    raw[0] = ((w.x >> q) & 0x00010001u) | 0x43004300u;
+    raw[1] = ((w.y >> q) & 0x00010001u) | 0x43004300u;
+    raw[2] = ((w.x >> (q + 1)) & 0x00010001u) | 0x43004300u;
+    raw[3] = ((w.y >> (q + 1)) & 0x00010001u) | 0x43004300u;
+  }
+}
+
 // The four A registers of round p at k16 step kk of a stage (`stride`
 // words a staged row).  A row 16 w4 + lane / 4 is weight column c, row
 // + 8 column c + 1 (c even: one 8-byte load per word row gives both); K
 // pairs t and t + 4 are stage rows 8 kk + t and + 4.  Register i: row
 // r + 4 (i >> 1), column c + (i & 1).
-template <int NB>
+// PAIR (4-row superblocks): chunk p is the stage's superblock p / 4,
+// pair_raw's codes.
+template <int NB, bool PAIR>
 __device__ __forceinline__ void tile_frag(const uint32_t* ws, int stride,
                                           int ns, int p, int kk, int t, int c,
                                           const ColMeta& m, uint32_t (&a)[4]) {
   const int o = (8 * kk + t) * stride + c;
   uint32_t raw[4];
-  if constexpr (NB == 8) {
+  if constexpr (PAIR) {
+    pair_raw<NB>(ws, stride, ns, p, kk, t, c, raw);
+  } else if constexpr (NB == 8) {
     // round p's codes: byte p of each half-word (rows 2r and 2r + 1)
     const uint32_t sel0 = tile_sel8(p), sel1 = tile_sel8(2 + p);
 #pragma unroll
@@ -359,6 +424,26 @@ __device__ __forceinline__ void tile_frag(const uint32_t* ws, int stride,
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     a[i] = deq_bf16(raw[i], m.s2[i & 1], m.z2[i & 1]);
+}
+
+// Where the chunks of a stage of 4-row superblocks lie in K: stage js is
+// kPairNs / 4 whole superblocks from js kPairNs / 4, its chunk p the p-th
+// 2 ns K rows of them; the last stage of K holds the superblocks left, and
+// only their chunks (four a superblock, so an even count).
+__device__ __forceinline__ int pair_k0(const TileShape& sh, int sb, int js,
+                                       int p) {
+  return js * (sh.ns / sh.R) * sb + 2 * sh.ns * p;
+}
+
+__device__ __forceinline__ int pair_chunks(const TileShape& sh, int sb,
+                                           int Kp, int js) {
+  return min(sh.P, (Kp - pair_k0(sh, sb, js, 0)) / (2 * sh.ns));
+}
+
+// Ring stages of K at 4-row superblocks: ceil(superblocks R / ns).
+__device__ __forceinline__ int pair_stages(const TileShape& sh, int sb,
+                                           int Kp) {
+  return (Kp / sb * sh.R + sh.ns - 1) / sh.ns;
 }
 
 // A ring's position: slot and phase parity of its next item, stepped
@@ -460,13 +545,58 @@ __device__ __forceinline__ void tile_issue_words(
   }
 }
 
-// One consumer chunk: round p of the stage at `ws` (ST k16 steps; A
+// Producer of a stage of 4-row superblocks (tile_issue_words' roles):
+// stage js's parts <= kPairNs / 4 superblocks from sbi, each superblock's
+// round-plane rows in turn (3-bit: its 2-bit rows [0, 4) and [4, 8), then
+// its 1-bit rows), and the scale and zero of each chunk's group.
+template <int NB, int WG>
+__device__ __forceinline__ void tile_issue_pair_words(
+    const GemvArgs& a, const TileShape& sh, const TileBars& bars,
+    unsigned char* wring, const RingPos& wpos, int j, int js, int wslots,
+    int col0, int lane) {
+  using C = TileCfg<WG>;
+  const int sb = a.w.superblock, gs = a.w.group_size, Np = a.w.Np;
+  const int cols = min(C::bn, Np - col0);          // a multiple of 8
+  const int Rw = sb * NB / 32;                     // word rows per superblock
+  const int per = sh.ns / sh.R, sbi = js * per;
+  const int parts = min(per, a.Kp / sb - sbi);     // superblocks in K
+  unsigned char* st = wring + wpos.slot * sh.stage;
+  const int nrows = (NB == 3 ? 3 : 1) * sh.ns;
+  const int nmeta = 2 * pair_chunks(sh, sb, a.Kp, js) * sh.Q;
+  if (j >= wslots) mbar_wait(bars.wempty(wpos.slot), wpos.phase ^ 1);
+  uint64_t* full = bars.wfull(wpos.slot);
+  if (lane == 0)
+    mbar_arrive_expect_tx(full, nrows / per * parts * cols * 4 +
+                                    nmeta * cols * sh.es);
+  __syncwarp();
+  for (int i = lane; i < nrows; i += 32) {
+    const int pl = i / sh.ns, rr = i - pl * sh.ns;
+    const int q = rr / sh.R, row = rr - q * sh.R;
+    if (q >= parts) continue;
+    const int src = NB == 3 ? (pl == 2 ? 2 * sh.R : pl * sh.R) + row : row;
+    bulk_g2s(st + i * C::stride * 4,
+             a.w.packed + (static_cast<size_t>(sbi + q) * Rw + src) * Np +
+                 col0,
+             cols * 4, full);
+  }
+  for (int i = lane; i < nmeta; i += 32) {
+    const int slot = i >> 1, p = slot / sh.Q, q = slot - p * sh.Q;
+    const int grp = pair_k0(sh, sb, js, p) / gs + q;
+    const unsigned char* src = static_cast<const unsigned char*>(
+        (i & 1) ? a.w.zero : a.w.scale);
+    bulk_g2s(st + sh.words + i * C::bn * sh.es,
+             src + (static_cast<size_t>(grp) * Np + col0) * sh.es,
+             cols * sh.es, full);
+  }
+}
+
+// One consumer chunk: chunk p of the stage at `ws` (ST k16 steps; A
 // registers into a[BUF]), its products against the x slot at `xpos` into
 // acc (the block's first chunk, `release` false, overwrites it: no other
 // instruction writes an accumulator while products are in flight, or
 // ptxas serializes them), and the release of the previous chunk's x slot
 // `prev` once its products are done.
-template <int NB, int NS, int ST, int BUF>
+template <int NB, int NS, int ST, bool PAIR, int BUF>
 __device__ __forceinline__ void tile_chunk(
     const TileShape& sh, const uint32_t* ws, const unsigned char* meta,
     int lg_q, int p, int c0, int lane, const TileBars& bars,
@@ -481,7 +611,7 @@ __device__ __forceinline__ void tile_chunk(
     if (kk == 0 || sh.Q > 1)
       m = col_meta(meta + (p * sh.Q + (kk >> lg_q)) * slot_bytes, sh.es,
                    C::bn, c0);
-    tile_frag<NB>(ws, C::stride, sh.ns, p, kk, t, c0, m, a[BUF][kk]);
+    tile_frag<NB, PAIR>(ws, C::stride, sh.ns, p, kk, t, c0, m, a[BUF][kk]);
   }
   mbar_wait(bars.xfull(xpos.slot), xpos.phase);
   // the chunk's cp.async writes (generic proxy) before wgmma's reads
@@ -508,9 +638,11 @@ __device__ __forceinline__ void tile_chunk(
 
 // Grid (ceil(N / bn), splits, ceil(M / 256)); each split a run of
 // `sb_per_split` ring stages of ns = 8 ST word rows; `slots` the ring's.
-template <int NB, int NS, int ST>
+// PAIR: the 4-row superblocks' form (kPairNs rows a stage).
+template <int NB, int NS, int ST, bool PAIR>
 __global__ void __launch_bounds__(TileCfg<tile_wg(NS)>::threads, 1)
     qmm_tile_kernel(GemvArgs a, TileSlots slots) {
+  static_assert(!PAIR || 8 * ST == kPairNs, "the pair form's stage");
   using C = TileCfg<tile_wg(NS)>;
   const int sb = a.w.superblock, gs = a.w.group_size;
   const TileShape sh = tile_shape(NB, sb, gs, a.w.meta_bf16, NS, 8 * ST);
@@ -521,8 +653,8 @@ __global__ void __launch_bounds__(TileCfg<tile_wg(NS)>::threads, 1)
 
   const int col0 = blockIdx.x * C::bn;
   const int m0 = blockIdx.z * kTMT;
-  const int spb = sh.R / sh.ns;                    // stages per superblock
-  const int n_st = a.Kp / sb * spb;
+  const int spb = PAIR ? 1 : sh.R / sh.ns;         // stages per superblock
+  const int n_st = PAIR ? pair_stages(sh, sb, a.Kp) : a.Kp / sb * spb;
   const int st_lo = blockIdx.y * a.sb_per_split;
   const int S = max(0, min(n_st, st_lo + a.sb_per_split) - st_lo);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -536,19 +668,26 @@ __global__ void __launch_bounds__(TileCfg<tile_wg(NS)>::threads, 1)
     RingPos wpos{0, 0}, xpos{0, 0};
     if (warp == C::warps) {
       for (int j = 0; j < S; ++j, wpos.step(slots.w))
-        tile_issue_words<NB, tile_wg(NS)>(a, sh, bars, wring, wpos, j,
-                                          st_lo + j, slots.w, col0, lane);
+        if constexpr (PAIR)
+          tile_issue_pair_words<NB, tile_wg(NS)>(a, sh, bars, wring, wpos, j,
+                                                 st_lo + j, slots.w, col0,
+                                                 lane);
+        else
+          tile_issue_words<NB, tile_wg(NS)>(a, sh, bars, wring, wpos, j,
+                                            st_lo + j, slots.w, col0, lane);
       return;
     }
     int xc = 0;
     for (int j = 0; j < S; ++j) {
       const int js = st_lo + j, sbi = js / spb, r0 = (js % spb) * sh.ns;
-      for (int p = 0; p < sh.P; ++p, ++xc) {
+      const int chunks = PAIR ? pair_chunks(sh, sb, a.Kp, js) : sh.P;
+      for (int p = 0; p < chunks; ++p, ++xc) {
         if (xc >= slots.x)
           mbar_wait(bars.xempty(xpos.slot), xpos.phase ^ 1);
         const uint32_t xs = static_cast<uint32_t>(__cvta_generic_to_shared(
             xring + xpos.slot * sh.x));
-        const int k0 = sbi * sb + p * 2 * sh.R + 2 * r0;
+        const int k0 = PAIR ? pair_k0(sh, sb, js, p)
+                            : sbi * sb + p * 2 * sh.R + 2 * r0;
         // rows past M are not copied (they reach only unwritten outputs)
         for (int i = lane; i < Mt * kPieces; i += 32) {
           const int m = i / kPieces, c = i % kPieces;
@@ -583,15 +722,16 @@ __global__ void __launch_bounds__(TileCfg<tile_wg(NS)>::threads, 1)
     const unsigned char* st = wring + wpos.slot * sh.stage;
     const uint32_t* ws = reinterpret_cast<const uint32_t*>(st);
     const unsigned char* meta = st + sh.words;
-    for (int p = 0; p < sh.P; p += 2) {  // P is even
-      tile_chunk<NB, NS, ST, 0>(sh, ws, meta, lg_q, p, c0, lane, bars, xpos,
-                                prev, started, xbase + xpos.slot * sh.x,
-                                afr, acc);
+    const int chunks = PAIR ? pair_chunks(sh, sb, a.Kp, st_lo + j) : sh.P;
+    for (int p = 0; p < chunks; p += 2) {  // an even count
+      tile_chunk<NB, NS, ST, PAIR, 0>(sh, ws, meta, lg_q, p, c0, lane, bars,
+                                      xpos, prev, started,
+                                      xbase + xpos.slot * sh.x, afr, acc);
       prev = xpos.slot;
       xpos.step(slots.x);
-      tile_chunk<NB, NS, ST, 1>(sh, ws, meta, lg_q, p + 1, c0, lane, bars,
-                                xpos, prev, true, xbase + xpos.slot * sh.x,
-                                afr, acc);
+      tile_chunk<NB, NS, ST, PAIR, 1>(sh, ws, meta, lg_q, p + 1, c0, lane,
+                                      bars, xpos, prev, true,
+                                      xbase + xpos.slot * sh.x, afr, acc);
       prev = xpos.slot;
       xpos.step(slots.x);
       started = true;
@@ -649,7 +789,7 @@ __global__ void __launch_bounds__(TileCfg<tile_wg(NS)>::threads, 1)
       }
 }
 
-template <int NB, int NS, int ST>
+template <int NB, int NS, int ST, bool PAIR>
 cudaError_t launch_tile(const GemvArgs& a, int splits, cudaStream_t stream) {
   using C = TileCfg<tile_wg(NS)>;
   const TileShape sh = tile_shape(NB, a.w.superblock, a.w.group_size,
@@ -658,23 +798,30 @@ cudaError_t launch_tile(const GemvArgs& a, int splits, cudaStream_t stream) {
   if (slots.w < 2) return cudaErrorInvalidValue;
   const size_t smem = tile_smem(sh, slots);
   static size_t allowed = 0;
-  cudaError_t e = allow_smem(qmm_tile_kernel<NB, NS, ST>, smem, allowed);
+  cudaError_t e =
+      allow_smem(qmm_tile_kernel<NB, NS, ST, PAIR>, smem, allowed);
   if (e != cudaSuccess) return e;
   dim3 grid((a.N + C::bn - 1) / C::bn, splits, (a.op.M + kTMT - 1) / kTMT);
-  qmm_tile_kernel<NB, NS, ST><<<grid, C::threads, smem, stream>>>(a, slots);
+  qmm_tile_kernel<NB, NS, ST, PAIR><<<grid, C::threads, smem, stream>>>(
+      a, slots);
   return cudaGetLastError();
 }
 
-// M sub-tiles of a call: one (M <= 64, four warpgroups), two, or four.
-template <int NB, int ST>
+// M sub-tiles of a call: one (M <= 64, three warpgroups), two, or four.
+template <int NB, int ST, bool PAIR = false>
 cudaError_t dispatch_m(const GemvArgs& a, int splits, cudaStream_t s) {
-  if (a.op.M <= 64) return launch_tile<NB, 1, ST>(a, splits, s);
-  if (a.op.M <= 128) return launch_tile<NB, 2, ST>(a, splits, s);
-  return launch_tile<NB, 4, ST>(a, splits, s);
+  if (a.op.M <= 64) return launch_tile<NB, 1, ST, PAIR>(a, splits, s);
+  if (a.op.M <= 128) return launch_tile<NB, 2, ST, PAIR>(a, splits, s);
+  return launch_tile<NB, 4, ST, PAIR>(a, splits, s);
 }
 
 template <int NB>
 cudaError_t dispatch_tile(const GemvArgs& a, int splits, cudaStream_t s) {
+  if constexpr (NB == 1 || NB == 3)
+    if (tile_pair(NB, a.w.superblock))
+      return tile_ns(NB, a.w.group_size, a.w.superblock, a.w.meta_bf16)
+                 ? dispatch_m<NB, kPairNs / 8, true>(a, splits, s)
+                 : cudaErrorInvalidValue;
   switch (tile_ns(NB, a.w.group_size, a.w.superblock, a.w.meta_bf16)) {
     case 32: return dispatch_m<NB, 4>(a, splits, s);
     case 16: return dispatch_m<NB, 2>(a, splits, s);
@@ -688,14 +835,19 @@ cudaError_t dispatch_tile(const GemvArgs& a, int splits, cudaStream_t s) {
 
 // The four A registers of round p at k16 step kk in the float32 form:
 // tile_frag's registers of exact codes (widths 1-4: 128 + c minus 128;
-// 8 bits: each byte as the float 2^23 + c minus 2^23, converted to bf16).
-template <int NB>
+// 8 bits: each byte as the float 2^23 + c minus 2^23, converted to bf16;
+// PAIR: pair_raw's codes minus 128).
+template <int NB, bool PAIR>
 __device__ __forceinline__ void tile_frag_exact(const uint32_t* ws,
                                                 int stride, int ns, int p,
                                                 int kk, int t, int c,
                                                 uint32_t (&a)[4]) {
   const int o = (8 * kk + t) * stride + c;
-  if constexpr (NB == 8) {
+  if constexpr (PAIR) {
+    pair_raw<NB>(ws, stride, ns, p, kk, t, c, a);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = bf2_sub(a[i], kBias128);
+  } else if constexpr (NB == 8) {
     const uint32_t sel0 = tile_sel8(p), sel1 = tile_sel8(2 + p);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -759,13 +911,13 @@ __device__ __forceinline__ void tile_correct(const float (&acc)[NS][32],
     }
 }
 
-// One float32 chunk: round p of the stage at `ws` -- its exact-code A
+// One float32 chunk: chunk p of the stage at `ws` -- its exact-code A
 // registers into a[BUF] and its group's meta into mc[BUF] while the
 // previous chunk's products run; then (`release`) that chunk's wait, its
 // correction from x slot `prev` and the slot's release; then this chunk's
 // products against the x slot at `xpos`, three parts per k16 step, the
 // first overwriting acc.
-template <int NB, int NS, int ST, int BUF>
+template <int NB, int NS, int ST, bool PAIR, int BUF>
 __device__ __forceinline__ void tile_chunk_exact(
     const TileShape& sh, const uint32_t* ws, const unsigned char* meta, int p,
     int c0, int lane, const TileBars& bars, const RingPos& xpos, int prev,
@@ -776,7 +928,8 @@ __device__ __forceinline__ void tile_chunk_exact(
   const int t = lane & 3;
 #pragma unroll
   for (int kk = 0; kk < ST; ++kk)
-    tile_frag_exact<NB>(ws, C::stride, sh.ns, p, kk, t, c0, a[BUF][kk]);
+    tile_frag_exact<NB, PAIR>(ws, C::stride, sh.ns, p, kk, t, c0,
+                              a[BUF][kk]);
   const ColMeta m = col_meta(meta + p * 2 * C::bn * sh.es, sh.es, C::bn, c0);
   mc[BUF][0] = m.s[0];
   mc[BUF][1] = m.s[1];
@@ -813,10 +966,12 @@ __device__ __forceinline__ void tile_chunk_exact(
 
 // Grid (ceil(N / bn), splits, ceil(M / (64 NS))); x the split pass's x
 // slot image (ldx = mpad rows a part, a multiple of 64 NS), xsc its chunk
-// sums [Kp / (2 ns)][mpad].  Launched at NS = 1 (see the top of the file).
-template <int NB, int NS, int ST>
+// sums [Kp / (2 ns)][mpad].  Launched at NS = 1 (see the top of the file);
+// PAIR as qmm_tile_kernel's.
+template <int NB, int NS, int ST, bool PAIR>
 __global__ void __launch_bounds__(TileCfg<tile_wg(NS)>::threads, 1)
     qmm_tile_f32_kernel(GemvArgs a, TileSlots slots, const float* xsc) {
+  static_assert(!PAIR || 8 * ST == kPairNs, "the pair form's stage");
   using C = TileCfg<tile_wg(NS)>;
   constexpr int kMT = 64 * NS;                     // rows of an M tile
   constexpr int kSlab = NS * 64 * 128;             // bytes of one part
@@ -826,8 +981,8 @@ __global__ void __launch_bounds__(TileCfg<tile_wg(NS)>::threads, 1)
   const TileRing ring = tile_ring(sh, slots, C::warps, 1);
   const int col0 = blockIdx.x * C::bn;
   const int m0 = blockIdx.z * kMT;
-  const int spb = sh.R / sh.ns;                    // stages per superblock
-  const int n_st = a.Kp / sb * spb;
+  const int spb = PAIR ? 1 : sh.R / sh.ns;         // stages per superblock
+  const int n_st = PAIR ? pair_stages(sh, sb, a.Kp) : a.Kp / sb * spb;
   const int st_lo = blockIdx.y * a.sb_per_split;
   const int S = max(0, min(n_st, st_lo + a.sb_per_split) - st_lo);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -836,8 +991,13 @@ __global__ void __launch_bounds__(TileCfg<tile_wg(NS)>::threads, 1)
     RingPos wpos{0, 0}, xpos{0, 0};
     if (warp == C::warps) {
       for (int j = 0; j < S; ++j, wpos.step(slots.w))
-        tile_issue_words<NB, tile_wg(NS)>(a, sh, ring.bars, ring.w, wpos, j,
-                                          st_lo + j, slots.w, col0, lane);
+        if constexpr (PAIR)
+          tile_issue_pair_words<NB, tile_wg(NS)>(a, sh, ring.bars, ring.w,
+                                                 wpos, j, st_lo + j, slots.w,
+                                                 col0, lane);
+        else
+          tile_issue_words<NB, tile_wg(NS)>(a, sh, ring.bars, ring.w, wpos,
+                                            j, st_lo + j, slots.w, col0, lane);
       return;
     }
     // the x chunks: each part's rows of the M tile and the chunk's x sums,
@@ -847,13 +1007,16 @@ __global__ void __launch_bounds__(TileCfg<tile_wg(NS)>::threads, 1)
     int xc = 0;
     for (int j = 0; j < S; ++j) {
       const int js = st_lo + j, sbi = js / spb, r0 = (js % spb) * sh.ns;
-      for (int p = 0; p < sh.P; ++p, ++xc) {
+      const int chunks = PAIR ? pair_chunks(sh, sb, a.Kp, js) : sh.P;
+      for (int p = 0; p < chunks; ++p, ++xc) {
         if (xc >= slots.x)
           mbar_wait(ring.bars.xempty(xpos.slot), xpos.phase ^ 1);
         if (lane == 0) {
           unsigned char* xs = ring.x + xpos.slot * sh.x;
           uint64_t* full = ring.bars.xfull(xpos.slot);
-          const int ci = (sbi * sb + p * 2 * sh.R + 2 * r0) / (2 * sh.ns);
+          const int ci = (PAIR ? pair_k0(sh, sb, js, p)
+                               : sbi * sb + p * 2 * sh.R + 2 * r0) /
+                         (2 * sh.ns);
           mbar_arrive_expect_tx(full, 3 * kSlab + kMT * 4);
           for (int q = 0; q < 3; ++q)
             bulk_g2s(xs + q * kSlab,
@@ -890,15 +1053,16 @@ __global__ void __launch_bounds__(TileCfg<tile_wg(NS)>::threads, 1)
     const unsigned char* st = ring.w + wpos.slot * sh.stage;
     const uint32_t* ws = reinterpret_cast<const uint32_t*>(st);
     const unsigned char* meta = st + sh.words;
-    for (int p = 0; p < sh.P; p += 2) {  // P is even
-      tile_chunk_exact<NB, NS, ST, 0>(sh, ws, meta, p, c0, lane, ring.bars,
-                                      xpos, prev, started, ring.x, afr, mc,
-                                      acc, tot);
+    const int chunks = PAIR ? pair_chunks(sh, sb, a.Kp, st_lo + j) : sh.P;
+    for (int p = 0; p < chunks; p += 2) {  // an even count
+      tile_chunk_exact<NB, NS, ST, PAIR, 0>(sh, ws, meta, p, c0, lane,
+                                            ring.bars, xpos, prev, started,
+                                            ring.x, afr, mc, acc, tot);
       prev = xpos.slot;
       xpos.step(slots.x);
-      tile_chunk_exact<NB, NS, ST, 1>(sh, ws, meta, p + 1, c0, lane,
-                                      ring.bars, xpos, prev, true, ring.x,
-                                      afr, mc, acc, tot);
+      tile_chunk_exact<NB, NS, ST, PAIR, 1>(sh, ws, meta, p + 1, c0, lane,
+                                            ring.bars, xpos, prev, true,
+                                            ring.x, afr, mc, acc, tot);
       prev = xpos.slot;
       xpos.step(slots.x);
       started = true;
@@ -944,7 +1108,7 @@ __global__ void __launch_bounds__(TileCfg<tile_wg(NS)>::threads, 1)
       }
 }
 
-template <int NB, int NS, int ST>
+template <int NB, int NS, int ST, bool PAIR = false>
 cudaError_t launch_tile_exact(const GemvArgs& a, int splits, const float* xsc,
                               cudaStream_t stream) {
   using C = TileCfg<tile_wg(NS)>;
@@ -954,12 +1118,13 @@ cudaError_t launch_tile_exact(const GemvArgs& a, int splits, const float* xsc,
   if (slots.w < 2) return cudaErrorInvalidValue;
   const size_t smem = tile_smem(sh, slots);
   static size_t allowed = 0;
-  cudaError_t e = allow_smem(qmm_tile_f32_kernel<NB, NS, ST>, smem, allowed);
+  cudaError_t e =
+      allow_smem(qmm_tile_f32_kernel<NB, NS, ST, PAIR>, smem, allowed);
   if (e != cudaSuccess) return e;
   dim3 grid((a.N + C::bn - 1) / C::bn, splits,
             (a.op.M + 64 * NS - 1) / (64 * NS));
   if (a.op.ldx % (64 * NS)) return cudaErrorInvalidValue;
-  qmm_tile_f32_kernel<NB, NS, ST><<<grid, C::threads, smem, stream>>>(
+  qmm_tile_f32_kernel<NB, NS, ST, PAIR><<<grid, C::threads, smem, stream>>>(
       a, slots, xsc);
   return cudaGetLastError();
 }
@@ -967,6 +1132,12 @@ cudaError_t launch_tile_exact(const GemvArgs& a, int splits, const float* xsc,
 template <int NB>
 cudaError_t dispatch_tile_exact(const GemvArgs& a, int splits,
                                 const float* xsc, cudaStream_t s) {
+  if constexpr (NB == 1 || NB == 3)
+    if (tile_pair(NB, a.w.superblock))
+      return tile_ns_exact(NB, a.w.group_size, a.w.superblock, a.w.meta_bf16)
+                 ? launch_tile_exact<NB, 1, kPairNs / 8, true>(a, splits, xsc,
+                                                               s)
+                 : cudaErrorInvalidValue;
   switch (tile_ns_exact(NB, a.w.group_size, a.w.superblock, a.w.meta_bf16)) {
     case 16: return launch_tile_exact<NB, 1, 2>(a, splits, xsc, s);
     case 8: return launch_tile_exact<NB, 1, 1>(a, splits, xsc, s);
@@ -991,9 +1162,9 @@ __global__ void swiglu_bf16_kernel(const uint32_t* g, const uint32_t* u,
 
 // The tile kernel for the calls tile_takes accepts (u must be null: the
 // SwiGLU prologue is amq_swiglu_bf16's pass).  amq_qmm's arguments, with
-// `sb_per_split` counting ring stages (amq_qmm_tile_stages of them a
-// superblock); returns 0 or a cudaError_t of the launch, -1 for a call it
-// does not take.
+// `sb_per_split` counting ring stages (of amq_qmm_tile_rows word rows of
+// the round plane: ceil(superblocks R / rows) of them in K); returns 0 or
+// a cudaError_t of the launch, -1 for a call it does not take.
 extern "C" int amq_qmm_tile(const void* x, const void* u, int x_bf16,
                             const int32_t* packed, const void* scale,
                             const void* zero, int meta_bf16, void* out,
@@ -1022,17 +1193,15 @@ extern "C" int amq_qmm_tile(const void* x, const void* u, int x_bf16,
   return finish_splits(e, partial, out, M * N, splits, out_bf16, s);
 }
 
-// Ring stages per superblock of a weight layout, 0 for a layout the tile
-// kernel does not take (tile_ns).
-extern "C" int amq_qmm_tile_stages(int nbits, int group_size, int superblock,
-                                   int meta_bf16) {
-  const int ns = tile_ns(nbits, group_size, superblock, meta_bf16);
-  return ns == 0 ? 0 : (nbits == 3 ? superblock / 32
-                                   : superblock * nbits / 32) / ns;
+// Word rows of the round plane per ring stage of a weight layout, 0 for a
+// layout the tile kernel does not take (tile_ns).
+extern "C" int amq_qmm_tile_rows(int nbits, int group_size, int superblock,
+                                 int meta_bf16) {
+  return tile_ns(nbits, group_size, superblock, meta_bf16);
 }
 
 // The tile kernel's float32 form: amq_qmm_tile's arguments, x the split
-// pass's x slot image at the layout's 2 ns (ns: amq_qmm_tile_f32_stages)
+// pass's x slot image at the layout's 2 ns (ns: amq_qmm_tile_f32_rows)
 // with ldx = its rows a part (M rounded up to 64; x_bf16 1, u null), then
 // its chunk sums xsc [Kp / (2 ns)][ldx]; 0, a cudaError_t of the launch,
 // or -1 for a call it does not take.
@@ -1066,13 +1235,11 @@ extern "C" int amq_qmm_tile_f32(const void* x, const void* u, int x_bf16,
   return finish_splits(e, partial, out, M * N, splits, out_bf16, s);
 }
 
-// Ring stages per superblock of a layout in the float32 form, 0 for a
+// Word rows per ring stage of a layout in the float32 form, 0 for a
 // layout it does not take (tile_ns_exact).
-extern "C" int amq_qmm_tile_f32_stages(int nbits, int group_size,
-                                       int superblock, int meta_bf16) {
-  const int ns = tile_ns_exact(nbits, group_size, superblock, meta_bf16);
-  return ns == 0 ? 0 : (nbits == 3 ? superblock / 32
-                                   : superblock * nbits / 32) / ns;
+extern "C" int amq_qmm_tile_f32_rows(int nbits, int group_size,
+                                     int superblock, int meta_bf16) {
+  return tile_ns_exact(nbits, group_size, superblock, meta_bf16);
 }
 
 // The SwiGLU prologue: out [M, K] (contiguous) = silu(g) * u of bf16 g, u

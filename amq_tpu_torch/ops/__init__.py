@@ -6,7 +6,8 @@ call).  ``GROUPED`` lists the wrappers whose decode calls may take the
 grouped tensor-core GEMV; their ``grouped_launches`` count those (and
 ``span_launches`` those of them whose superblocks span a ring stage),
 and their ``tile_launches`` the multi-row calls that took the tile kernel
-on wgmma; ``flash_attention.f32_launches`` counts the flash launches on
+on wgmma (``pair_launches`` and ``pair_tile_launches``: the grouped and
+tile launches at 4-row superblocks, the pair forms); ``flash_attention.f32_launches`` counts the flash launches on
 float32 inputs (the split-TF32 kernel).  A captured CUDA graph launches
 its kernels on every replay without calling a wrapper: ``serving.graphs``
 adds a replay's launches with
@@ -35,6 +36,8 @@ def reset_launch_counts() -> None:
         fn.grouped_launches = 0
         fn.span_launches = 0
         fn.tile_launches = 0
+        fn.pair_launches = 0
+        fn.pair_tile_launches = 0
     _flash.flash_attention.f32_launches = 0
 
 
@@ -54,6 +57,12 @@ def tile_launch_counts() -> dict:
     return {fn.__name__: fn.tile_launches for fn in GROUPED}
 
 
+def pair_launch_counts() -> dict:
+    """Per wrapper the (grouped, tile) launches at 4-row superblocks."""
+    return {fn.__name__: (fn.pair_launches, fn.pair_tile_launches)
+            for fn in GROUPED}
+
+
 def counter_state() -> dict:
     """Every counter above: ``{(wrapper, attribute): count}``."""
     state = {(fn, "launches"): fn.launches for fn in KERNELS}
@@ -61,6 +70,8 @@ def counter_state() -> dict:
         state[(fn, "grouped_launches")] = fn.grouped_launches
         state[(fn, "span_launches")] = fn.span_launches
         state[(fn, "tile_launches")] = fn.tile_launches
+        state[(fn, "pair_launches")] = fn.pair_launches
+        state[(fn, "pair_tile_launches")] = fn.pair_tile_launches
     state[(_flash.flash_attention, "f32_launches")] = \
         _flash.flash_attention.f32_launches
     return state

@@ -23,9 +23,11 @@ Each public function here replaces one Pallas kernel of the JAX package's
 * a launch counter (``<function>.launches``), raised where the kernel is
   launched and nowhere else; beside it ``<function>.grouped_launches`` and
   ``<function>.tile_launches`` count the launches that took the grouped
-  GEMV and the tile kernel, and ``<function>.span_launches`` the grouped
+  GEMV and the tile kernel, ``<function>.span_launches`` the grouped
   ones at layouts whose superblocks are smaller than a ring stage (the
-  grouped GEMV's spanning kernel).
+  grouped GEMV's spanning kernel), and ``<function>.pair_launches`` /
+  ``<function>.pair_tile_launches`` the grouped / tile ones at 4-row
+  superblocks (1 and 3 bits at 128 rows: the pair forms).
 
 Under the JAX package's ``AMQ_PIPE`` switch (read once, at import, into
 ``_PIPE_DEFAULT``; default off) the decode GEMVs of
@@ -243,13 +245,10 @@ def _grouped_applies(x: torch.Tensor, packed: torch.Tensor,
     a padded N, K and x's row stride that are multiples of 8, and 16-byte
     aligned activations and weights (16-byte bulk copies).  With f32
     activations (the JAX package's f32 function) the ring's float32 form
-    takes the same calls but the 4-row superblocks (1 and 3 bits at 128
-    rows).  Other calls take the CUDA-core GEMV; this is the only
-    predicate that routes."""
+    takes the same calls.  Other calls take the CUDA-core GEMV; this is
+    the only predicate that routes."""
     return (1 <= x.shape[0] <= 8
-            and (x.dtype == torch.bfloat16
-                 or x.dtype == torch.float32
-                 and not (nbits in (1, 3) and superblock == 128))
+            and x.dtype in (torch.bfloat16, torch.float32)
             and _grouped_layout(nbits, group_size, superblock)
             and packed.shape[-1] % 8 == 0 and x.shape[-1] % 8 == 0
             and x.stride(0) % 8 == 0
@@ -343,6 +342,17 @@ def _tile_x_bytes(sub: int, exact: bool) -> int:
     return 3 * sub * _TILE_XSUB + 1024 if exact else sub * _TILE_XSUB
 
 
+#: the tile kernel's pair form (4-row superblocks): word rows per stage
+_TILE_PAIR_NS = 16
+
+
+def _pair_layout(nbits: int, superblock: int) -> bool:
+    """A 4-row superblock (1 and 3 bits at 128 rows: the round plane has 4
+    word rows): the pair forms of the tile kernel and the grouped ring,
+    whose k16 / 8-row steps take one superblock's two rounds."""
+    return nbits in (1, 3) and superblock == 128
+
+
 @functools.lru_cache(maxsize=None)
 def _tile_ns(nbits: int, group_size: int, superblock: int,
              meta_bf16: int, exact: bool = False) -> int:
@@ -355,7 +365,10 @@ def _tile_ns(nbits: int, group_size: int, superblock: int,
     1-bit and 3-bit superblocks of a multiple of 256 rows, 2-bit of 128),
     whose chunks of 2 ns K rows lie in one group or hold whole ones, and
     whose ring (two word stages with their meta, two x chunks) fits a
-    block's shared memory at every block shape.  ``exact``, the float32
+    block's shared memory at every block shape.  The 4-row superblocks
+    (:func:`_pair_layout`) take the pair form's 16 rows (four superblocks
+    a stage, a 16-row step two rounds of one), at groups of a multiple of
+    32 rows (chunks of 32 K rows in one group).  ``exact``, the float32
     form (``tile_ns_exact``): 16 or 8 rows, chunks inside one group, and
     the ring of its x slots at one M sub-tile (its only block shape)."""
     if (nbits not in (1, 2, 3, 4, 8) or superblock % 64 or superblock > 1024
@@ -366,9 +379,13 @@ def _tile_ns(nbits: int, group_size: int, superblock: int,
     P = 16 if nbits == 3 else 16 // nbits
     es = 2 if meta_bf16 else 4
     blocks = _TILE_BLOCKS[:1] if exact else _TILE_BLOCKS
+    pair = _pair_layout(nbits, superblock)
     for ns in ((16, 8) if exact else (32, 16, 8)):
-        if R % ns or not (group_size % (2 * ns) == 0 or not exact
-                          and (2 * ns) % group_size == 0):
+        if pair:
+            if ns != _TILE_PAIR_NS or group_size % (2 * ns):
+                continue
+        elif R % ns or not (group_size % (2 * ns) == 0 or not exact
+                            and (2 * ns) % group_size == 0):
             continue
         Q = max(1, 2 * ns // group_size)
         if all(_TILE_SMEM - _TILE_HEAD
@@ -415,8 +432,8 @@ def _tile_plan(N: int, Kp: int, nbits: int, group_size: int,
     layout and the card, never on M, so that row m of a call has the same
     bits at any M."""
     R = superblock // 32 if nbits == 3 else superblock * nbits // 32
-    units = Kp // superblock * (R // _tile_ns(nbits, group_size, superblock,
-                                              meta_bf16, exact))
+    ns = _tile_ns(nbits, group_size, superblock, meta_bf16, exact)
+    units = -(-Kp // superblock * R // ns)        # ring stages of K
     sms = _sm_count(index)
     tiles = -(-N // _TILE_BLOCKS[0][1])
     cap = max(1, min(units, -(-3 * sms // tiles)))
@@ -729,12 +746,15 @@ def _qmm(x, up, packed, scale, zero, *, out_dtype, counter, pipe=False,
     out, route = _qmm_cuda(x, up, packed, scale, zero, out_dtype=out_dtype,
                            pipe=pipe, **static)
     counter.launches += 1
+    pair = _pair_layout(static["nbits"], static["superblock"])
     if route == "grouped":
         counter.grouped_launches += 1
         if not _grouped_whole_stages(static["nbits"], static["superblock"]):
             counter.span_launches += 1
+        counter.pair_launches += pair
     elif route == "tile":
         counter.tile_launches += 1
+        counter.pair_tile_launches += pair
     return out
 
 
@@ -791,6 +811,9 @@ quant_matmul_indexed.span_launches = 0
 #: launches that took the tile kernel on wgmma (8 < M; its float32 form
 #: for f32 x)
 quant_matmul_indexed.tile_launches = 0
+#: grouped and tile launches at 4-row superblocks (the pair forms)
+quant_matmul_indexed.pair_launches = 0
+quant_matmul_indexed.pair_tile_launches = 0
 
 
 def quant_matmul_indexed_pipe(x: torch.Tensor, packed_stack: torch.Tensor,
@@ -857,6 +880,9 @@ quant_matmul_swiglu_indexed.span_launches = 0
 #: launches that took the tile kernel on wgmma (8 < M; its float32 form
 #: for f32 x)
 quant_matmul_swiglu_indexed.tile_launches = 0
+#: grouped and tile launches at 4-row superblocks (the pair forms)
+quant_matmul_swiglu_indexed.pair_launches = 0
+quant_matmul_swiglu_indexed.pair_tile_launches = 0
 
 
 def quant_matmul_swiglu_indexed_pipe(gate: torch.Tensor, up: torch.Tensor,
@@ -1016,6 +1042,9 @@ quant_matmul.span_launches = 0
 #: launches that took the tile kernel on wgmma (8 < M; its float32 form
 #: for f32 x)
 quant_matmul.tile_launches = 0
+#: grouped and tile launches at 4-row superblocks (the pair forms)
+quant_matmul.pair_launches = 0
+quant_matmul.pair_tile_launches = 0
 
 
 def quant_matmul_reference(x: torch.Tensor, qt: QuantizedTensor,

@@ -18,7 +18,8 @@ Phases (any failed check exits non-zero before the last line):
    the bf16 flash kernel holds no HGMMA, the f32 one (split TF32) no
    tensor-core product of TF32 type,
    a grouped ring kernel no HMMA or HGMMA, a tile kernel instantiation
-   no HGMMA, or a redesigned kernel spills.
+   (the 4-row superblocks' pair forms among them) no HGMMA, ptxas
+   serializes a tile kernel's wgmma, or a redesigned kernel spills.
 3. kernels vs their plain PyTorch versions at the Llama-2-7B shapes:
    the dequant-matmuls (qkv / o / gateup / down sites, head) at M = 1 and
    64, widths 2, 3 (native planes) and 4, 8 on the head, bf16 and f32
@@ -121,6 +122,15 @@ Phases (any failed check exits non-zero before the last line):
    time over the graph's wall; CONTINUOUS and SPECULATIVE tok/s and
    acceptance), GRAPH_PROFILE lines, GRAPH_CAPTURE (captures, replays,
    capture seconds, pool and reserved MB, peak memory).
+4d. QWEN2: Qwen2-0.5B at full width and depth (24 layers, hidden 896,
+   qkv bias, tied head as the 8-bit packed head; random packed weights,
+   layer i at 2/3/4 bits, native 3-bit planes: its 3-bit q/k/v/o and
+   gate/up at superblock 128, the pair forms), Engine.generate (prompt
+   64, 32 tokens, graphs) in bf16 and in float32: exact launch counts
+   per route (grouped, spanning, tile, pair), no CUDA-core launch,
+   decode ms/token and prefill ms; QWEN2_GATES: float32 prefill logits
+   within LOGIT_TOL of the plain path, float32 tokens on graphs equal to
+   the eager loop's.
 5. the speed CLI (HQQ proxies -> stack_proxies -> Engine) at full width:
    TPS and CONTINUOUS (4 slots, 16 requests).
 6. the sensitivity CLI at full Llama-2-7B width and depth (2 samples of
@@ -139,7 +149,7 @@ Phases (any failed check exits non-zero before the last line):
    load_quantized torch.equal to quantize_model in memory (PROXY) and
    served by the speed CLI with --proxy_path; the quantize CLI on phase
    7's iter_2.stats with gptq, awq, hqq and fp16 at 32 layers and owq
-   at 16 (REALIZE: seconds per stage, perplexity, flash (f32 ones apart)
+   at 12 (REALIZE: seconds per stage, perplexity, flash (f32 ones apart)
    and dequantization launches equal to the counts reckoned, GPTQ's and
    OWQ's Hessian-
    weighted error tr((W-Q) H (W-Q)^T) below round-to-nearest's at layers
@@ -150,7 +160,14 @@ Phases (any failed check exits non-zero before the last line):
    plain path's, the bf16 logit gap, exact quant_matmul launches per
    token, grouped ones too).  The OWQ layouts of quant_matmul are CASE
    lines of phase 3 (M = 1 and 64; at 64 the tile kernel, its time beside
-   the CUDA-core GEMM's).
+   the CUDA-core GEMM's; at OWQ's 31-group site, superblock 128, also M
+   64 at 1-4 bits and float32 at M 1, 8 and 64 at 1 and 3 bits: the
+   4-row superblocks' pair forms; every OWQ case on the grouped or tile
+   route; rows 1 and 2 at K 896, superblock 128, 3-bit: bf16 M 64, f32 M
+   1 and 64).  Phase 3's ROUTE_SWEEP: every layout the packers give at
+   group 128 (superblocks 128-1024, widths 1/2/3/4/8, bf16 and f32 x, M
+   1 / 8 / 9 / 64) on the grouped ring or the tile kernel within MM_TOL
+   of its plain version, no CUDA-core launch.
 8. PARALLEL: the parallel forms (amq_tpu_torch/parallel, serving/dp.py)
    as torch.distributed ranks spawned on the one card (they run after
    phase 2's builds, which they load).  (a) tp 2 at full Llama-2-7B width
@@ -184,7 +201,9 @@ Phases (any failed check exits non-zero before the last line):
 9. PROCESSES_LEFT: every process the run started (compilers, ranks,
    multiprocessing's resource tracker) has ended, or the run fails; then
    the kernels line (with an M = 64 entry per row 1, 2 and 4 for the
-   tile kernel, `<name>_tile`, and the float32 flash kernel,
+   tile kernel, `<name>_tile`, the pair forms `quant_matmul_tile_pair`,
+   `quant_matmul_tile_f32_pair` and `quant_matmul_f32_pair` with phase
+   4d's launches, and the float32 flash kernel,
    `flash_attention_f32`, launched by phase 7b's calibration; the flash
    entries name their design), the card line, and the last line
    {"ok": true, "device": {...}}.
@@ -320,6 +339,11 @@ SITES_7B = {  # name -> (N, K, kernel)
     "down_tp2": (4096, 5504, "quant_matmul_swiglu_indexed"),
     "head_tp2": (16000, 4096, "quant_matmul"),
 }
+#: rows 1 and 2 at K 896 (Qwen2-0.5B's hidden: superblocks of 128 rows,
+#: at 3 bits the pair forms): Qwen2-0.5B's gate/up site, and the
+#: SwiGLU-down wrapper at the same K
+SITES_SB128 = {"qwen_gateup": (9728, 896, "quant_matmul_indexed"),
+               "k896_swiglu": (896, 896, "quant_matmul_swiglu_indexed")}
 #: max |kernel - plain| / max |plain|, by output dtype: a bf16 output
 #: carries one rounding (2^-8 relative) on either side, an f32 output
 #: differs only in summation order over K
@@ -334,7 +358,7 @@ def check_matmul(site, nbits, M, meta_dtype, gen, x_dtype=torch.bfloat16):
     bound three bf16 products' operations or the bytes."""
     from amq_tpu_torch.core.quantize import QuantizedTensor, dequantize_kn
     from amq_tpu_torch.ops import quant_matmul as qm
-    N, K, kernel = SITES_7B[site]
+    N, K, kernel = {**SITES_7B, **SITES_SB128}[site]
     f32 = x_dtype == torch.float32
     out_dtype = (torch.float32 if f32 or site.startswith("head")
                  else torch.bfloat16)
@@ -424,7 +448,8 @@ def check_matmul(site, nbits, M, meta_dtype, gen, x_dtype=torch.bfloat16):
                bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
                ok=(rel <= tol and deterministic
                    and took == (2 * grouped, 2 * tile)
-                   and (not f32 or grouped or tile)))
+                   and (grouped or tile
+                        or not f32 and site not in SITES_SB128)))
     if f32:     # the f32 function on the CUDA cores, for scale
         rec["bound_f32_cores_ms"] = 2 * M * N * K / F32_FLOPS * 1e3
     print("CASE " + json.dumps(rec), flush=True)
@@ -451,9 +476,11 @@ def check_owq_matmul(site, nbits, M, gen, x_dtype=torch.bfloat16):
     kernel where a stage holds several superblocks --, tile or CUDA-core)
     by name and held to ``_grouped_applies`` and ``_tile_applies``; the
     CUDA-core GEMV's (M <= 8) or GEMM's time beside it.  Every M <= 8
-    call must take the grouped route and beat the CUDA-core GEMV.
-    ``x_dtype`` float32: the float32 forms, f32 out, held to qmm_plain at
-    MM_TOL[float32] (its times reported, not gated)."""
+    call must take the grouped route and beat the CUDA-core GEMV, every
+    M > 8 call the tile route (``owq_sb128``: the pair form).
+    ``x_dtype`` float32: the float32 forms (grouped or tile), f32 out,
+    held to qmm_plain at MM_TOL[float32] (its times reported, not
+    gated)."""
     from amq_tpu_torch.core.quantize import QuantizedTensor, dequantize_kn
     from amq_tpu_torch.ops import quant_matmul as qm
     N, K, sb = {**OWQ_SITES_7B, **OWQ_SMALL_SB}[site]
@@ -521,9 +548,71 @@ def check_owq_matmul(site, nbits, M, gen, x_dtype=torch.bfloat16):
                ok=(rel <= tol and rel_ref <= tol and deterministic
                    and launched == (2, 2 * int(grouped), 2 * int(span),
                                     2 * int(tile))
-                   and (grouped or tile if f32 else
-                        M > 8 or (grouped and ms < core_ms))))
+                   and (grouped or tile)
+                   and (f32 or M > 8 or ms < core_ms)))
     print("CASE " + json.dumps(rec), flush=True)
+    return rec
+
+
+def route_sweep(gen):
+    """Every layout the packers give at group 128 (``pick_superblock`` /
+    ``pick_superblock_padded`` over K of 128 to 16384: superblocks of 128
+    to 1024 rows) at widths 1, 2, 3, 4 and 8, bf16 and f32 x, M 1, 8, 9
+    and 64: ``quant_matmul_indexed`` at N 256 and K of three superblocks,
+    each call on the grouped ring (M <= 8) or the tile kernel (8 < M),
+    within MM_TOL[float32] of its plain version (f32 out), no CUDA-core
+    launch (core_launches 0).  A ROUTE_SWEEP line."""
+    from amq_tpu_torch import ops
+    from amq_tpu_torch.core.bitpack import (pick_superblock,
+                                            pick_superblock_padded)
+    from amq_tpu_torch.ops import quant_matmul as qm
+    t0 = time.perf_counter()
+    sbs = sorted({pick_superblock(K) for K in range(128, 16385, 128)}
+                 | {pick_superblock_padded(K)[0]
+                    for K in range(128, 16385, 128)})
+    N, tol = 256, MM_TOL[torch.float32]
+    ops.reset_launch_counts()
+    worst, bad, calls = 0.0, [], 0
+    for nbits in (1, 2, 3, 4, 8):
+        for sb in sbs:
+            Kp = 3 * sb
+            packed = rand_words((1, Kp * nbits // 32, N), gen)
+            scale = torch.rand((1, Kp // 128, N), generator=gen,
+                               device="cuda") * 0.02
+            zero = (torch.rand((1, Kp // 128, N), generator=gen,
+                               device="cuda") * (2**nbits - 1))
+            kw = dict(nbits=nbits, group_size=128, shape=(N, Kp),
+                      superblock=sb, out_dtype=torch.float32)
+            for dtype in (torch.bfloat16, torch.float32):
+                for M in (1, 8, 9, 64):
+                    x = torch.randn((M, Kp), generator=gen,
+                                    device="cuda").to(dtype)
+                    got = qm.quant_matmul_indexed(x, packed, scale, zero, 0,
+                                                  **kw)
+                    plain = (qm.qmm_plain if dtype == torch.float32
+                             else qm.qmm_grouped_plain if M <= 8
+                             else qm.qmm_tile_plain)
+                    rel = rel_err(got, plain(x, packed[0], scale[0], zero[0],
+                                             **kw))[0]
+                    calls += 1
+                    worst = max(worst, rel)
+                    if not rel <= tol:
+                        bad.append((nbits, sb, str(dtype), M, rel))
+    torch.cuda.synchronize()
+    grouped = sum(ops.grouped_launch_counts().values())
+    tile = sum(ops.tile_launch_counts().values())
+    pair = [sum(v) for v in zip(*ops.pair_launch_counts().values())]
+    rec = dict(superblocks=sbs, widths=[1, 2, 3, 4, 8], M=[1, 8, 9, 64],
+               calls=calls, grouped=grouped, tile=tile, pair=pair,
+               core=core_launches(), worst_rel_err=worst, tol=tol, bad=bad,
+               seconds=time.perf_counter() - t0)
+    # 4-row superblocks: 1 and 3 bits at 128 rows, two dtypes, two M each
+    rec["ok"] = (not bad and rec["core"] == 0 and grouped + tile == calls
+                 and grouped == tile == calls // 2
+                 and pair == [8, 8] and sbs == [128, 256, 512, 1024])
+    print("ROUTE_SWEEP " + json.dumps(rec), flush=True)
+    if not rec["ok"]:
+        fail(f"routing sweep: {rec}")
     return rec
 
 
@@ -970,16 +1059,17 @@ RING_KERNELS = {"quant_matmul": GROUPED_GEMV, "quant_matmul_pipe":
 #: instantiations per ring library: widths 1/2/3/4/8 and the spanning
 #: kernel's eight superblock forms (1-bit 128 / 256 / 512, 2-bit 128 /
 #: 256, 3-bit 128 / 256, 4-bit 128); the pipelined form 1-4; the float32
-#: GEMV's widths 1/2/3/4/8 and six spanning forms (not the 4-row ones),
-#: each at one and three n8 column groups
+#: GEMV's widths 1/2/3/4/8 and the eight spanning forms (the 4-row ones,
+#: 1 and 3 bits at 128 rows, too), each at one and three n8 column groups
 RING_COUNTS = {"quant_matmul": 13, "quant_matmul_pipe": 4,
-               "quant_matmul_mlp": 5, "quant_matmul_f32": 22}
+               "quant_matmul_mlp": 5, "quant_matmul_f32": 26}
 #: the tile kernel on wgmma (the multi-row branch of rows 1, 2 and 4):
 #: widths 1/2/3/4/8 times one, two or four 64-row M sub-tiles times stages
-#: of 8, 16 or 32 word rows; its float32 form at one sub-tile and stages
-#: of 8 or 16
-TILE_KERNEL, TILE_COUNT = "qmm_tile_kernel", 45
-TILE_F32_KERNEL, TILE_F32_COUNT = "qmm_tile_f32_kernel", 10
+#: of 8, 16 or 32 word rows, and the pair form (1 and 3 bits, stages of 16
+#: rows) at the three M shapes; its float32 form at one sub-tile and
+#: stages of 8 or 16, and the pair form at 1 and 3 bits
+TILE_KERNEL, TILE_COUNT = "qmm_tile_kernel", 51
+TILE_F32_KERNEL, TILE_F32_COUNT = "qmm_tile_f32_kernel", 12
 REPORT_KERNELS = {"flash_attention": "flash_kernel", "decode_attention":
                   "decode_attn_kernel", **RING_KERNELS,
                   "dequant": "dequant_kernel",
@@ -1044,6 +1134,8 @@ def build_report():
                     _cuda.LOGS["quant_matmul_tile"].splitlines()
                     if "wgmma" in line.lower()})
     print("TILE_PTXAS " + json.dumps(notes), flush=True)
+    if any("serializ" in n.lower() for n in notes):
+        fail(f"ptxas serializes the tile kernel's wgmma: {notes}")
     if len(tile) != TILE_COUNT or not all(c["HGMMA"] > 0
                                           for c in tile.values()):
         fail(f"tile kernel instantiations {len(tile)} (want {TILE_COUNT}) "
@@ -1256,11 +1348,13 @@ CONTAINER = {2: 2, 3: 4, 4: 4}
 PROMPT, GEN = 64, 128
 
 
-def random_llama7b(cfg, gen):
+def random_llama7b(cfg, gen, container=CONTAINER):
     """Llama-2-7B serving model with random packed weights, built on the
     card: fused qkv / gateup sites, every site of layer i at BITS[i % 3],
-    compact per-container stacks (the merge_containers layout), bf16
-    scale/zero, 8-bit packed head."""
+    compact per-container stacks (the merge_containers layout; the widths
+    of ``container``, by default 3-bit codes in 4-bit containers), bf16
+    scale/zero, 8-bit packed head.  Any stacked config: with qkv bias
+    (phase 4d's Qwen2-0.5B) the qkv site gets a random f32 bias [L, N]."""
     from amq_tpu_torch.core.bitpack import pick_superblock_padded
     from amq_tpu_torch.core.quantize import QuantizedTensor
     from amq_tpu_torch.models.stacked import StackedModel, StackedQuant
@@ -1269,8 +1363,8 @@ def random_llama7b(cfg, gen):
              "self_attn.o_proj": (H, cfg.q_dim),
              "mlp.gateup_proj": (2 * cfg.intermediate_size, H),
              "mlp.down_proj": (H, cfg.intermediate_size)}
-    containers = sorted(set(CONTAINER.values()))
-    layer_cont = [containers.index(CONTAINER[BITS[i % 3]]) for i in range(L)]
+    containers = sorted(set(container.values()))
+    layer_cont = [containers.index(container[BITS[i % 3]]) for i in range(L)]
     slots, members = [], [[] for _ in containers]
     for i, c in enumerate(layer_cont):
         slots.append(len(members[c]))
@@ -1296,10 +1390,15 @@ def random_llama7b(cfg, gen):
     ones = torch.ones((L, H), dtype=torch.bfloat16, device="cuda")
     embed = (torch.randn((cfg.vocab_size, H), generator=gen, device="cuda")
              * 0.02).to(torch.bfloat16)
+    biases = {n: None for n in sites}
+    if cfg.qkv_bias:
+        biases["self_attn.qkv_proj"] = torch.randn(
+            (L, sites["self_attn.qkv_proj"][0]), generator=gen,
+            device="cuda") * 0.02
     return StackedModel(
         embed=embed, final_norm=ones[0].clone(), lm_head=None,
         input_norm=ones, post_norm=ones.clone(), sites=stacks,
-        biases={n: None for n in sites},
+        biases=biases,
         select={n: list(layer_cont) for n in sites},
         bits_range=tuple(containers), num_layers=L, uniform_select=True,
         slots=slots, lm_head_qt=head)
@@ -2270,6 +2369,120 @@ def graphs_phase(model, cfg, prompt):
     return dict(f32=f32, step_logits=step, ab=ab, capture=capture)
 
 
+# ---------------------------------------------------------------------------
+# phase 4d: Qwen2-0.5B at full width and depth with native 3-bit planes
+
+QWEN_MODEL, QWEN_GEN = "Qwen2-0.5B", 32
+#: every width in its own planes (the speed CLI's --native_pack): the
+#: 3-bit q/k/v/o and gate/up (K 896) sit at superblocks of 128 rows, the
+#: kernels' 4-row superblocks; down (K 4864) pads to 1024
+QWEN_CONTAINER = {2: 2, 3: 3, 4: 4}
+
+
+def reckon_pair(L, prefills, steps):
+    """(grouped, tile) launches at 4-row superblocks over ``prefills``
+    prefills and ``steps`` decode steps of the Qwen2-0.5B model, per
+    wrapper: the qkv, o and gateup products of the 3-bit layers (every
+    third, BITS[i % 3]); down (superblock 1024) and the 8-bit head never."""
+    L3 = sum(1 for i in range(L) if BITS[i % 3] == 3)
+    return {"quant_matmul_indexed": (3 * L3 * steps, 3 * L3 * prefills),
+            "quant_matmul_swiglu_indexed": (0, 0), "quant_matmul": (0, 0)}
+
+
+def qwen2_phase(gen):
+    """Qwen2-0.5B served on the card at full width and depth (24 layers,
+    hidden 896, tied head as the 8-bit packed head, qkv bias, head dim 64;
+    random packed weights from the seeded generator, layer i at BITS[i %
+    3], native 3-bit planes, bf16 meta): Engine.generate (prompt 64, 32
+    tokens, batch 1, captured graphs) in bf16 and in float32, each counted
+    -- every product on the grouped ring (decode) or the tile kernel
+    (prefill), the 3-bit layers' q/k/v/o and gate/up on the pair forms
+    (reckon_pair), no CUDA-core launch -- and timed (decode ms/token, the
+    64-token prefill's ms, a QWEN2_PROFILE_<dtype> line of device ms by
+    kernel over 8 decode steps); in float32 the prefill logits within LOGIT_TOL
+    of the plain path (Engine(use_kernels=False)) and the tokens on graphs
+    equal to the eager loop's.  A QWEN2 line per dtype, QWEN2_GATES."""
+    from amq_tpu_torch import ops
+    from amq_tpu_torch.models.config import get_config
+    from amq_tpu_torch.serving.benchmark import benchmark_speed
+    from amq_tpu_torch.serving.engine import Engine
+    t0 = time.perf_counter()
+    cfg = get_config(QWEN_MODEL)
+    model = random_llama7b(cfg, gen, QWEN_CONTAINER)
+    L = cfg.num_layers
+    sbs = {name: sorted({s.superblock for s in stacks if s.nbits == 3})
+           for name, stacks in model.sites.items()}
+    prompt = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (1, PROMPT)).astype(np.int32)
+    recs, toks = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        label = str(dtype).split(".")[-1]
+        eng = Engine(model, cfg, batch_size=1, max_len=PROMPT + QWEN_GEN + 8,
+                     compute_dtype=dtype, cache_dtype=dtype)
+        ops.reset_launch_counts()
+        toks[label] = eng.generate(prompt, max_new_tokens=QWEN_GEN)
+        torch.cuda.synchronize()
+        got = dict(grouped=ops.grouped_launch_counts(),
+                   span=ops.span_launch_counts(),
+                   tile=ops.tile_launch_counts(),
+                   pair={k: list(v) for k, v in
+                         ops.pair_launch_counts().items()},
+                   core=core_launches())
+        steps = QWEN_GEN - 1
+        want = dict(grouped=reckon_grouped(L, steps, False),
+                    span={"quant_matmul_indexed": 3 * L * steps,
+                          "quant_matmul_swiglu_indexed": 0,
+                          "quant_matmul": 0},
+                    tile=reckon_tile(L, 1),
+                    pair={k: list(v) for k, v in
+                          reckon_pair(L, 1, steps).items()},
+                    core=0)
+        speed = {mode: benchmark_speed(eng, mode, prompt_len=PROMPT,
+                                       gen_len=QWEN_GEN)
+                 for mode in ("GEMV", "GEMM")}
+        profile = profile_decode(eng, prompt, tag=f"QWEN2_PROFILE_{label}")
+        rec = dict(model=QWEN_MODEL, compute=label, layers=L,
+                   prompt=PROMPT, gen=QWEN_GEN, three_bit_superblocks=sbs,
+                   **got, want=want,
+                   per_token={k: v / steps for k, v in got["grouped"].items()},
+                   pair_per_token=sum(v[0] for v in got["pair"].values())
+                   / steps,
+                   pair_per_prefill=sum(v[1] for v in got["pair"].values()),
+                   decode_ms_per_token=speed["GEMV"]["decode_token_ms"],
+                   prefill_ms=speed["GEMM"]["prefill_ms"],
+                   device_ms_per_token=profile["device_ms_per_token"],
+                   device_busy_share=profile["device_busy_share"],
+                   tokens_in_range=bool(toks[label].shape == (1, QWEN_GEN) and (
+                       (toks[label] >= 0)
+                       & (toks[label] < cfg.vocab_size)).all()),
+                   card=smi_line())
+        rec["ok"] = got == want and rec["tokens_in_range"]
+        print("QWEN2 " + json.dumps(rec), flush=True)
+        recs[label] = rec
+        del eng
+        torch.cuda.empty_cache()
+    # float32: the kernel path against the plain path, and the graphs
+    # against the eager loop
+    logits = logits_check(model, cfg, prompt, torch.float32)
+    logits_bf16 = logits_check(model, cfg, prompt, torch.bfloat16)
+    eager = Engine(model, cfg, batch_size=1, max_len=PROMPT + QWEN_GEN + 8,
+                   compute_dtype=torch.float32, cache_dtype=torch.float32,
+                   graphs=False).generate(prompt, max_new_tokens=QWEN_GEN)
+    gates = dict(f32_logits_rel_err=logits["rel_err"], tol=LOGIT_TOL,
+                 bf16_logits_rel_err=logits_bf16["rel_err"],
+                 f32_graph_equals_eager=bool(
+                     (eager == toks["float32"]).all()),
+                 phase_s=time.perf_counter() - t0)
+    gates["ok"] = (logits["ok"] and gates["f32_graph_equals_eager"]
+                   and all(r["ok"] for r in recs.values()))
+    print("QWEN2_GATES " + json.dumps(gates), flush=True)
+    del model
+    torch.cuda.empty_cache()
+    if not gates["ok"]:
+        fail(f"Qwen2-0.5B phase: {gates}; {[r for r in recs.values()]}")
+    return dict(runs=recs, gates=gates)
+
+
 EVAL_MODEL, SENS_N, SENS_SEQ, SENS_BATCH = "Llama-2-7b-hf", 2, 2048, 2
 EVAL_ARGS = ["--model_name", EVAL_MODEL, "--synthetic",
              "--n_sample", str(SENS_N), "--seqlen", str(SENS_SEQ),
@@ -2527,8 +2740,9 @@ REAL_N, REAL_SEQ, REAL_BATCH = 2, 2048, 2
 HF_DEPTH = 2
 #: OWQ's depth in the quantize CLI: its MSE-grid refreshes take about 4.7
 #: s a layer at full width on an H100, so all 32 layers take the phase to
-#: about 280 s; 16 keep it near 200 s (GPTQ, AWQ, HQQ, fp16: all 32)
-OWQ_DEPTH = 16
+#: about 280 s; 12 keep it near 180 s (GPTQ, AWQ, HQQ, fp16: all 32), and
+#: the whole run near 950 s with phase 4d
+OWQ_DEPTH = 12
 #: kernel-path vs plain-path perplexity in f32, relative
 PPL_TOL = 1e-3
 #: generated tokens of the OWQ serving checks
@@ -3763,10 +3977,25 @@ def main():
             for M in (1, PROMPT):
                 cases.append(check_owq_matmul(site, nbits, M, gen))
         torch.cuda.empty_cache()
-    # the other superblocks smaller than a ring stage (spanning stages)
+    # the other superblocks smaller than a ring stage (spanning stages);
+    # at 128 rows the prefill too (at 1 and 3 bits the tile kernel's pair
+    # form), and the float32 forms at 1 and 3 bits (the pair forms: the
+    # ring's at M <= 8, the tile kernel's above)
     for nbits in (1, 2, 3, 4):
-        cases.append(check_owq_matmul("owq_sb128", nbits, 1, gen))
+        for M in (1, PROMPT):
+            cases.append(check_owq_matmul("owq_sb128", nbits, M, gen))
+    for nbits in (1, 3):
+        for M in (1, 8, PROMPT):
+            cases.append(check_owq_matmul("owq_sb128", nbits, M, gen,
+                                          torch.float32))
     cases.append(check_owq_matmul("owq_sb512", 1, 1, gen))
+    for site in SITES_SB128:            # rows 1 and 2 on the pair forms
+        cases.append(check_matmul(site, 3, PROMPT, torch.bfloat16, gen))
+        for M in (1, PROMPT):
+            cases.append(check_matmul(site, 3, M, torch.bfloat16, gen,
+                                      torch.float32))
+    torch.cuda.empty_cache()
+    sweep = route_sweep(gen)
     torch.cuda.empty_cache()
     bad = [c for c in cases if not c["ok"]]
     if bad:
@@ -3861,6 +4090,9 @@ def main():
     graph_recs = graphs_phase(model, cfg, prompt)
     del eng, model
     torch.cuda.empty_cache()
+
+    # -- phase 4d: Qwen2-0.5B, native 3-bit planes ---------------------------
+    qwen = qwen2_phase(gen)
 
     # -- phase 5: the speed CLI ----------------------------------------------
     from amq_tpu_torch.cli import speed_benchmark
@@ -3997,6 +4229,23 @@ def main():
                                        dtype="float32"),
                                   "amq_tpu_torch/csrc/quant_matmul_tile.cu",
                                   "amq_tpu/ops/quant_matmul.py:458"),
+        # the 4-row superblocks' pair forms (1 and 3 bits at 128 rows:
+        # OWQ's 31-group q/k/v/o site, Qwen2-0.5B's 3-bit layers): the tile
+        # kernel's (bf16 and float32) and the float32 grouped GEMV's
+        "quant_matmul_tile_pair": (pick("quant_matmul", site="owq_sb128",
+                                        nbits=3, M=PROMPT,
+                                        dtype="bfloat16"),
+                                   "amq_tpu_torch/csrc/quant_matmul_tile.cu",
+                                   "amq_tpu/ops/quant_matmul.py:458"),
+        "quant_matmul_tile_f32_pair": (
+            pick("quant_matmul", site="owq_sb128", nbits=3, M=PROMPT,
+                 dtype="float32"),
+            "amq_tpu_torch/csrc/quant_matmul_tile.cu",
+            "amq_tpu/ops/quant_matmul.py:458"),
+        "quant_matmul_f32_pair": (pick("quant_matmul", site="owq_sb128",
+                                       nbits=3, M=1, dtype="float32"),
+                                  "amq_tpu_torch/csrc/quant_matmul_f32.cu",
+                                  "amq_tpu/ops/quant_matmul.py:458"),
         # no Pallas kernel: the JAX package's XLA dequantization
         "dequantize_kn": (pick("dequantize_kn", site="gate", nbits=4),
                           "amq_tpu_torch/csrc/dequant.cu",
@@ -4023,7 +4272,22 @@ def main():
                    **{f"{k}_tile": v for k, v in tile_counts.items()},
                    # the float32 main path's generate (phase 4, F32_SERVE)
                    **{f"{k}_f32": v for k, v in f32_rec["grouped"].items()},
-                   **{f"{k}_tile_f32": v for k, v in f32_rec["tile"].items()}}
+                   **{f"{k}_tile_f32": v for k, v in f32_rec["tile"].items()},
+                   # the pair forms on phase 4d's generates (every wrapper)
+                   "quant_matmul_tile_pair": sum(
+                       v[1] for v in qwen["runs"]["bfloat16"]["pair"].values()),
+                   "quant_matmul_tile_f32_pair": sum(
+                       v[1] for v in qwen["runs"]["float32"]["pair"].values()),
+                   "quant_matmul_f32_pair": sum(
+                       v[0] for v in qwen["runs"]["float32"]["pair"].values())}
+    def pair_case(name, x):
+        """Is case x one of the pair form ``name``'s (1 and 3 bits at
+        128-row superblocks, on its route and dtype)?"""
+        route = "grouped" if name == "quant_matmul_f32_pair" else "tile"
+        return (name.endswith("_pair") and x.get("superblock") == 128
+                and x.get("nbits") in (1, 3) and x.get("route") == route
+                and (x.get("dtype") == "float32") == ("f32" in name))
+
     kernels = []
     for name, (c, src, rep) in headline.items():
         kernels.append({
@@ -4045,7 +4309,8 @@ def main():
                                  or f"{x['kernel']}_span" == name
                                  and x.get("spanning")
                                  or f"{x['kernel']}_f32" == name
-                                 and x.get("dtype") == "float32")})
+                                 and x.get("dtype") == "float32"
+                                 or pair_case(name, x))})
     # the probe kernels: launches over phase 3c, numbers of its gateup case
     for name, src, rep, checked in (
             ("gemv_attrib", "amq_tpu_torch/csrc/gemv_attrib.cu",
@@ -4089,6 +4354,7 @@ def main():
                    "eval_parity": eval_recs, "eval_profile": eval_prof,
                    "search": search_rec, "probes": probes,
                    "realize": realize, "owq_decode": owq_decode,
+                   "route_sweep": sweep, "qwen2": qwen,
                    "parallel": par,
                    "build_report": build_rec},
                   f, indent=1)

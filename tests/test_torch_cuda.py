@@ -387,14 +387,15 @@ def test_cuda_tile_kernel_matches_tile_plain(M, nbits, swiglu, meta):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("superblock", [256, 512, 1024])
+@pytest.mark.parametrize("superblock", [128, 256, 512, 1024])
 @pytest.mark.parametrize("nbits", [1, 2, 3, 4, 8])
 def test_cuda_tile_kernel_superblocks(nbits, superblock):
-    """quant_matmul at M = 64 on the tile route with superblocks of 256,
-    512 and 1024 rows (round planes of 8 to 256 word rows, so stages of 8,
-    16 and 32 rows; 3-bit in native planes), K over three superblocks,
-    bf16 out, held to the tile plain version (1e-2 normalized: one bf16
-    rounding either side)."""
+    """quant_matmul at M = 64 on the tile route with superblocks of 128,
+    256, 512 and 1024 rows (round planes of 4 to 256 word rows, so stages
+    of 8, 16 and 32 rows; the 4-row planes of 1 and 3 bits at 128 rows in
+    the pair form, four superblocks a stage; 3-bit in native planes), K
+    over three superblocks, bf16 out, held to the tile plain version
+    (1e-2 normalized: one bf16 rounding either side)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     qt, _, x, _, kw = _tile_inputs(nbits, 64, torch.bfloat16, superblock,
@@ -436,20 +437,19 @@ def test_cuda_tile_rows_independent_of_M(nbits, swiglu):
 def test_cuda_tile_layout_agrees_with_library(nbits):
     """_tile_ns (the wrapper's predicate and split plan) and the library's
     own tile_ns agree on every weight layout -- the layouts taken and the
-    ring stages per superblock -- over groups of 8 to 1024 rows,
-    superblocks of 64 to 1024 and both meta types."""
+    word rows per ring stage (the pair form's at 4-row superblocks too) --
+    over groups of 8 to 1024 rows, superblocks of 64 to 1024 and both meta
+    types."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    fn = tqm._cuda.library("quant_matmul_tile").amq_qmm_tile_stages
+    fn = tqm._cuda.library("quant_matmul_tile").amq_qmm_tile_rows
     fn.argtypes = [tqm._c_int] * 4
     fn.restype = tqm._c_int
     for sb in range(64, 1025, 64):
-        R = sb // 32 if nbits == 3 else sb * nbits // 32
         for gs in (8, 16, 32, 48, 64, 128, 192, 256, 512, 1024):
             for mb in (0, 1):
-                ns = tqm._tile_ns(nbits, gs, sb, mb)
-                assert fn(nbits, gs, sb, mb) == (R // ns if ns else 0), (
-                    nbits, gs, sb, mb)
+                assert fn(nbits, gs, sb, mb) == tqm._tile_ns(
+                    nbits, gs, sb, mb), (nbits, gs, sb, mb)
 
 
 @pytest.mark.cuda
@@ -1168,13 +1168,15 @@ def test_cuda_f32_rows_independent_of_M(nbits):
 @pytest.mark.parametrize("swiglu", [False, True])
 @pytest.mark.parametrize("M", [1, 5])
 @pytest.mark.parametrize("nbits,superblock", [
-    (1, 256), (1, 512), (2, 128), (2, 256), (3, 256), (4, 128)])
+    (1, 128), (1, 256), (1, 512), (2, 128), (2, 256), (3, 128), (3, 256),
+    (4, 128)])
 def test_cuda_f32_spanning_matches_plain(nbits, superblock, M, swiglu):
     """The float32 GEMV at superblocks smaller than a ring stage (OWQ's
-    down at 2 and 3 bits among them), K over an odd count of superblocks
-    so the last stage of K is partial: the spanning counter moves, within
-    1e-4 of qmm_plain; the 4-row superblocks (1 and 3 bits at 128 rows)
-    keep the CUDA-core GEMV."""
+    down at 2 and 3 bits among them; the 4-row superblocks, 1 and 3 bits
+    at 128 rows, in the pair form), K over an odd count of superblocks so
+    the last stage of K is partial: the spanning counter moves (the pair
+    counter too at 4-row superblocks), within 1e-4 of qmm_plain and of the
+    kernel's own arithmetic qmm_exact_plain."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     qt, x, u = _f32_case(nbits, M, torch.float32, 300 + nbits + superblock,
@@ -1183,16 +1185,61 @@ def test_cuda_f32_spanning_matches_plain(nbits, superblock, M, swiglu):
               superblock=qt.superblock, out_dtype=torch.float32)
     counter = (tqm.quant_matmul_swiglu_indexed if swiglu
                else tqm.quant_matmul_indexed)
-    before = counter.span_launches
+    before = counter.span_launches, counter.pair_launches
     got = _f32_call(qt, x, u, swiglu, **kw)
-    want = tqm.qmm_plain(x, qt.packed, qt.scale, qt.zero,
-                         up=u if swiglu else None, **kw)
+    up = u if swiglu else None
+    want = tqm.qmm_plain(x, qt.packed, qt.scale, qt.zero, up=up, **kw)
+    exact = tqm.qmm_exact_plain(
+        x, qt.packed, qt.scale, qt.zero, up=up, **kw,
+        piece=16 if tqm._pair_layout(nbits, superblock) else None)
     torch.cuda.synchronize()
-    assert counter.span_launches - before == 1
+    assert (counter.span_launches - before[0],
+            counter.pair_launches - before[1]) == (
+                1, int(tqm._pair_layout(nbits, superblock)))
     _norm_close(got.cpu().numpy(), want.cpu().numpy(), 1e-4)
-    for b in (1, 3):
-        assert not tqm._grouped_applies(x, qt.packed, qt.scale, qt.zero, b,
-                                        128, 128)
+    _norm_close(got.cpu().numpy(), exact.cpu().numpy(), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("nbits", [1, 3])
+def test_cuda_pair_forms_rows_independent_of_M(nbits, dtype):
+    """The pair forms at 4-row superblocks (1 and 3 bits at 128 rows, K
+    over 31 superblocks as OWQ's q/k/v/o site with 31 groups): row m has
+    the same bits at any M and two calls are equal -- the tile kernel's
+    (bf16 and float32) first rows of a 200-row call against M 64 and 9,
+    the float32 grouped ring's M 8 and 5 against each row alone (the bf16
+    ring's at M <= 8: test_cuda_grouped_gemv_rows_independent_of_M) --
+    and every call takes a pair form (its counters move)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    rng = np.random.default_rng(280 + nbits + (dtype == torch.float32))
+    N, K = 320, 31 * 128
+    W = torch.from_numpy(rng.normal(size=(N, K)).astype(np.float32) * 0.02)
+    qt = tq.quantize(W.cuda(), nbits=nbits, meta_dtype=torch.float32,
+                     superblock=128)
+    x = torch.from_numpy(rng.normal(size=(200, K)).astype(np.float32)
+                         ).cuda().to(dtype)
+    kw = dict(nbits=nbits, group_size=128, shape=qt.shape, superblock=128,
+              out_dtype=torch.float32)
+    stack = (qt.packed[None], qt.scale[None], qt.zero[None], 0)
+    fn = tqm.quant_matmul_indexed
+    before = fn.pair_launches, fn.pair_tile_launches, fn.launches
+    big, again = (fn(x, *stack, **kw) for _ in range(2))
+    assert torch.equal(big, again)
+    for rows in (64, 9):
+        assert torch.equal(fn(x[:rows], *stack, **kw), big[:rows]), rows
+    calls = 4
+    if dtype == torch.float32:
+        for rows in (8, 5):
+            many = fn(x[:rows], *stack, **kw)
+            calls += 1 + rows
+            for m in range(rows):
+                assert torch.equal(fn(x[m:m + 1], *stack, **kw)[0],
+                                   many[m]), (rows, m)
+    torch.cuda.synchronize()
+    assert (fn.pair_launches - before[0] + fn.pair_tile_launches - before[1],
+            fn.launches - before[2]) == (calls, calls)
 
 
 @pytest.mark.cuda
@@ -1203,16 +1250,14 @@ def test_cuda_tile_f32_layout_agrees_with_library(nbits):
     holds the bf16 form's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    fn = tqm._cuda.library("quant_matmul_tile").amq_qmm_tile_f32_stages
+    fn = tqm._cuda.library("quant_matmul_tile").amq_qmm_tile_f32_rows
     fn.argtypes = [tqm._c_int] * 4
     fn.restype = tqm._c_int
     for sb in range(64, 1025, 64):
-        R = sb // 32 if nbits == 3 else sb * nbits // 32
         for gs in (8, 16, 32, 48, 64, 128, 192, 256, 512, 1024):
             for mb in (0, 1):
-                ns = tqm._tile_ns(nbits, gs, sb, mb, True)
-                assert fn(nbits, gs, sb, mb) == (R // ns if ns else 0), (
-                    nbits, gs, sb, mb)
+                assert fn(nbits, gs, sb, mb) == tqm._tile_ns(
+                    nbits, gs, sb, mb, True), (nbits, gs, sb, mb)
 
 
 @pytest.mark.cuda

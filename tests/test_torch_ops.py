@@ -162,8 +162,8 @@ def test_grouped_routing_conditions(nbits):
     and x's row stride multiples of 8, 16-byte aligned operands; at 8 bits
     rounds that nest with the groups and whole stages, below 8 bits
     power-of-two groups and superblock: the grouped GEMV; f32 activations
-    too (its float32 form), but not at 4-row superblocks (1 and 3 bits at
-    128 rows); anything else keeps the CUDA-core GEMV."""
+    too (its float32 form), 4-row superblocks (1 and 3 bits at 128 rows)
+    included; anything else keeps the CUDA-core GEMV."""
     sb = _WHOLE_STAGE[nbits]
     x = torch.zeros((8, 1024), dtype=torch.bfloat16)
     meta = torch.zeros((2, 128), dtype=torch.bfloat16)
@@ -182,7 +182,7 @@ def test_grouped_routing_conditions(nbits):
     # 48 word rows)
     assert not ok(superblock=3 * sb // 2)
     assert ok(x=x.float())
-    assert ok(x=x.float(), superblock=128) == (nbits not in (1, 3))
+    assert ok(x=x.float(), superblock=128)
     assert not ok(x=x.half())
     assert not ok(x=torch.zeros((9, 1024), dtype=torch.bfloat16))
     assert not ok(group=32)
@@ -276,15 +276,16 @@ def test_indexed_bf16_decode(nbits, swiglu):
     _norm_close(got.numpy(), np.asarray(want))
 
 
-def _tile_case(kernel, nbits, M, meta, seed):
+def _tile_case(kernel, nbits, M, meta, seed, superblock=None):
     """(port arguments, JAX output) of one bf16 multi-row call: N 256, K
-    512 (superblock 512), bf16 x (and SwiGLU operand), f32 out, the JAX
-    kernel in interpret mode (its bf16 multi-row branch, _dequant_tile at
-    acc_dtype = bf16)."""
+    512 (superblock 512; ``superblock`` 128: K 896, seven of them), bf16 x
+    (and SwiGLU operand), f32 out, the JAX kernel in interpret mode (its
+    bf16 multi-row branch, _dequant_tile at acc_dtype = bf16)."""
     rng = np.random.default_rng(seed)
-    N, K = 256, 512
+    N, K = 256, 896 if superblock == 128 else 512
     qt = jq.quantize(jnp.asarray(rng.normal(size=(N, K)).astype(np.float32)
-                                 * 0.02), nbits=nbits, meta_dtype=meta)
+                                 * 0.02), nbits=nbits, meta_dtype=meta,
+                     superblock=superblock)
     x, u = (jnp.asarray(rng.normal(size=(M, K)).astype(np.float32)).astype(
         jnp.bfloat16) for _ in range(2))
     kw = dict(nbits=nbits, group_size=128, shape=(N, K),
@@ -346,6 +347,29 @@ def test_tile_plain_matches_jax_multi_row(kernel, nbits, M, meta):
     _norm_close(on_jax_act.numpy(), want, atol=1e-5)
 
 
+@pytest.mark.parametrize("M", [16, 64])
+@pytest.mark.parametrize("nbits", [1, 3])
+@pytest.mark.parametrize("kernel", ["quant_matmul", "quant_matmul_indexed",
+                                    "quant_matmul_swiglu_indexed"])
+def test_tile_plain_matches_jax_multi_row_at_4_row_superblocks(kernel, nbits,
+                                                               M):
+    """The layouts of the tile kernel's pair form -- 1 and 3 bits (native
+    planes) at superblocks of 128 rows, K over seven of them (the last
+    pair-form stage of K partial) -- against the JAX package's bf16
+    multi-row kernels, as test_tile_plain_matches_jax_multi_row (f32
+    meta; normalized 1e-5, the SwiGLU product on JAX's activation)."""
+    args, want = _tile_case(kernel, nbits, M, jnp.float32,
+                            seed=700 + 10 * nbits + M, superblock=128)
+    assert args["superblock"] == 128
+    assert tqm._tile_applies(args["x"], args["packed"], args["scale"],
+                             args["zero"], nbits, 128, 128)
+    got = tqm.qmm_tile_plain(**args)
+    x = args["x"] if args["up"] is None else _jax_swiglu(args)
+    _norm_close(tqm.qmm_tile_plain(**{**args, "x": x, "up": None}).numpy(),
+                want, atol=1e-5)
+    _norm_close(got.numpy(), want, atol=2e-4)
+
+
 @pytest.mark.parametrize("meta", [jnp.float32, jnp.bfloat16])
 def test_f32_multi_row_route_differs_from_jax_bf16(meta):
     """The fault the tile form repairs: the f32 dequantization
@@ -396,9 +420,10 @@ def test_tile_routing_conditions(nbits):
     16-byte aligned operands and a layout the tile kernel takes (a
     superblock of whole 16-row groups whose round plane holds whole
     16-row steps: 1-bit and 3-bit superblocks of a multiple of 256 rows,
-    2-bit of 128; a ring that fits): the tile kernel; f32 activations
-    too (its float32 form, chunks inside one group); anything else keeps
-    the CUDA-core GEMM."""
+    2-bit of 128; or a 4-row superblock, 1 and 3 bits at 128 rows, in the
+    pair form at groups of a multiple of 32; a ring that fits): the tile
+    kernel; f32 activations too (its float32 form, chunks inside one
+    group); anything else keeps the CUDA-core GEMM."""
     x = torch.zeros((64, 1024), dtype=torch.bfloat16)
     meta = torch.zeros((8, 128), dtype=torch.bfloat16)
 
@@ -423,8 +448,45 @@ def test_tile_routing_conditions(nbits):
     assert not ok(group=8, superblock=256)
     assert ok(superblock=512) and ok(group=256, superblock=256)
     # the round plane of a 128-row superblock: 4 word rows at 1 and 3
-    # bits, 8 at 2
-    assert ok(superblock=128) == (nbits not in (1, 3))
+    # bits (the pair form: four superblocks a stage), 8 at 2
+    assert ok(superblock=128)
+    assert ok(x=x.float(), superblock=128)
+    assert ok(group=64, superblock=128) and ok(group=32, superblock=128)
+    # a pair-form chunk (32 K rows) straddles 16-row groups
+    assert ok(group=16, superblock=128) == (nbits not in (1, 3))
+
+
+def _served_superblocks():
+    """Every superblock ``pick_superblock`` and ``pick_superblock_padded``
+    give at group 128, over K from 128 to 16384 in steps of 128."""
+    from amq_tpu_torch.core.bitpack import (pick_superblock,
+                                            pick_superblock_padded)
+    found = set()
+    for K in range(128, 16385, 128):
+        found.add(pick_superblock(K, 128))
+        found.add(pick_superblock_padded(K, 128)[0])
+    return sorted(found)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("nbits", [1, 2, 3, 4, 8])
+def test_every_served_layout_takes_a_tensor_core_route(nbits, dtype):
+    """Every layout the packers give at group 128 (superblocks of 128 to
+    1024 rows, each width, bf16 and f32 x) at M 1, 8, 9 and 64, aligned
+    operands: the grouped ring (M <= 8) or the tile kernel (8 < M) takes
+    it -- no call reaches the CUDA-core GEMV or GEMM."""
+    sbs = _served_superblocks()
+    assert sbs == [128, 256, 512, 1024]
+    for sb in sbs:
+        Kp = 3 * sb
+        packed = torch.zeros((Kp * nbits // 32, 256), dtype=torch.int32)
+        meta = torch.zeros((Kp // 128, 256), dtype=torch.bfloat16)
+        for M in (1, 8, 9, 64):
+            x = torch.zeros((M, Kp), dtype=dtype)
+            args = (x, packed, meta, meta, nbits, 128, sb)
+            grouped, tile = tqm._grouped_applies(*args), tqm._tile_applies(*args)
+            assert grouped or tile, (sb, M)
+            assert (grouped, tile) == (M <= 8, M > 8), (sb, M)
 
 
 def _attn_case(B, Hkv, G, hd, T, offsets, window=None, seed=0, L=3,

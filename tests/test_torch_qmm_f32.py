@@ -36,10 +36,14 @@ META = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 
 def _piece(nbits, M, group, superblock, meta_bf16):
     """K rows per correction: at M <= 8 one round of a grouped ring stage
-    (or of a superblock, where a stage spans several), above M = 8 one
-    chunk of the tile kernel's float32 form (2 ns rows)."""
+    (or of a superblock, where a stage spans several; at 4-row
+    superblocks a round pair, the pair form's step), above M = 8 one
+    chunk of the tile kernel's float32 form (2 ns rows: 32 in the pair
+    form)."""
     if M > 8:
         return 2 * tqm._tile_ns(nbits, group, superblock, meta_bf16, True)
+    if tqm._pair_layout(nbits, superblock):
+        return 16
     rows = tqm._grouped_stage_rows(nbits)
     return 2 * min(rows, tqm._grouped_round_rows(nbits, superblock))
 
@@ -162,6 +166,31 @@ def test_exact_form_at_owq_down_layout(nbits, M):
     # the float32 GEMV takes the layout (the spanning kernel's SPS forms)
     assert tqm._grouped_applies(xt[:1], *(a[0] for a in arrays), nbits, 128,
                                 256)
+
+
+@pytest.mark.parametrize("M", [1, 8, 64])
+@pytest.mark.parametrize("nbits", [1, 3])
+def test_exact_pair_form_matches_jax_quant_matmul(nbits, M):
+    """The 4-row superblocks (1 and 3 bits at 128 rows, 3-bit in native
+    planes), K over seven superblocks: the float32 pair forms' arithmetic
+    -- round-pair corrections at M <= 8 (the grouped ring's), 32-row
+    chunks above (the tile kernel's) -- against the JAX kernel and
+    qmm_plain; both routes take the layout."""
+    rng = np.random.default_rng(640 + 10 * nbits + M)
+    N, K = 256, 7 * 128
+    qt, _, arrays = _weights(rng, nbits, N, K, "f32", superblock=128)
+    assert qt.superblock == 128
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jqm.quant_matmul(jnp.asarray(x), qt))
+    xt = torch.from_numpy(x)
+    assert _piece(nbits, M, 128, 128, 0) == (16 if M <= 8 else 32)
+    got = _exact(xt, arrays, 0, nbits, (N, K), 128)
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+    assert _norm_err(got, _plain(xt, arrays, 0, nbits, (N, K), 128)) <= TOL
+    w = tuple(a[0] for a in arrays)
+    assert (tqm._grouped_applies(xt, *w, nbits, 128, 128)
+            or tqm._tile_applies(xt, *w, nbits, 128, 128))
 
 
 @pytest.mark.parametrize("M", [1, 64])

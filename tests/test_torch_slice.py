@@ -260,3 +260,54 @@ def test_port_quantize_model_builds_servable_model():
     a = eng.generate(prompt, max_new_tokens=5)
     assert a.shape == (1, 5) and ((a >= 0) & (a < cfg.vocab_size)).all()
     np.testing.assert_array_equal(a, eng.generate(prompt, max_new_tokens=5))
+
+
+#: a Qwen2-style model (qkv bias, tied head, head dim 64) whose every K
+#: (hidden 384, intermediate 640) gives superblocks of 128 rows, as
+#: Qwen2-0.5B's hidden 896 does: native 3-bit planes there are the
+#: kernels' 4-row superblocks (the pair forms)
+QWEN_SB128 = dict(name="tiny-qwen2-sb128", hidden_size=384,
+                  intermediate_size=640, num_layers=3, num_heads=6,
+                  num_kv_heads=2)
+
+
+@pytest.fixture(scope="module")
+def qwen_sb128():
+    cfg = dataclasses.replace(get_config("tiny-qwen2"), **QWEN_SB128)
+    tcfg = dataclasses.replace(t_get_config("tiny-qwen2"), **QWEN_SB128)
+    params = init_params(cfg, jax.random.PRNGKey(1))
+    proxies = [quantize_model(params, cfg, b) for b in BITS]
+    jm = jst.merge_containers(jst.stack_proxies(
+        proxies, BITS, layer_uniform_arch(cfg.num_layers), container_bits={},
+        head_bits=8))
+    return cfg, tcfg, jm, _port_model(jm)
+
+
+def test_qwen_native_3bit_sb128_matches_jax(qwen_sb128):
+    """The Qwen2-style model served stacked with native 3-bit planes
+    (every site's superblock 128: 3-bit q/k/v/o, gate/up and down on the
+    4-row layouts) and the 8-bit packed head: float32 prefill logits
+    within 2e-4 of the JAX package's stacked forward, and its greedy
+    tokens equal to the JAX Engine's."""
+    cfg, tcfg, jm, tm = qwen_sb128
+    three = [s for stacks in tm.sites.values() for s in stacks
+             if s.nbits == 3]
+    assert three and all(s.superblock == 128 for s in three)
+    assert tm.biases["self_attn.qkv_proj"] is not None
+    toks = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 11)).astype(np.int32)
+    want, _ = jst.forward_stacked(jm, cfg, jnp.asarray(toks),
+                                  compute_dtype=jnp.float32)
+    got, _ = tst.forward_stacked(tm, tcfg,
+                                 torch.from_numpy(toks.astype(np.int64)),
+                                 compute_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=2e-4, atol=2e-4)
+    jeng = JEngine(jm, cfg, batch_size=1, max_len=32,
+                   compute_dtype=jnp.float32, use_pallas=False,
+                   cache_dtype=jnp.float32)
+    teng = TEngine(tm, tcfg, batch_size=1, max_len=32,
+                   compute_dtype=torch.float32, cache_dtype=torch.float32,
+                   device="cpu")
+    prompt = toks[:1, :7]
+    np.testing.assert_array_equal(teng.generate(prompt, max_new_tokens=8),
+                                  jeng.generate(prompt, max_new_tokens=8))

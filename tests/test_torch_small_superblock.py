@@ -116,8 +116,8 @@ def test_grouped_routing_takes_every_small_superblock(nbits, monkeypatch):
     superblock ``pick_superblock`` gives OWQ's 7B sites -- down's Kp 11008
     in superblocks of 256 -- and a Kp of an odd number of groups (3968,
     superblock 128), at M 1-8; groups of 64 and 128 in superblocks of 128
-    to 1024 rows; f32 x too (the ring's float32 form), but not at 4-row
-    superblocks (1 and 3 bits at 128 rows).  It refuses M 9, groups of
+    to 1024 rows; f32 x too (the ring's float32 form, the 4-row
+    superblocks of 1 and 3 bits at 128 rows included).  It refuses M 9, groups of
     32, superblocks of 64 and 2048, misaligned operands; the pipelined
     GEMV and the one-launch MLP keep whole stages (superblocks of 1024
     taken, smaller refused)."""
@@ -133,7 +133,7 @@ def test_grouped_routing_takes_every_small_superblock(nbits, monkeypatch):
         assert tqm._grouped_whole_stages(nbits, sb) == (
             sb >= {1: 1024, 2: 512, 3: 512, 4: 256}[nbits])
     assert _ok(nbits, 128, 256, dtype=torch.float32)
-    assert _ok(nbits, 128, 128, dtype=torch.float32) == (nbits not in (1, 3))
+    assert _ok(nbits, 128, 128, dtype=torch.float32)
     assert not _ok(nbits, 128, 256, M=9)
     assert not _ok(nbits, 32, 256)
     assert not _ok(nbits, 64, 64)
