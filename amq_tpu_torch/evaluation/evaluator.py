@@ -18,6 +18,13 @@ The port of the JAX package's ``evaluation/evaluator.py``.  Search mode:
   batch is capped to keep it under, the JSD is taken 256 rows at a time
   and the student logits are bf16 (the JAX package's rule).
 
+While a ``torch.profiler`` profile runs, ``eval_many`` records into
+``utils.profiling.TRACER``: an ``eval.arch`` span per architecture (with
+the launch counters' rise over it) holding ``eval.set_arch`` and, per
+loss batch, ``eval.forward`` and ``eval.jsd``; ``eval.readback`` (the
+one read of the losses); the counter ``eval.linears`` (layers x sites
+per architecture).
+
 Linears run dequantize-then-matmul (evaluation batches are far above the
 decode kernels' M), attention at S >= 128 on the card through the flash
 kernel unless ``use_kernels=False`` sends it through the einsum path.
@@ -60,6 +67,7 @@ from ..models.linear import DenseLinear, QuantLinear, dequantize_weight
 from ..models.stacked import forward_stacked, set_arch, stack_proxies
 from ..models.transform import Arch, quantize_model
 from ..parallel import comm
+from ..utils.profiling import TRACER
 from . import metrics
 
 
@@ -241,10 +249,13 @@ class Evaluator:
             for batch, n_valid, start in self.loss_batches(name):
                 dense = self.dense_batch(self.dense_logits[name], start,
                                          n_valid, batch.shape[0])
-                logits, _ = forward_stacked(params, self.cfg,
-                                            self.tokens(batch),
-                                            compute_dtype=self.compute_dtype)
-                per_sample.append(self.loss_of_logits(logits, dense)[:n_valid])
+                with TRACER.span("eval.forward"):
+                    logits, _ = forward_stacked(
+                        params, self.cfg, self.tokens(batch),
+                        compute_dtype=self.compute_dtype)
+                with TRACER.span("eval.jsd"):
+                    per_sample.append(
+                        self.loss_of_logits(logits, dense)[:n_valid])
         return self.gather_samples(torch.cat(per_sample),
                                    len(self.datasets[name])).mean()
 
@@ -265,8 +276,17 @@ class Evaluator:
         per arch, read back from the device once."""
         archs = list(archs)
         names = list(self.datasets)
-        losses = torch.stack([self._loss(self.sample(a), n)
-                              for a in archs for n in names]).tolist()
+        per_arch = []
+        for a in archs:
+            # the launches' rise holds each forward's dequantizations
+            with TRACER.span("eval.arch", launches=True):
+                with TRACER.span("eval.set_arch"):
+                    params = self.sample(a)
+                TRACER.count("eval.linears",
+                             self.cfg.num_layers * len(LINEAR_NAMES))
+                per_arch += [self._loss(params, n) for n in names]
+        with TRACER.span("eval.readback"):
+            losses = torch.stack(per_arch).tolist()
         return [({n: losses[i * len(names) + j] for j, n in enumerate(names)},
                  metrics.get_bits_usage(a, self.topology, self.group_size))
                 for i, a in enumerate(archs)]

@@ -32,6 +32,18 @@ T >= 1024 on its accelerator), and the decode step's linears and MLP take
 whatever ``scan_layers`` routes them to (the pipelined GEMVs and the
 one-launch MLP under the JAX package's ``AMQ_PIPE`` / ``AMQ_MLP_KERNEL``).
 
+While a ``torch.profiler`` profile runs, :class:`SlotEngine` records into
+``utils.profiling.TRACER``: a ``serve.step`` span per pass of ``run``'s
+loop holding ``serve.preempt``, ``serve.fill``, ``serve.prefill`` (one
+per admitted request, its uid) and ``serve.decode`` (one chunk); inside
+them ``serve.inputs`` (host-to-device copies), ``serve.launch``
+(``GraphRunner``, one per replay), ``serve.readback`` (the blocking
+token reads) and ``serve.bookkeeping`` (the batcher's, with the uid for
+a first token); and the counters ``serve.prefill_rows`` /
+``serve.prefill_tokens`` (rows computed, real prompt tokens) and
+``serve.decode_slot_steps`` / ``serve.decode_tokens`` (slots x steps
+computed, tokens that reached a request).
+
 Three faults of the JAX ``SlotEngine`` are not copied: ``run`` drops a
 preempted slot's chunked-prefill state, the per-column active mask of a
 decode chunk keeps excluding slots mid-prefill, and a prefill chunk's
@@ -53,6 +65,7 @@ from ..models.config import ModelConfig
 from ..models.linear import kernel_linears
 from ..models.stacked import (StackedModel, apply_head, forward_stacked,
                               scan_layers)
+from ..utils.profiling import TRACER
 from .graphs import GraphRunner
 
 
@@ -130,9 +143,10 @@ def _slot_prefill(model, cfg, tokens, cache, slot, offset, n_new, win,
                          slot=((1,), torch.int64),
                          offset=((1,), torch.int32),
                          n_new=((1,), torch.int32), nxt=((1,), torch.int32))
-    buf.tokens.copy_(tokens)
-    for name, x in (("slot", slot), ("offset", offset), ("n_new", n_new)):
-        _fill(getattr(buf, name), x)
+    with TRACER.span("serve.inputs"):
+        buf.tokens.copy_(tokens)
+        for name, x in (("slot", slot), ("offset", offset), ("n_new", n_new)):
+            _fill(getattr(buf, name), x)
     runner.run(("slot_prefill", C, win, compute_dtype, impl is not None),
                lambda: buf.nxt.copy_(prefill_window(
                    model, cfg, buf.tokens, cache, buf.slot, buf.offset,
@@ -252,9 +266,10 @@ def decode_chunk(model: StackedModel, cfg: ModelConfig, tokens: torch.Tensor,
         ("slot_decode", B, T), tokens=((B,), torch.int32),
         active=((B,), torch.bool), toks=((B, T), torch.int32),
         step=((1,), torch.int64))
-    buf.tokens.copy_(tokens)
-    buf.active.copy_(active)
-    buf.step.zero_()
+    with TRACER.span("serve.inputs"):
+        buf.tokens.copy_(tokens)
+        buf.active.copy_(active)
+        buf.step.zero_()
     runner.run(("slot_decode", B, T, compute_dtype, impl is not None),
                lambda: slot_decode_step(model, cfg, buf.tokens, buf.active,
                                         cache, buf.toks, buf.step,
@@ -318,13 +333,20 @@ class SlotEngine:
 
     def prefill(self, slot: int, prompt: np.ndarray) -> None:
         S = len(prompt)
-        padded = np.zeros(self._bucket(S), np.int32)
+        bucket = self._bucket(S)
+        TRACER.count("serve.prefill_rows", bucket)
+        TRACER.count("serve.prefill_tokens", S)
+        padded = np.zeros(bucket, np.int32)
         padded[:S] = prompt          # right-pad (exact under causal masking)
+        with TRACER.span("serve.inputs"):
+            tokens = self._tokens(padded)[None]
         nxt, self.cache = prefill_slot(
-            self.model, self.cfg, self._tokens(padded)[None], S, self.cache,
+            self.model, self.cfg, tokens, S, self.cache,
             slot, compute_dtype=self.compute_dtype, impl=self.impl,
             runner=self.runner)
-        self.next_token[slot] = int(nxt[0])
+        # the prefill's one blocking read: the device is empty after it
+        with TRACER.span("serve.readback"):
+            self.next_token[slot] = int(nxt[0])
 
     def start_prefill(self, slot: int, prompt: np.ndarray) -> bool:
         """Begin a slot's prefill.  Returns True when it completed now
@@ -358,16 +380,21 @@ class SlotEngine:
             # the padded chunk writes all its positions: the window holds
             # them (a chunk past the cache's end is cut to fit)
             c_len = min(C, self.max_len - off)
+            TRACER.count("serve.prefill_rows", c_len)
+            TRACER.count("serve.prefill_tokens", n_new)
             chunk = np.zeros(c_len, np.int32)
             chunk[:n_new] = prompt[off:off + n_new]
+            with TRACER.span("serve.inputs"):
+                tokens = self._tokens(chunk)[None]
             nxt, self.cache = prefill_chunk(
-                self.model, self.cfg, self._tokens(chunk)[None], n_new, off,
+                self.model, self.cfg, tokens, n_new, off,
                 self.cache, slot, win_len=off + c_len,
                 compute_dtype=self.compute_dtype, impl=self.impl,
                 runner=self.runner)
             off += n_new
             if off >= S:
-                self.next_token[slot] = int(nxt[0])
+                with TRACER.span("serve.readback"):
+                    self.next_token[slot] = int(nxt[0])
                 del self._prefilling[slot]
                 done.append(slot)
             else:
@@ -383,11 +410,16 @@ class SlotEngine:
         return self.step_chunk(active_mask, 1)[:, 0]
 
     def step_chunk(self, active_mask: np.ndarray, n_steps: int) -> np.ndarray:
+        # every slot is computed at every step, active or not
+        TRACER.count("serve.decode_slot_steps", self.n_slots * n_steps)
+        with TRACER.span("serve.inputs"):
+            inputs = self._step_inputs(active_mask)
         toks, self.cache = decode_chunk(
-            self.model, self.cfg, *self._step_inputs(active_mask), self.cache,
+            self.model, self.cfg, *inputs, self.cache,
             n_steps=n_steps, compute_dtype=self.compute_dtype, impl=self.impl,
             runner=self.runner)
-        out = toks.cpu().numpy()                                # [B, n_steps]
+        with TRACER.span("serve.readback"):
+            out = toks.cpu().numpy()                            # [B, n_steps]
         self.next_token = np.where(active_mask, out[:, -1], self.next_token)
         return out
 
@@ -401,51 +433,72 @@ class SlotEngine:
         results: Dict[int, List[int]] = {}
         steps = 0
         while batcher.has_work() and steps < max_steps:
-            # higher-priority pending requests may evict active slots; the
-            # victims rejoin the queue and are re-prefilled on re-admission,
-            # so whatever their slots held goes
+            with TRACER.span("serve.step"):
+                self._iteration(batcher, results)
+            steps += 1
+        return results
+
+    def _iteration(self, batcher, results: Dict[int, List[int]]) -> None:
+        """One pass of :meth:`run`'s loop: preemption, admission and
+        prefills, one chunk of each chunked prefill, one decode chunk."""
+        # higher-priority pending requests may evict active slots; the
+        # victims rejoin the queue and are re-prefilled on re-admission,
+        # so whatever their slots held goes
+        with TRACER.span("serve.preempt"):
             for slot, _ in batcher.preempt():
                 self.release(slot)
-            for slot, req in batcher.fill_slots():
+        with TRACER.span("serve.fill"):
+            filled = batcher.fill_slots()
+        for slot, req in filled:
+            TRACER.end("serve.queued", req.uid)
+            with TRACER.span("serve.prefill", req.uid):
                 # resumed victims re-prefill prompt + tokens generated
                 # before eviction
                 toks = (np.concatenate(
                     [req.prompt, np.asarray(req.generated, np.int32)])
                     if req.generated else req.prompt)
                 if self.start_prefill(slot, toks):
-                    # the prefill's prediction is the first generated token
-                    fin = batcher.prefill_bookkeeping(
-                        slot, self.next_token[slot])
-                    if fin is not None:
-                        results[fin.uid] = fin.generated
-            # in-flight chunked prefills advance ONE chunk per iteration;
-            # slots still prefilling sit out this iteration's decode
-            for slot in self.advance_prefills():
-                fin = batcher.prefill_bookkeeping(slot,
-                                                  self.next_token[slot])
-                if fin is not None:
-                    results[fin.uid] = fin.generated
-            active = self._decoding(batcher)
-            if not active.any():
-                # every decodable slot retired at prefill (or is still
-                # prefilling); queued requests may remain -- keep looping
-                steps += 1
-                continue
+                    self._first_token(batcher, slot, results)
+        # in-flight chunked prefills advance ONE chunk per iteration;
+        # slots still prefilling sit out this iteration's decode
+        for slot in self.advance_prefills():
+            self._first_token(batcher, slot, results)
+        active = self._decoding(batcher)
+        if not active.any():
+            # every decodable slot retired at prefill (or is still
+            # prefilling); queued requests may remain -- keep looping
+            return
+        with TRACER.span("serve.decode"):
             if self.chunk_steps > 1:
                 toks = self.step_chunk(active, self.chunk_steps)
                 for j in range(toks.shape[1]):
-                    for req in batcher.step_bookkeeping(
-                            np.where(active, toks[:, j], -1)):
-                        results[req.uid] = req.generated
+                    self._step_bookkeeping(batcher, active, toks[:, j],
+                                           results)
                     # slots retired mid-chunk drop out of the remaining
                     # columns; slots mid-prefill never decoded in them
                     active = self._decoding(batcher)
                     if not active.any():
                         break
             else:
-                toks = self.step(active)
-                for req in batcher.step_bookkeeping(
-                        np.where(active, toks, -1)):
-                    results[req.uid] = req.generated
-            steps += 1
-        return results
+                self._step_bookkeeping(batcher, active, self.step(active),
+                                       results)
+
+    def _first_token(self, batcher, slot: int,
+                     results: Dict[int, List[int]]) -> None:
+        """The completed prefill's prediction is the slot's request's
+        first generated token."""
+        with TRACER.span("serve.bookkeeping", batcher.slots[slot].uid):
+            fin = batcher.prefill_bookkeeping(slot, self.next_token[slot])
+        if fin is not None:
+            results[fin.uid] = fin.generated
+
+    def _step_bookkeeping(self, batcher, active: np.ndarray,
+                          toks: np.ndarray,
+                          results: Dict[int, List[int]]) -> None:
+        """One decode step's tokens ``toks`` [B] to the active slots'
+        requests."""
+        if TRACER.on:
+            TRACER.count("serve.decode_tokens", int(active.sum()))
+        with TRACER.span("serve.bookkeeping"):
+            for req in batcher.step_bookkeeping(np.where(active, toks, -1)):
+                results[req.uid] = req.generated

@@ -52,6 +52,9 @@ class DPSlotEngine:
     _decoding = SlotEngine._decoding
     step = SlotEngine.step
     run = SlotEngine.run
+    _iteration = SlotEngine._iteration
+    _first_token = SlotEngine._first_token
+    _step_bookkeeping = SlotEngine._step_bookkeeping
 
     def __init__(self, model, cfg: ModelConfig, group,
                  slots_per_rank: int = 1, max_len: int = 2048,

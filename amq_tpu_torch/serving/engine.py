@@ -35,6 +35,7 @@ from ..models.linear import QuantLinear, kernel_linears
 from ..models.stacked import StackedModel, forward_stacked
 from ..ops.quant_matmul import quant_matmul
 from ..parallel import comm
+from ..utils.profiling import TRACER
 from .graphs import GraphRunner
 
 
@@ -294,6 +295,8 @@ class ContinuousBatcher:
             raise ValueError(f"request uid must be >= 0, got {req.uid}")
         req._seq = self._next_seq
         self._next_seq += 1
+        # ends where the request's prefill starts (``SlotEngine.run``)
+        TRACER.begin("serve.queued", req.uid)
         if self._native is not None:
             self._native.submit(req.uid, req.max_new_tokens,
                                 priority=req.priority,

@@ -21,6 +21,10 @@ dtype, ``use_kernels``) and the decode switches as set now
 (``models.stacked.routing_key``), which ``decode_switches`` toggles
 inside one process.
 
+Spans (``utils.profiling.TRACER``, while a profiler runs): each replay,
+and each eager run of a body, is a ``serve.launch`` span.  Captures are
+counted in ``captures`` and timed in ``capture_s`` (``stats()``).
+
 Launch counters: the warm-up and the capture run the wrappers (which
 count) but launch nothing that stays (the warm-up's writes are undone,
 the capture only records); the runner takes their counts back and adds
@@ -37,6 +41,7 @@ import torch
 
 from .. import ops
 from ..models.stacked import routing_key
+from ..utils.profiling import TRACER
 
 
 class GraphRunner:
@@ -88,7 +93,8 @@ class GraphRunner:
             return
         if not self.graphed:
             for _ in range(times):
-                body()
+                with TRACER.span("serve.launch"):
+                    body()
             return
         full = tuple(key) + routing_key()
         entry = self._graphs.get(full)
@@ -100,8 +106,11 @@ class GraphRunner:
                 a is not b for a, b in zip(bound, binds)):
             raise ValueError(f"the graph of {key} replays on the model and "
                              "caches it was captured on, not on others")
+        # one span a replay: the first one's end is when the device has
+        # work again
         for _ in range(times):
-            graph.replay()
+            with TRACER.span("serve.launch"):
+                graph.replay()
         ops.add_launch_counts(delta, times)
         self.replays += times
 

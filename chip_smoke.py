@@ -1464,11 +1464,13 @@ def device_profile(run, steps, top=8):
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    # device kernels only (aten:: rows repeat their kernels' time), names
-    # cut to 60 characters and summed under the cut name
+    # device kernels only (aten:: rows and the port's record_function
+    # spans repeat their kernels' time), names cut to 60 characters and
+    # summed under the cut name
     by_name = {}
     for ev in prof.key_averages():
-        if ev.self_device_time_total > 0 and not ev.key.startswith("aten::"):
+        if (ev.self_device_time_total > 0 and not ev.is_user_annotation
+                and not ev.key.startswith("aten::")):
             key = ev.key[:60]
             by_name[key] = (by_name.get(key, 0.0)
                             + ev.self_device_time_total / steps / 1e3)
@@ -2182,7 +2184,7 @@ def profiled_kernel_counts(run):
         time.sleep(PROFILE_PAD_S)
     counts = {fam: 0 for fam in PROFILED_KERNELS}
     for ev in prof.key_averages():
-        if ev.self_device_time_total <= 0:
+        if ev.self_device_time_total <= 0 or ev.is_user_annotation:
             continue
         for fam, tag in PROFILED_KERNELS.items():
             if tag in ev.key:
@@ -2643,9 +2645,11 @@ def profile_eval_phase():
               "dequantize_kn": 0.0, other: 0.0}
     by_name = {}
     for e in prof.key_averages():
-        # device kernels only: aten:: rows repeat their kernels' time, and
-        # "Command Buffer Full" is a runtime stall, not a kernel
-        if (e.self_device_time_total <= 0 or e.key.startswith("aten::")
+        # device kernels only: aten:: rows and the port's record_function
+        # spans repeat their kernels' time, and "Command Buffer Full" is a
+        # runtime stall, not a kernel
+        if (e.self_device_time_total <= 0 or e.is_user_annotation
+                or e.key.startswith("aten::")
                 or e.key.startswith("Command Buffer")):
             continue
         ms = e.self_device_time_total / 1e3
