@@ -8,7 +8,9 @@ grouped tensor-core GEMV; their ``grouped_launches`` count those (and
 and their ``tile_launches`` the multi-row calls that took the tile kernel
 on wgmma (``pair_launches`` and ``pair_tile_launches``: the grouped and
 tile launches at 4-row superblocks, the pair forms); ``flash_attention.f32_launches`` counts the flash launches on
-float32 inputs (the split-TF32 kernel).  A captured CUDA graph launches
+float32 inputs (the split-TF32 kernel) and
+``decode_attention_indexed.split_launches`` the decode-attention calls that
+split a row's keys across blocks (and merged them).  A captured CUDA graph launches
 its kernels on every replay without calling a wrapper: ``serving.graphs``
 adds a replay's launches with
 :func:`add_launch_counts` (and takes back those of its warm-up and
@@ -39,6 +41,7 @@ def reset_launch_counts() -> None:
         fn.pair_launches = 0
         fn.pair_tile_launches = 0
     _flash.flash_attention.f32_launches = 0
+    _attn.decode_attention_indexed.split_launches = 0
 
 
 def launch_counts() -> dict:
@@ -74,6 +77,8 @@ def counter_state() -> dict:
         state[(fn, "pair_tile_launches")] = fn.pair_tile_launches
     state[(_flash.flash_attention, "f32_launches")] = \
         _flash.flash_attention.f32_launches
+    state[(_attn.decode_attention_indexed, "split_launches")] = \
+        _attn.decode_attention_indexed.split_launches
     return state
 
 

@@ -90,6 +90,8 @@ def main(argv=None) -> int:
         raise RuntimeError("the serving-span probe needs a card")
     from amq_tpu_torch.evaluation import evaluator
     from amq_tpu_torch.ops import _cuda
+    from amq_tpu_torch.ops.decode_attention import (
+        decode_attention_indexed as attn)
     from amq_tpu_torch.serving import batched, engine, graphs
     from amq_tpu_torch.utils import profiling, span_readings
     _cuda.build(("quant_matmul", "quant_matmul_tile", "decode_attention",
@@ -143,6 +145,10 @@ def main(argv=None) -> int:
                          if s.name == "serve.readback"]),
         metrics={k: v["value"] for k, v in
                  bench.read_metrics(names, run).items()})
+    # decode attention's launches over the run, set-up included, and those
+    # that split rows across blocks
+    out["decode_attention"] = dict(launches=attn.launches,
+                                   split_launches=attn.split_launches)
     if traced:
         out["readings"] = span_readings.readings(slice_s, tracer)
     if traced and "all" in events:

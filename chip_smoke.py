@@ -869,13 +869,23 @@ def attn_inputs(B, Hkv, G, hd, T, offsets, gen, L=2):
 
 
 ATTN_TOL = 2e-4   # float32 outputs; sums in another order than torch's
+#: live keys of 32 chat rows, 700-1900 (mean ~1300, the chat cells' ~1300)
+CHAT_OFFSETS = tuple(700 + (i * 397) % 1201 for i in range(32))
 
 
-def check_attention(label, B, Hkv, G, hd, T, offsets, gen, window=None):
+def check_attention(label, B, Hkv, G, hd, T, offsets, gen, window=None,
+                    layers=None):
+    """One decode-attention CASE line (bf16 q and cache).  ``layers``: time
+    calls cycling over that many layers of the cache (the chat cells'
+    shapes: their live bytes fit the 50 MB L2, a decode step's layers do
+    not); else the same call repeated, as the older cases were timed."""
     from amq_tpu_torch.ops import decode_attention as da
-    q, kc, vc, kn, vn, offs = attn_inputs(B, Hkv, G, hd, T, offsets, gen)
+    q, kc, vc, kn, vn, offs = attn_inputs(B, Hkv, G, hd, T, offsets, gen,
+                                          L=layers or 2)
+    split_before = da.decode_attention_indexed.split_launches
     got = da.decode_attention_indexed(q, kc, vc, kn, vn, offs, 1,
                                       window=window, out_dtype=torch.float32)
+    split = da.decode_attention_indexed.split_launches > split_before
     again = da.decode_attention_indexed(q, kc, vc, kn, vn, offs, 1,
                                         window=window, out_dtype=torch.float32)
     want = da.decode_attention_plain(q, kc[1], vc[1], kn, vn, offs, window,
@@ -883,9 +893,9 @@ def check_attention(label, B, Hkv, G, hd, T, offsets, gen, window=None):
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     deterministic = bool(torch.equal(got, again))
-    ms = time_ms([lambda: da.decode_attention_indexed(
-        q, kc, vc, kn, vn, offs, 1, window=window, out_dtype=torch.bfloat16)],
-        iters=50)
+    ms = time_ms([lambda i=i: da.decode_attention_indexed(
+        q, kc, vc, kn, vn, offs, i, window=window, out_dtype=torch.bfloat16)
+        for i in (range(layers) if layers else (1,))], iters=50)
     wrapper_us = host_us(lambda: da.decode_attention_indexed(
         q, kc, vc, kn, vn, offs, 1, window=window, out_dtype=torch.bfloat16))
     plain_ms = time_ms([lambda: da.decode_attention_plain(
@@ -910,14 +920,18 @@ def check_attention(label, B, Hkv, G, hd, T, offsets, gen, window=None):
     live = sum(min(o, T) - lo for o, lo in zip(offsets, t_lo))
     nbytes = 2 * live * Hkv * hd * 2 + (2 * B * Hkv * G + 2 * B * Hkv) * hd * 2
     b_ms, b_by = bound(nbytes, 4 * live * Hkv * G * hd)
+    span, splits = da.split_plan(Hkv, hd, T, kc.element_size())
     rec = dict(kernel="decode_attention_indexed", case=label, B=B, Hkv=Hkv,
                G=G, hd=hd, T=T, offsets=list(offsets), window=window,
+               route="split" if split else "single", span=span,
+               splits=splits, layers_cycled=layers or 1,
                max_abs_err=err, tol=ATTN_TOL, deterministic=deterministic,
                ms=ms, plain_ms=plain_ms, host_us=wrapper_us,
                library_ms=library_ms,
                library="scaled_dot_product_attention over the live keys",
-               bound_ms=b_ms, bound_by=b_by,
-               ok=err <= ATTN_TOL and deterministic)
+               bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+               ok=(err <= ATTN_TOL and deterministic
+                   and split == (splits > 1)))
     print("CASE " + json.dumps(rec), flush=True)
     return rec
 
@@ -1872,9 +1886,11 @@ class LayerRecorder:
                   out_dtype=torch.bfloat16):
             # the wrapper counts on the module's function, here dec_w
             dec_w.launches = dec.launches
+            dec_w.split_launches = dec.split_launches
             y = dec(q, kc, vc, kn, vn, offs, layer, window=window,
                     out_dtype=out_dtype)
             dec.launches = dec_w.launches
+            dec.split_launches = dec_w.split_launches
             self.rec["attn"].append(y.reshape(q.shape[0], 1, -1))
             ref = da.decode_attention_plain(q, kc[layer], vc[layer], kn, vn,
                                             offs, window, out_dtype)
@@ -2236,11 +2252,15 @@ def graph_counts(eng, cfg, prompt, label):
     from amq_tpu_torch import ops
     L = cfg.num_layers
     before = eng.runner.replays
+    from amq_tpu_torch.ops import decode_attention as da
     ops.reset_launch_counts()
     toks = eng.generate(prompt, max_new_tokens=GEN)
     torch.cuda.synchronize()
     got = (ops.launch_counts(), ops.grouped_launch_counts(),
            ops.tile_launch_counts())
+    # a cache of PROMPT + GEN + 8 positions fits one split: the
+    # single-block route, no merge launch
+    split = da.decode_attention_indexed.split_launches
     want = (reckon_decode(L, 1, PROMPT, GEN - 1, False, False),
             reckon_grouped(L, GEN - 1, False), reckon_tile(L, 1))
     replays = eng.runner.replays - before
@@ -2249,14 +2269,15 @@ def graph_counts(eng, cfg, prompt, label):
                      decode_attention=want[0]["decode_attention_indexed"])
     same = bool((again == toks).all())
     rec = dict(loop=label, launches=got[0], grouped=got[1], tile=got[2],
+               attention_split_launches=split,
                replays=replays, profiled=seen, profiled_want=want_seen,
                profiled_tokens_equal=same,
-               ok=(got == want and seen == want_seen and same
+               ok=(got == want and seen == want_seen and same and split == 0
                    and replays == (GEN if eng.graphs else 0)))
     print("GRAPH_LAUNCHES " + json.dumps(rec), flush=True)
     if not rec["ok"]:
         fail(f"{label} launch counts {got} != {want}, profiled {seen} != "
-             f"{want_seen} or replays {replays}")
+             f"{want_seen}, replays {replays} or split attention {split}")
     return toks
 
 
@@ -3939,10 +3960,17 @@ def main():
                                  (1, 63, 64, 199), gen))
     cases.append(check_attention("window16", 4, 32, 1, 128, 200,
                                  (1, 63, 64, 199), gen, window=16))
-    # reported: one row's context across one block (the evidence for a
-    # cross-block split)
+    # one row's context split across blocks (T 4096 > span 1024)
     cases.append(check_attention("long-context", 1, 32, 1, 128, 4096,
                                  (4000,), gen))
+    # the chat cells' shapes: cache 4096, ~1300 live keys a row, the
+    # layers of a step cycled (split route)
+    for label, B, Hkv, G in (("chat-c8-mistral", 8, 8, 4),
+                             ("chat-c8-qwen", 8, 4, 7),
+                             ("chat-c32-mistral", 32, 8, 4)):
+        cases.append(check_attention(label, B, Hkv, G, 128, 4096,
+                                     CHAT_OFFSETS[:B], gen, layers=4))
+        torch.cuda.empty_cache()
     # the float32 forms (f32 x): the grouped ring's at M <= 8, the tile
     # kernel's at 64, every one on its route, held to qmm_plain
     for M in (1, 8, PROMPT):

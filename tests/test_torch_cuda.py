@@ -505,6 +505,10 @@ def _attn_inputs(B, Hkv, G, hd, T, offsets, seed, q_dtype=torch.float32,
     return q, kc, vc, kn, vn, offs
 
 
+#: offsets spread around the chat cells' ~1300 live keys
+_CHAT_OFFSETS = (613, 877, 1029, 1300, 1311, 1502, 1777, 1990)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [
     dict(B=4, Hkv=8, G=4, hd=128, T=200, offsets=(1, 63, 64, 199)),
@@ -512,17 +516,46 @@ def _attn_inputs(B, Hkv, G, hd, T, offsets, seed, q_dtype=torch.float32,
     dict(B=1, Hkv=4, G=1, hd=128, T=4096, offsets=(4000,)),
     # G 16 (four groups of four heads), hd 64
     dict(B=2, Hkv=2, G=16, hd=64, T=200, offsets=(0, 150)),
-], ids=["gqa", "t4096", "g16"])
+    # split route (span 128 at Hkv 4 in f32, 256 in bf16): offsets at 0,
+    # 1, a split boundary - 1, the boundary, + 1, and 4000
+    dict(B=6, Hkv=4, G=1, hd=128, T=4096, offsets=(0, 1, 127, 128, 129, 4000)),
+    dict(B=6, Hkv=4, G=1, hd=128, T=4096, offsets=(0, 1, 255, 256, 257, 4000),
+         dtype=torch.bfloat16),
+    dict(B=6, Hkv=4, G=7, hd=128, T=4096, offsets=(0, 1, 255, 256, 257, 4000),
+         dtype=torch.bfloat16),
+    # the chat cells' shapes: qwen (G 7, Hkv 4) and mistral (G 4, Hkv 8)
+    dict(B=8, Hkv=4, G=7, hd=128, T=4096, offsets=_CHAT_OFFSETS),
+    dict(B=8, Hkv=4, G=7, hd=128, T=4096, offsets=_CHAT_OFFSETS,
+         dtype=torch.bfloat16),
+    dict(B=8, Hkv=8, G=4, hd=128, T=4096, offsets=_CHAT_OFFSETS),
+    dict(B=8, Hkv=8, G=4, hd=128, T=4096, offsets=_CHAT_OFFSETS,
+         dtype=torch.bfloat16),
+    # G 9-16 on the tensor cores: two passes of 8 heads
+    dict(B=2, Hkv=2, G=12, hd=64, T=1024, offsets=(130, 1000),
+         dtype=torch.bfloat16),
+], ids=["gqa", "t4096", "g16", "t4096-splits", "t4096-splits-bf16",
+        "t4096-splits-g7-bf16",
+        "qwen-c8", "qwen-c8-bf16", "mistral-c8", "mistral-c8-bf16",
+        "g12-bf16"])
 def test_cuda_decode_attention_matches_plain(case):
-    """f32 in and out: the kernel within the JAX suite's tolerance of the
-    plain version, with and without a window; two calls give the same
-    bits."""
+    """f32 out (f32, or bf16 q and cache as served): the kernel within the
+    JAX suite's tolerance of the plain version on the same inputs, with no
+    window, a window of 16 and one of 300 (across split boundaries); two
+    calls give the same bits; the split route counts its launches."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    q, kc, vc, kn, vn, offs = _attn_inputs(seed=0, **case)
-    for window in (None, 16):
+    case = dict(case)
+    dtype = case.pop("dtype", torch.float32)
+    q, kc, vc, kn, vn, offs = _attn_inputs(seed=0, q_dtype=dtype,
+                                           cache_dtype=dtype, **case)
+    splits = tda.split_plan(case["Hkv"], case["hd"], case["T"],
+                            kc.element_size())[1]
+    for window in (None, 16, 300):
+        before = tda.decode_attention_indexed.split_launches
         got = tda.decode_attention_indexed(q, kc, vc, kn, vn, offs, 1,
                                            window=window, out_dtype=torch.float32)
+        assert (tda.decode_attention_indexed.split_launches - before
+                == (splits > 1))
         again = tda.decode_attention_indexed(q, kc, vc, kn, vn, offs, 1,
                                              window=window,
                                              out_dtype=torch.float32)
@@ -576,6 +609,65 @@ def test_cuda_decode_attention_batch_independent():
             out_dtype=torch.float32)
         torch.cuda.synchronize()
         assert torch.equal(full[b:b + 1], alone), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_attention_split_batch_independent(dtype):
+    """At multi-split lengths (T 4096, span 128 / 256 at Hkv 4) each row of a B = 8
+    call gives the same bits as that row alone: the splits follow the row's
+    own offset and the model's shape, never B."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    q, kc, vc, kn, vn, offs = _attn_inputs(8, 4, 7, 128, 4096, _CHAT_OFFSETS,
+                                           seed=6, q_dtype=dtype,
+                                           cache_dtype=dtype)
+    full = tda.decode_attention_indexed(q, kc, vc, kn, vn, offs, 1,
+                                        out_dtype=torch.float32)
+    for b in range(8):
+        alone = tda.decode_attention_indexed(
+            q[b:b + 1].contiguous(), kc[:, b:b + 1].contiguous(),
+            vc[:, b:b + 1].contiguous(), kn[b:b + 1].contiguous(),
+            vn[b:b + 1].contiguous(), offs[b:b + 1].contiguous(), 1,
+            out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(full[b:b + 1], alone), b
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_graph_replays_new_offsets():
+    """A captured split-route call (bf16, the chat cells' shape) replayed
+    after the device offsets change in place: each replay equals the eager
+    call at those offsets bit for bit and the plain version within 2e-4
+    (the scratch holds no state from one replay to the next)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    q, kc, vc, kn, vn, offs = _attn_inputs(8, 8, 4, 128, 4096, _CHAT_OFFSETS,
+                                           seed=7, q_dtype=torch.bfloat16,
+                                           cache_dtype=torch.bfloat16)
+
+    def call():
+        return tda.decode_attention_indexed(q, kc, vc, kn, vn, offs, 0,
+                                            out_dtype=torch.float32)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for offsets in (_CHAT_OFFSETS, (4096, 0, 1, 255, 256, 257, 2000, 3001),
+                    _CHAT_OFFSETS[::-1]):
+        offs.copy_(torch.tensor(offsets, dtype=torch.int32))
+        graph.replay()
+        eager = call()
+        want = tda.decode_attention_plain(q, kc[0], vc[0], kn, vn, offs, None,
+                                          torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), offsets
+        torch.testing.assert_close(out, want, rtol=2e-4, atol=2e-4)
 
 
 #: (B, Hq, Hkv, S, T, d, offset, dtype, causal): the JAX suite's five cases

@@ -7,6 +7,8 @@ Tolerances are the JAX suite's: f32 rtol = atol = 2e-4; bf16 decode GEMV
 atol 2e-2 on outputs normalized by their largest magnitude.
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import jax
@@ -537,6 +539,88 @@ def test_decode_attention_bf16_cache_matches_jax_kernel():
                            offsets=(1, 130, 255), seed=9,
                            cache_dtype=jnp.bfloat16)
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("Hkv, hd, nbytes, T, span", [
+    (4, 128, 2, 4096, 256),      # Qwen2.5-7B's cache in the chat cells
+    (8, 128, 2, 4096, 512),      # Mistral-7B's
+    (32, 128, 2, 200, 1024),     # Llama-2-7B, B 1 generate: one split
+    (32, 128, 2, 4096, 1024),
+    (16, 128, 2, 200, 1024),     # a tp-2 rank of Llama-2-7B
+    (2, 64, 2, 4096, 256),       # Qwen2-0.5B
+    (8, 64, 2, 4096, 1024),
+    (4, 128, 4, 4096, 128),      # float32 caches
+    (1, 64, 4, 128, 128),
+])
+def test_decode_attention_split_plan(Hkv, hd, nbytes, T, span):
+    """The split length comes from the model's shape alone (no B, no live
+    length), a power of two of whole 16-key steps for every warp; the grid
+    covers the cache's capacity, and T within one split is one block."""
+    got, splits = tda.split_plan(Hkv, hd, T, nbytes)
+    assert got == span and span & (span - 1) == 0 and 8 * 16 <= span <= 1024
+    assert splits == -(-T // span) and (splits == 1) == (T <= span)
+    assert "B" not in inspect.signature(tda.split_plan).parameters
+
+
+@pytest.mark.parametrize("window", [None, 1, 100, 128, 129, 300])
+@pytest.mark.parametrize("span", [128, 256])
+def test_decode_attention_splits_cover_the_live_keys(span, window):
+    """A row's splits cut [t_lo, off) from its own window start every
+    ``span`` keys: contiguous, in order, none empty, none longer than
+    ``span``, never more than the grid holds, exactly the keys the plain
+    version attends to."""
+    T = 1024
+    for off in (0, 1, span - 1, span, span + 1, 2 * span + 7, T - 1, T,
+                T + 5):
+        ranges = tda.split_ranges(off, window, span, T)
+        live = min(off, T)
+        t_lo = max(0, live - window + 1) if window else 0
+        keys = [t for lo, hi in ranges for t in range(lo, hi)]
+        assert keys == list(range(t_lo, live)), (off, window)
+        assert all(0 < hi - lo <= span for lo, hi in ranges)
+        assert all(lo == t_lo + i * span for i, (lo, _) in enumerate(ranges))
+        assert len(ranges) <= -(-T // span)
+
+
+#: (B, Hkv, G, hd, T, offsets, window); float32 caches, so span 128:
+#: offsets at 0, 1, a split boundary - 1, the boundary, + 1, the cache's end
+SPLIT_CASES = [
+    (6, 1, 2, 128, 512, (0, 1, 127, 128, 129, 511), None),
+    (2, 4, 7, 128, 1024, (700, 1000), None),            # qwen's G, one pass
+    (2, 8, 4, 128, 1024, (600, 1024), None),            # mistral's
+    (3, 2, 4, 64, 512, (130, 300, 512), 200),           # window across splits
+    (2, 2, 16, 64, 384, (129, 383), 129),               # G 16, window 129
+    (2, 4, 1, 128, 256, (77, 256), 64),                 # G 1, window in one
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=[f"split{i}" for i in range(len(SPLIT_CASES))])
+def test_decode_attention_split_order_matches_plain_and_jax(case):
+    """The kernel's split-and-merge order (``decode_attention_split_plain``)
+    against the plain version and the JAX kernel, float32, at multi-split
+    lengths; each row's result equals the row alone (no dependence on B)."""
+    B, Hkv, G, hd, T, offsets, window = case
+    want, got = _attn_case(B, Hkv, G, hd, T, offsets, window=window,
+                           seed=B + T)
+    rng = np.random.default_rng(B + T)
+    q = rng.normal(size=(B, Hkv, G, hd)).astype(np.float32)
+    kc, vc = (rng.normal(size=(3, B, Hkv, T, hd)).astype(np.float32)
+              for _ in range(2))
+    kn, vn = (rng.normal(size=(B, Hkv, hd)).astype(np.float32)
+              for _ in range(2))
+    args = [to_tensor(a) for a in (q, kc[2], vc[2], kn, vn,
+                                   np.asarray(offsets, np.int32))]
+    assert tda.split_plan(Hkv, hd, T, 4)[1] > 1
+    split = tda.decode_attention_split_plain(*args, window=window,
+                                             out_dtype=torch.float32)
+    np.testing.assert_allclose(split.numpy(), want, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(split.numpy(), got, rtol=2e-4, atol=2e-4)
+    for b in range(B):
+        alone = tda.decode_attention_split_plain(
+            *(a[b:b + 1] for a in args), window=window,
+            out_dtype=torch.float32)
+        assert torch.equal(alone, split[b:b + 1]), b
 
 
 def test_cpu_wrappers_do_not_count_launches():
