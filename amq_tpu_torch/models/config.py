@@ -22,6 +22,20 @@ LINEAR_NAMES = (
     "mlp.down_proj",
 )
 
+# a sparse (Qwen2-MoE) block's linear sites: the attention's four, the
+# shared expert's three, and the routed experts' three, each of those the
+# site of all ``num_experts`` experts of the layer (one bit-width per
+# layer and site, not per expert); the router (``mlp.gate``) and the
+# shared expert's gate stay unquantized, as AWQ and GPTQ leave them
+MOE_LINEAR_NAMES = LINEAR_NAMES[:4] + (
+    "mlp.shared_expert.gate_proj",
+    "mlp.shared_expert.up_proj",
+    "mlp.shared_expert.down_proj",
+    "mlp.experts.gate_proj",
+    "mlp.experts.up_proj",
+    "mlp.experts.down_proj",
+)
+
 
 def cycled_arch(num_layers: int, bits_range=(2, 3, 4)) -> dict:
     """Default mixed-bit demo arch: bits cycled over (site, layer) so
@@ -49,6 +63,26 @@ class ModelConfig:
     tie_word_embeddings: bool = False
     sliding_window: Optional[int] = None  # Mistral
     max_position_embeddings: int = 4096
+    # Qwen2-MoE (``Qwen2MoeForCausalLM``): every layer sparse when
+    # ``num_experts`` > 0, its MLP a softmax router over ``num_experts``
+    # experts of width ``moe_intermediate_size`` keeping the top
+    # ``num_experts_per_tok`` (renormalised only with ``norm_topk_prob``),
+    # plus a shared expert of width ``shared_expert_intermediate_size``
+    # scaled by sigmoid(w_s . h); ``intermediate_size`` is then unused
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    shared_expert_intermediate_size: int = 0
+    norm_topk_prob: bool = False
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    @property
+    def linear_names(self) -> Tuple[str, ...]:
+        """The quantized linear sites of one block."""
+        return MOE_LINEAR_NAMES if self.is_moe else LINEAR_NAMES
 
     @property
     def head_dim_(self) -> int:
@@ -63,9 +97,11 @@ class ModelConfig:
         return self.num_kv_heads * self.head_dim_
 
     def linear_shape(self, linear: str) -> Tuple[int, int]:
-        """(out_features, in_features) per linear site, reference orientation."""
+        """(out_features, in_features) per linear site, reference
+        orientation.  A routed-expert site is its ``num_experts`` experts
+        stacked along the out-features, so its numel counts them all."""
         h, i = self.hidden_size, self.intermediate_size
-        return {
+        shapes = {
             "self_attn.q_proj": (self.q_dim, h),
             "self_attn.k_proj": (self.kv_dim, h),
             "self_attn.v_proj": (self.kv_dim, h),
@@ -73,10 +109,23 @@ class ModelConfig:
             "mlp.gate_proj": (i, h),
             "mlp.up_proj": (i, h),
             "mlp.down_proj": (h, i),
-        }[linear]
+        }
+        if self.is_moe:
+            e, mi = self.num_experts, self.moe_intermediate_size
+            si = self.shared_expert_intermediate_size
+            shapes.update({
+                "mlp.shared_expert.gate_proj": (si, h),
+                "mlp.shared_expert.up_proj": (si, h),
+                "mlp.shared_expert.down_proj": (h, si),
+                "mlp.experts.gate_proj": (e * mi, h),
+                "mlp.experts.up_proj": (e * mi, h),
+                "mlp.experts.down_proj": (e * h, mi),
+            })
+        return shapes[linear]
 
     def block_numel(self) -> int:
-        return sum(o * i for o, i in (self.linear_shape(l) for l in LINEAR_NAMES))
+        return sum(o * i for o, i in (self.linear_shape(l)
+                                      for l in self.linear_names))
 
     def model_numel(self) -> int:
         """Weights counted by the reference's avg-bits denominator.
@@ -89,7 +138,8 @@ class ModelConfig:
 
     def topology(self) -> Dict:
         """Reference-schema topology dict (amq/configs/llama.json:2-27)."""
-        shapes = {l: list(self.linear_shape(l)) for l in LINEAR_NAMES}
+        names = self.linear_names
+        shapes = {l: list(self.linear_shape(l)) for l in names}
         attn = sum(
             o * i for l, (o, i) in shapes.items() if l.startswith("self_attn")
         )
@@ -99,10 +149,10 @@ class ModelConfig:
             "n_layer": 2,
             "layer": ["self_attn", "mlp"],
             "layer_numel": {"self_attn": attn, "mlp": mlp},
-            "n_linear": len(LINEAR_NAMES),
-            "linear": list(LINEAR_NAMES),
+            "n_linear": len(names),
+            "linear": list(names),
             "linear_shape": shapes,
-            "hierarchy": {l: l.split(".")[0] for l in LINEAR_NAMES},
+            "hierarchy": {l: l.split(".")[0] for l in names},
             "model_numel": self.model_numel(),
             "model": "model",
             "layers": "model.layers",
@@ -173,6 +223,21 @@ for _n, _h, _i, _l, _hd, _kv, _vocab in (
         max_position_embeddings=32768,
     ))
 
+# Qwen2-57B-A14B (huggingface.co/Qwen/Qwen2-57B-A14B config.json; the
+# Qwen2 technical report, arXiv:2407.10671, Table 1): Qwen2.5-7B's
+# attention widths, every one of the 28 layers sparse
+# (``decoder_sparse_step`` 1, ``mlp_only_layers`` []), 64 routed experts of
+# 2560 keeping the top 8 unnormalised, a 20480-wide gated shared expert;
+# ``intermediate_size`` 18944 is published and unused
+register(ModelConfig(
+    name="Qwen2-57B-A14B", vocab_size=151936, hidden_size=3584,
+    intermediate_size=18944, num_layers=28, num_heads=28, num_kv_heads=4,
+    qkv_bias=True, rms_norm_eps=1e-6, rope_theta=1000000.0,
+    max_position_embeddings=32768, num_experts=64, num_experts_per_tok=8,
+    moe_intermediate_size=2560, shared_expert_intermediate_size=20480,
+    norm_topk_prob=False,
+))
+
 # tiny synthetic configs for tests / CI (in-feature dims multiples of 128
 # so group quantization applies end-to-end)
 register(ModelConfig(
@@ -190,6 +255,15 @@ register(ModelConfig(
     name="graft-tp", vocab_size=512, hidden_size=512, intermediate_size=1024,
     num_layers=4, num_heads=8, num_kv_heads=8, head_dim=64,
     max_position_embeddings=512,
+))
+
+
+register(ModelConfig(
+    name="tiny-qwen2-moe", vocab_size=512, hidden_size=256,
+    intermediate_size=384, num_layers=2, num_heads=4, num_kv_heads=2,
+    qkv_bias=True, rms_norm_eps=1e-6, max_position_embeddings=512,
+    num_experts=8, num_experts_per_tok=2, moe_intermediate_size=128,
+    shared_expert_intermediate_size=256,
 ))
 
 

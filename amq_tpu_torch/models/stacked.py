@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from ..core.quantize import QuantizedTensor, quantize, to_container
 from ..parallel import comm
+from ..utils.profiling import TRACER
 from .config import LINEAR_NAMES, ModelConfig
 from . import linear as linear_mod
 from . import llama
@@ -74,6 +75,16 @@ class StackedModel:
     #: packed lm_head (stack_proxies(head_bits=...)); replaces lm_head/embed
     #: in the logits matmul when set
     lm_head_qt: Optional[QuantizedTensor] = None
+    #: sparse (Qwen2-MoE) models, ``models.moe.stack_moe``: the router
+    #: ``[L, E, H]`` and the shared expert's gate ``[L, H]`` (float32
+    #: holding bf16 values, unquantized), and the routed experts' fused
+    #: sites ``mlp.experts.gateup_proj`` / ``mlp.experts.down_proj``:
+    #: per-container stacks ``[layers * E, rows, N]`` (no lane pad) whose
+    #: row ``slot * E + e`` is expert e of the layer in that slot; the
+    #: shared expert is two ordinary sites of ``sites``
+    router: Optional[torch.Tensor] = None
+    shared_gate: Optional[torch.Tensor] = None
+    experts: Optional[Dict[str, Tuple[StackedQuant, ...]]] = None
 
 
 # fused site groups: one kernel launch for q/k/v and for gate/up (same
@@ -353,10 +364,10 @@ def _add_bias(model: StackedModel, name: str, i: int, y: torch.Tensor):
 
 
 def _apply_down_swiglu(model: StackedModel, i: int, gate, up, compute_dtype,
-                       bit_idx: Optional[int] = None):
+                       bit_idx: Optional[int] = None,
+                       name: str = "mlp.down_proj"):
     """down-proj consuming (gate, up), with silu*mul fused into the
     kernel's prologue while the kernels are active."""
-    name = "mlp.down_proj"
     stack = model.sites[name][model.select[name][i] if bit_idx is None
                               else bit_idx]
     si = _stack_index(model, i)
@@ -438,6 +449,50 @@ def _apply_mlp_merged(model: StackedModel, i: int, h: torch.Tensor,
         nbits=gu.nbits, group_size=gu.group_size, gu_shape=gu.shape,
         d_shape=dn.shape, superblock=gu.superblock, out_dtype=compute_dtype)
     return out.reshape(*lead, dn.shape[0])
+
+
+def _moe_mlp(model: StackedModel, cfg: ModelConfig, i: int, h: torch.Tensor,
+             compute_dtype, bit_idx: Optional[int]) -> torch.Tensor:
+    """Layer ``i``'s sparse MLP (``Qwen2MoeSparseMoeBlock``): the float32
+    router's top ``k`` experts per row, each pair's SwiGLU expert, their
+    probability-weighted sum (``ops.moe``), plus the shared expert (the
+    dense sites' kernels) scaled by sigmoid of its gate.  Spans
+    ``moe.route``, ``moe.experts`` and ``moe.shared`` and the counter
+    ``moe.pairs`` (rows x k) record in eager calls while a profiler runs;
+    a captured graph's kernels are the trace's to sort by name.  Without
+    the kernels (``use_kernels=False``) the experts and the combine take
+    their plain versions, as the dense linears do."""
+    from ..ops import moe
+    lead, H = h.shape[:-1], h.shape[-1]
+    x = h.reshape(-1, H)
+    k, E = cfg.num_experts_per_tok, cfg.num_experts
+    with TRACER.span("moe.route"):
+        weights, ids = moe.route(x, model.router[i], k, cfg.norm_topk_prob)
+    TRACER.count("moe.pairs", x.shape[0] * k)
+    b = (model.select["mlp.experts.gateup_proj"][i] if bit_idx is None
+         else bit_idx)
+    gu = model.experts["mlp.experts.gateup_proj"][b]
+    dn = model.experts["mlp.experts.down_proj"][b]
+    kernels = linear_mod.kernels_active()
+    args = (x, ids, gu.packed, gu.scale, gu.zero, dn.packed, dn.scale,
+            dn.zero, _stack_index(model, i) * E)
+    static = dict(num_experts=E, nbits=gu.nbits, group_size=gu.group_size,
+                  gu_superblock=gu.superblock, dn_superblock=dn.superblock,
+                  out_dtype=compute_dtype)
+    with TRACER.span("moe.experts"):
+        y = (moe.moe_experts(*args, layer=i, **static) if kernels
+             else moe.experts_plain(*args, **static))
+    with TRACER.span("moe.shared"):
+        si = cfg.shared_expert_intermediate_size
+        gus = _apply_site(model, "mlp.shared_expert.gateup_proj", i, h,
+                          compute_dtype, bit_idx)
+        shared = _apply_down_swiglu(model, i, gus[..., :si], gus[..., si:],
+                                    compute_dtype, bit_idx,
+                                    name="mlp.shared_expert.down_proj")
+        logit = torch.matmul(x.float(), model.shared_gate[i].float())
+    out = (moe.moe_combine if kernels else moe.combine_plain)(
+        y, weights, shared.reshape(-1, H), logit, out_dtype=compute_dtype)
+    return out.reshape(*lead, H)
 
 
 @contextlib.contextmanager
@@ -566,8 +621,11 @@ def scan_layers(model: StackedModel, cfg: ModelConfig, x: torch.Tensor,
         x = x + o
 
         h = llama.rms_norm(x, model.post_norm[i], cfg.rms_norm_eps)
-        down = (_apply_mlp_merged(model, i, h, compute_dtype, bit_idx)
-                if fused else None)
+        if cfg.is_moe:
+            down = _moe_mlp(model, cfg, i, h, compute_dtype, bit_idx)
+        else:
+            down = (_apply_mlp_merged(model, i, h, compute_dtype, bit_idx)
+                    if fused else None)
         if down is None:
             if fused:
                 gu = _apply_site(model, "mlp.gateup_proj", i, h,

@@ -10,7 +10,10 @@ on wgmma (``pair_launches`` and ``pair_tile_launches``: the grouped and
 tile launches at 4-row superblocks, the pair forms); ``flash_attention.f32_launches`` counts the flash launches on
 float32 inputs (the split-TF32 kernel) and
 ``decode_attention_indexed.split_launches`` the decode-attention calls that
-split a row's keys across blocks (and merged them).  A captured CUDA graph launches
+split a row's keys across blocks (and merged them); the routed experts'
+``moe_align``, ``moe_experts`` (two launches a call, with
+``gemv_launches`` / ``tile_launches`` per form) and ``moe_combine`` count
+theirs too.  A captured CUDA graph launches
 its kernels on every replay without calling a wrapper: ``serving.graphs``
 adds a replay's launches with
 :func:`add_launch_counts` (and takes back those of its warm-up and
@@ -20,13 +23,15 @@ capture, which run the wrappers but are undone or launch nothing).
 from . import decode_attention as _attn
 from . import dequant as _dequant
 from . import flash_attention as _flash
+from . import moe as _moe
 from . import quant_matmul as _qmm
 
 KERNELS = (_qmm.quant_matmul_indexed, _qmm.quant_matmul_swiglu_indexed,
            _attn.decode_attention_indexed, _qmm.quant_matmul,
            _flash.flash_attention, _qmm.quant_matmul_indexed_pipe,
            _qmm.quant_matmul_swiglu_indexed_pipe,
-           _qmm.quant_matmul_mlp_indexed, _dequant.dequantize_kn)
+           _qmm.quant_matmul_mlp_indexed, _dequant.dequantize_kn,
+           _moe.moe_align, _moe.moe_experts, _moe.moe_combine)
 GROUPED = (_qmm.quant_matmul_indexed, _qmm.quant_matmul_swiglu_indexed,
            _qmm.quant_matmul)
 
@@ -42,6 +47,8 @@ def reset_launch_counts() -> None:
         fn.pair_tile_launches = 0
     _flash.flash_attention.f32_launches = 0
     _attn.decode_attention_indexed.split_launches = 0
+    _moe.moe_experts.gemv_launches = 0
+    _moe.moe_experts.tile_launches = 0
 
 
 def launch_counts() -> dict:
@@ -79,6 +86,8 @@ def counter_state() -> dict:
         _flash.flash_attention.f32_launches
     state[(_attn.decode_attention_indexed, "split_launches")] = \
         _attn.decode_attention_indexed.split_launches
+    for attr in ("gemv_launches", "tile_launches"):
+        state[(_moe.moe_experts, attr)] = getattr(_moe.moe_experts, attr)
     return state
 
 

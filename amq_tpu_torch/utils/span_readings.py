@@ -126,6 +126,17 @@ def dequant_yield(tracer=None) -> Optional[float]:
     return 100.0 * linears / launches if launches and linears else None
 
 
+def experts_hit_share(tracer=None) -> Optional[float]:
+    """Share of the routed experts the layers offered that some pair chose
+    (``moe.experts_hit`` over ``moe.experts``: the device counters of
+    ``ops.moe``, added to the tracer by ``ops.moe.fold_counters`` once a
+    slice has ended): the share of the experts' weights the expert
+    products read."""
+    c = _tracer(tracer).counters
+    offered = c.get("moe.experts", 0)
+    return 100.0 * c.get("moe.experts_hit", 0) / offered if offered else None
+
+
 def readings(slice_s: Optional[float] = None,
              tracer=None) -> Dict[str, float]:
     """Every reading above that has something to read, by metric name."""
@@ -133,5 +144,6 @@ def readings(slice_s: Optional[float] = None,
            "decode_yield.serve": decode_yield(tracer),
            "host_gap_share.serve": host_gap_share(slice_s, tracer),
            "ttft_queued_share.serve": ttft_queued_share(tracer),
-           "dequant_yield.eval": dequant_yield(tracer)}
+           "dequant_yield.eval": dequant_yield(tracer),
+           "experts_hit_share.serve": experts_hit_share(tracer)}
     return {k: v for k, v in got.items() if v is not None}

@@ -1,6 +1,7 @@
 """Chip smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase
+    python3 chip_smoke.py --only moe   # phases 1, 2, 4e and the last lines
 
 Phases (any failed check exits non-zero before the last line):
 
@@ -131,6 +132,23 @@ Phases (any failed check exits non-zero before the last line):
    decode ms/token and prefill ms; QWEN2_GATES: float32 prefill logits
    within LOGIT_TOL of the plain path, float32 tokens on graphs equal to
    the eager loop's.
+4e. MOE: the routed experts of Qwen2-57B-A14B (ops/moe.py,
+   csrc/moe_experts.cu) at the cell's shapes (hidden 3584, 64 experts of
+   2560, top 8), 2- and 4-bit containers, decode (8 rows) and prefill
+   (1024 rows): CASE lines of moe_align (the same layout as align_plain),
+   moe_experts (within 2e-2 of experts_plain, on the form its rows pick)
+   and moe_combine (within 1e-2 of combine_plain), each deterministic,
+   timed beside its plain version and its least time (the expert
+   products' from the experts the case's routing hit, and beside a loop
+   of the existing kernels one expert at a time).  Then the whole model
+   at the cell's mixed 2/3/4 bits (perfbench.model_moe's random packed
+   weights): MOE_SPANS (the moe.route / moe.experts / moe.shared spans
+   and the moe.pairs counter of one eager 64-token prefill under the
+   profiler; pairs = 64 x 8 x 28) and MOE_SERVE (benchmark_continuous, 8
+   slots, 16 requests, captured graphs, counts set to 0 just before it:
+   exact launches of the MoE kernels per form and of the dense kernels,
+   the device counters' experts hit and the decode form's least
+   expert-product ms per step from them).
 5. the speed CLI (HQQ proxies -> stack_proxies -> Engine) at full width:
    TPS and CONTINUOUS (4 slots, 16 requests).
 6. the sensitivity CLI at full Llama-2-7B width and depth (2 samples of
@@ -203,8 +221,9 @@ Phases (any failed check exits non-zero before the last line):
    the kernels line (with an M = 64 entry per row 1, 2 and 4 for the
    tile kernel, `<name>_tile`, the pair forms `quant_matmul_tile_pair`,
    `quant_matmul_tile_f32_pair` and `quant_matmul_f32_pair` with phase
-   4d's launches, and the float32 flash kernel,
-   `flash_attention_f32`, launched by phase 7b's calibration; the flash
+   4d's launches, the float32 flash kernel,
+   `flash_attention_f32`, launched by phase 7b's calibration, and the
+   MoE kernels with phase 4e's launches; the flash
    entries name their design), the card line, and the last line
    {"ok": true, "device": {...}}.
 """
@@ -2506,6 +2525,337 @@ def qwen2_phase(gen):
     return dict(runs=recs, gates=gates)
 
 
+# ---------------------------------------------------------------------------
+# phase 4e: the routed experts of Qwen2-57B-A14B (ops/moe.py)
+
+#: the cell's expert shapes: hidden, expert width, experts, top k
+MOE_H, MOE_I, MOE_E, MOE_K = 3584, 2560, 64, 8
+#: expert stacks a case cycles through (4 layers' experts, ~3.5 GB at 4
+#: bits: past the 50 MB L2)
+MOE_LAYERS = 4
+#: (label, rows): decode at 8 slots (64 pairs over ~42 experts), prefill
+#: at 1024 rows (8192 pairs, ~128 rows an expert)
+MOE_CASES = (("decode", 8), ("prefill", 1024))
+#: bf16 out over its largest magnitude: the expert products sum the same
+#: bf16 products as their plain version in another order, and a rounding
+#: of gate or up can part before the down product (the card tests' bound)
+MOE_TOL = 2e-2
+#: the combine sums in float32 and rounds once, as its plain version
+COMBINE_TOL = 1e-2
+MOE_MODEL = "Qwen2-57B-A14B"
+MOE_CONFIG = "perfbench/configs/qwen2-57b-a14b.json"
+MOE_SLOTS = 8
+MOE_SPANS = ("moe.route", "moe.experts", "moe.shared")
+
+
+def event_ms(call):
+    """Device ms of one eager ``call()`` between two events, after a first
+    call (for plain versions that read the routing back, which no graph
+    can capture)."""
+    call()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    call()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def align_layout_equal(got, want, bm, tiles):
+    """Two aligns' ``(sorted, tile_expert)`` lay out the same pairs: the
+    tiles' experts equal and each expert's tiles holding the same pairs
+    (inside an expert the kernel's order is its atomics')."""
+    s, t = (x.cpu() for x in got)
+    ps, pt = (x.cpu() for x in want)
+    if not torch.equal(t, pt):
+        return False
+    per_tile = (s.reshape(tiles, bm), ps.reshape(tiles, bm))
+    return all(torch.equal(*[x[pt == e].reshape(-1).sort().values
+                             for x in per_tile])
+               for e in range(-1, MOE_E))
+
+
+def check_moe(label, M, nbits, gen):
+    """CASE lines of the three MoE kernels at the cell's shapes and ``M``
+    rows of top-8 over 64 experts (random routing; the experts it hit
+    counted): ``moe_align`` against ``align_plain`` (the same layout),
+    ``moe_experts`` (align, gate|up with SwiGLU, down) against
+    ``experts_plain`` within MOE_TOL, ``moe_combine`` against
+    ``combine_plain`` within COMBINE_TOL.  Each is called twice (the align
+    lays out the same pairs, the others torch.equal), timed over
+    MOE_LAYERS layers' stacks (time_ms) beside its plain version
+    (event_ms) and its least time (bytes over 3.35 TB/s or operations over
+    the bf16 peak; the expert products' from the experts this routing
+    hit); the expert products also beside a loop of the existing kernels
+    over the experts hit (library_ms)."""
+    from amq_tpu_torch.ops import moe
+    from amq_tpu_torch.ops import quant_matmul as qm
+    from amq_tpu_torch.probes import moe_ab
+    H, I, E, k = MOE_H, MOE_I, MOE_E, MOE_K
+    gu = moe_ab._stack(MOE_LAYERS * E, H, 2 * I, nbits, gen, "cuda")
+    dn = moe_ab._stack(MOE_LAYERS * E, I, H, nbits, gen, "cuda")
+    x = torch.randn((M, H), generator=gen, device="cuda").to(torch.bfloat16)
+    ids = torch.argsort(torch.rand((M, E), generator=gen, device="cuda"),
+                        dim=1)[:, :k].contiguous()
+    P = M * k
+    form = moe.form(M)
+    bm = moe.TILE_ROWS[form]
+    tiles = moe.tiles_bound(P, E, bm)
+    flat = ids.reshape(-1).cpu()
+    hit = [(e, torch.nonzero(flat == e)[:, 0].cuda()) for e in range(E)
+           if (flat == e).any()]
+    kw = dict(num_experts=E, nbits=nbits, group_size=128, gu_superblock=512,
+              dn_superblock=512, out_dtype=torch.bfloat16)
+    common = dict(case=label, nbits=nbits, M=M, pairs=P, form=form,
+                  experts_hit=len(hit))
+    recs = []
+
+    def align():
+        return moe.moe_align(ids, E, bm, tiles, 0, int(form == "tile"))
+
+    got, again = align(), align()
+    want = moe.align_plain(ids, E, bm, tiles)[:2]
+    same = align_layout_equal(got, want, bm, tiles)
+    stable = align_layout_equal(again, want, bm, tiles)
+    b_ms, b_by = bound(ids.numel() * 8 + tiles * bm * 4 + tiles * 4, 0)
+    ms = time_ms([align])
+    recs.append(dict(kernel="moe_align", **common,
+                     max_abs_err=0.0 if same else None, tol=0.0,
+                     deterministic=stable, ms=ms,
+                     plain_ms=event_ms(lambda: moe.align_plain(ids, E, bm,
+                                                               tiles)),
+                     library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                     share_of_bound=b_ms / ms, ok=same and stable))
+
+    def experts(i):
+        return moe.moe_experts(x, ids, *gu, *dn, (i % MOE_LAYERS) * E, **kw)
+
+    static = dict(nbits=nbits, group_size=128, superblock=512,
+                  out_dtype=torch.bfloat16)
+
+    def loop(i):
+        first = (i % MOE_LAYERS) * E
+        for e, pairs in hit:
+            rows = x.index_select(0, pairs // k)
+            g = qm.quant_matmul_indexed(rows, *gu, first + e,
+                                        shape=(2 * I, H), **static)
+            qm.quant_matmul_swiglu_indexed(g[:, :I], g[:, I:], *dn, first + e,
+                                           shape=(H, I), **static)
+
+    before = (moe.moe_experts.gemv_launches, moe.moe_experts.tile_launches)
+    got, again = experts(0), experts(0)
+    took = (moe.moe_experts.gemv_launches - before[0],
+            moe.moe_experts.tile_launches - before[1])
+    want = moe.experts_plain(x, ids, *gu, *dn, 0, **kw)
+    rel, err = rel_err(got, want)
+    same = bool(torch.equal(got, again))
+    b_us, b_by = moe_ab.bound(nbits, len(hit), P)
+    ms = time_ms([lambda i=i: experts(i) for i in range(MOE_LAYERS)])
+    recs.append(dict(
+        kernel="moe_experts", **common, max_abs_err=err, rel_err=rel,
+        tol=MOE_TOL, deterministic=same, ms=ms,
+        plain_ms=event_ms(lambda: moe.experts_plain(x, ids, *gu, *dn, 0,
+                                                    **kw)),
+        library_ms=time_ms([lambda i=i: loop(i) for i in range(MOE_LAYERS)]),
+        library="the grouped GEMV / tile kernel and its SwiGLU-down form, "
+                "one expert at a time on its gathered rows",
+        design="decode form: row tiles of 16 on mma.sync; multi-row form: "
+               "row tiles of 64 on mma.sync",
+        bound_ms=b_us / 1e3, bound_by=b_by, share_of_bound=b_us / 1e3 / ms,
+        ok=(rel <= MOE_TOL and same
+            and took == ((4, 0) if form == "gemv" else (0, 4)))))
+    del gu, dn
+
+    y = torch.randn((P, H), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.rand((M, k), generator=gen, device="cuda")
+    sh = torch.randn((M, H), generator=gen, device="cuda").to(torch.bfloat16)
+    s = torch.randn((M,), generator=gen, device="cuda")
+    ys = [y] + [y.roll(j, 0) for j in range(1, MOE_LAYERS)]
+
+    def combine(i):
+        return moe.moe_combine(ys[i % MOE_LAYERS], w, sh, s,
+                               out_dtype=torch.bfloat16)
+
+    got, again = combine(0), combine(0)
+    want = moe.combine_plain(y, w, sh, s, out_dtype=torch.bfloat16)
+    rel, err = rel_err(got, want)
+    same = bool(torch.equal(got, again))
+    b_ms, b_by = bound(P * H * 2 + 2 * M * H * 2 + P * 4 + M * 4,
+                       2.0 * P * H)
+    ms = time_ms([lambda i=i: combine(i) for i in range(MOE_LAYERS)])
+    recs.append(dict(kernel="moe_combine", **common, max_abs_err=err,
+                     rel_err=rel, tol=COMBINE_TOL, deterministic=same, ms=ms,
+                     plain_ms=event_ms(lambda: moe.combine_plain(
+                         y, w, sh, s, out_dtype=torch.bfloat16)),
+                     library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                     share_of_bound=b_ms / ms,
+                     ok=rel <= COMBINE_TOL and same))
+    for r in recs:
+        print("CASE " + json.dumps(r), flush=True)
+    torch.cuda.empty_cache()
+    return recs
+
+
+def reckon_moe(L, prefills, steps):
+    """Launches of the MoE kernels over ``prefills`` prefills (M > 8: the
+    multi-row form) and ``steps`` decode steps (the decode form) of a
+    model whose every layer is sparse: per layer one align, two expert
+    products (gate|up, down) and one combine; and the expert products'
+    launches per form.  The dense sites (attention, the shared expert's
+    gate|up and SwiGLU-down, the head) launch what reckon_decode reckons
+    for a dense model."""
+    calls = L * (prefills + steps)
+    return ({"moe_align": calls, "moe_experts": 2 * calls,
+             "moe_combine": calls},
+            {"gemv": 2 * L * steps, "tile": 2 * L * prefills})
+
+
+def moe_spans(model, cfg):
+    """One eager prefill of PROMPT tokens on the kernels under the
+    profiler: the tracer's ``moe.*`` spans and its ``moe.pairs`` counter,
+    which must read PROMPT x k x L (MOE_SPANS line)."""
+    from torch.profiler import profile
+    from amq_tpu_torch.models import linear as linear_mod
+    from amq_tpu_torch.models import llama
+    from amq_tpu_torch.models.stacked import forward_stacked
+    from amq_tpu_torch.serving.engine import kernel_linear_impl
+    from amq_tpu_torch.utils.profiling import TRACER
+    tok = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (1, PROMPT))).cuda()
+    TRACER.reset()
+    with torch.inference_mode(), linear_mod.kernel_linears(
+            kernel_linear_impl), llama.forward_kernels(True), profile():
+        forward_stacked(model, cfg, tok, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+    spans = {k: v for k, v in TRACER.summary().items() if k in MOE_SPANS}
+    pairs = TRACER.counters["moe.pairs"]
+    TRACER.reset()
+    want = PROMPT * cfg.num_experts_per_tok * cfg.num_layers
+    rec = dict(spans=spans, pairs=pairs, want_pairs=want,
+               ok=pairs == want and set(spans) == set(MOE_SPANS))
+    print("MOE_SPANS " + json.dumps(rec), flush=True)
+    return rec
+
+
+def moe_serve(model, cfg):
+    """benchmark_continuous on the sparse model (MOE_SLOTS slots as in the
+    cell, REQUESTS requests of PROMPT tokens and GEN tokens each, decode
+    chunks of CHUNK, captured graphs), the counts set to 0 just before
+    it: exact launch counts of the MoE kernels, per form too, and of the
+    dense kernels against the reckoning (twice: warm-up and timed run),
+    and the device counters' rise (experts hit, pairs, experts offered per
+    form) with the decode form's least expert-product ms per step from
+    the experts that run's routing hit (MOE_SERVE line)."""
+    from amq_tpu_torch import ops
+    from amq_tpu_torch.ops import moe
+    from amq_tpu_torch.serving.benchmark import benchmark_continuous
+    from perfbench.work import moe as moe_work
+    L = cfg.num_layers
+    waves = math.ceil(REQUESTS / MOE_SLOTS)
+    steps = waves * math.ceil((GEN - 1) / CHUNK) * CHUNK
+    counters = moe.device_counters("cuda")
+    torch.cuda.synchronize()
+    before = counters.cpu()
+    ops.reset_launch_counts()
+    res = benchmark_continuous(model, cfg, n_slots=MOE_SLOTS,
+                               n_requests=REQUESTS, prompt_len=PROMPT,
+                               gen_len=GEN, max_len=PROMPT + GEN + 8,
+                               chunk_steps=CHUNK)
+    torch.cuda.synchronize()
+    rise = moe.counter_rise(before, counters.cpu())
+    counts = ops.launch_counts()
+    forms = {"gemv": moe.moe_experts.gemv_launches,
+             "tile": moe.moe_experts.tile_launches}
+    moe_want, forms_want = reckon_moe(L, REQUESTS, steps)
+    want = {k: 2 * v for k, v in
+            {**reckon_decode(L, REQUESTS, PROMPT, steps, False, False),
+             **moe_want}.items()}
+    forms_want = {k: 2 * v for k, v in forms_want.items()}
+    with open(MOE_CONFIG) as f:
+        conf = json.load(f)
+    g = rise["gemv"]
+    least = moe_work.expert_products_seconds(
+        conf["shape"], conf["quant"], g["experts_hit_by_layer"], g["pairs"])
+    # decode steps the align kernel ran in (the graphs' warm-up calls before
+    # each capture run it too, and add to the device counters, not to the
+    # launch counts)
+    seen = g["experts"] // (L * MOE_E)
+    rec = dict(model=MOE_MODEL, slots=MOE_SLOTS, requests=REQUESTS,
+               prompt=PROMPT, gen=GEN, tokens_per_s=res["tokens_per_s"],
+               total_tokens=res["total_tokens"], launches=counts, want=want,
+               forms=forms, forms_want=forms_want,
+               grouped=ops.grouped_launch_counts(),
+               tile=ops.tile_launch_counts(), core=core_launches(),
+               counters={f: {c: v for c, v in r.items()
+                             if c != "experts_hit_by_layer"}
+                         for f, r in rise.items()},
+               decode_steps=2 * steps, counted_steps=seen,
+               experts_hit_per_layer_step=g["experts_hit"] / max(seen * L, 1),
+               expert_bound_ms_per_step=least / max(seen, 1) * 1e3)
+    rec["ok"] = (counts == want and forms == forms_want
+                 and res["total_tokens"] == REQUESTS * GEN
+                 and 0 < g["experts_hit"] <= g["experts"]
+                 and g["experts"] == seen * L * MOE_E
+                 and seen >= 2 * steps)
+    print("MOE_SERVE " + json.dumps(rec), flush=True)
+    return rec
+
+
+def moe_phase(gen):
+    """Phase 4e: the MoE kernels' CASE lines at both widths and shapes
+    (check_moe), then Qwen2-57B-A14B whole on the card at the cell's
+    mixed 2/3/4 bits (``perfbench.model_moe``'s random packed weights from
+    a seeded generator): the tracer's spans over one eager prefill
+    (moe_spans) and continuous batching with exact launch counts
+    (moe_serve)."""
+    from amq_tpu_torch.models.config import get_config
+    from perfbench import model_moe
+    t0 = time.perf_counter()
+    cases = [r for nbits in (2, 4) for label, M in MOE_CASES
+             for r in check_moe(label, M, nbits, gen)]
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        fail(f"{len(bad)} MoE kernel cases outside tolerance: {bad[:3]}")
+    cfg = get_config(MOE_MODEL)
+    with open(MOE_CONFIG) as f:
+        conf = json.load(f)
+    model, _ = model_moe.build(cfg, conf["shape"], conf["quant"],
+                               torch.Generator(device="cuda").manual_seed(1),
+                               torch.device("cuda"))
+    torch.cuda.synchronize()
+    spans = moe_spans(model, cfg)
+    serve = moe_serve(model, cfg)
+    del model
+    torch.cuda.empty_cache()
+    print(f"moe phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    if not (spans["ok"] and serve["ok"]):
+        fail(f"MoE phase: spans {spans}; serve {serve}")
+    return dict(cases=cases, spans=spans, serve=serve)
+
+
+def moe_kernel_entries(moe_rec):
+    """The kernels line's entries of the three MoE kernels: launches over
+    moe_serve's run, the numbers of the 4-bit decode case."""
+    out = []
+    for name in ("moe_align", "moe_experts", "moe_combine"):
+        c = next(x for x in moe_rec["cases"] if x["kernel"] == name
+                 and x["case"] == "decode" and x["nbits"] == 4)
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "amq_tpu_torch/csrc/moe_experts.cu",
+            "replaces": "none (the JAX package has no MoE layer)",
+            "launches": moe_rec["serve"]["launches"][name],
+            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+            **({"design": c["design"]} if "design" in c else {}),
+            "case": {k: c[k] for k in ("case", "nbits", "M")},
+            "cases_checked": sum(1 for x in moe_rec["cases"]
+                                 if x["kernel"] == name)})
+    return out
+
+
 EVAL_MODEL, SENS_N, SENS_SEQ, SENS_BATCH = "Llama-2-7b-hf", 2, 2048, 2
 EVAL_ARGS = ["--model_name", EVAL_MODEL, "--synthetic",
              "--n_sample", str(SENS_N), "--seqlen", str(SENS_SEQ),
@@ -3896,7 +4246,12 @@ def parallel_phase(cases, gen):
 
 
 
-def main():
+def main(argv=None):
+    import argparse
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--only", choices=("moe",),
+                   help="run phases 1, 2, this phase and the last lines")
+    args = p.parse_args(argv)
     # -- phase 1: environment ------------------------------------------------
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3919,13 +4274,17 @@ def main():
     from amq_tpu_torch import ops
     from amq_tpu_torch.models.config import get_config
     from amq_tpu_torch.ops import _cuda
-    from amq_tpu_torch.parallel import launch
     from amq_tpu_torch.serving.benchmark import PeakMemTracker, benchmark_speed
     from amq_tpu_torch.serving.engine import Engine
 
     # -- phase 2: build -------------------------------------------------------
     build_s = _cuda.build(verbose=True)
     print(f"build: {build_s:.1f} s ({', '.join(_cuda.SOURCES)})", flush=True)
+    if args.only == "moe":
+        moe_rec = moe_phase(torch.Generator(device="cuda").manual_seed(0))
+        return finish(card, t_start, moe_kernel_entries(moe_rec),
+                      dict(card=card, build_s=build_s, moe=moe_rec),
+                      "chip_smoke_moe.json")
     build_rec = build_report()
 
     # -- phase 3: kernels vs plain versions ----------------------------------
@@ -4125,6 +4484,9 @@ def main():
 
     # -- phase 4d: Qwen2-0.5B, native 3-bit planes ---------------------------
     qwen = qwen2_phase(gen)
+
+    # -- phase 4e: the routed experts of Qwen2-57B-A14B ----------------------
+    moe_rec = moe_phase(gen)
 
     # -- phase 5: the speed CLI ----------------------------------------------
     from amq_tpu_torch.cli import speed_benchmark
@@ -4358,6 +4720,7 @@ def main():
             "bound_by": c["bound_by"], "library_ms": c["library_ms"],
             "case": {k: c[k] for k in ("site", "nbits", "M", "meta")},
             "cases_checked": checked})
+    kernels += moe_kernel_entries(moe_rec)
     # launches over phase 7b's realization runs, beside the main path's
     real_counts = {
         "flash_attention": sum(r["launches"]["flash_attention"]
@@ -4371,8 +4734,8 @@ def main():
     for k in kernels:
         if k["name"] in real_counts:
             k["realize_launches"] = real_counts[k["name"]]
-    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "cases": cases, "speed": speed,
+    finish(card, t_start, kernels, {
+                   "card": card, "cases": cases, "speed": speed,
                    "logits": logit_recs, "launches": counts,
                    "grouped_launches": grouped_counts,
                    "tile_launches": tile_counts, "profile": prof,
@@ -4386,12 +4749,19 @@ def main():
                    "eval_parity": eval_recs, "eval_profile": eval_prof,
                    "search": search_rec, "probes": probes,
                    "realize": realize, "owq_decode": owq_decode,
-                   "route_sweep": sweep, "qwen2": qwen,
+                   "route_sweep": sweep, "qwen2": qwen, "moe": moe_rec,
                    "parallel": par,
-                   "build_report": build_rec},
-                  f, indent=1)
-    # every process this run started (compilers, ranks, multiprocessing's
-    # resource tracker) has ended before the result is printed
+                   "build_report": build_rec}, "chip_smoke.json")
+
+
+def finish(card, t_start, kernels, record, name):
+    """Phase 9: the run's record to chiprun_out/``name``; every process
+    this run started (compilers, ranks, multiprocessing's resource
+    tracker) has ended before the result is printed; then the kernels
+    line, the card line and the last line."""
+    from amq_tpu_torch.parallel import launch
+    with open(os.path.join(OUT_DIR, name), "w") as f:
+        json.dump(record, f, indent=1)
     left = launch.descendants()
     print(f"PROCESSES_LEFT {json.dumps(left)}", flush=True)
     if left:
